@@ -1,0 +1,105 @@
+"""Build the CUDA sources under ``csrc/`` into shared libraries.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch
+headers, so ``nvcc`` takes seconds) and is compiled for ``sm_90a`` into
+``<build dir>/lib<name>-<source hash>.so``, then loaded with ``ctypes``.
+The build happens at first use, never at import: a machine without
+``nvcc`` can import every module of the package.
+
+The build directory is ``build/`` at the root of the checkout (the
+directory that holds ``src/``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: seconds each library took to build in this process (0.0 = found built)
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build"
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA "
+        "kernels of repro_torch are built from source at first use")
+
+
+def sources() -> list[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1()
+    for dep in [src, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(dep.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _start(name: str, extra_flags: tuple[str, ...] = ()):
+    """Start one ``nvcc`` for ``name`` unless its library exists."""
+    src, out = _target(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a started build; returns the compiler's output."""
+    if started is None:
+        BUILD_SECONDS.setdefault(name, 0.0)
+        return ""
+    proc, tmp, out, t0 = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return log
+
+
+def build_all(*, verbose: bool = False) -> dict[str, str]:
+    """Build every source in ``csrc/``, one ``nvcc`` each, all started
+    together.  Returns the compiler output per source (``-Xptxas -v``
+    resource usage when ``verbose``)."""
+    extra = ("-Xptxas", "-v") if verbose else ()
+    started = {n: _start(n, extra) for n in sources()}
+    return {n: _finish(n, s) for n, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built if need be."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
+    return lib

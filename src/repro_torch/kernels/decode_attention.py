@@ -1,0 +1,183 @@
+"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+
+``paged_decode_attention`` replaces the TPU kernel of the same name in
+``repro/kernels/decode_attention.py`` (``_paged_decode_kernel``): one
+query token per sequence attends over K/V held in a global page pool
+``[P, NK, page, H]`` through a block table ``[B, NP]``.  The kernel is
+``csrc/paged_decode_attention.cu`` (bound by bytes, see the note there);
+``paged_decode_attention_plain`` beside it repeats the same arithmetic
+in plain PyTorch for CPU tensors and for comparison on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.guard import kernel_guard
+
+NEG_INF = -1e30
+KERNEL = "paged_decode_attention"
+
+#: thread blocks the launch aims for: two resident blocks of 256 threads
+#: on each of an H100's 132 SMs
+_TARGET_BLOCKS = 2 * 132
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 lengths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: gather each sequence's pages
+    through its table, masked softmax in f32, output in ``q``'s dtype.
+
+    Follows the kernel's arithmetic, not the JAX oracle's: probabilities
+    stay f32 for the PV product, and a row with ``lengths == 0`` gives
+    zeros (``l`` clamped at 1e-37), as inactive slots do in the engine.
+    """
+    b, nq, h = q.shape
+    nk, page = k_pages.shape[1], k_pages.shape[2]
+    n_pages = block_tables.shape[1]
+    g = nq // nk
+    tables = block_tables.long()
+    # [B, NP, NK, page, H] -> head-major [B, NK, T, H]
+    kc = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(
+        b, nk, n_pages * page, h).float()
+    vc = v_pages[tables].permute(0, 2, 1, 3, 4).reshape(
+        b, nk, n_pages * page, h).float()
+    qg = q.reshape(b, nk, g, h).float()
+    s = torch.matmul(qg, kc.transpose(-1, -2)) * (1.0 / (h ** 0.5))
+    k_pos = torch.arange(n_pages * page, device=q.device)
+    ok = k_pos[None, :] < lengths[:, None]            # [B, T]
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    m = s.max(dim=-1, keepdim=True).values
+    # masked keys are dropped outright so an all-masked row sums to l = 0
+    p = torch.where(ok[:, None, None, :], torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, vc) / torch.clamp(l, min=1e-37)
+    return out.reshape(b, nq, h).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    fn = lib.paged_decode_attention_launch
+    if fn.argtypes is None:
+        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                       ci, ci, ci, ci, ci, ci, ci, ci,
+                       i64, i64, i64, ctypes.c_float, vp]
+        fn.restype = ci
+        lib.paged_decode_attention_error.argtypes = [ci]
+        lib.paged_decode_attention_error.restype = ctypes.c_char_p
+    return lib
+
+
+def default_num_splits(b: int, nq: int, nk: int, n_pages: int) -> int:
+    """How many runs the live pages are cut into: enough (b, kv head,
+    split) blocks to fill the card, never more than there are pages.
+    Decided from shapes alone so the launch needs no host sync."""
+    g = nq // nk
+    tile = next(t for t in (8, 4, 2, 1) if g % t == 0)
+    blocks = b * nk * (g // tile)
+    return max(1, min(n_pages, _TARGET_BLOCKS // max(blocks, 1)))
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+    if q.ndim != 3 or k_pages.ndim != 4 or block_tables.ndim != 2 \
+            or lengths.ndim != 1:
+        raise ValueError(
+            "expected q [B,NQ,H], pages [P,NK,page,H], block_tables "
+            f"[B,NP], lengths [B]; got {tuple(q.shape)}, "
+            f"{tuple(k_pages.shape)}, {tuple(block_tables.shape)}, "
+            f"{tuple(lengths.shape)}")
+    b, nq, h = q.shape
+    nk = k_pages.shape[1]
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != h:
+        raise ValueError("k_pages / v_pages / q head_dim disagree: "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}, "
+                         f"H={h}")
+    if nq % nk != 0:
+        raise ValueError(f"NQ={nq} is not a multiple of NK={nk}")
+    if block_tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError("block_tables / lengths batch differs from q's")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError("q and pages must share dtype float32 or bfloat16; "
+                        f"got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32; got "
+                        f"{block_tables.dtype}, {lengths.dtype}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("block_tables", block_tables),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    vec = 16 // q.element_size()
+    lanes = h // vec
+    if h % vec or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(
+            f"head_dim {h} ({q.dtype}): a row must be a power-of-two "
+            f"number (at most 32) of 16-byte vectors")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{name}: head_dim must be contiguous and "
+                             "rows 16-byte aligned")
+    if v_pages.stride() != k_pages.stride():
+        raise ValueError("k_pages and v_pages must share strides")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           num_splits: int | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel.  q ``[B,NQ,H]``; pages ``[P,NK,page,H]``;
+    ``block_tables [B,NP]`` int32; ``lengths [B]`` int32 (each at most
+    ``NP * page``).  f32 or bf16 in, f32 math, output in q's dtype.
+
+    Runs on PyTorch's current stream, never synchronises, and raises on
+    anything the kernel does not take or on a refused launch: there is
+    no fallback to the plain version."""
+    if not q.is_cuda:
+        raise RuntimeError(
+            f"paged_decode_attention launches a CUDA kernel; q is on "
+            f"{q.device} (CPU tensors go through "
+            "paged_decode_attention_plain)")
+    _check(q, k_pages, v_pages, block_tables, lengths)
+    b, nq, h = q.shape
+    nk, page = k_pages.shape[1], k_pages.shape[2]
+    n_pages = block_tables.shape[1]
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    if num_splits is None:
+        num_splits = default_num_splits(b, nq, nk, n_pages)
+    # scratch for the split partials; PyTorch's allocator hands its memory
+    # on only to later work on this stream, so dropping it on return is safe
+    part = None
+    if num_splits > 1:
+        part = torch.empty((b, nq, num_splits, h + 2), dtype=torch.float32,
+                           device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        code = lib.paged_decode_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, nq, nk, h, page, n_pages, num_splits,
+            int(q.dtype == torch.bfloat16),
+            k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+            1.0 / (h ** 0.5), torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        msg = lib.paged_decode_attention_error(code).decode()
+        raise RuntimeError(f"paged_decode_attention launch failed: {msg}")
+    kernel_guard().count_launch(KERNEL)
+    return out

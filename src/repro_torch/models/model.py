@@ -1,0 +1,157 @@
+"""Public model API of the port: build a dense decoder from its config.
+
+``build_model(cfg, device=...)`` returns a ``Model`` of plain functions,
+named as in ``repro/models/model.py``:
+
+    init(seed)                                   -> params
+    prefill(params, batch, max_len, length)      -> (last_logits, cache)
+    decode_step(params, cache, token, pos)       -> (logits, cache)
+    init_cache / init_paged_cache
+    decode_step_paged(params, cache, token, pos, block_tables, active)
+    prefill_chunk(params, cache, tokens, block_table, ctx_len, n_valid)
+
+Parameters are ``{"embed", "final_ln", "layers": [block, ...]}`` with
+weights already in the compute dtype.  Caches are updated in place and
+returned.  Nothing here records gradients: every function runs under
+``torch.no_grad``.  ``loss_fn``, the encoder and the frontends arrive
+with the training and model-zoo slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import compute_dtype, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    Params,
+    embed_apply,
+    init_embedding,
+    init_rmsnorm,
+    lm_head_apply,
+    rmsnorm_apply,
+)
+from repro_torch.models.transformer import (
+    Cache,
+    attention_only_pattern,
+    check_supported,
+    init_stack,
+    init_stack_cache,
+    init_stack_cache_paged,
+    stack_decode,
+    stack_decode_paged,
+    stack_prefill,
+    stack_prefill_chunk,
+)
+
+
+class Model(NamedTuple):
+    cfg: ModelConfig
+    device: torch.device
+    dtype: torch.dtype
+    init: Callable[..., Params]
+    prefill: Callable[..., tuple[torch.Tensor, Cache]]
+    decode_step: Callable[..., tuple[torch.Tensor, Cache]]
+    init_cache: Callable[..., Cache]
+    # paged serving surface (continuous batching engine)
+    init_paged_cache: Callable[..., Cache]
+    decode_step_paged: Callable[..., tuple[torch.Tensor, Cache]]
+    prefill_chunk: Callable[..., tuple[torch.Tensor, Cache]]
+
+
+def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
+                ) -> Model:
+    """Build the model's functions for ``device`` (default: the GPU;
+    raises when there is none — pass ``device="cpu"`` for the CPU)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = compute_dtype(cfg.dtype)
+
+    def _tokens(t) -> torch.Tensor:
+        return torch.as_tensor(t, device=dev).long()
+
+    def _head(params: Params, h_last: torch.Tensor) -> torch.Tensor:
+        h_last = rmsnorm_apply(params["final_ln"], h_last, cfg.norm_eps)
+        return lm_head_apply(params["embed"], h_last, cfg.vocab_size)
+
+    # ---------------- init ----------------
+    def init(seed: int = 0) -> Params:
+        """Random parameters drawn on the device from an explicit
+        ``torch.Generator`` (scales as the JAX initializers: N(0, 1/in)
+        for dense weights, N(0, 0.02²) for the embedding table)."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return {
+            "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                    tie=cfg.tie_embeddings, dtype=dtype),
+            "final_ln": init_rmsnorm(cfg.d_model, dev),
+            "layers": init_stack(gen, cfg, dtype),
+        }
+
+    # ---------------- serving ----------------
+    def init_cache(batch: int, max_len: int) -> Cache:
+        return init_stack_cache(cfg, batch, max_len, dtype=dtype, device=dev)
+
+    @torch.no_grad()
+    def prefill(params: Params, batch: dict, max_len: int,
+                length: int | None = None) -> tuple[torch.Tensor, Cache]:
+        """Parallel prefill: one full-sequence pass that computes the
+        last token's logits AND captures the decode cache.
+
+        ``length``: real token count when ``tokens`` is right-padded to a
+        shape bucket.  The last-token logits are read at the real end
+        and the SWA rolling capture arranges by the real length."""
+        tokens = _tokens(batch["tokens"])
+        b, s = tokens.shape
+        x = embed_apply(params["embed"], tokens)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        h, cache = stack_prefill(params["layers"], cfg, x, positions,
+                                 max_len, cache_dtype=dtype, length=length)
+        last = s - 1 if length is None else length - 1
+        return _head(params, h[:, last]), cache
+
+    @torch.no_grad()
+    def decode_step(params: Params, cache: Cache, token: torch.Tensor,
+                    pos: torch.Tensor) -> tuple[torch.Tensor, Cache]:
+        """token [B] int; pos [B] absolute positions."""
+        x = embed_apply(params["embed"], _tokens(token)[:, None])
+        h, cache = stack_decode(params["layers"], cfg, x, cache, pos)
+        return _head(params, h[:, 0]), cache
+
+    # ---------------- paged serving (continuous batching) ----------------
+    def init_paged_cache(slots: int, num_pages: int, page_size: int) -> Cache:
+        return init_stack_cache_paged(cfg, slots, num_pages, page_size,
+                                      dtype=dtype, device=dev)
+
+    @torch.no_grad()
+    def decode_step_paged(params: Params, cache: Cache, token: torch.Tensor,
+                          pos: torch.Tensor, block_tables: torch.Tensor,
+                          active: torch.Tensor, *, max_len: int,
+                          impl: str = "auto") -> tuple[torch.Tensor, Cache]:
+        """token/pos [B]; block_tables [B,NP] int32; active [B] bool.
+        Inactive rows compute but write only the reserved scratch page.
+        ``impl`` picks the paged attention: ``"auto"`` is the CUDA kernel
+        on the GPU and the plain version on the CPU."""
+        x = embed_apply(params["embed"], _tokens(token)[:, None])
+        h, cache = stack_decode_paged(params["layers"], cfg, x, cache, pos,
+                                      block_tables, active, max_len=max_len,
+                                      impl=impl)
+        return _head(params, h[:, 0]), cache
+
+    @torch.no_grad()
+    def prefill_chunk(params: Params, cache: Cache, tokens: torch.Tensor,
+                      block_table: torch.Tensor, ctx_len: int, n_valid: int
+                      ) -> tuple[torch.Tensor, Cache]:
+        """One prompt chunk [1, C] for a single request: scatter its K/V
+        into the request's pages and return the logits at the chunk's
+        last *real* token (meaningful only on the final chunk).  Dense
+        attention-only decoder stacks (no SWA)."""
+        assert cfg.sliding_window == 0 and attention_only_pattern(cfg)
+        x = embed_apply(params["embed"], _tokens(tokens))
+        h, cache = stack_prefill_chunk(params["layers"], cfg, x, cache,
+                                       block_table, ctx_len, n_valid)
+        return _head(params, h[:, max(n_valid - 1, 0)]), cache
+
+    return Model(cfg, dev, dtype, init, prefill, decode_step, init_cache,
+                 init_paged_cache, decode_step_paged, prefill_chunk)

@@ -1,0 +1,650 @@
+"""Serving engine: continuous batching over a paged KV cache.
+
+The counterpart of ``repro/serve/engine.py``'s ``Engine``.  It keeps a
+fixed pool of B batch rows ("slots") and a global page pool for
+attention KV (``serve.kv_pool``).  Requests are admitted per step into
+free slots, their prompt KV is scattered into block-table-indexed pages,
+and one decode step advances every active slot; finished slots free
+their pages immediately, so KV memory tracks *live tokens* rather than
+``slots * max_len``.
+
+What carries over unchanged: pow2 prompt bucketing, page accounting
+(``pool.used_pages`` follows the JAX engine step for step), chunked
+prefill interleaved with decode (``prefill_chunk=N``), page growth at
+page boundaries, preemption by recompute (exact for greedy decoding),
+deadlines, NaN-logits abort, pause/resume on transient page-alloc
+faults, bounded-queue backpressure.
+
+What differs, because PyTorch runs eagerly:
+
+* there is nothing to trace, so the JAX engine's trace counters
+  (``admit_traces`` / ``step_traces`` / ``chunk_traces`` /
+  ``control_traces``) are gone from ``serve_counters``;
+* the page pools and the slot state are updated **in place** (the JAX
+  engine donates them to its jitted functions);
+* slot state (pos/tok/budget/temp/active) lives on the device and the
+  step reads its emit tuple back **once** — one host sync per decode
+  step;
+* greedy decoding matches the JAX engine token for token; sampled rows
+  (``temperature > 0``) draw from the engine's ``torch.Generator`` and
+  cannot match ``jax.random`` bit for bit.
+
+``fault_injector`` is duck-typed (``page_alloc()``, ``slow_step()``,
+``poison_slots(active)``).  The fixed-slot baseline engine, the fault
+injector itself, decode offload (``offload=True`` raises) and the
+static table verifier arrive with later slices of the port.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.guard import kernel_guard
+from repro_torch.models import build_model
+from repro_torch.models.transformer import Cache, attention_only_pattern
+from repro_torch.serve.kv_pool import PagePool, bucket_length, ceil_pow2
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    rid: int = 0
+    deadline_s: float = 0.0       # relative budget; 0 = no deadline
+    deadline_at: float = 0.0      # absolute monotonic; stamped at submit/admit
+    preempts: int = 0             # times preempted (bounded by max_preempts)
+
+
+#: Completion.status values — "ok" is the only one with a full token
+#: stream; the others are terminal non-success outcomes.
+STATUSES = ("ok", "cancelled", "aborted", "rejected")
+
+
+@dataclass
+class Completion:
+    rid: int
+    tokens: list[int] = field(default_factory=list)
+    status: str = "ok"
+    reason: str = ""              # e.g. "deadline", "nan_logits", "queue_full"
+
+
+class Engine:
+    """Continuous-batching engine over a paged KV cache."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
+                 max_len: int = 512, seed: int = 0, offload: bool = False,
+                 page_size: int = 64, num_pages: int | None = None,
+                 prefill_chunk: int = 0, bucket_prompts: bool = True,
+                 max_preempts: int = 3, max_queue: int = 0,
+                 fault_injector: Any = None,
+                 device: str | torch.device = "cuda"):
+        if offload:
+            raise NotImplementedError(
+                "Engine(offload=True) needs the offload compiler, which "
+                "a later slice of the port brings")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg, device=self.device)
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.page_size = page_size
+        w = cfg.sliding_window
+        # logical per-request cache capacity (rolling window for SWA)
+        self.kv_capacity = min(max_len, w) if w > 0 else max_len
+        pages_per_req = -(-self.kv_capacity // page_size)
+        self.table_width = ceil_pow2(pages_per_req)
+        if num_pages is None:
+            # page 0 is scratch; default sizes the pool for full residency
+            num_pages = 1 + slots * pages_per_req
+        self.num_pages = num_pages
+        self.pool = PagePool(num_pages, page_size, self.table_width, slots)
+        self.cache: Cache = self.model.init_paged_cache(
+            slots, num_pages, page_size)
+
+        # device-side slot state, updated in place by step/admit — ONE
+        # host sync per decode step (the emit tuple read back)
+        dev = self.device
+        self._state = {
+            "pos": torch.zeros((slots,), dtype=torch.int32, device=dev),
+            "tok": torch.zeros((slots,), dtype=torch.int32, device=dev),
+            "budget": torch.zeros((slots,), dtype=torch.int32, device=dev),
+            "temp": torch.zeros((slots,), dtype=torch.float32, device=dev),
+            "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
+        }
+        # host mirrors (slot occupancy / page-growth bookkeeping)
+        self._host_active = np.zeros((slots,), bool)   # occupied (incl. prefilling)
+        self._decode_active = np.zeros((slots,), bool)  # decoding
+        self._host_pos = np.zeros((slots,), np.int32)
+        self._slot_rid = np.full((slots,), -1, np.int32)
+        self._slot_req: list[Request | None] = [None] * slots
+        self._slot_emitted: list[list[int]] = [[] for _ in range(slots)]
+        self._slot_seq = np.zeros((slots,), np.int64)  # admit order (preempt youngest)
+        self._admit_seq = 0
+        self._prefilling: dict[int, dict] = {}  # slot -> {req, prompt, ctx}
+        self._requeue: list[Request] = []
+        # robustness state: submit() queue (bounded by max_queue),
+        # terminal events for pop_finished(), slots paused on transient
+        # page-alloc faults, and the kernel-guard epoch last seen
+        self.max_preempts = max_preempts
+        self.max_queue = max_queue
+        self._injector = fault_injector
+        self._queue: list[Request] = []
+        self._events: list[Completion] = []
+        self._paused = np.zeros((slots,), bool)
+        self._transient_fault = False
+        self._guard_epoch = kernel_guard().epoch
+
+        # sampling draws from an explicit generator on the engine's device
+        self.rng = torch.Generator(device=dev)
+        self.rng.manual_seed(seed)
+        # pow2 admit bucketing is exact only when no recurrent state or
+        # MoE capacity can see the pad tokens
+        self.bucket_prompts = (bucket_prompts and attention_only_pattern(cfg)
+                               and cfg.moe is None)
+        # chunked prefill: dense causal attention scattering straight
+        # into pages — no SWA rolling, no recurrent state
+        self.prefill_chunk = prefill_chunk
+        self._chunkable = (prefill_chunk > 0 and w == 0
+                           and attention_only_pattern(cfg))
+
+        self.decode_steps = 0
+        self.serve_counters = {"preemptions": 0, "preemption_retries": 0,
+                               "preempt_vetoes": 0, "deadline_cancels": 0,
+                               "nan_aborts": 0, "page_faults": 0,
+                               "alloc_stalls": 0, "kernel_replans": 0,
+                               "reject_queue_full": 0, "reject_deadline": 0}
+
+    # -- device-side control ------------------------------------------------
+    def _activate(self, slot: int, logits: torch.Tensor, pos0: int,
+                  budget: int, temp: float):
+        """Start decoding in ``slot``: its first token is the argmax of
+        the prefill's last logits."""
+        st = self._state
+        st["pos"][slot] = pos0
+        st["tok"][slot] = torch.argmax(logits[0]).to(torch.int32)
+        st["budget"][slot] = budget
+        st["temp"][slot] = temp
+        st["active"][slot] = True
+
+    def _set_active(self, slot: int, on: bool):
+        # pausing/resuming only flips ``active``: pos/tok/budget are
+        # untouched, so resuming continues token-exact
+        self._state["active"][slot] = on
+
+    @torch.no_grad()
+    def _device_step(self, tables: torch.Tensor, poison: np.ndarray | None):
+        """One decode for every slot; updates the slot state in place and
+        returns the emit tuple stacked ``[4, slots]`` (emitted token,
+        was_active, done, bad) still on the device."""
+        st, max_len = self._state, self.max_len
+        logits, self.cache = self.model.decode_step_paged(
+            self.params, self.cache, st["tok"], st["pos"], tables,
+            st["active"], max_len=max_len)
+        if poison is not None:
+            # chaos: poisoned rows get non-finite logits
+            mask = torch.as_tensor(poison, device=self.device)
+            logits = torch.where(mask[:, None], torch.nan, logits)
+        # a poisoned row must not kill the batch: detect non-finite
+        # logits per row, sample that row from neutral logits, and
+        # report the mask so the host aborts just that request
+        was_active = st["active"]
+        bad = was_active & ~torch.isfinite(logits).all(-1)
+        safe = torch.where(bad[:, None], 0.0, logits)
+        nxt = torch.argmax(safe, -1).to(torch.int32)
+        temps = st["temp"]
+        if self._sampling:
+            probs = torch.softmax(
+                safe / torch.clamp(temps[:, None], min=1e-3), -1)
+            sampled = torch.multinomial(
+                probs, 1, generator=self.rng)[:, 0].to(torch.int32)
+            nxt = torch.where(temps > 0, sampled, nxt)
+        emitted = st["tok"]
+        one = was_active.to(torch.int32)
+        st["pos"] += one
+        st["budget"] -= one
+        done = was_active & ((st["budget"] < 0) | (st["pos"] >= max_len - 1))
+        st["tok"] = torch.where(was_active, nxt, st["tok"])
+        st["active"] = was_active & ~done
+        return torch.stack([emitted, was_active.to(torch.int32),
+                            done.to(torch.int32), bad.to(torch.int32)])
+
+    @property
+    def _sampling(self) -> bool:
+        """True while any decoding slot asked for a temperature > 0."""
+        return any(r is not None and r.temperature > 0
+                   for r in self._slot_req)
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def serve_stats(self) -> dict:
+        """Serving-side counters plus live page-pool occupancy, decode
+        steps taken, kernel launches and kernel-guard health."""
+        return {
+            **self.serve_counters,
+            **kernel_guard().stats(),
+            "decode_steps": self.decode_steps,
+            "kernel_launches": kops.launch_counts(),
+            "pages_used": self.pool.used_pages,
+            "pages_free": self.pool.free_pages,
+            "page_size": self.page_size,
+            "table_width": self.table_width,
+        }
+
+    # -- slot management ----------------------------------------------------
+    def _free_slot(self) -> int | None:
+        idx = np.where(~self._host_active)[0]
+        return int(idx[0]) if idx.size else None
+
+    def _occupy(self, slot: int, req: Request, pos0: int):
+        self._host_active[slot] = True
+        self._host_pos[slot] = pos0
+        self._slot_rid[slot] = req.rid
+        self._slot_req[slot] = req
+        self._slot_emitted[slot] = []
+        self._slot_seq[slot] = self._admit_seq
+        self._admit_seq += 1
+
+    def _release(self, slot: int):
+        self.pool.free_slot(slot)
+        self._host_active[slot] = False
+        self._decode_active[slot] = False
+        self._paused[slot] = False
+        self._slot_req[slot] = None
+        self._slot_rid[slot] = -1
+        self._prefilling.pop(slot, None)
+
+    def _finish(self, slot: int, status: str = "ok", reason: str = ""):
+        """Terminal transition: record the completion event (drained by
+        ``pop_finished``) and free the slot + its pages immediately."""
+        self._events.append(Completion(
+            int(self._slot_rid[slot]), list(self._slot_emitted[slot]),
+            status, reason))
+        self._release(slot)
+
+    def _preempt(self, slot: int):
+        """Evict by recompute: requeue the request's prompt + emitted
+        tokens (exact for greedy; sampled requests resample the tail).
+        The requeued request carries its preemption count (victim
+        eligibility bound) and its absolute deadline."""
+        req = self._slot_req[slot]
+        req.preempts += 1
+        if slot in self._prefilling:
+            self._requeue.append(req)   # nothing emitted yet
+        else:
+            emitted = self._slot_emitted[slot]
+            remaining = req.max_new_tokens - len(emitted)
+            if remaining > 0:
+                prompt = np.concatenate([
+                    np.asarray(req.prompt, np.int32),
+                    np.asarray(emitted, np.int32)])
+                self._requeue.append(Request(
+                    prompt, remaining, req.temperature, req.rid,
+                    deadline_s=req.deadline_s, deadline_at=req.deadline_at,
+                    preempts=req.preempts))
+                self.serve_counters["preemption_retries"] += 1
+            self._set_active(slot, False)
+        self._release(slot)
+        self.serve_counters["preemptions"] += 1
+
+    def _preempt_for_pages(self, protect: int) -> bool:
+        """Free pages by preempting the youngest *eligible* decoding
+        slot other than ``protect``.  Eligibility is the anti-starvation
+        bound: a request preempted ``max_preempts`` times is exempt from
+        further eviction, so two oversized requests can no longer
+        preempt each other forever — the aged one keeps its pages and
+        the other waits for completions.  Returns True if a victim was
+        evicted."""
+        candidates = [s for s in range(self.slots)
+                      if self._decode_active[s] and s != protect]
+        victims = [s for s in candidates
+                   if self._slot_req[s].preempts < self.max_preempts]
+        if not victims:
+            if candidates:
+                self.serve_counters["preempt_vetoes"] += 1
+            return False
+        self._preempt(max(victims, key=lambda s: self._slot_seq[s]))
+        return True
+
+    # -- admission ----------------------------------------------------------
+    def _pool_ensure(self, slot: int, need: int) -> tuple[bool, bool]:
+        """``pool.ensure`` with fault injection: returns (ok, injected).
+        The injector is only consulted when the call would actually
+        allocate (growth), so already-satisfied ensures never fault; an
+        injected failure is transient — the caller stalls/pauses and
+        retries instead of preempting."""
+        if need > self.pool.allocated(slot) and self._injector is not None \
+                and self._injector.page_alloc():
+            self.serve_counters["page_faults"] += 1
+            self._transient_fault = True
+            return False, True
+        return self.pool.ensure(slot, need), False
+
+    def _stamp_deadline(self, req: Request):
+        if req.deadline_s > 0 and req.deadline_at == 0.0:
+            req.deadline_at = time.monotonic() + req.deadline_s
+
+    def _table_row(self, slot: int) -> torch.Tensor:
+        return torch.as_tensor(self.pool.tables[slot], device=self.device)
+
+    def admit(self, req: Request) -> bool:
+        """Admit a request into a free slot (prefill now, or start a
+        chunked prefill).  Returns False when no slot/pages are free."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        self._stamp_deadline(req)
+        toks = np.asarray(req.prompt, np.int32).reshape(-1)
+        s = toks.shape[0]
+        if self._chunkable and s > self.prefill_chunk:
+            need = self.pool.pages_for(min(self.prefill_chunk, s))
+            if not self._pool_ensure(slot, need)[0]:
+                return False
+            self._occupy(slot, req, pos0=s)
+            self._prefilling[slot] = {"req": req, "prompt": toks, "ctx": 0}
+            return True
+        s_b = bucket_length(s, self.max_len) if self.bucket_prompts else s
+        swa = self.cfg.sliding_window > 0
+        need = self.pool.pages_for(
+            self.kv_capacity if swa else min(s_b, self.kv_capacity))
+        if not self._pool_ensure(slot, need)[0]:
+            return False
+        tokens = np.zeros((1, s_b), np.int32)
+        tokens[0, :s] = toks
+        logits, cache1 = self.model.prefill(
+            self.params, {"tokens": tokens}, self.max_len, int(s))
+        _scatter_admit(self.cache, cache1, self._table_row(slot),
+                       page=self.page_size, n_pr=need)
+        self._activate(slot, logits, int(s), int(req.max_new_tokens - 1),
+                       float(req.temperature))
+        self._occupy(slot, req, pos0=s)
+        self._decode_active[slot] = True
+        return True
+
+    def _advance_prefill(self):
+        """Run ONE prompt chunk for the oldest prefilling slot —
+        interleaved with decode so long prompts don't stall the batch."""
+        slot = next(iter(self._prefilling))
+        info = self._prefilling[slot]
+        prompt, ctx, c = info["prompt"], info["ctx"], self.prefill_chunk
+        n_valid = min(c, prompt.shape[0] - ctx)
+        need = self.pool.pages_for(ctx + n_valid)
+        while True:
+            ok, injected = self._pool_ensure(slot, need)
+            if ok:
+                break
+            if injected:
+                return  # transient fault: retry this chunk next step
+            if not self._preempt_for_pages(protect=slot):
+                if not self._decode_active.any():
+                    raise RuntimeError(
+                        "paged KV pool too small to prefill request "
+                        f"{info['req'].rid}: need {need} pages, "
+                        f"free {self.pool.free_pages}")
+                return  # stall: decode completions will free pages
+        tokens = np.zeros((1, c), np.int32)
+        tokens[0, :n_valid] = prompt[ctx:ctx + n_valid]
+        logits, self.cache = self.model.prefill_chunk(
+            self.params, self.cache, tokens, self._table_row(slot),
+            int(ctx), int(n_valid))
+        ctx += n_valid
+        if ctx >= prompt.shape[0]:
+            req = info["req"]
+            self._activate(slot, logits, int(ctx),
+                           int(req.max_new_tokens - 1),
+                           float(req.temperature))
+            del self._prefilling[slot]
+            self._decode_active[slot] = True
+            self._host_pos[slot] = ctx
+        else:
+            info["ctx"] = ctx
+
+    # -- decode -------------------------------------------------------------
+    def _slot_page_need(self, s: int) -> int:
+        write_idx = min(int(self._host_pos[s]), self.kv_capacity - 1)
+        return write_idx // self.page_size + 1
+
+    def _pause_slot(self, s: int):
+        """Transient page-alloc fault mid-decode: park the slot instead
+        of preempting.  Its device state freezes (active=False) and its
+        pages stay owned, so resuming later continues token-exact."""
+        self._set_active(s, False)
+        self._decode_active[s] = False
+        self._paused[s] = True
+        self.serve_counters["alloc_stalls"] += 1
+
+    def _resume_paused(self):
+        """Retry the page growth that paused each parked slot; on
+        success flip the slot live again."""
+        for s in np.flatnonzero(self._paused):
+            ok, _ = self._pool_ensure(int(s), self._slot_page_need(int(s)))
+            if ok:
+                self._paused[s] = False
+                self._decode_active[s] = True
+                self._set_active(int(s), True)
+
+    def _check_deadlines(self):
+        """Cancel every occupied slot whose absolute deadline has
+        passed: pages are reclaimed immediately and the completion
+        carries the tokens emitted so far.  Queued/requeued requests
+        expire the same way (see ``_pump``)."""
+        now = time.monotonic()
+        for s in range(self.slots):
+            if not self._host_active[s]:
+                continue
+            req = self._slot_req[s]
+            if req.deadline_at > 0 and now > req.deadline_at:
+                if self._decode_active[s]:
+                    self._set_active(s, False)
+                self._finish(s, "cancelled", "deadline")
+                self.serve_counters["deadline_cancels"] += 1
+
+    def _check_guard_epoch(self):
+        """Note a change of kernel health.  Eager dispatch consults the
+        guard on every call, so there is nothing to rebuild; the counter
+        keeps its name from the JAX engine."""
+        if kernel_guard().epoch != self._guard_epoch:
+            self._guard_epoch = kernel_guard().epoch
+            self.serve_counters["kernel_replans"] += 1
+
+    def _grow_pages(self):
+        """Before a decode step, make sure every active slot owns the
+        page its next write lands in (dense caches grow with ``pos``;
+        SWA slots are fully allocated at admit).  Injected alloc faults
+        pause the slot (transient); real exhaustion preempts a victim
+        or — with no eligible victim and nothing running — raises."""
+        if self.cfg.sliding_window > 0:
+            return
+        for s in np.where(self._decode_active)[0]:
+            need = self._slot_page_need(int(s))
+            while self._decode_active[s]:
+                ok, injected = self._pool_ensure(int(s), need)
+                if ok:
+                    break
+                if injected:
+                    self._pause_slot(int(s))
+                    break
+                if not self._preempt_for_pages(protect=int(s)):
+                    others = [o for o in range(self.slots)
+                              if o != s and self._decode_active[o]]
+                    if others or self._prefilling:
+                        # every candidate victim is preemption-exempt:
+                        # park this slot until their completions free
+                        # pages (resumed by _resume_paused)
+                        self._pause_slot(int(s))
+                        break
+                    raise RuntimeError(
+                        "paged KV pool too small for a single request: "
+                        f"need {need} pages, width {self.table_width}, "
+                        f"free {self.pool.free_pages}")
+
+    def step(self) -> list[tuple[int, int]]:
+        """One engine step: sweep deadlines, resume paused slots,
+        advance at most one prefill chunk, then one decode for all
+        active slots.  Returns [(rid, token)]."""
+        if self._injector is not None:
+            self._injector.slow_step()
+        self._check_deadlines()
+        self._resume_paused()
+        self._check_guard_epoch()
+        if self._prefilling:
+            self._advance_prefill()
+        if not self._decode_active.any():
+            return []
+        self._grow_pages()
+        if not self._decode_active.any():
+            return []
+        poison = None
+        if self._injector is not None:
+            poison = self._injector.poison_slots(self._decode_active)
+        tables = torch.as_tensor(self.pool.tables, device=self.device)
+        emit = self._device_step(tables, poison)
+        self.decode_steps += 1
+        # the single host sync of the step
+        em, wa, dn, bd = emit.cpu().numpy()
+        out = []
+        for s in range(self.slots):
+            if not wa[s]:
+                continue
+            tok = int(em[s])
+            out.append((int(self._slot_rid[s]), tok))
+            self._slot_emitted[s].append(tok)
+            self._host_pos[s] += 1
+            if bd[s]:
+                # non-finite logits: this step's emit (computed from the
+                # previous step's finite logits) stands, the NEXT token
+                # would be garbage — abort just this request
+                if not dn[s]:
+                    self._set_active(s, False)
+                self._finish(s, "aborted", "nan_logits")
+                self.serve_counters["nan_aborts"] += 1
+            elif dn[s]:
+                self._finish(s)
+        return out
+
+    # -- submission / lifecycle --------------------------------------------
+    def submit(self, req: Request) -> str:
+        """Queue a request with admission control.  Returns "queued", or
+        a typed rejection reason — "rejected_queue_full" when the
+        backlog is at ``max_queue`` (backpressure; 0 = unbounded), or
+        "rejected_deadline" when the deadline already passed.  Rejected
+        requests also surface as Completion events (``pop_finished``)."""
+        self._stamp_deadline(req)
+        if self.max_queue > 0 and \
+                len(self._queue) + len(self._requeue) >= self.max_queue:
+            self.serve_counters["reject_queue_full"] += 1
+            self._events.append(Completion(
+                req.rid, [], "rejected", "queue_full"))
+            return "rejected_queue_full"
+        if req.deadline_at > 0 and time.monotonic() > req.deadline_at:
+            self.serve_counters["reject_deadline"] += 1
+            self._events.append(Completion(
+                req.rid, [], "rejected", "deadline"))
+            return "rejected_deadline"
+        self._queue.append(req)
+        return "queued"
+
+    def pop_finished(self) -> list[Completion]:
+        """Drain terminal events (ok / cancelled / aborted / rejected)
+        accumulated since the last call."""
+        out, self._events = self._events, []
+        return out
+
+    def _pump(self) -> bool:
+        """Admit as many queued requests as slots/pages allow — aged
+        (preempted) requests first so re-queueing can never starve them
+        behind fresh arrivals.  Expired queue entries are cancelled
+        without occupying a slot.  Returns True if anything moved."""
+        moved = False
+        now = time.monotonic()
+        for queue in (self._requeue, self._queue):
+            while queue:
+                head = queue[0]
+                if head.deadline_at > 0 and now > head.deadline_at:
+                    queue.pop(0)
+                    self._events.append(Completion(
+                        head.rid, [], "cancelled", "deadline"))
+                    self.serve_counters["deadline_cancels"] += 1
+                    moved = True
+                    continue
+                if not self.admit(head):
+                    # a blocked aged head also blocks fresh admissions:
+                    # a fresh request must not steal the slot/pages the
+                    # aged one is waiting on
+                    return moved
+                queue.pop(0)
+                moved = True
+        return moved
+
+    def generate(self, requests: list[Request]) -> dict[int, Completion]:
+        """Run a request list to completion with continuous batching
+        (per-step admission; preempted requests re-queue internally).
+        Completions carry a terminal ``status``: "ok", "cancelled"
+        (deadline), "aborted" (non-finite logits), or "rejected"
+        (backpressure) — tokens are whatever was emitted before the
+        terminal transition."""
+        done: dict[int, Completion] = {
+            r.rid: Completion(r.rid) for r in requests}
+
+        def drain():
+            for ev in self.pop_finished():
+                done[ev.rid].status = ev.status
+                done[ev.rid].reason = ev.reason
+
+        for r in requests:
+            self.submit(r)
+        stalls = 0
+        while self._queue or self._requeue or self._host_active.any():
+            moved = self._pump()
+            made = self.step()
+            for rid, tok in made:
+                done[rid].tokens.append(tok)
+            drain()
+            if made or moved:
+                stalls = 0
+                continue
+            # nothing moved this iteration: transient injected faults
+            # and pages-in-flight (prefill stall, paused slots) deserve
+            # bounded patience; an empty engine that cannot admit its
+            # head request is stuck for good
+            stalls += 1
+            stuck_empty = not (self._prefilling or self._host_active.any()
+                               or self._transient_fault)
+            self._transient_fault = False
+            if stuck_empty or stalls >= 10_000:
+                raise RuntimeError(
+                    "no progress: request cannot be admitted "
+                    f"(free pages {self.pool.free_pages}, "
+                    f"page_size {self.page_size})")
+        drain()
+        return done
+
+
+def _fit_len(x: torch.Tensor, length: int) -> torch.Tensor:
+    """Slice or zero-pad ``x`` [T, ...] to ``length`` along axis 0."""
+    t = x.shape[0]
+    if t >= length:
+        return x[:length]
+    return torch.cat([x, x.new_zeros((length - t,) + x.shape[1:])])
+
+
+def _scatter_admit(cache: Cache, cache1: Cache, table_row: torch.Tensor, *,
+                   page: int, n_pr: int) -> None:
+    """Merge a single-request prefill cache into the paged pools, in
+    place: each layer's K/V ``[1, T, NK, H]`` scatters its first
+    ``n_pr`` pages through the slot's block-table row."""
+    ids = table_row[:n_pr].long()
+    for pool_layer, one in zip(cache, cache1):
+        for name in ("k", "v"):
+            x = _fit_len(one[name][0], n_pr * page)
+            _, nk, h = x.shape
+            x = x.reshape(n_pr, page, nk, h).permute(0, 2, 1, 3)
+            pool_layer[name][ids] = x.to(pool_layer[name].dtype)
