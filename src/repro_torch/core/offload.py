@@ -1,0 +1,1406 @@
+"""The instruction offload engine (§IV-B1): the forward planner.
+
+The counterpart of ``repro/core/offload.py`` for the forward segments
+the serving path needs.  The architecture is the reference's:
+
+  capture once  ``make_fx`` in **fake** tensor mode (no data is touched,
+                no in-place write runs) with one fixed decomposition
+                table (``repro_torch.core.prims.DECOMPOSITIONS``), so the
+                planner sees primitive-level aten ops as a jaxpr would
+  plan once     ``plan_offload`` annotates the graph (Algorithm 1,
+                ``repro_torch.core.locator``) and segments it into
+                maximal near runs over 2-D ``[rows, lanes]`` block views:
+                elementwise ops, lane-axis reductions (row statistics),
+                lane slices / concats / broadcasts and views that keep
+                the 2-D view, and ``mm`` anchors (x[M, K] @ w[K, N]) that
+                absorb an elementwise lhs prologue, a weight-side
+                dequant prologue and the whole epilogue.  Every
+                candidate is priced and fused or declined by the policy
+                (``OffloadPolicy.decide``); both verdicts are recorded
+  run           the runner walks the graph in order: a fused segment is
+                ONE kernel call (``fused_segment_grid`` for elementwise
+                segments, ``fused_matmul_segment`` for anchored ones),
+                every other node calls its aten op unchanged — in-place
+                KV page writes included, so no read moves across a write
+
+``mpu_offload(fn, policy=...)`` caches one plan per (policy, direction,
+input signature) in an LRU bounded by the policy's ``max_plans``.
+
+Not in this slice (the planner declines them and records why, or never
+forms them): batched anchors (``bmm``), the transposed-weight (``dlhs``)
+and transposed-activation (``drhs``) contraction forms, flash-shaped
+attention segments, backward plans, segment-boundary donation, the
+persistent plan cache and the static plan verifier.
+"""
+from __future__ import annotations
+
+import dataclasses
+import operator
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.fx as fx
+import torch.utils._pytree as pytree
+
+from repro_torch.core.isa import Loc
+from repro_torch.core.locator import GraphAnnotation, annotate_graph, node_val
+from repro_torch.core.policy import (
+    DecisionReport,
+    OffloadPolicy,
+    SegmentDecision,
+    active_policy_override,
+    resolve_policy,
+)
+from repro_torch.core.prims import (
+    DECOMPOSITIONS,
+    LAYOUT_PRIMS,
+    eqn_tier,
+    node_name,
+)
+from repro_torch.kernels.blockprog import (
+    DTYPES,
+    BlockProgram,
+    Input,
+    Op,
+    _lit,
+    dtype_name,
+    ew_opcode,
+)
+
+#: row-block extents the port's kernels ask the shared helpers for: a
+#: program of ``fused_segment_grid`` holds 16 rows (the TPU kernel held
+#: 512: a Hopper program keeps its tile in registers and many programs
+#: fill the card); a block of ``fused_matmul_segment`` up to 512 rows, as
+#: on the TPU, walked in sub-tiles of at most 64
+GRID_ROWS_BLOCK = 16
+MATMUL_ROWS_BLOCK = 512
+
+# views that move no bytes in PyTorch: free on the far path, and the
+# naive accounting does not charge them either
+_VIEW_PRIMS = frozenset({"view", "_unsafe_view", "reshape", "squeeze",
+                         "unsqueeze", "expand", "select", "slice", "alias",
+                         "t", "transpose", "permute"})
+
+
+# ---------------------------------------------------------------------------
+# 2-D block views
+# ---------------------------------------------------------------------------
+
+def _bulk_view(shape: Sequence[int]) -> tuple[int, int]:
+    """[*, C] -> (prod(leading), C); rank-1 [N] is a column (N, 1)."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        r = 1
+        for d in shape[:-1]:
+            r *= d
+        return r, shape[-1]
+    if len(shape) == 1:
+        return shape[0], 1
+    return 1, 1
+
+
+def _lane(shape: Sequence[int]) -> int:
+    return shape[-1] if len(shape) else 1
+
+
+def _is_param_shape(shape: Sequence[int]) -> bool:
+    return all(d == 1 for d in tuple(shape)[:-1])
+
+
+def _prod(xs) -> int:
+    r = 1
+    for d in xs:
+        r *= d
+    return r
+
+
+def _shape(v) -> tuple[int, ...]:
+    val = node_val(v)
+    return tuple(int(d) for d in val.shape) if isinstance(
+        val, torch.Tensor) else ()
+
+
+def _dtype(v) -> torch.dtype | None:
+    val = node_val(v)
+    return val.dtype if isinstance(val, torch.Tensor) else None
+
+
+def _nbytes(v) -> int:
+    val = node_val(v)
+    if not isinstance(val, torch.Tensor):
+        return 0
+    return val.numel() * val.element_size()
+
+
+def _size(v) -> int:
+    val = node_val(v)
+    return val.numel() if isinstance(val, torch.Tensor) else 1
+
+
+def _pad(shape: tuple, n: int) -> tuple:
+    return (1,) * (n - len(shape)) + tuple(shape)
+
+
+@dataclass(frozen=True)
+class OperandSpec:
+    """How one segment input is blocked by the fused kernel (roles as in
+    the reference: ``bulk`` / ``param`` / ``rep`` / ``tile`` / ``bcast``
+    for grid and epilogue operands, ``bulk_k`` / ``param_k`` for the lhs
+    prologue, ``bulk_w`` / ``param_w`` for the weight prologue)."""
+
+    var: Any
+    role: str
+    rows: int
+    cols: int
+    lead: tuple = ()
+    out_lead: tuple = ()
+
+    @property
+    def meta(self) -> tuple:
+        if self.role == "bcast":
+            return (self.role, self.rows, self.cols, self.lead,
+                    self.out_lead)
+        return (self.role, self.rows, self.cols)
+
+
+@dataclass(frozen=True)
+class MatmulAnchor:
+    """The ``mm`` a matmul-anchored segment is built around: the product
+    runs inside the fused kernel, ``pro_eqns`` produce its lhs (applied
+    per lhs element as it is loaded), ``rhs_pro_eqns`` its weight
+    (applied per weight element; the cast weight is never stored), and
+    the segment's ``eqn_idx`` hold the epilogue on the f32 accumulator.
+    Only the forward, unbatched form (x[M, K] @ w[K, N]) is in this
+    slice."""
+
+    eqn_idx: int
+    lhs_var: Any
+    lhs_specs: list[OperandSpec]
+    rhs: Any
+    pro_eqns: list[int]
+    k: int
+    n: int
+    out_var: Any
+    out_dtype: Any
+    form: str = "fwd"
+    rhs_specs: list[OperandSpec] = field(default_factory=list)
+    rhs_pro_eqns: list[int] = field(default_factory=list)
+
+
+@dataclass
+class Segment:
+    """A maximal near-bank subgraph with per-operand block views."""
+
+    eqn_idx: list[int]
+    rows: int
+    operand_specs: list[OperandSpec]
+    outputs: list[Any]
+    out_cols: list[int]
+    pre_eqns: list[int]           # hoisted eqns run before the kernel
+    post_eqns: list[int]          # escaping views run after the kernel
+    span_start: int
+    span_end: int
+    # the policy's accumulator budget and the machine's SM count: the
+    # anchored kernel's row block and K split, as priced and as launched
+    smem_budget: int
+    sms: int
+    matmul: MatmulAnchor | None = None
+    # (kind, cols) of every value the kernel computes: "bulk" rows or a
+    # "param" row, cols == 1 for a row statistic
+    views: dict = field(default_factory=dict)
+
+    @property
+    def all_eqn_idx(self) -> list[int]:
+        if self.matmul is None:
+            return sorted({*self.eqn_idx, *self.post_eqns})
+        return sorted({*self.matmul.pro_eqns, *self.matmul.rhs_pro_eqns,
+                       self.matmul.eqn_idx, *self.eqn_idx, *self.post_eqns})
+
+    def io_bytes(self) -> int:
+        """Fused HBM bytes this segment moves: one read per operand, the
+        weight once per row block (``weight_streams``), the f32 row
+        workspace written and read once per K split, one write per
+        output.  Planner and kernel share the helpers."""
+        from repro_torch.kernels.fused_matmul import (
+            weight_streams,
+            workspace_bytes,
+        )
+
+        total = sum(_nbytes(sp.var) for sp in self.operand_specs)
+        total += sum(_nbytes(v) for v in self.outputs)
+        mm = self.matmul
+        if mm is not None:
+            total += sum(_nbytes(sp.var) for sp in mm.lhs_specs)
+            total += sum(_nbytes(sp.var) for sp in mm.rhs_specs
+                         if sp.role == "param_w")
+            total += sum(_nbytes(sp.var) for sp in mm.rhs_specs
+                         if sp.role != "param_w") * weight_streams(
+                self.rows, [sp.meta for sp in self.operand_specs], mm.n,
+                rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=self.smem_budget)
+            total += 2 * workspace_bytes(
+                self.rows, [sp.meta for sp in self.operand_specs], mm.k,
+                mm.n, rows_block=MATMUL_ROWS_BLOCK,
+                vmem_bytes=self.smem_budget, sms=self.sms)
+        return total
+
+
+@dataclass
+class OffloadPlan:
+    annotation: GraphAnnotation
+    segments: list[Segment]
+    naive_hbm_bytes: int
+    fused_hbm_bytes: int
+    decisions: list[SegmentDecision] = field(default_factory=list)
+    policy: OffloadPolicy | None = None
+    # symbols of the plan's anchored segments: one CUDA translation unit
+    library: list[str] = field(default_factory=list)
+
+    def report(self) -> DecisionReport:
+        return DecisionReport(policy=self.policy or OffloadPolicy(),
+                              decisions=list(self.decisions),
+                              naive_bytes=self.naive_hbm_bytes,
+                              fused_bytes=self.fused_hbm_bytes)
+
+    @property
+    def traffic_reduction(self) -> float:
+        return self.naive_hbm_bytes / max(self.fused_hbm_bytes, 1)
+
+    @property
+    def eqns(self) -> list:
+        """The graph's call nodes, which segment indices point into."""
+        return [n for n in self.annotation.graph.nodes
+                if n.op == "call_function"]
+
+
+@dataclass
+class OffloadStats:
+    """Plan-cache counters of one wrapper: ``traces`` counts graph
+    captures (one per plan miss)."""
+
+    plan_hits: int = 0
+    plan_misses: int = 0
+    traces: int = 0
+    evictions: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.plan_hits + self.plan_misses
+        return self.plan_hits / total if total else 0.0
+
+    def as_dict(self) -> dict[str, float]:
+        return {**dataclasses.asdict(self), "hit_rate": self.hit_rate}
+
+
+def _eqn_io_bytes(node) -> int:
+    """One node's naive round trip: every operand read, every output
+    written (views move nothing)."""
+    if node_name(node) in _VIEW_PRIMS:
+        return 0
+    return sum(_nbytes(v) for v in {*node.all_input_nodes, node})
+
+
+def _far_decision_bytes(eqns: Sequence, idxs: Sequence[int]) -> int:
+    """The far side of the cost decision: what these ops stream unfused.
+    Views are free (a value read through a view streams its source),
+    and an operand read twice by one op streams once."""
+    folded: dict[Any, int] = {}
+
+    def read_bytes(v) -> int:
+        return folded.get(v, _nbytes(v))
+
+    total = 0
+    for j in idxs:
+        node = eqns[j]
+        if node_name(node) in _VIEW_PRIMS:
+            folded[node] = sum(read_bytes(v) for v in node.all_input_nodes)
+            continue
+        for v in {*node.all_input_nodes, node}:
+            total += read_bytes(v)
+    return total
+
+
+def _classify_operand(shape: tuple, out_shape: tuple, rows: int
+                      ) -> tuple | None:
+    """Block view of an operand (padded to the output's rank) against
+    its op's output; the reference's rules."""
+    if shape == out_shape:
+        r, c = _bulk_view(shape)
+        return ("bulk", r, c)
+    n = len(out_shape)
+    if len(shape) == n and n >= 1:
+        if any(d not in (1, od) for d, od in zip(shape, out_shape)):
+            return None
+        lead = shape[:-1]
+        if all(d == 1 for d in lead):
+            return ("param", 1, shape[-1])
+        r_op = _prod(lead)
+        cols = shape[-1]
+        if r_op == rows:
+            return ("bulk", rows, cols)
+        k = len(lead)
+        while k > 0 and lead[k - 1] == 1:
+            k -= 1
+        if lead[:k] == out_shape[:k]:
+            return ("rep", r_op, cols)
+        j = 0
+        while j < len(lead) and lead[j] == 1:
+            j += 1
+        if lead[j:] == out_shape[j:n - 1]:
+            return ("tile", r_op, cols)
+        return ("bcast", r_op, cols, tuple(lead), tuple(out_shape[:-1]))
+    if _is_param_shape(shape):
+        return ("param", 1, _lane(shape))
+    return None
+
+
+def _same_view_src(node) -> Any | None:
+    """For a layout node that keeps its operand's 2-D view (a view, a
+    size-1 select, a full-range slice, a no-op expand), that operand."""
+    name = node_name(node)
+    if name not in LAYOUT_PRIMS:
+        return None
+    src = node.args[0] if node.args else None
+    if not isinstance(src, fx.Node):
+        return None
+    ishape, oshape = _shape(src), _shape(node)
+    if name == "select":
+        dim = node.args[1] % max(len(ishape), 1)
+        if ishape[dim] != 1:
+            return None
+    elif name == "slice":
+        dim = node.args[1] % len(ishape) if len(node.args) > 1 else 0
+        start = node.args[2] if len(node.args) > 2 else 0
+        end = node.args[3] if len(node.args) > 3 else None
+        step = node.args[4] if len(node.args) > 4 else 1
+        if not ((start in (0, None)) and (end is None or end >= ishape[dim])
+                and step == 1):
+            return None
+    elif name == "expand":
+        if ishape != oshape:
+            return None
+    elif name == "cat":
+        return None
+    if _bulk_view(ishape) != _bulk_view(oshape):
+        return None
+    return src
+
+
+def _supported_dtype(v) -> bool:
+    dt = _dtype(v)
+    return dt is None or dtype_name(dt) in DTYPES
+
+
+# ---------------------------------------------------------------------------
+# Planning
+# ---------------------------------------------------------------------------
+
+def plan_offload(gm: fx.GraphModule, *,
+                 policy: OffloadPolicy | None = None) -> OffloadPlan:
+    """Algorithm-1 annotation + maximal cross-shape segment extraction
+    over a captured graph, gated by the policy's decision backend."""
+    policy = resolve_policy(policy)
+    bulk_threshold = policy.bulk_threshold
+    ann = annotate_graph(gm.graph)
+    eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
+
+    consumers: dict[Any, list[int]] = {}
+    for i, n in enumerate(eqns):
+        for v in n.all_input_nodes:
+            consumers.setdefault(v, []).append(i)
+    out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    outvar_set = set(out_node.all_input_nodes)
+
+    segments: list[Segment] = []
+    decisions: list[SegmentDecision] = []
+    current: list[int] = []
+    cur_rows: int | None = None
+    n_compute = 0
+    specs: dict[Any, tuple] = {}
+    produced: dict[Any, tuple[str, int]] = {}
+    reduced_vars: set[Any] = set()
+    mm: dict[str, Any] | None = None
+    hoisted: list[int] = []
+    declined_anchors: set[int] = set()
+    # small values made from constants alone (rope frequencies from an
+    # arange, a scalar tensor): the trace-time constants of a jaxpr
+    const_nodes = {n for n in gm.graph.nodes if n.op == "get_attr"}
+    for node in eqns:
+        tgt = node.target
+        if isinstance(node_val(node), torch.Tensor) and \
+                _size(node) < bulk_threshold and \
+                not (isinstance(tgt, torch._ops.OpOverload)
+                     and tgt._schema.is_mutable) and \
+                all(v in const_nodes for v in node.all_input_nodes):
+            const_nodes.add(node)
+
+    def reset():
+        nonlocal current, cur_rows, n_compute, specs, produced, \
+            reduced_vars, mm, hoisted
+        current, cur_rows, n_compute = [], None, 0
+        specs, produced, reduced_vars, mm, hoisted = {}, {}, set(), None, []
+
+    def _merge_spec(new_specs, v, cls) -> bool:
+        old = specs.get(v) or new_specs.get(v)
+        if old is not None and old != cls:
+            return False
+        new_specs[v] = cls
+        return True
+
+    def _produced_fits(v, oshape, c_out) -> bool:
+        """A value the segment made, read by an op with output
+        ``oshape``: it must line up row for row (or be a param) and
+        have the output's lanes or one lane."""
+        kind, cols = produced[v]
+        if cols not in (1, c_out):
+            return False
+        vshape = _pad(_shape(v), len(oshape))
+        if v in reduced_vars:
+            # a row statistic broadcasts over the lanes only in its
+            # keepdim form ([B, S, 1] against [B, S, D]); a rank-reduced
+            # [B, S] would broadcast against the trailing dims instead
+            return vshape[:-1] == oshape[:-1] and vshape[-1] == 1
+        if kind == "param":
+            return _is_param_shape(vshape)
+        return vshape[:-1] == oshape[:-1] or \
+            _prod(vshape[:-1]) == _prod(oshape[:-1]) == cur_rows and \
+            len(vshape) == len(oshape)
+
+    def try_admit_elementwise(i, node) -> bool:
+        nonlocal cur_rows, n_compute
+        if ew_opcode(node.target, node.args, node.kwargs) is None:
+            return False
+        if not isinstance(node_val(node), torch.Tensor):
+            return False
+        nonlit = node.all_input_nodes
+        if not all(_supported_dtype(v) for v in (*nonlit, node)):
+            return False
+        continuation = any(v in produced for v in nonlit)
+        if ann.eqn_loc[node] not in (Loc.N, Loc.B) and not continuation:
+            return False
+        if _size(node) < bulk_threshold and not continuation:
+            return False
+        oshape = _shape(node)
+
+        if any(v in reduced_vars for v in nonlit) and cur_rows is not None \
+                and _prod(oshape) == cur_rows:
+            # reduced space: every value is one element per row
+            rows = cur_rows
+            new_specs: dict[Any, tuple] = {}
+            for v in nonlit:
+                if v in produced:
+                    if produced[v][1] != 1:
+                        return False
+                    continue
+                sz = _size(v)
+                if sz == rows:
+                    cls = ("bulk", rows, 1)
+                elif sz == 1:
+                    cls = ("param", 1, 1)
+                else:
+                    return False
+                if not _merge_spec(new_specs, v, cls):
+                    return False
+            specs.update(new_specs)
+            produced[node] = ("bulk", 1)
+            reduced_vars.add(node)
+            current.append(i)
+            n_compute += 1
+            return True
+
+        r_out, c_out = _bulk_view(oshape)
+        rows = r_out if cur_rows is None else cur_rows
+        if r_out != rows:
+            return False
+        new_specs = {}
+        for v in nonlit:
+            if v in produced:
+                if not _produced_fits(v, oshape, c_out):
+                    return False
+                continue
+            cls = _classify_operand(_pad(_shape(v), len(oshape)), oshape,
+                                    rows)
+            if cls is None or not _merge_spec(new_specs, v, cls):
+                return False
+        specs.update(new_specs)
+        produced[node] = ("bulk", c_out)
+        cur_rows = rows
+        current.append(i)
+        n_compute += 1
+        return True
+
+    def try_admit_reduce(i, node) -> bool:
+        """Lane-axis sum / amax: the row statistic completes inside one
+        [rows, lanes] block and fuses as a (rows, 1) column."""
+        nonlocal cur_rows, n_compute
+        v = node.args[0] if node.args else None
+        if not isinstance(v, fx.Node) or v in reduced_vars:
+            return False
+        vshape = _shape(v)
+        if not vshape:
+            return False
+        dims = node.args[1] if len(node.args) > 1 else None
+        if not isinstance(dims, (list, tuple)) or \
+                [d % len(vshape) for d in dims] != [len(vshape) - 1]:
+            return False
+        dt = _dtype(node)
+        if dt is None or not dt.is_floating_point or \
+                not _supported_dtype(v) or not _supported_dtype(node):
+            return False
+        if set(node.kwargs) - {"dtype"}:
+            return False
+        r_op = _prod(vshape[:-1])
+        cols = vshape[-1]
+        rows = r_op if cur_rows is None else cur_rows
+        if r_op != rows:
+            return False
+        new_specs: dict[Any, tuple] = {}
+        if v in produced:
+            if produced[v] != ("bulk", cols):
+                return False
+        else:
+            if len(vshape) < 2 or _size(v) < bulk_threshold:
+                return False
+            if not _merge_spec(new_specs, v, ("bulk", rows, cols)):
+                return False
+        specs.update(new_specs)
+        produced[node] = ("bulk", 1)
+        reduced_vars.add(node)
+        cur_rows = rows
+        current.append(i)
+        n_compute += 1
+        return True
+
+    def try_admit_layout(i, node) -> bool:
+        """Views that keep the 2-D view of a value the segment made, lane
+        slices, lane concats and broadcasts."""
+        nonlocal cur_rows
+        name = node_name(node)
+        if not isinstance(node_val(node), torch.Tensor):
+            return False
+        dt = _dtype(node)
+        if not dt.is_floating_point or not _supported_dtype(node):
+            return False
+        oshape = _shape(node)
+        r_out, c_out = _bulk_view(oshape)
+        src = _same_view_src(node)
+        if src is not None:
+            if src not in produced:
+                return False          # external views are hoisted instead
+            if src in reduced_vars:
+                if _prod(oshape) != cur_rows:
+                    return False
+                produced[node] = ("bulk", 1)
+                reduced_vars.add(node)
+                current.append(i)
+                return True
+            kind, cols = produced[src]
+            if kind == "param":
+                if not _is_param_shape(oshape) or _lane(oshape) != cols:
+                    return False
+                produced[node] = ("param", cols)
+            else:
+                if (r_out, c_out) != (cur_rows, cols):
+                    return False
+                produced[node] = ("bulk", cols)
+            current.append(i)
+            return True
+
+        continuation = any(v in produced for v in node.all_input_nodes)
+        if _size(node) < bulk_threshold and not continuation:
+            return False
+        rows = r_out if cur_rows is None else cur_rows
+        if r_out != rows or len(oshape) < 2:
+            return False
+        new_specs: dict[Any, tuple] = {}
+
+        def external_bulk(v, want_cols=None) -> bool:
+            r_in, c_in = _bulk_view(_shape(v))
+            if r_in != rows or (want_cols is not None and c_in != want_cols):
+                return False
+            return _merge_spec(new_specs, v, ("bulk", rows, c_in))
+
+        if name == "slice":
+            v = node.args[0]
+            ishape = _shape(v)
+            dim = node.args[1] % len(ishape)
+            step = node.args[4] if len(node.args) > 4 else 1
+            if dim != len(ishape) - 1 or len(ishape) != len(oshape) or \
+                    step < 1:
+                return False
+            if v in produced:
+                if produced[v][0] != "bulk" or v in reduced_vars:
+                    return False
+            elif not external_bulk(v):
+                return False
+        elif name == "cat":
+            tensors = node.args[0]
+            dim = node.args[1] if len(node.args) > 1 else 0
+            if dim % len(oshape) != len(oshape) - 1:
+                return False
+            for v in tensors:
+                if not isinstance(v, fx.Node) or \
+                        _shape(v)[:-1] != oshape[:-1]:
+                    return False
+                if v in produced:
+                    if produced[v][0] != "bulk" or v in reduced_vars:
+                        return False
+                elif not external_bulk(v):
+                    return False
+        elif name == "expand":
+            v = node.args[0]
+            ishape = _pad(_shape(v), len(oshape))
+            if v in produced:
+                if not _produced_fits(v, oshape, c_out):
+                    return False
+            else:
+                cls = _classify_operand(ishape, oshape, rows)
+                if cls is None or not _merge_spec(new_specs, v, cls):
+                    return False
+        else:
+            return False
+        specs.update(new_specs)
+        produced[node] = ("bulk", c_out)
+        cur_rows = rows
+        current.append(i)
+        return True
+
+    def _chain_convertible(anchor_i, var, m_rows, k_dim, roles):
+        """Whether the open run can be absorbed as a prologue producing
+        ``var`` (the dot's lhs or weight): elementwise ops and 2-D-view
+        keeping views only, every value [m_rows, k_dim] (or a param for
+        the weight), none escaping.  Returns (pro_eqns, specs)."""
+        bulk_role, param_role = roles
+        if var not in produced or reduced_vars:
+            return None
+        cur_set = set(current)
+        for j in current:
+            e = eqns[j]
+            if ew_opcode(e.target, e.args, e.kwargs) is None and \
+                    _same_view_src(e) is None:
+                return None
+            oshape = _shape(e)
+            param_view = bulk_role == "bulk_w" and \
+                _is_param_shape(oshape) and _lane(oshape) in (1, k_dim[1])
+            want = (m_rows, k_dim) if bulk_role == "bulk_k" else k_dim
+            if not param_view and _bulk_view(oshape) != want:
+                return None
+            if param_view and e is var:
+                return None
+            if e in outvar_set:
+                return None
+            cons = consumers.get(e, [])
+            if any(c not in cur_set and c != anchor_i for c in cons):
+                return None              # chain value escapes: keep split
+            if e is not var and anchor_i in cons:
+                return None              # only the operand may feed the dot
+        seen: set[Any] = set()
+        out_specs: list[OperandSpec] = []
+        r, c = (m_rows, k_dim) if bulk_role == "bulk_k" else k_dim
+        for j in current:
+            for v in eqns[j].all_input_nodes:
+                if v in produced or v in seen:
+                    continue
+                seen.add(v)
+                cls = specs.get(v)
+                if cls is None:
+                    return None
+                if cls[0] == "bulk" and (cls[1], cls[2]) == (r, c):
+                    out_specs.append(OperandSpec(v, bulk_role, r, c))
+                elif cls[0] == "param" and cls[2] in (1, c):
+                    out_specs.append(OperandSpec(v, param_role, 1, cls[2]))
+                else:
+                    return None
+        return list(current), out_specs
+
+    def out_of_slice(node) -> str | None:
+        """Why an anchor candidate is declined in this slice, or None."""
+        name = node_name(node)
+        if name == "bmm":
+            return ("batched anchor (bmm): batched contractions are not "
+                    "in this slice of the port; runs unfused")
+        lhs, rhs = node.args[0], node.args[1]
+        if isinstance(rhs, fx.Node) and not node_val(rhs).is_contiguous():
+            return ("dlhs form: the weight is a transposed view, not a "
+                    "[K, N] row-major operand; not in this slice, runs "
+                    "unfused")
+        if isinstance(lhs, fx.Node) and not node_val(lhs).is_contiguous():
+            return ("drhs form: the activation is a transposed view; not "
+                    "in this slice, runs unfused")
+        return None
+
+    def try_admit_anchor(i, node) -> bool:
+        nonlocal mm, cur_rows, n_compute, current, specs, produced
+        if mm is not None:
+            return False                 # one anchor per segment
+        if node_name(node) != "mm" or i in declined_anchors:
+            return False
+        lhs_v, rhs_v = node.args[0], node.args[1]
+        if not isinstance(lhs_v, fx.Node) or not isinstance(rhs_v, fx.Node):
+            return False
+        dt = _dtype(node)
+        if dt is None or not dt.is_floating_point:
+            return False
+        if any(_dtype(v).itemsize > 4 or not _supported_dtype(v)
+               for v in (lhs_v, rhs_v, node)):
+            return False
+        if _size(node) < bulk_threshold:
+            return False
+        lshape, rshape, oshape = _shape(lhs_v), _shape(rhs_v), _shape(node)
+        m_rows, n_cols = oshape
+        k_dim = lshape[-1]
+        if rshape != (k_dim, n_cols):
+            return False
+        rhs_pro_eqns: list[int] = []
+        rhs_specs = [OperandSpec(rhs_v, "bulk_w", k_dim, n_cols)]
+        if rhs_v in produced:
+            if lhs_v in produced:
+                return False
+            conv = _chain_convertible(i, rhs_v, None, (k_dim, n_cols),
+                                      ("bulk_w", "param_w"))
+            if conv is None:
+                return False
+            rhs_pro_eqns, rhs_specs = conv
+            pro_eqns: list[int] = []
+            lhs_specs = [OperandSpec(lhs_v, "bulk_k", m_rows, k_dim)]
+            span0, n_pro = current[0], n_compute
+        elif current:
+            conv = _chain_convertible(i, lhs_v, m_rows, k_dim,
+                                      ("bulk_k", "param_k"))
+            if conv is None:
+                return False
+            pro_eqns, lhs_specs = conv
+            span0, n_pro = current[0], n_compute
+        else:
+            pro_eqns = []
+            lhs_specs = [OperandSpec(lhs_v, "bulk_k", m_rows, k_dim)]
+            span0, n_pro = i, 0
+        mm = dict(eqn_idx=i, lhs_var=lhs_v, lhs_specs=lhs_specs, rhs=rhs_v,
+                  rhs_specs=rhs_specs, rhs_pro_eqns=rhs_pro_eqns,
+                  pro_eqns=pro_eqns, k=k_dim, n=n_cols, out_var=node,
+                  out_dtype=dt, span_start=span0,
+                  pro_views=dict(produced))
+        current, specs = [], {}
+        produced = {node: ("bulk", n_cols)}
+        cur_rows, n_compute = m_rows, n_pro
+        return True
+
+    def try_admit(i, node) -> bool:
+        tier = eqn_tier(node_name(node) or "")
+        if tier == "near":
+            return try_admit_elementwise(i, node)
+        if tier == "layout":
+            return try_admit_layout(i, node)
+        if tier == "reduce":
+            return try_admit_reduce(i, node)
+        if tier == "anchor":
+            return try_admit_anchor(i, node)
+        return False
+
+    def hoistable(i, node) -> bool:
+        """A small op (or a view of an outside value) the open segment can
+        pass over: it reads nothing the segment made and runs unfused
+        just ahead of the kernel (``pre_eqns``)."""
+        if mm is None and not current:
+            return False
+        if not isinstance(node_val(node), torch.Tensor):
+            return False
+        if any(v in produced for v in node.all_input_nodes):
+            return False
+        if _same_view_src(node) is not None or node in const_nodes:
+            return True                  # moves no data / a constant
+        if _size(node) >= bulk_threshold:
+            return False
+        return eqn_tier(node_name(node) or "") in ("near", "layout")
+
+    def flush():
+        if mm is None and n_compute < 1:
+            reset()
+            return
+        seg_idx = list(current)
+        seg_set = set(seg_idx)
+        if mm is None:
+            span_start, span_end = seg_idx[0], seg_idx[-1]
+        else:
+            span_start = mm["span_start"]
+            span_end = max([mm["eqn_idx"], *seg_idx])
+        pre = sorted(i for i in hoisted if i < span_end)
+
+        member_set = set(seg_set)
+        if mm is not None:
+            member_set.add(mm["eqn_idx"])
+            member_set.update(mm["pro_eqns"])
+            member_set.update(mm["rhs_pro_eqns"])
+
+        def escapes(v) -> bool:
+            return v in outvar_set or any(
+                ci not in member_set for ci in consumers.get(v, []))
+
+        # a 2-D-view-keeping view whose value escapes runs after the
+        # kernel on the kernel's output instead of being stored twice
+        post: list[int] = []
+        for i in reversed(seg_idx):
+            node = eqns[i]
+            src = _same_view_src(node)
+            if src is not None and escapes(node) and src in produced and \
+                    all(ci not in member_set or ci in post
+                        for ci in consumers.get(node, [])):
+                post.append(i)
+                member_set.discard(i)
+        post.sort()
+        seg_idx = [i for i in seg_idx if i not in post]
+
+        def escapes_kernel(v) -> bool:
+            return v in outvar_set or any(
+                ci not in member_set for ci in consumers.get(v, []))
+
+        produced_f: dict[Any, tuple[str, int]] = {}
+        out_candidates: list[Any] = []
+        if mm is not None:
+            produced_f[mm["out_var"]] = ("bulk", mm["n"])
+            out_candidates.append(mm["out_var"])
+        for i in seg_idx:
+            out = eqns[i]
+            produced_f[out] = produced[out]
+            out_candidates.append(out)
+
+        operand_specs: list[OperandSpec] = []
+        seen: set[Any] = set()
+        for i in seg_idx:
+            for v in eqns[i].all_input_nodes:
+                if v in produced_f or v in seen:
+                    continue
+                seen.add(v)
+                cls = specs.get(v)
+                if cls is None:             # output of a hoisted eqn
+                    vshape = _shape(v)
+                    if not _is_param_shape(vshape) and _size(v) != 1:
+                        reset()             # cannot block it: not a segment
+                        return
+                    cls = ("param", 1, _lane(vshape))
+                operand_specs.append(OperandSpec(v, *cls))
+
+        outputs, out_cols = [], []
+        for v in out_candidates:
+            if escapes_kernel(v):
+                kind, cols = produced_f[v]
+                if kind != "bulk":
+                    reset()                 # a param value escapes
+                    return
+                outputs.append(v)
+                out_cols.append(cols)
+        if not outputs:
+            reset()
+            return
+
+        anchor_spec = None
+        if mm is not None:
+            anchor_spec = MatmulAnchor(
+                eqn_idx=mm["eqn_idx"], lhs_var=mm["lhs_var"],
+                lhs_specs=mm["lhs_specs"], rhs=mm["rhs"],
+                pro_eqns=mm["pro_eqns"], k=mm["k"], n=mm["n"],
+                out_var=mm["out_var"], out_dtype=mm["out_dtype"],
+                rhs_specs=mm["rhs_specs"], rhs_pro_eqns=mm["rhs_pro_eqns"])
+        seg = Segment(
+            eqn_idx=seg_idx, rows=cur_rows,
+            operand_specs=operand_specs, outputs=outputs, out_cols=out_cols,
+            pre_eqns=pre, post_eqns=post,
+            span_start=span_start, span_end=span_end, matmul=anchor_spec,
+            smem_budget=policy.budget, sms=policy.machine.sms,
+            views={**(mm["pro_views"] if mm is not None else {}),
+                   **produced})
+
+        far_b = _far_decision_bytes(eqns, seg.all_eqn_idx)
+        roles = [f"{sp.role}[{sp.rows}x{sp.cols}]"
+                 for sp in seg.operand_specs]
+        if anchor_spec is not None:
+            roles = [f"{sp.role}[{sp.rows}x{sp.cols}]"
+                     for sp in (*anchor_spec.lhs_specs,
+                                *anchor_spec.rhs_specs)] + roles
+        decision = policy.decide(
+            tier="anchor" if anchor_spec is not None else "elementwise",
+            n_compute=n_compute, near_bytes=seg.io_bytes(), far_bytes=far_b)
+        if anchor_spec is not None and decision.fused:
+            why = _anchor_epilogue_misfit(seg, eqns, policy.budget)
+            if why is not None:
+                decision = decision._with(fused=False, reason=why)
+        decision = decision._with(
+            form=anchor_spec.form if anchor_spec is not None else None,
+            rows=cur_rows, roles=tuple(roles))
+        decisions.append(decision)
+        if decision.fused:
+            segments.append(seg)
+        reset()
+
+    for i, node in enumerate(eqns):
+        if eqn_tier(node_name(node) or "") == "anchor" and \
+                i not in declined_anchors:
+            why = out_of_slice(node)
+            if why is not None:
+                declined_anchors.add(i)
+                decisions.append(SegmentDecision(
+                    tier="anchor", form=("bmm" if node_name(node) == "bmm"
+                                         else why.split()[0]),
+                    eqns=0, rows=_bulk_view(_shape(node))[0], roles=(),
+                    near_bytes=0, far_bytes=_eqn_io_bytes(node),
+                    near_us=0.0, far_us=0.0, fused=False, reason=why))
+        if try_admit(i, node):
+            continue
+        if hoistable(i, node):
+            hoisted.append(i)
+            continue
+        flush()
+        if not try_admit(i, node):
+            reset()
+    flush()
+
+    seg_eqns = {i for s in segments for i in s.all_eqn_idx}
+    naive = fused = 0
+    for i, node in enumerate(eqns):
+        io_bytes = _eqn_io_bytes(node)
+        naive += io_bytes
+        if i not in seg_eqns:
+            fused += io_bytes
+    for s in segments:
+        fused += s.io_bytes()
+    return OffloadPlan(ann, segments, naive, fused, decisions=decisions,
+                       policy=policy)
+
+
+def _anchor_epilogue_misfit(seg: Segment, eqns, budget: int) -> str | None:
+    """Why an anchored segment's epilogue cannot run on the card, or
+    None: a lane reduction needs the accumulator's whole row in one
+    block's shared memory (``fused_matmul.row_fits``)."""
+    from repro_torch.kernels.fused_matmul import row_fits, row_smem_bytes
+
+    has_reduce = any(eqn_tier(node_name(eqns[i]) or "") == "reduce"
+                     for i in seg.eqn_idx)
+    if has_reduce and not row_fits(seg.matmul.n, budget):
+        return (f"lane-reduce epilogue over N={seg.matmul.n}: its f32 row "
+                f"and reduction scratch ({row_smem_bytes(seg.matmul.n)} B) "
+                f"exceed the {budget} B shared-memory budget")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Segment -> block programs
+# ---------------------------------------------------------------------------
+
+def _program(eqns: Sequence, eqn_idx: Sequence[int], in_vars: Sequence,
+             inputs: Sequence[Input], out_vars: Sequence, *,
+             views: dict) -> BlockProgram:
+    """Lower a run of graph nodes onto a block program."""
+    env: dict[Any, int] = {}
+    ops: list[Op] = []
+    for k, (v, inp) in enumerate(zip(in_vars, inputs)):
+        env[v] = len(ops)
+        ops.append(Op("in", inp.dtype, inp.cols,
+                      param=inp.role in ("param", "param_k", "param_w"),
+                      arg=k))
+
+    def ref(a):
+        if isinstance(a, fx.Node):
+            return ("v", env[a])
+        return ("c", _lit(a))
+
+    for i in eqn_idx:
+        node = eqns[i]
+        name = node_name(node)
+        dt = dtype_name(_dtype(node))
+        kind, cols = views[node]
+        param = kind == "param"
+        src = _same_view_src(node)
+        if src is not None:
+            op = Op("same", dt, ops[env[src]].cols, param=ops[env[src]].param,
+                    args=(ref(src),))
+        elif name in ("sum", "amax"):
+            op = Op("reduce", dt, 1, code="sum" if name == "sum" else "max",
+                    args=(ref(node.args[0]),),
+                    kwargs=tuple(sorted((k, _lit(x))
+                                        for k, x in node.kwargs.items())))
+        elif name == "slice":
+            x = node.args[0]
+            start = node.args[2] if len(node.args) > 2 else 0
+            end = node.args[3] if len(node.args) > 3 else None
+            step = node.args[4] if len(node.args) > 4 else 1
+            width = _lane(_shape(x))
+            start, end, step = slice(start, end, step).indices(width)
+            op = Op("slice", dt, cols, args=(ref(x),),
+                    params=(start, end, step))
+        elif name == "cat":
+            op = Op("cat", dt, cols, args=tuple(ref(v) for v in node.args[0]))
+        elif name == "expand":
+            op = Op("expand", dt, cols, param=param,
+                    args=(ref(node.args[0]),))
+        else:
+            code = ew_opcode(node.target, node.args, node.kwargs)
+            op = Op("ew", dt, cols, param=param, code=code,
+                    name=node.target.name().partition("::")[2],
+                    args=tuple(ref(a) for a in node.args),
+                    kwargs=tuple(sorted((k, _lit(x))
+                                        for k, x in node.kwargs.items())))
+        env[node] = len(ops)
+        ops.append(op)
+    return BlockProgram(tuple(inputs), tuple(ops),
+                        tuple(env[v] for v in out_vars))
+
+
+def program_from_fn(fn: Callable, bulk: Sequence[torch.Tensor],
+                    params: Sequence[torch.Tensor], n_outputs: int
+                    ) -> tuple[BlockProgram, list[tuple], int, int]:
+    """Lower ``fn(*bulk_blocks, *param_blocks)`` (elementwise ops and
+    lane reductions) onto a block program with ``bulk`` [rows, C] and
+    ``param`` [1, C] (or [1, 1]) operands — what the single-shape
+    ``kernels.ops.fused_elementwise`` / ``fused_segment`` run.  Returns
+    the program, the operand specs, rows and C."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    shape = tuple(bulk[0].shape)
+    c = shape[-1] if len(shape) > 1 else 1
+    rows = bulk[0].numel() // c
+    b2 = [torch.as_tensor(a).reshape(rows, c) for a in bulk]
+    p2 = [torch.as_tensor(p).reshape(1, -1) for p in params]
+    gm = make_fx(lambda *xs: fn(*xs), tracing_mode="fake",
+                 decomposition_table=DECOMPOSITIONS)(*b2, *p2)
+    specs = [("bulk", rows, c)] * len(b2) + \
+        [("param", 1, p.shape[1]) for p in p2]
+    inputs = [Input(s[0], s[1], s[2], dtype_name(t.dtype))
+              for s, t in zip(specs, [*b2, *p2])]
+    eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
+    views = {}
+    for node in eqns:
+        if node_name(node) not in ("sum", "amax", "expand") and \
+                _same_view_src(node) is None and \
+                ew_opcode(node.target, node.args, node.kwargs) is None:
+            raise ValueError(f"{node.target} cannot run in a fused "
+                             "elementwise segment")
+        val = node.meta["val"]
+        param = val.ndim < 2 or val.shape[0] == 1 and rows != 1
+        views[node] = ("param" if param else "bulk",
+                       val.shape[-1] if val.ndim else 1)
+    res = next(n for n in gm.graph.nodes if n.op == "output").args[0]
+    res = list(res) if isinstance(res, (list, tuple)) else [res]
+    prog = _program(eqns, range(len(eqns)),
+                    [n for n in gm.graph.nodes if n.op == "placeholder"],
+                    inputs, res[:n_outputs], views=views)
+    return prog, specs, rows, c
+
+
+def _inputs_of(spec_list: Sequence[OperandSpec]) -> list[Input]:
+    return [Input(sp.role, sp.rows, sp.cols, dtype_name(_dtype(sp.var))
+                  if _dtype(sp.var) is not None else "float32",
+                  sp.lead, sp.out_lead) for sp in spec_list]
+
+
+@dataclass(frozen=True)
+class SegmentPrograms:
+    """The block programs of one planned segment: ``body`` (the grid
+    body or the epilogue), and for anchored segments ``lhs`` / ``rhs``
+    (the prologues, None when the operand is read as it is)."""
+
+    body: BlockProgram
+    lhs: BlockProgram | None = None
+    rhs: BlockProgram | None = None
+
+
+def segment_programs(eqns: Sequence, seg: Segment) -> SegmentPrograms:
+    mm = seg.matmul
+    in_vars = [sp.var for sp in seg.operand_specs]
+    inputs = _inputs_of(seg.operand_specs)
+    if mm is None:
+        return SegmentPrograms(_program(eqns, seg.eqn_idx, in_vars, inputs,
+                                        seg.outputs, views=seg.views))
+    acc = Input("acc", seg.rows, mm.n, dtype_name(mm.out_dtype))
+    body = _program(eqns, seg.eqn_idx, [mm.out_var, *in_vars],
+                    [acc, *inputs], seg.outputs, views=seg.views)
+    lhs = rhs = None
+    if mm.pro_eqns:
+        lhs = _program(eqns, mm.pro_eqns, [sp.var for sp in mm.lhs_specs],
+                       _inputs_of(mm.lhs_specs), [mm.lhs_var],
+                       views=seg.views)
+    if mm.rhs_pro_eqns:
+        rhs = _program(eqns, mm.rhs_pro_eqns,
+                       [sp.var for sp in mm.rhs_specs],
+                       _inputs_of(mm.rhs_specs), [mm.rhs], views=seg.views)
+    return SegmentPrograms(body, lhs, rhs)
+
+
+def _segment_arg_vars(seg: Segment) -> list[Any]:
+    """The segment's inputs in the dispatch's positional order: matmul
+    lhs side, matmul rhs side, then the body operands."""
+    arg_vars: list[Any] = []
+    if seg.matmul is not None:
+        arg_vars += [s.var for s in seg.matmul.lhs_specs]
+        arg_vars += [s.var for s in seg.matmul.rhs_specs]
+    arg_vars += [s.var for s in seg.operand_specs]
+    return arg_vars
+
+
+def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
+                    ) -> Callable:
+    """The fused call of one planned segment, its static arguments bound
+    once: the grid kernel for an elementwise segment, the anchored GEMM
+    for a fwd anchor.  ``call(*vals)`` takes the operands in
+    ``_segment_arg_vars`` order and returns the outputs in their graph
+    shapes."""
+    from repro_torch.kernels import ops as kops
+
+    out_dtypes = [_dtype(v) for v in seg.outputs]
+    shapes = [_shape(v) for v in seg.outputs]
+    epi_meta = tuple(s.meta for s in seg.operand_specs)
+    mm = seg.matmul
+    if mm is None:
+        def run(vals):
+            return kops.fused_segment_grid(
+                progs.body, vals, epi_meta, rows=seg.rows,
+                out_cols=seg.out_cols, out_dtypes=out_dtypes,
+                rows_block=GRID_ROWS_BLOCK, impl=impl)
+    else:
+        n_lhs, n_rhs = len(mm.lhs_specs), len(mm.rhs_specs)
+        lhs_meta = tuple(s.meta for s in mm.lhs_specs)
+        rhs_meta = tuple(s.meta for s in mm.rhs_specs)
+
+        def run(vals):
+            return kops.fused_matmul_segment(
+                progs.lhs, progs.rhs, progs.body, vals[:n_lhs], lhs_meta,
+                vals[n_lhs:n_lhs + n_rhs], rhs_meta, vals[n_lhs + n_rhs:],
+                epi_meta, rows=seg.rows, k_dim=mm.k, n_dim=mm.n,
+                acc_dtype=mm.out_dtype, out_cols=seg.out_cols,
+                out_dtypes=out_dtypes, rows_block=MATMUL_ROWS_BLOCK,
+                vmem_bytes=seg.smem_budget, sms=seg.sms, impl=impl)
+
+    def call(*vals):
+        return tuple(o.view(shp) for o, shp in zip(run(list(vals)), shapes))
+    return call
+
+
+# ---------------------------------------------------------------------------
+# Capture and the runner
+# ---------------------------------------------------------------------------
+
+def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
+                                                   list[bool]]:
+    """Capture ``fn(*args)`` as an aten graph in fake tensor mode.
+
+    Tensor leaves of ``args`` become the graph's placeholders in pytree
+    order; every other leaf is a static value baked into the graph (and
+    part of the plan-cache key).  Returns the graph module, the output
+    tree spec and which leaves are tensors."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    leaves, in_spec = pytree.tree_flatten(list(args))
+    is_tensor = [isinstance(x, torch.Tensor) for x in leaves]
+    statics = [None if t else x for x, t in zip(leaves, is_tensor)]
+    out_spec_box: list = []
+
+    def flat_fn(*tensors):
+        it = iter(tensors)
+        full = [next(it) if t else s for t, s in zip(is_tensor, statics)]
+        out = fn(*pytree.tree_unflatten(full, in_spec))
+        flat, spec = pytree.tree_flatten(out)
+        out_spec_box.append(spec)
+        return flat
+
+    tensors = [x for x, t in zip(leaves, is_tensor) if t]
+    gm = make_fx(flat_fn, tracing_mode="fake",
+                 decomposition_table=DECOMPOSITIONS)(*tensors)
+    return gm, out_spec_box[-1], is_tensor
+
+
+def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str
+                  ) -> fx.GraphModule:
+    """Bake the plan into a new graph: every node the plan leaves far is
+    copied in graph order, and each fused segment becomes ONE call of its
+    kernel (after its hoisted ``pre_eqns``, before its escaping views).
+    fx generates straight-line Python for the graph, so running a plan
+    costs what eager dispatch of the same calls costs."""
+    eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
+    seg_by_start = {s.span_start: s for s in plan.segments}
+    plan.library = _register_library(eqns, plan)
+    graph = fx.Graph()
+    env: dict[Any, Any] = {}
+
+    def copy(node):
+        env[node] = graph.node_copy(node, lambda x: env[x])
+
+    for node in gm.graph.nodes:
+        if node.op in ("placeholder", "get_attr"):
+            copy(node)
+    i = 0
+    while i < len(eqns):
+        seg = seg_by_start.get(i)
+        if seg is None:
+            copy(eqns[i])
+            i += 1
+            continue
+        for j in seg.pre_eqns:
+            copy(eqns[j])
+        call = graph.call_function(
+            _segment_kernel(seg, segment_programs(eqns, seg), impl=impl),
+            tuple(env[v] for v in _segment_arg_vars(seg)))
+        for k, var in enumerate(seg.outputs):
+            env[var] = graph.call_function(operator.getitem, (call, k))
+        for j in seg.post_eqns:
+            copy(eqns[j])
+        i = seg.span_end + 1
+    out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    graph.output(fx.map_arg(out_node.args[0], lambda x: env[x]))
+    return fx.GraphModule(gm, graph)
+
+
+def segment_call(eqns: Sequence, seg: Segment) -> dict:
+    """Everything one fused call of ``seg`` needs besides the operand
+    values: its programs, the operands' 2-D views and dtypes, the
+    outputs, and (anchored) the contraction extents.  What a kernel
+    check on the card builds its inputs from."""
+    progs = segment_programs(eqns, seg)
+    mm = seg.matmul
+    specs = ([sp.meta for sp in mm.lhs_specs] + [sp.meta for sp in
+                                                   mm.rhs_specs]
+             if mm is not None else [])
+    specs += [sp.meta for sp in seg.operand_specs]
+    return dict(
+        kind="grid" if mm is None else "matmul", progs=progs,
+        specs=specs, dtypes=[_dtype(v) for v in _segment_arg_vars(seg)],
+        rows=seg.rows, out_cols=list(seg.out_cols),
+        out_dtypes=[_dtype(v) for v in seg.outputs],
+        n_lhs=len(mm.lhs_specs) if mm is not None else 0,
+        n_rhs=len(mm.rhs_specs) if mm is not None else 0,
+        k=mm.k if mm is not None else 0, n=mm.n if mm is not None else 0,
+        acc_dtype=mm.out_dtype if mm is not None else None,
+        vmem_bytes=seg.smem_budget, sms=seg.sms)
+
+
+def kernel_symbol(call: dict) -> str:
+    """The generated kernel's name: one per distinct segment."""
+    from repro_torch.kernels import fused_elementwise as fe
+
+    if call["kind"] == "grid":
+        return fe.triton_source(call["progs"].body, rows=call["rows"],
+                                specs=call["specs"],
+                                rows_block=GRID_ROWS_BLOCK)[0]
+    return _matmul_gen(call)["name"]
+
+
+def _matmul_gen(call: dict) -> dict:
+    from repro_torch.kernels import fused_matmul as fm
+
+    nl, nr = call["n_lhs"], call["n_rhs"]
+    specs, dts = call["specs"], [dtype_name(d) for d in call["dtypes"]]
+    return fm.segment_source(
+        call["progs"].lhs, call["progs"].rhs, call["progs"].body,
+        tuple(specs[:nl]), tuple(specs[nl:nl + nr]),
+        tuple(specs[nl + nr:]), lhs_dtypes=tuple(dts[:nl]),
+        rhs_dtypes=tuple(dts[nl:nl + nr]), epi_dtypes=tuple(dts[nl + nr:]),
+        out_dtypes=tuple(dtype_name(d) for d in call["out_dtypes"]),
+        rows=call["rows"], k_dim=call["k"], n_dim=call["n"],
+        acc_dtype=dtype_name(call["acc_dtype"]),
+        rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=call["vmem_bytes"],
+        sms=call["sms"])
+
+
+def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
+    """Put every anchored segment of the plan in one CUDA translation
+    unit (built at the first launch of any of them)."""
+    from repro_torch.kernels import fused_matmul as fm
+
+    gens = [_matmul_gen(segment_call(eqns, s)) for s in plan.segments
+            if s.matmul is not None]
+    return fm.prepare_library(gens) if gens else []
+
+
+@dataclass
+class _Compiled:
+    """One plan-cache entry."""
+
+    gm: fx.GraphModule
+    plan: OffloadPlan
+    run: fx.GraphModule
+    out_spec: Any
+    is_tensor: list[bool]
+
+
+def _leaf_signature(leaf) -> tuple:
+    if isinstance(leaf, torch.Tensor):
+        return ("t", tuple(leaf.shape), str(leaf.dtype), str(leaf.device))
+    return ("s", type(leaf).__name__, repr(leaf))
+
+
+def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
+                ) -> Callable:
+    """Offload transform with a bounded, policy-keyed plan cache.
+
+    ``wrapped(*args)`` looks up (effective policy, "fwd", input
+    signature) in the cache; on a miss it captures ``fn`` in fake mode,
+    plans it and builds the runner (evicting the least recently used
+    plan beyond ``max_plans``); then it runs the plan on ``args``.  The
+    effective policy is the innermost ``offload_policy(...)`` scope,
+    else ``policy``, else the default.
+
+    ``wrapped`` exposes ``stats`` (OffloadStats), ``policy``,
+    ``warm(*a)`` (plan a signature without running it), ``plan_for(*a)``,
+    ``explain(*a)`` (the DecisionReport) and ``cache_size()``.  Introspection never mutates the LRU or the
+    counters."""
+    cache: OrderedDict[Any, _Compiled] = OrderedDict()
+    stats = OffloadStats()
+    cache_bound = (policy or OffloadPolicy()).max_plans
+
+    def effective_policy() -> OffloadPolicy:
+        override = active_policy_override()
+        if override is not None:
+            return override
+        return policy if policy is not None else OffloadPolicy()
+
+    def compile_for(pol: OffloadPolicy, args) -> _Compiled:
+        gm, out_spec, is_tensor = capture(fn, args)
+        plan = plan_offload(gm, policy=pol)
+        return _Compiled(gm, plan, _build_runner(gm, plan, pol.impl),
+                         out_spec, is_tensor)
+
+    def entry_for(args, count: bool = True) -> tuple[_Compiled, list]:
+        pol = effective_policy()
+        leaves, in_spec = pytree.tree_flatten(list(args))
+        key = ("fwd", pol, str(in_spec),
+               tuple(_leaf_signature(x) for x in leaves))
+        entry = cache.get(key)
+        if entry is None:
+            entry = compile_for(pol, args)
+            if count:
+                stats.plan_misses += 1
+                stats.traces += 1
+                cache[key] = entry
+                while len(cache) > cache_bound:
+                    cache.popitem(last=False)
+                    stats.evictions += 1
+        elif count:
+            cache.move_to_end(key)
+            stats.plan_hits += 1
+        return entry, leaves
+
+    def wrapped(*args):
+        entry, leaves = entry_for(args)
+        tensors = [x for x, t in zip(leaves, entry.is_tensor) if t]
+        out = entry.run(*tensors)
+        return pytree.tree_unflatten(list(out), entry.out_spec)
+
+    def warm(*args) -> OffloadPlan:
+        """Plan ``args``' signature now, as a first call would (counted
+        as that call's miss), without running it."""
+        return entry_for(args)[0].plan
+
+    wrapped.stats = stats
+    wrapped.policy = policy
+    wrapped.warm = warm
+    wrapped.plan_for = lambda *args: entry_for(args, count=False)[0].plan
+    wrapped.explain = lambda *args: \
+        entry_for(args, count=False)[0].plan.report()
+    wrapped.cache_size = lambda: len(cache)
+    return wrapped
+
+
+def offload_report(fn: Callable, *args,
+                   policy: OffloadPolicy | None = None) -> OffloadPlan:
+    """Capture + plan only: the OffloadPlan for ``fn(*args)``."""
+    gm, _, _ = capture(fn, args)
+    return plan_offload(gm, policy=policy)

@@ -1,13 +1,18 @@
-"""Build the CUDA sources under ``csrc/`` into shared libraries.
+"""Build the CUDA sources into shared libraries.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch
 headers, so ``nvcc`` takes seconds) and is compiled for ``sm_90a`` into
 ``<build dir>/lib<name>-<source hash>.so``, then loaded with ``ctypes``.
-The build happens at first use, never at import: a machine without
-``nvcc`` can import every module of the package.
+Generated sources (the anchored segments of an offload plan, one
+translation unit per plan, including ``csrc/fused_matmul.cuh``) are
+written to ``<build dir>/gen/`` and built the same way
+(``start_generated`` / ``finish_generated``).  The build happens at first use, never at
+import: a machine without ``nvcc`` can import every module of the
+package.
 
 The build directory is ``build/`` at the root of the checkout (the
-directory that holds ``src/``).
+directory that holds ``src/``); it also holds the generated Triton
+sources (``triton_src/``) and Triton's cache (``triton_cache/``).
 """
 from __future__ import annotations
 
@@ -61,11 +66,16 @@ def _target(name: str) -> tuple[Path, Path]:
 def _start(name: str, extra_flags: tuple[str, ...] = ()):
     """Start one ``nvcc`` for ``name`` unless its library exists."""
     src, out = _target(name)
+    return _spawn(src, out, extra_flags)
+
+
+def _spawn(src: Path, out: Path, extra_flags: tuple[str, ...]):
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *extra_flags, "-o",
+           str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
@@ -80,7 +90,7 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
@@ -103,3 +113,35 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, _start(name))
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
     return lib
+
+
+def _generated_target(source: str) -> tuple[str, Path, Path]:
+    digest = hashlib.sha1(source.encode())
+    for dep in sorted(CSRC.glob("*.cuh")):
+        digest.update(dep.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    name = f"gen-{digest.hexdigest()[:12]}"
+    return name, build_dir() / "gen" / f"{name}.cu", \
+        build_dir() / f"lib{name}.so"
+
+
+def start_generated(source: str, *, verbose: bool = False):
+    """Write a generated translation unit under ``build/gen`` and start
+    its ``nvcc`` (None when its library exists).  Returns
+    ``(name, started)`` for ``finish_generated``."""
+    name, src, out = _generated_target(source)
+    src.parent.mkdir(parents=True, exist_ok=True)
+    if not src.exists():
+        tmp = src.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(source)
+        os.replace(tmp, src)
+    return name, _spawn(src, out, ("-Xptxas", "-v") if verbose else ())
+
+
+def finish_generated(name: str, started) -> tuple[ctypes.CDLL, str]:
+    log = _finish(name, started)
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(
+            str(build_dir() / f"lib{name}.so"))
+    return lib, log

@@ -1,0 +1,221 @@
+// Matmul-anchored fused segment for Hopper (sm_90a): the GEMM template.
+//
+// Replaces the TPU kernel repro/kernels/fused_matmul.py:240
+// (fused_matmul_segment): [rows, K] @ [K, N] with an f32 accumulator, the
+// lhs prologue applied to each lhs element as it is loaded, the weight
+// prologue (a bf16 -> f32 dequant cast, per-channel scales) to each
+// weight element as it is loaded, and the epilogue on the accumulator
+// before one store.  This header is the hand-written part; the prologues
+// and the epilogue are generated per segment from its block program
+// (src/repro_torch/kernels/fused_matmul.py) into one translation unit
+// per plan.
+//
+// What bounds it: at decode (rows = 8) the product is a stream of the
+// weight — 2 operations per weight element against 295 bf16 operations
+// per byte of the card's balance — so it is bound by bytes.  The TPU's
+// grid (row blocks x a sequential K axis) would give one thread block
+// streaming the whole weight on one of 132 SMs.  Here a block owns a
+// [RB, 128] output tile and one slice of K (grid = N tiles x row blocks
+// x K splits, the split count chosen from shapes so that the card holds
+// about two blocks per SM); each block writes its f32 partial tile to a
+// workspace, and a second kernel of the same wrapper call sums the
+// splits in a fixed order, rounds the sum to the product's dtype and
+// runs the epilogue — over a whole row when the epilogue reduces over
+// the lanes (the row held in shared memory), per lane chunk otherwise.
+//
+// Inside a block: 128 threads; the K slice is walked in 32-deep tiles
+// staged global -> registers (prologue applied, next tile loaded while
+// the current one is multiplied) -> shared memory.  bf16 x bf16 products
+// run on the tensor cores (WMMA m8n32k16, f32 accumulate: one warp owns
+// 32 columns and every 8-row fragment of the tile); anything else runs
+// an f32 FMA path (one thread owns a column of the tile).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+// FM_BN (output columns of a block) and FM_BK (K depth of one staged
+// tile) are declared by the generated translation unit ahead of this
+// header, from fused_matmul.py's BN and BK, which the planner's
+// geometry reads too.  The WMMA path takes FM_BN == 4 warps x 32 columns.
+static_assert(FM_BN == 128 && FM_BK % 16 == 0, "tile shape of the template");
+constexpr int FM_THREADS = FM_BN;  // thread t loads column t
+constexpr int FM_EPI_THREADS = 256;
+
+__device__ __forceinline__ float fm_f(float x) { return x; }
+__device__ __forceinline__ float fm_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float fm_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float fm_rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
+__device__ __forceinline__ float fm_rh(float x) { return __half2float(__float2half(x)); }
+
+template <class T> __device__ __forceinline__ T fm_to(float x) { return (T)x; }
+template <> __device__ __forceinline__ __nv_bfloat16 fm_to<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+template <> __device__ __forceinline__ __half fm_to<__half>(float x) { return __float2half(x); }
+
+// block-wide sum / max of one value per thread; every thread gets the
+// result.  ``red`` holds one float per warp.
+__device__ __forceinline__ float fm_block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31, nw = blockDim.x >> 5;
+  __syncthreads();
+  if (l == 0) red[w] = v;
+  __syncthreads();
+  float t = (l < nw) ? red[l] : 0.f;
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  return t;
+}
+
+__device__ __forceinline__ float fm_block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31, nw = blockDim.x >> 5;
+  __syncthreads();
+  if (l == 0) red[w] = v;
+  __syncthreads();
+  float t = (l < nw) ? red[l] : __int_as_float(0xff800000);
+  for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
+  return t;
+}
+
+// One staged tile: A [MT, BK] (rows past ``mrows`` and K past kend are
+// zero) and B [BK, BN] (columns past N zero), prologues applied.
+template <class S>
+__device__ __forceinline__ void fm_load_tile(const typename S::Args& a, int m0, int mrows,
+                                             int n0, int k0, int kend,
+                                             float (&ra)[S::MT * FM_BK / FM_THREADS],
+                                             float (&rb)[FM_BK]) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) {
+    const int e = t + i * FM_THREADS;
+    const int r = e / FM_BK, gk = k0 + e % FM_BK;
+    ra[i] = (r < mrows && gk < kend) ? S::lhs(a, m0 + r, gk) : 0.f;
+  }
+  const int gn = n0 + t;
+#pragma unroll
+  for (int i = 0; i < FM_BK; ++i) {
+    const int gk = k0 + i;
+    rb[i] = (gk < kend && gn < S::N) ? S::rhs(a, gk, gn) : 0.f;
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* __restrict__ ws) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 As[S::MT * FM_BK];
+  __shared__ __align__(32) __nv_bfloat16 Bs[FM_BK * FM_BN];
+  __shared__ __align__(32) float Cs[S::MT * FM_BN];
+  const int t = threadIdx.x, warp = t >> 5;
+  const int n0 = blockIdx.x * FM_BN;
+  const int kbeg = blockIdx.z * S::KCH;
+  const int kend = min(S::K, kbeg + S::KCH);
+  for (int sub = 0; sub < S::NSUB; ++sub) {
+  const int m0 = blockIdx.y * S::RB + sub * S::MT;
+  const int mrows = min(S::MT, S::RB - sub * S::MT);
+  wmma::fragment<wmma::accumulator, 8, 32, 16, float> acc[S::MT / 8];
+#pragma unroll
+  for (int f = 0; f < S::MT / 8; ++f) wmma::fill_fragment(acc[f], 0.f);
+  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK];
+  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, ra, rb);
+  for (int k0 = kbeg; k0 < kend; k0 += FM_BK) {
+#pragma unroll
+    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i)
+      As[t + i * FM_THREADS] = __float2bfloat16(ra[i]);
+#pragma unroll
+    for (int i = 0; i < FM_BK; ++i) Bs[i * FM_BN + t] = __float2bfloat16(rb[i]);
+    __syncthreads();
+    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, ra, rb);
+#pragma unroll
+    for (int ks = 0; ks < FM_BK; ks += 16) {
+      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
+      wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
+#pragma unroll
+      for (int f = 0; f < S::MT / 8; ++f) {
+        wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;
+        wmma::load_matrix_sync(af, As + f * 8 * FM_BK + ks, FM_BK);
+        wmma::mma_sync(acc[f], af, bf, acc[f]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int f = 0; f < S::MT / 8; ++f)
+    wmma::store_matrix_sync(Cs + f * 8 * FM_BN + warp * 32, acc[f], FM_BN, wmma::mem_row_major);
+  __syncthreads();
+  const int gn = n0 + t;
+  if (gn < S::N) {
+    float* dst = ws + ((size_t)blockIdx.z * S::ROWS + m0) * S::N + gn;
+    for (int r = 0; r < mrows; ++r) dst[(size_t)r * S::N] = Cs[r * FM_BN + t];
+  }
+  __syncthreads();
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void fm_gemm_fma(const typename S::Args& a, float* __restrict__ ws) {
+  __shared__ float As[S::MT * FM_BK];
+  __shared__ float Bs[FM_BK * FM_BN];
+  const int t = threadIdx.x;
+  const int n0 = blockIdx.x * FM_BN;
+  const int kbeg = blockIdx.z * S::KCH;
+  const int kend = min(S::K, kbeg + S::KCH);
+  for (int sub = 0; sub < S::NSUB; ++sub) {
+  const int m0 = blockIdx.y * S::RB + sub * S::MT;
+  const int mrows = min(S::MT, S::RB - sub * S::MT);
+  float acc[S::MT];
+#pragma unroll
+  for (int r = 0; r < S::MT; ++r) acc[r] = 0.f;
+  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK];
+  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, ra, rb);
+  for (int k0 = kbeg; k0 < kend; k0 += FM_BK) {
+#pragma unroll
+    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) As[t + i * FM_THREADS] = ra[i];
+#pragma unroll
+    for (int i = 0; i < FM_BK; ++i) Bs[i * FM_BN + t] = rb[i];
+    __syncthreads();
+    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, ra, rb);
+#pragma unroll 8
+    for (int kk = 0; kk < FM_BK; ++kk) {
+      const float b = Bs[kk * FM_BN + t];
+#pragma unroll
+      for (int r = 0; r < S::MT; ++r) acc[r] = fmaf(As[r * FM_BK + kk], b, acc[r]);
+    }
+    __syncthreads();
+  }
+  const int gn = n0 + t;
+  if (gn < S::N) {
+    float* dst = ws + ((size_t)blockIdx.z * S::ROWS + m0) * S::N + gn;
+#pragma unroll
+    for (int r = 0; r < S::MT; ++r)
+      if (r < mrows) dst[(size_t)r * S::N] = acc[r];
+  }
+  }
+}
+
+// Grid (ceil(N / FM_BN), ROWS / RB, KS): the partial product of one
+// [RB, FM_BN] tile over one K slice, into ws[split][row][col]; a row
+// block of more than MT (<= 64) rows is walked in NSUB sub-tiles, the
+// later ones finding the block's weight slice in L2.
+template <class S>
+__global__ void __launch_bounds__(FM_THREADS) fm_gemm(typename S::Args a, float* __restrict__ ws) {
+  if constexpr (S::WMMA) {
+    fm_gemm_wmma<S>(a, ws);
+  } else {
+    fm_gemm_fma<S>(a, ws);
+  }
+}
+
+// The accumulator of (row, col): the K splits summed in a fixed order.
+template <int KS, int ROWS, int N>
+__device__ __forceinline__ float fm_acc_sum(const float* __restrict__ ws, int row, int col) {
+  float s = 0.f;
+#pragma unroll
+  for (int sp = 0; sp < KS; ++sp) s += ws[((size_t)sp * ROWS + row) * N + col];
+  return s;
+}
+
+extern "C" const char* fm_error(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -20,10 +20,6 @@ from repro_torch.kernels.guard import kernel_guard
 NEG_INF = -1e30
 KERNEL = "paged_decode_attention"
 
-#: thread blocks the launch aims for: two resident blocks of 256 threads
-#: on each of an H100's 132 SMs
-_TARGET_BLOCKS = 2 * 132
-
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,14 +71,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def default_num_splits(b: int, nq: int, nk: int, n_pages: int) -> int:
+def default_num_splits(b: int, nq: int, nk: int, n_pages: int,
+                       sms: int) -> int:
     """How many runs the live pages are cut into: enough (b, kv head,
-    split) blocks to fill the card, never more than there are pages.
+    split) blocks to fill the card (two resident blocks of 256 threads
+    on each of its ``sms`` SMs), never more than there are pages.
     Decided from shapes alone so the launch needs no host sync."""
     g = nq // nk
     tile = next(t for t in (8, 4, 2, 1) if g % t == 0)
     blocks = b * nk * (g // tile)
-    return max(1, min(n_pages, _TARGET_BLOCKS // max(blocks, 1)))
+    return max(1, min(n_pages, 2 * sms // max(blocks, 1)))
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
@@ -159,7 +157,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0:
         return out
     if num_splits is None:
-        num_splits = default_num_splits(b, nq, nk, n_pages)
+        num_splits = default_num_splits(
+            b, nq, nk, n_pages,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
     # scratch for the split partials; PyTorch's allocator hands its memory
     # on only to later work on this stream, so dropping it on return is safe
     part = None

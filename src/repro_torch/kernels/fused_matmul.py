@@ -1,0 +1,665 @@
+"""Matmul-anchored fused segments: the CUDA kernel, its wrapper and its
+plain version (B3).
+
+``fused_matmul_segment`` replaces the TPU kernel of the same name in
+``repro/kernels/fused_matmul.py`` (``pl.pallas_call`` at :240): the
+[rows, K] x [K, N] contraction of an anchored segment with an f32
+accumulator, the lhs prologue applied per lhs element, the weight
+prologue (bf16 -> f32 dequant cast, scales) per weight element so the
+cast weight is never stored, and the epilogue (elementwise ops, lane
+splits, lane reductions) on the accumulator before one store.
+
+The GEMM is the hand-written template in ``csrc/fused_matmul.cuh`` (see
+the note there for what bounds it and how it splits N and K over the
+card); the prologues and the epilogue are CUDA code generated from the
+segment's block programs (``codegen.py``).  All anchored segments of a
+plan go into ONE translation unit (``prepare_library``), so a plan costs
+one ``nvcc``, keyed by source hash into ``build/``; segments that are
+the same (28 layers of one model) share one function.
+
+The accumulator budget is shared memory: an epilogue that reduces over
+the lanes holds the row of f32 sums in one block's shared memory
+(``row_fits``); the planner declines an anchor whose lane-reduce row
+cannot be held.
+
+``fused_matmul_segment_plain`` beside it takes the same row blocks,
+multiplies ``[rb, K] @ [K, N]`` in f32, and runs the same epilogue block
+program op by op in PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.blockprog import BlockProgram, Input, dtype_name, run_program
+from repro_torch.kernels.codegen import Emitter, bcast_row_expr, ctype
+from repro_torch.kernels.fused_elementwise import (
+    _largest_divisor_leq,
+    role_block,
+)
+from repro_torch.kernels.guard import kernel_guard
+
+KERNEL = "fused_matmul_segment"
+
+#: output tile columns and K depth of the GEMM template (emitted into the
+#: translation unit as ``FM_BN`` / ``FM_BK``, which ``csrc/fused_matmul.cuh``
+#: reads)
+BN, BK = 128, 32
+#: static shared memory of a lane-reduce epilogue: ``fm_red[32]`` floats
+_RED_SMEM_BYTES = 32 * 4
+
+_CT = {"float32": "float", "bfloat16": "__nv_bfloat16",
+       "float16": "__half", "int32": "int", "int64": "long long",
+       "bool": "bool"}
+
+
+# ---------------------------------------------------------------------------
+# Geometry shared by the planner (Segment.io_bytes) and the kernel.  The
+# accumulator budget ``vmem_bytes`` (the reference's name) and the SM
+# count ``sms`` come from the caller: the planner passes its policy's.
+# ---------------------------------------------------------------------------
+
+def _block_budget(block: int, n_dim: int, vmem_bytes: int) -> int:
+    """Clamp a row block so ``block x n_dim`` f32 fits the accumulator
+    budget.  Never below 8 rows."""
+    return max(min(block, vmem_bytes // (4 * max(n_dim, 1))), 8)
+
+
+def _row_block(rows: int, epi_specs: Sequence[tuple],
+               rows_block: int, n_dim: int, vmem_bytes: int) -> int:
+    """Row-block extent: the largest divisor of the rep/tile/bcast gcd
+    (or of ``rows``) that fits the clamped block budget."""
+    limit = max(min(_block_budget(rows_block, n_dim, vmem_bytes), rows), 1)
+    g = 0
+    for spec in epi_specs:
+        role, op_rows = spec[0], spec[1]
+        if role == "rep":
+            g = math.gcd(g, rows // op_rows)
+        elif role == "tile":
+            g = math.gcd(g, op_rows)
+        elif role == "bcast":
+            g = math.gcd(g, spec[4][-1])
+    return _largest_divisor_leq(g if g else rows, limit)
+
+
+def matmul_row_blocks(rows: int, epi_specs: Sequence[tuple],
+                      n_dim: int, rows_block: int, vmem_bytes: int) -> int:
+    """Row blocks the kernel launches: the weight streams once per row
+    block."""
+    return rows // _row_block(rows, epi_specs, rows_block, n_dim,
+                              vmem_bytes)
+
+
+def row_block(rows: int, epi_specs: Sequence[tuple], n_dim: int,
+              rows_block: int, vmem_bytes: int) -> int:
+    """The row block of the Hopper kernel: a block accumulates an
+    [rb, BN] tile (the N axis is split over blocks), so the budget clamps
+    ``rb x min(N, BN)`` f32, through the reference's ``_row_block``."""
+    return _row_block(rows, epi_specs, rows_block, min(n_dim, BN),
+                      vmem_bytes)
+
+
+def weight_streams(rows: int, epi_specs: Sequence[tuple], n_dim: int,
+                   rows_block: int, vmem_bytes: int) -> int:
+    """How many times a call streams the weight: once per row block
+    (``matmul_row_blocks`` of the Hopper tile)."""
+    return matmul_row_blocks(rows, epi_specs, min(n_dim, BN), rows_block,
+                             vmem_bytes)
+
+
+def k_splits(rows: int, rb: int, k_dim: int, n_dim: int, sms: int,
+             elt: int = 2) -> tuple[int, int]:
+    """``(splits, chunk)``: how the K axis is cut over thread blocks.
+    Enough splits that the grid holds about two blocks on each of the
+    ``sms`` SMs, never more than the K tiles, and never so many that the
+    f32 partials (written and read once per split) outweigh the weight
+    stream."""
+    tiles = -(-n_dim // BN) * (rows // rb)
+    k_tiles = -(-k_dim // BK)
+    want = -(-2 * sms // tiles)
+    cap = max(1, (k_dim * elt * (rows // rb)) // (8 * rows))
+    splits = max(1, min(k_tiles, want, cap))
+    chunk = -(-k_tiles // splits)
+    return -(-k_tiles // chunk), chunk * BK
+
+
+def workspace_bytes(rows: int, epi_specs: Sequence[tuple], k_dim: int,
+                    n_dim: int, rows_block: int, vmem_bytes: int,
+                    sms: int) -> int:
+    """Bytes of the f32 partial-product workspace of one call."""
+    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
+    return 4 * rows * n_dim * k_splits(rows, rb, k_dim, n_dim, sms)[0]
+
+
+def row_smem_bytes(n_dim: int) -> int:
+    """Shared memory of a lane-reduce epilogue block: the f32 row of the
+    accumulator and the reduction scratch."""
+    return 4 * n_dim + _RED_SMEM_BYTES
+
+
+def row_fits(n_dim: int, vmem_bytes: int) -> bool:
+    """Whether a lane-reduce epilogue's shared memory (one f32 row of
+    the accumulator and the reduction scratch) fits the budget."""
+    return row_smem_bytes(n_dim) <= vmem_bytes
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+def _full(spec: tuple, v: torch.Tensor, rows: int, k: int, n: int
+          ) -> torch.Tensor:
+    role, op_rows, c = spec[0], spec[1], spec[2]
+    if role in ("param_k", "param_w"):
+        return v.reshape(1, c)
+    if role == "bulk_k":
+        return v.reshape(rows, k)
+    return v.reshape(k, n)
+
+
+def fused_matmul_segment_plain(
+        pro: BlockProgram | None, rhs_pro: BlockProgram | None,
+        epi: BlockProgram, lhs_operands, lhs_specs, rhs_operands, rhs_specs,
+        epi_operands, epi_specs, *, rows: int, k_dim: int, n_dim: int,
+        acc_dtype: torch.dtype, out_cols: Sequence[int],
+        out_dtypes: Sequence[torch.dtype], rows_block: int,
+        vmem_bytes: int) -> tuple:
+    """The kernel's plain version: per row block, the lhs prologue on the
+    block, ``[rb, K] @ [K, N]`` in f32, the product rounded to its
+    dtype, then the epilogue program over the same role views."""
+    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
+    lhs_full = [_full(s, torch.as_tensor(v), rows, k_dim, n_dim)
+                for s, v in zip(lhs_specs, lhs_operands)]
+    rhs_full = [_full(s, torch.as_tensor(v), rows, k_dim, n_dim)
+                for s, v in zip(rhs_specs, rhs_operands)]
+    rhs = (rhs_full[0] if rhs_pro is None else
+           run_program(rhs_pro, rhs_full, block_rows=k_dim)[0])
+    epi_views = [torch.as_tensor(v).reshape(s[1], s[2])
+                 for s, v in zip(epi_specs, epi_operands)]
+    dev = rhs.device
+    outs = [torch.empty((rows, c), dtype=dt, device=dev)
+            for c, dt in zip(out_cols, out_dtypes)]
+    rhs32 = rhs.float()
+    for i in range(rows // rb):
+        blocks = [role_block(s, v, i, rb, rows)
+                  for s, v in zip(lhs_specs, lhs_full)]
+        lhs = blocks[0] if pro is None else \
+            run_program(pro, blocks, block_rows=rb)[0]
+        acc = (lhs.float() @ rhs32).to(acc_dtype)
+        eblocks = [role_block(s, v, i, rb, rows)
+                   for s, v in zip(epi_specs, epi_views)]
+        for o, val in zip(outs, run_program(epi, [acc, *eblocks],
+                                            block_rows=rb)):
+            o[i * rb:(i + 1) * rb] = val
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# CUDA code generation
+# ---------------------------------------------------------------------------
+
+class CudaEmitter(Emitter):
+    """Block-program emission in CUDA C++: one thread evaluates one
+    (row, lane) at a time; row values are per-thread scalars."""
+
+    def __init__(self, prog, rows_of, ptr_of, acc_expr=None):
+        super().__init__(prog, rows_of)
+        self.ptr_of = ptr_of            # per input: the Args member
+        self.acc_expr = acc_expr        # lane -> accumulator expression
+        self.red_buf = "fm_red"
+
+    def assign(self, name, expr, ct):
+        decl = {"f": "float", "i": "long long", "b": "bool"}[ct]
+        self.line(f"const {decl} {name} = {expr};")
+
+    def float_lit(self, x):
+        s = repr(float(x))
+        return s + "f" if ("e" in s or "." in s) else s + ".f"
+
+    def bool_lit(self, x):
+        return "true" if x else "false"
+
+    def nan(self):
+        return "__int_as_float(0x7fc00000)"
+
+    def inf(self, pos):
+        return "__int_as_float(0x7f800000)" if pos else \
+            "__int_as_float(0xff800000)"
+
+    def round(self, expr, dtype):
+        if dtype == "bfloat16":
+            return f"fm_rbf({expr})"
+        if dtype == "float16":
+            return f"fm_rh({expr})"
+        return expr
+
+    def convert(self, expr, have, want):
+        if want == "f":
+            return f"({expr} ? 1.f : 0.f)" if have == "b" else \
+                f"(float)({expr})"
+        if want == "b":
+            return f"(({expr}) != 0)"
+        return f"(long long)({expr})"
+
+    def select(self, c, a, b):
+        return f"(({c}) ? ({a}) : ({b}))"
+
+    def logic(self, code, a, b):
+        if code == "not":
+            return f"(!({a}))"
+        return f"(({a}) {'&&' if code == 'and' else '||'} ({b}))"
+
+    def unary(self, code, x):
+        table = {
+            "neg": f"(-({x}))", "abs": f"fabsf({x})", "exp": f"expf({x})",
+            "log": f"logf({x})", "log1p": f"log1pf({x})",
+            "expm1": f"expm1f({x})", "tanh": f"tanhf({x})",
+            "sqrt": f"sqrtf({x})", "rsqrt": f"rsqrtf({x})",
+            "sigmoid": f"(1.f / (1.f + expf(-({x}))))",
+            "sin": f"sinf({x})", "cos": f"cosf({x})", "erf": f"erff({x})",
+            "floor": f"floorf({x})", "ceil": f"ceilf({x})",
+            "recip": f"(1.f / ({x}))",
+        }
+        return table[code]
+
+    def binary(self, code, a, b):
+        if code in ("add", "sub", "mul", "div"):
+            sym = {"add": "+", "sub": "-", "mul": "*", "div": "/"}[code]
+            return f"({a} {sym} {b})"
+        return {"max": f"fmaxf({a}, {b})", "min": f"fminf({a}, {b})",
+                "pow": f"powf({a}, {b})"}[code]
+
+    def load(self, k, lane):
+        inp: Input = self.prog.inputs[k]
+        if inp.role == "acc":
+            return self.acc_expr("0" if lane is None else lane)
+        row = self.rows_of[k]
+        ptr = self.ptr_of[k]
+        if lane is None:
+            idx = "0" if row is None else f"(size_t)({row})"
+            if inp.cols > 1:
+                idx = f"{idx} * {inp.cols}"
+            val = f"{ptr}[{idx}]"
+            return f"fm_f({val})" if ctype(inp.dtype) == "f" else \
+                f"({val})"
+        idx = f"({lane})" if row is None else \
+            f"(size_t)({row}) * {inp.cols} + ({lane})"
+        val = f"{ptr}[{idx}]"
+        val = f"fm_f({val})" if ctype(inp.dtype) == "f" else f"({val})"
+        zero = "0.f" if ctype(inp.dtype) == "f" else "0"
+        if lane == "L" and self.lane_bound is not None and \
+                self.lane_bound <= inp.cols:
+            return val
+        return f"((({lane}) >= 0 && ({lane}) < {inp.cols}) ? {val} : {zero})"
+
+    lane_bound: int | None = None
+
+    def reduction(self, r, op, src, cols_in):
+        acc = self.fresh()
+        init = "0.f" if op.code == "sum" else "__int_as_float(0xff800000)"
+        self.line(f"float {acc} = {init};")
+        self.line(f"for (int L = threadIdx.x; L < {cols_in}; "
+                  "L += blockDim.x) {")
+        self.indent += 1
+        self.lane_bound = cols_in
+        x = self.lane_values(src, "L")
+        self.lane_bound = None
+        if op.code == "sum":
+            self.line(f"{acc} += {x};")
+        else:
+            self.line(f"{acc} = fmaxf({acc}, {x});")
+        self.indent -= 1
+        self.line("}")
+        res = self.fresh()
+        fn = "fm_block_sum" if op.code == "sum" else "fm_block_max"
+        self.line(f"const float {res} = "
+                  f"{self.round(f'{fn}({acc}, {self.red_buf})', op.dtype)};")
+        self.row_memo[r] = res
+
+    def store(self, j, vid, op):
+        ct = _CT[op.dtype]
+        out = f"a.o{j}"
+        if op.cols == 1 and not self.lanedep[vid]:
+            x = self.row_memo[vid]
+            self.line(f"if (threadIdx.x == 0 && {self.first_chunk}) "
+                      f"{out}[row] = {self._to(x, op.dtype, ct)};")
+            return
+        lo, hi = self.lane_range(op.cols)
+        self.line(f"for (int L = {lo}; L < {hi}; L += blockDim.x) {{")
+        self.indent += 1
+        self.lane_bound = op.cols
+        x = self.lane_values(vid, "L")
+        self.lane_bound = None
+        self.line(f"{out}[(size_t)row * {op.cols} + L] = "
+                  f"{self._to(x, op.dtype, ct)};")
+        self.indent -= 1
+        self.line("}")
+
+    first_chunk = "true"
+
+    def lane_range(self, cols):
+        return "threadIdx.x", str(cols)
+
+    @staticmethod
+    def _to(x, dtype, ct):
+        if ctype(dtype) == "f":
+            return f"fm_to<{ct}>({x})"
+        return f"({ct})({x})"
+
+
+class _ChunkEmitter(CudaEmitter):
+    """Epilogue without lane reductions: block x covers a lane chunk."""
+
+    first_chunk = "blockIdx.x == 0"
+
+    def __init__(self, *a, chunk: int, **kw):
+        super().__init__(*a, **kw)
+        self.chunk = chunk
+
+    def lane_range(self, cols):
+        return (f"blockIdx.x * {self.chunk} + threadIdx.x",
+                f"min({cols}, (int)(blockIdx.x + 1) * {self.chunk})")
+
+
+def _rows_of(specs: Sequence[tuple], rows: int, rb: int) -> list:
+    out = []
+    for spec in specs:
+        role, op_rows = spec[0], spec[1]
+        if role in ("bulk", "acc"):
+            out.append("row")
+        elif role == "param":
+            out.append(None)
+        elif role == "rep":
+            out.append(f"(pid / {(rows // op_rows) // rb})")
+        elif role == "tile":
+            out.append(f"((pid % {op_rows // rb}) * {rb} + lr)")
+        elif role == "bcast":
+            brows, e = bcast_row_expr(spec[3], spec[4], rb, "pid")
+            e = e.replace("//", "/")
+            out.append(e if brows == 1 else f"({e} * {rb} + lr)")
+        else:
+            raise ValueError(f"role {role!r} in an epilogue")
+    return out
+
+
+_EPI_CHUNK = 2048
+
+
+def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
+                   lhs_dtypes, rhs_dtypes, epi_dtypes, out_dtypes,
+                   rows: int, k_dim: int, n_dim: int, acc_dtype: str,
+                   rows_block: int, vmem_bytes: int, sms: int) -> dict:
+    """Generate one anchored segment's CUDA code.  Returns its symbol
+    name, source text and launch geometry (everything static is baked
+    in; the launcher takes only pointers and the stream)."""
+    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
+    mt = min(-(-rb // 8) * 8, 64)
+    nsub = -(-rb // mt)
+    lhs_ct = pro.ops[pro.outputs[0]].dtype if pro else lhs_dtypes[0]
+    rhs_ct = rhs_pro.ops[rhs_pro.outputs[0]].dtype if rhs_pro else \
+        rhs_dtypes[0]
+    wmma = lhs_ct == "bfloat16" and rhs_ct == "bfloat16"
+    elt = 2 if rhs_dtypes[0] in ("bfloat16", "float16") else 4
+    ks, kch = k_splits(rows, rb, k_dim, n_dim, sms, elt)
+    reduce = bool(epi.reductions)
+    smem = 4 * n_dim if reduce else 0       # the row; fm_red[] is static
+    if reduce and not row_fits(n_dim, vmem_bytes):
+        raise ValueError(f"lane-reduce epilogue over N={n_dim} does not fit "
+                         "the shared-memory budget")
+    shape_key = repr((pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs,
+                      lhs_dtypes, rhs_dtypes, epi_dtypes, out_dtypes, rows,
+                      k_dim, n_dim, acc_dtype, rb, ks, kch))
+    name = "fm_" + hashlib.sha1(shape_key.encode()).hexdigest()[:16]
+
+    members = ([f"const {_CT[d]}* __restrict__ l{i};"
+                for i, d in enumerate(lhs_dtypes)]
+               + [f"const {_CT[d]}* __restrict__ w{i};"
+                  for i, d in enumerate(rhs_dtypes)]
+               + [f"const {_CT[d]}* __restrict__ e{i};"
+                  for i, d in enumerate(epi_dtypes)]
+               + [f"{_CT[d]}* __restrict__ o{i};"
+                  for i, d in enumerate(out_dtypes)])
+    src = [f"struct {name}_Args {{"] + [f"  {m}" for m in members] + ["};"]
+
+    def prologue(prog, fn, row_var, lane_var, roles_ptr, width):
+        if prog is None:
+            ptr = roles_ptr[0]
+            return [f"  static __device__ __forceinline__ float {fn}("
+                    f"const Args& a, int {row_var}, int {lane_var}) {{",
+                    f"    return fm_f(a.{ptr}[(size_t){row_var} * {width} + "
+                    f"{lane_var}]);", "  }"]
+        rows_of = [row_var if inp.role in ("bulk_k", "bulk_w") else None
+                   for inp in prog.inputs]
+        em = CudaEmitter(prog, rows_of, [f"a.{p}" for p in roles_ptr])
+        em.indent = 2
+        em.lane_memo = {}
+        out = prog.outputs[0]
+        em.ensure_row_deps(out)
+        em.lane_bound = width
+        x = em.lane_values(out, lane_var)
+        x = x if ctype(prog.ops[out].dtype) == "f" else f"(float)({x})"
+        return ([f"  static __device__ __forceinline__ float {fn}("
+                 f"const Args& a, int {row_var}, int {lane_var}) {{"]
+                + em.lines + [f"    return {x};", "  }"])
+
+    src += [f"struct {name}_S {{",
+            f"  using Args = {name}_Args;",
+            f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
+            f"N = {n_dim}, RB = {rb}, MT = {mt}, NSUB = {nsub}, KS = {ks}, "
+            f"KCH = {kch};",
+            f"  static constexpr bool WMMA = {'true' if wmma else 'false'};"]
+    src += prologue(pro, "lhs", "r", "L",
+                    [f"l{i}" for i in range(len(lhs_dtypes))], k_dim)
+    src += prologue(rhs_pro, "rhs", "k", "L",
+                    [f"w{i}" for i in range(len(rhs_dtypes))], n_dim)
+    src += ["};"]
+
+    # the epilogue kernel
+    all_specs = [("acc", rows, n_dim)] + list(epi_specs)
+    rows_of = _rows_of(all_specs, rows, rb)
+    ptrs = [None] + [f"a.e{i}" for i in range(len(epi_dtypes))]
+    round_acc = {"bfloat16": "fm_rbf", "float16": "fm_rh"}.get(acc_dtype, "")
+    if reduce:
+        def acc_expr(lane):
+            return f"fm_row[{lane}]" if lane == "L" else \
+                f"((({lane}) >= 0 && ({lane}) < {n_dim}) ? fm_row[{lane}] : 0.f)"
+        em = CudaEmitter(epi, rows_of, ptrs, acc_expr)
+        grid = f"dim3({rows})"
+    else:
+        def acc_expr(lane):
+            val = f"{round_acc}(fm_acc_sum<{ks}, {rows}, {n_dim}>(ws, row, {lane}))"
+            return val if lane == "L" else \
+                f"((({lane}) >= 0 && ({lane}) < {n_dim}) ? {val} : 0.f)"
+        width = max(epi.ops[o].cols for o in epi.outputs)
+        em = _ChunkEmitter(epi, rows_of, ptrs, acc_expr, chunk=_EPI_CHUNK)
+        grid = f"dim3({-(-width // _EPI_CHUNK)}, {rows})"
+    em.indent = 1
+    em.body()
+    head = [f"__global__ void __launch_bounds__(FM_EPI_THREADS) {name}_epi("
+            f"{name}_Args a, const float* __restrict__ ws) {{"]
+    if reduce:
+        head += ["  extern __shared__ float fm_row[];",
+                 "  __shared__ float fm_red[32];",
+                 "  const int row = blockIdx.x;"]
+    else:
+        head += ["  const int row = blockIdx.y;"]
+    head += [f"  const int pid = row / {rb};",
+             f"  const int lr = row % {rb};",
+             "  (void)pid; (void)lr;"]
+    if reduce:
+        head += [f"  for (int c = threadIdx.x; c < {n_dim}; c += blockDim.x)",
+                 f"    fm_row[c] = {round_acc}(fm_acc_sum<{ks}, {rows}, "
+                 f"{n_dim}>(ws, row, c));",
+                 "  __syncthreads();"]
+    src += head + em.lines + ["}"]
+
+    assign = []
+    k = 0
+    for pre, dts, const in (("l", lhs_dtypes, True), ("w", rhs_dtypes, True),
+                            ("e", epi_dtypes, True), ("o", out_dtypes, False)):
+        for i, d in enumerate(dts):
+            q = "const " if const else ""
+            assign.append(f"  a.{pre}{i} = ({q}{_CT[d]}*)p[{k}];")
+            k += 1
+    n_tiles = -(-n_dim // BN)
+    src += [f'extern "C" int {name}_launch(void* const* p, void* stream) {{',
+            f"  {name}_Args a;"] + assign + [
+            f"  float* ws = (float*)p[{k}];",
+            "  cudaStream_t s = (cudaStream_t)stream;",
+            f"  fm_gemm<{name}_S><<<dim3({n_tiles}, {rows // rb}, {ks}), "
+            "FM_THREADS, 0, s>>>(a, ws);",
+            "  cudaError_t e = cudaGetLastError();",
+            "  if (e != cudaSuccess) return (int)e;"]
+    if smem > 48 * 1024:
+        src += [f"  e = cudaFuncSetAttribute({name}_epi, "
+                f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+                "  if (e != cudaSuccess) return (int)e;"]
+    src += [f"  {name}_epi<<<{grid}, FM_EPI_THREADS, {smem}, s>>>(a, ws);",
+            "  return (int)cudaGetLastError();", "}"]
+    return {"name": name, "source": "\n".join(src) + "\n", "rb": rb,
+            "ks": ks, "kch": kch, "wmma": wmma, "n_ptrs": k + 1}
+
+
+# ---------------------------------------------------------------------------
+# One translation unit per plan
+# ---------------------------------------------------------------------------
+
+_HEADER = (f"constexpr int FM_BN = {BN};  // output columns of a block\n"
+           f"constexpr int FM_BK = {BK};   // K depth of one staged tile\n"
+           '#include "fused_matmul.cuh"\n\n')
+_SEGMENTS: dict[str, str] = {}          # symbol -> source of its segment
+_LIB_OF: dict[str, ctypes.CDLL] = {}    # symbol -> built library
+_PENDING: dict[str, list[str]] = {}     # symbol -> the TU it was prepared in
+
+
+def translation_unit(symbols: Sequence[str]) -> str:
+    return _HEADER + "\n".join(_SEGMENTS[s] for s in sorted(set(symbols)))
+
+
+def prepare_library(gens: Sequence[dict]) -> list[str]:
+    """Register the generated segments of one plan as one translation
+    unit, built at the first launch of any of them.  Returns the
+    symbols (deduplicated)."""
+    syms = sorted({g["name"] for g in gens})
+    for g in gens:
+        _SEGMENTS[g["name"]] = g["source"]
+    for s in syms:
+        if s not in _LIB_OF:
+            _PENDING[s] = syms
+    return syms
+
+
+def start_library(symbols: Sequence[str], *, verbose: bool = False):
+    """Start the ``nvcc`` of the translation unit of ``symbols`` (for
+    ``finish_library``), so that several builds run together."""
+    return list(symbols), _build.start_generated(
+        translation_unit(symbols), verbose=verbose)
+
+
+def finish_library(started) -> tuple[ctypes.CDLL, str]:
+    """Wait for a started build; returns the library and the compiler's
+    output (``-Xptxas -v`` resource usage when verbose)."""
+    symbols, (name, handle) = started
+    lib, log = _build.finish_generated(name, handle)
+    for s in symbols:
+        _LIB_OF[s] = lib
+        _PENDING.pop(s, None)
+    return lib, log
+
+
+def build_library(symbols: Sequence[str], *, verbose: bool = False
+                  ) -> tuple[ctypes.CDLL, str]:
+    """Build (or load) the translation unit of ``symbols``."""
+    return finish_library(start_library(symbols, verbose=verbose))
+
+
+def _symbol_lib(name: str) -> ctypes.CDLL:
+    lib = _LIB_OF.get(name)
+    if lib is None:
+        lib, _ = build_library(_PENDING.get(name, [name]))
+    return lib
+
+
+def _launcher(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.fm_error.argtypes = [ctypes.c_int]
+        lib.fm_error.restype = ctypes.c_char_p
+    return fn
+
+
+_GEN: dict[tuple, dict] = {}
+
+
+def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
+             rhs_specs, epi_operands, epi_specs, *, rows, k_dim, n_dim,
+             acc_dtype, out_dtypes, rows_block, vmem_bytes, sms) -> dict:
+    """``segment_source`` for concrete operands (dtypes read off them),
+    generated once per distinct segment."""
+    key = (pro and pro.key, rhs_pro and rhs_pro.key, epi.key,
+           tuple(map(tuple, lhs_specs)), tuple(map(tuple, rhs_specs)),
+           tuple(map(tuple, epi_specs)),
+           tuple(v.dtype for v in (*lhs_operands, *rhs_operands,
+                                   *epi_operands)),
+           tuple(out_dtypes), rows, k_dim, n_dim, acc_dtype, rows_block,
+           vmem_bytes, sms)
+    gen = _GEN.get(key)
+    if gen is None:
+        gen = _GEN[key] = segment_source(
+            pro, rhs_pro, epi, tuple(map(tuple, lhs_specs)),
+            tuple(map(tuple, rhs_specs)), tuple(map(tuple, epi_specs)),
+            lhs_dtypes=tuple(dtype_name(v.dtype) for v in lhs_operands),
+            rhs_dtypes=tuple(dtype_name(v.dtype) for v in rhs_operands),
+            epi_dtypes=tuple(dtype_name(v.dtype) for v in epi_operands),
+            out_dtypes=tuple(dtype_name(d) for d in out_dtypes), rows=rows,
+            k_dim=k_dim, n_dim=n_dim, acc_dtype=dtype_name(acc_dtype),
+            rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms)
+    return gen
+
+
+def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
+                         rhs_operands, rhs_specs, epi_operands, epi_specs, *,
+                         rows: int, k_dim: int, n_dim: int,
+                         acc_dtype: torch.dtype, out_cols: Sequence[int],
+                         out_dtypes: Sequence[torch.dtype], rows_block: int,
+                         vmem_bytes: int, sms: int) -> tuple:
+    """Launch the anchored segment's CUDA kernels (the GEMM, then the
+    epilogue) on CUDA tensors; one ``[rows, out_cols[j]]`` tensor per
+    output.  One call counts as one launch.  Raises on anything the
+    kernel does not take; never falls back to the plain version."""
+    operands = [*lhs_operands, *rhs_operands, *epi_operands]
+    if not all(torch.as_tensor(v).is_cuda for v in operands):
+        raise RuntimeError(
+            "fused_matmul_segment launches a CUDA kernel: every operand "
+            "must be a CUDA tensor (CPU tensors take the plain version)")
+    gen = generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
+                   rhs_specs, epi_operands, epi_specs, rows=rows, k_dim=k_dim,
+                   n_dim=n_dim, acc_dtype=acc_dtype, out_dtypes=out_dtypes,
+                   rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms)
+    _SEGMENTS.setdefault(gen["name"], gen["source"])
+    views = [v.reshape(s[1], s[2]).contiguous() if s[0] not in (
+        "bulk_k", "bulk_w") else v.contiguous()
+        for v, s in zip(operands, [*lhs_specs, *rhs_specs, *epi_specs])]
+    dev = views[0].device
+    outs = [torch.empty((rows, c), dtype=dt, device=dev)
+            for c, dt in zip(out_cols, out_dtypes)]
+    ws = torch.empty((gen["ks"] * rows * n_dim,), dtype=torch.float32,
+                     device=dev)
+    ptrs = (ctypes.c_void_p * (len(views) + len(outs) + 1))(
+        *[t.data_ptr() for t in (*views, *outs, ws)])
+    lib = _symbol_lib(gen["name"])
+    launch = _launcher(lib, gen["name"])
+    with torch.cuda.device(dev):
+        code = launch(ptrs, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"fused_matmul_segment launch failed: "
+                           f"{lib.fm_error(code).decode()}")
+    kernel_guard().count_launch(KERNEL)
+    return tuple(outs)

@@ -10,9 +10,12 @@ The counterpart of ``repro/models/attention.py`` for one device:
 * ``decode_attention`` — single-token decode against a dense KV cache,
   chunked over the cache.
 * ``attention_decode_paged`` — single-token decode against the paged
-  pool; the attention itself is the hand-written CUDA kernel
-  (``repro_torch.kernels.ops.paged_decode_attention``) on a CUDA
-  tensor and its plain version on a CPU tensor.
+  pool; the attention itself is the custom op
+  ``repro_torch::paged_decode_attention``: the hand-written CUDA kernel
+  (``repro_torch.kernels.ops.paged_decode_attention``) for CUDA tensors
+  and its plain version for CPU tensors.  Being one op, it is one far
+  node in the graph the offload planner captures (``register_fake``
+  gives its output shape without running it).
 
 Caches and page pools are updated **in place** (the JAX package is
 functional and relies on buffer donation); functions still return them
@@ -37,6 +40,21 @@ from repro_torch.models.layers import (
 )
 
 NEG_INF = -1e30
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention",
+                         mutates_args=())
+def paged_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, impl: str) -> torch.Tensor:
+    """Paged decode attention as one op (see the module docstring)."""
+    return kops.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                       lengths, impl=impl)
+
+
+@paged_attention_op.register_fake
+def _paged_attention_fake(q, k_pages, v_pages, block_tables, lengths, impl):
+    return torch.empty_like(q)
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +334,9 @@ def attention_decode_paged(
     scatter its K/V into the owning page (inactive rows land in the
     reserved scratch page 0), attend over the sequence's live pages.
 
-    The attention is ``kops.paged_decode_attention``: the CUDA kernel
-    streams pages through the block table for CUDA tensors (no gather);
-    CPU tensors take its plain version.  Inactive rows carry
+    The attention is ``paged_attention_op``: the CUDA kernel streams
+    pages through the block table for CUDA tensors (no gather); CPU
+    tensors take its plain version.  Inactive rows carry
     ``lengths == 0`` and come out as zeros; the engine discards them."""
     B = x.shape[0]
     page = pages_k.shape[2]
@@ -336,8 +354,8 @@ def attention_decode_paged(
     off = slot % page
     write_kv_page_entries(pages_k, k[:, 0], gp, off)
     write_kv_page_entries(pages_v, v[:, 0], gp, off)
-    out = kops.paged_decode_attention(q[:, 0], pages_k, pages_v,
-                                      block_tables, lengths, impl=impl)
+    out = paged_attention_op(q[:, 0], pages_k, pages_v,
+                             block_tables, lengths, impl)
     out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
     return out @ params["wo"], pages_k, pages_v
 

@@ -29,16 +29,24 @@ What differs, because PyTorch runs eagerly:
   (``temperature > 0``) draw from the engine's ``torch.Generator`` and
   cannot match ``jax.random`` bit for bit.
 
+``offload=True`` (or an ``offload_policy``) runs the paged decode step
+through the offload compiler (``repro_torch.core.offload.mpu_offload``),
+wrapped where the JAX engine wraps it: the step is captured and planned
+once for the pool's decode signature, and every decode step runs the
+plan — fused segments as single kernel launches, everything else as
+its op.  ``offload_stats`` shows the plan cache (``plan_misses == 1``
+at steady state), ``explain_decode()`` the per-segment decisions.
+
 ``fault_injector`` is duck-typed (``page_alloc()``, ``slow_step()``,
 ``poison_slots(active)``).  The fixed-slot baseline engine, the fault
-injector itself, decode offload (``offload=True`` raises) and the
-static table verifier arrive with later slices of the port.
+injector itself and the static table verifier arrive with later slices
+of the port.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
@@ -50,6 +58,9 @@ from repro_torch.kernels.guard import kernel_guard
 from repro_torch.models import build_model
 from repro_torch.models.transformer import Cache, attention_only_pattern
 from repro_torch.serve.kv_pool import PagePool, bucket_length, ceil_pow2
+
+if TYPE_CHECKING:
+    from repro_torch.core.policy import OffloadPolicy
 
 
 @dataclass
@@ -85,11 +96,8 @@ class Engine:
                  prefill_chunk: int = 0, bucket_prompts: bool = True,
                  max_preempts: int = 3, max_queue: int = 0,
                  fault_injector: Any = None,
+                 offload_policy: "OffloadPolicy | None" = None,
                  device: str | torch.device = "cuda"):
-        if offload:
-            raise NotImplementedError(
-                "Engine(offload=True) needs the offload compiler, which "
-                "a later slice of the port brings")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device)
@@ -156,6 +164,25 @@ class Engine:
         self._chunkable = (prefill_chunk > 0 and w == 0
                            and attention_only_pattern(cfg))
 
+        # the hot path: with offload on, the paged decode step goes
+        # through the offload compiler, planned once for the pool's decode
+        # signature; ``offload_policy`` implies offload
+        self.offload = offload or offload_policy is not None
+        self.offload_policy = offload_policy
+        self._decode_offload = None
+        if self.offload:
+            from repro_torch.core.offload import mpu_offload
+
+            model = self.model
+
+            def paged_decode(params, cache, tok, pos, tables, active):
+                return model.decode_step_paged(params, cache, tok, pos,
+                                               tables, active,
+                                               max_len=max_len)
+
+            self._decode_offload = mpu_offload(paged_decode,
+                                               policy=offload_policy)
+
         self.decode_steps = 0
         self.serve_counters = {"preemptions": 0, "preemption_retries": 0,
                                "preempt_vetoes": 0, "deadline_cancels": 0,
@@ -186,9 +213,14 @@ class Engine:
         returns the emit tuple stacked ``[4, slots]`` (emitted token,
         was_active, done, bad) still on the device."""
         st, max_len = self._state, self.max_len
-        logits, self.cache = self.model.decode_step_paged(
-            self.params, self.cache, st["tok"], st["pos"], tables,
-            st["active"], max_len=max_len)
+        if self._decode_offload is not None:
+            logits, self.cache = self._decode_offload(
+                self.params, self.cache, st["tok"], st["pos"], tables,
+                st["active"])
+        else:
+            logits, self.cache = self.model.decode_step_paged(
+                self.params, self.cache, st["tok"], st["pos"], tables,
+                st["active"], max_len=max_len)
         if poison is not None:
             # chaos: poisoned rows get non-finite logits
             mask = torch.as_tensor(poison, device=self.device)
@@ -238,6 +270,45 @@ class Engine:
             "page_size": self.page_size,
             "table_width": self.table_width,
         }
+
+    @property
+    def offload_stats(self) -> dict | None:
+        """Plan-cache counters of the offloaded decode step (None when
+        offload is off).  The paged decode has one signature (fixed pool,
+        fixed-width tables), so the steady state is ``plan_misses ==
+        traces == 1`` with one ``plan_hit`` per further decode step."""
+        if self._decode_offload is None:
+            return None
+        return {**self._decode_offload.stats.as_dict(),
+                **kernel_guard().stats()}
+
+    def _on_decode_signature(self, method: str):
+        """``method`` of the offloaded decode step (``explain`` /
+        ``warm`` / ``plan_for``) on the engine's current decode inputs;
+        None when offload is off."""
+        if self._decode_offload is None:
+            return None
+        st = self._state
+        return getattr(self._decode_offload, method)(
+            self.params, self.cache, st["tok"], st["pos"],
+            torch.as_tensor(self.pool.tables, device=self.device),
+            st["active"])
+
+    def explain_decode(self):
+        """The offload DecisionReport of the paged decode step for the
+        pool's signature (None when offload is off): which chains fused,
+        which candidates were declined and why."""
+        return self._on_decode_signature("explain")
+
+    def prepare_decode(self):
+        """Capture and plan the decode step for the pool's signature now
+        (what the first decode step would do); returns the plan."""
+        return self._on_decode_signature("warm")
+
+    def decode_plan(self):
+        """The OffloadPlan of the paged decode step (None when offload
+        is off)."""
+        return self._on_decode_signature("plan_for")
 
     # -- slot management ----------------------------------------------------
     def _free_slot(self) -> int | None:

@@ -111,14 +111,48 @@ def test_cpu_tensor_never_reaches_the_cuda_kernel():
         paged_decode_attention(*args)
     with pytest.raises(ValueError):
         ops.paged_decode_attention(*args, impl="pallas")
+    # the fused-segment kernels (B2 Triton, B3 CUDA) refuse CPU tensors too
+    from repro_torch.core import OffloadPolicy
+    from repro_torch.core.offload import offload_report, segment_call
+
+    x, w = torch.ones((8, 16)), torch.ones((16, 32))
+    plan = offload_report(lambda x, w: torch.tanh(x @ w) * 2.0 + x.sum(),
+                          x, w, policy=OffloadPolicy(bulk_threshold=8))
+    calls = [segment_call(plan.eqns, s) for s in plan.segments]
+    assert {c["kind"] for c in calls} == {"matmul"}
+    grid = offload_report(lambda x: torch.tanh(x) * 2.0 + 1.0, x,
+                          policy=OffloadPolicy(bulk_threshold=8))
+    calls += [segment_call(grid.eqns, s) for s in grid.segments]
+    for call in calls:
+        vals = [torch.ones(s[1], s[2]) for s in call["specs"]]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            if call["kind"] == "grid":
+                ops.fused_segment_grid(
+                    call["progs"].body, vals, call["specs"],
+                    rows=call["rows"], out_cols=call["out_cols"],
+                    out_dtypes=call["out_dtypes"], impl="cuda")
+            else:
+                ops.fused_matmul_segment(
+                    None, None, call["progs"].body, vals[:1],
+                    call["specs"][:1], vals[1:2], call["specs"][1:2],
+                    vals[2:], call["specs"][2:], rows=call["rows"],
+                    k_dim=call["k"], n_dim=call["n"],
+                    acc_dtype=call["acc_dtype"], out_cols=call["out_cols"],
+                    out_dtypes=call["out_dtypes"],
+                    vmem_bytes=call["vmem_bytes"], sms=call["sms"],
+                    impl="cuda")
     assert kernel_guard().launches == before        # nothing was launched
-    assert ops.launch_counts() == {"paged_decode_attention": 0}
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     assert resolve_impl("auto", tx[0]) == "ref"
 
 
 def test_default_num_splits_fills_the_card_from_shapes_alone():
+    from repro_torch.core.machine import H100_SXM
+
+    sms = H100_SXM.sms
     # main-path shape: 8 slots x 8 kv heads = 64 blocks -> 4 splits
-    assert default_num_splits(8, 16, 8, 32) == 4
-    assert default_num_splits(1, 2, 1, 8) == 8          # capped by pages
-    assert default_num_splits(64, 32, 32, 32) == 1      # already full
-    assert default_num_splits(2, 6, 2, 16) == 16        # G=3 -> tile of 1
+    assert default_num_splits(8, 16, 8, 32, sms) == 4
+    assert default_num_splits(1, 2, 1, 8, sms) == 8     # capped by pages
+    assert default_num_splits(64, 32, 32, 32, sms) == 1  # already full
+    assert default_num_splits(2, 6, 2, 16, sms) == 16   # G=3 -> tile of 1
+    assert default_num_splits(8, 16, 8, 32, sms // 2) == 2  # half the SMs

@@ -54,12 +54,17 @@ def test_every_module_of_the_slice_is_there():
             "kernels.decode_attention", "kernels.guard", "kernels.ops",
             "models.layers", "models.attention", "models.transformer",
             "models.model", "convert", "serve.kv_pool", "serve.engine",
-            "launch.serve"}
+            "launch.serve", "core.isa", "core.machine", "core.prims",
+            "core.locator", "core.policy", "core.offload",
+            "kernels.blockprog", "kernels.codegen",
+            "kernels.fused_elementwise", "kernels.fused_matmul"}
     have = {n.removeprefix("repro_torch.") for n in _submodules()}
     assert want <= have, want - have
     csrc = ROOT / "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
     text = csrc.read_text()
     assert "__global__" in text and 'extern "C"' in text
+    gemm = (ROOT / "src/repro_torch/kernels/csrc/fused_matmul.cuh").read_text()
+    assert "__global__" in gemm and "wmma::mma_sync" in gemm
 
 
 def test_sources_name_no_jax_import_and_no_library_attention():
@@ -97,6 +102,15 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import serve
     serve.main(["--local", "--device", "cpu", "--requests", "3"])
     assert "served 3 requests / 24 tokens" in capsys.readouterr().out
+
+
+def test_launcher_serves_offloaded_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--local", "--device", "cpu", "--requests", "2",
+                "--offload-mode", "all_near"])
+    out = capsys.readouterr().out
+    assert "served 2 requests / 16 tokens" in out
+    assert "'plan_misses': 1" in out and "fused" in out
 
 
 def test_chip_smoke_fails_without_a_cuda_device():

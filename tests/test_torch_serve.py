@@ -311,11 +311,73 @@ def test_sampled_rows_are_valid_and_seeded(setup, baseline):
 
 def test_engine_surface_of_this_slice(setup):
     cfg, params, _ = setup
-    with pytest.raises(NotImplementedError, match="offload"):
-        Engine(cfg, params, device="cpu", offload=True)
+    off = Engine(cfg, params, device="cpu", offload=True)
+    assert off.offload and off.offload_stats["plan_misses"] == 0
     eng = _engine(setup)
+    assert eng.offload_stats is None and eng.explain_decode() is None
     assert not any(k.endswith("_traces") for k in eng.serve_counters)
     stats = eng.serve_stats
     assert stats["pages_used"] == 0 and stats["decode_steps"] == 0
-    assert stats["kernel_launches"] == {"paged_decode_attention": 0}
+    assert stats["kernel_launches"] == {"paged_decode_attention": 0,
+                                        "fused_segment_grid": 0,
+                                        "fused_matmul_segment": 0}
     assert stats["table_width"] == 8 and stats["guard_epoch"] == 0
+
+
+# ------------------------------------------------------------------ offload
+def _offload_policies():
+    """The tests' width (d_model 64, 2 slots) keeps every value below the
+    default bulk_threshold of 1024; both engines get the same low one so
+    that segments form."""
+    from repro.core import OffloadPolicy as JPolicy
+    from repro_torch.core import OffloadPolicy
+    return JPolicy(bulk_threshold=32), OffloadPolicy(bulk_threshold=32)
+
+
+def test_offloaded_engine_matches_jax_offloaded_and_eager(qwen):
+    jcfg, jparams, tcfg, tparams = qwen
+    jpol, tpol = _offload_policies()
+    prompts = _rand_prompts(5, 5, 20, 4)
+    jreqs = [JRequest(p, max_new_tokens=6, rid=i)
+             for i, p in enumerate(prompts)]
+    jeng = JEngine(jcfg, jparams, slots=2, max_len=48, page_size=8,
+                   offload_policy=jpol)
+    want, jtraj = _traced_generate(jeng, jreqs)
+    results = {}
+    for label, kw in (("offload", dict(offload_policy=tpol)), ("eager", {})):
+        eng = Engine(tcfg, tparams, device="cpu", slots=2, max_len=48,
+                     page_size=8, **kw)
+        got, traj = _traced_generate(eng, [
+            Request(p, max_new_tokens=6, rid=i)
+            for i, p in enumerate(prompts)])
+        results[label] = (eng, got, traj)
+        for i in range(len(prompts)):
+            assert got[i].status == "ok"
+            assert got[i].tokens == want[i].tokens, (label, i)
+        assert traj == jtraj, label
+    off = results["offload"][0]
+    plan = off.decode_plan()
+    assert any(s.matmul is not None for s in plan.segments)
+    assert any(s.matmul is None for s in plan.segments)
+    assert off.offload_stats["plan_misses"] == 1
+    assert off.pool.used_pages == 0
+    report = off.explain_decode()
+    assert report.n_fused == len(plan.segments) and report.n_declined > 0
+
+
+def test_offloaded_engine_plans_once_under_churn(qwen):
+    """24 requests through 2 slots (the JAX engine's zero-retrace test):
+    the decode signature never changes, so one plan serves every step."""
+    _, _, tcfg, tparams = qwen
+    _, tpol = _offload_policies()
+    eng = Engine(tcfg, tparams, device="cpu", slots=2, max_len=32,
+                 page_size=8, offload_policy=tpol)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(1, 250, size=rng.integers(5, 8)).astype(
+        np.int32), max_new_tokens=4, rid=i) for i in range(24)]
+    done = eng.generate(reqs)
+    assert all(len(done[r.rid].tokens) == 4 for r in reqs)
+    st = eng.offload_stats
+    assert st["plan_misses"] == 1 and st["traces"] == 1, st
+    assert st["plan_hits"] == eng.decode_steps - 1
+    assert eng.serve_stats["pages_used"] == 0
