@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch``'s main path — serving full-width qwen3-1.7b
-(random weights from a seed) through the paged ``Engine`` — and holds
-every hand-written kernel against its plain PyTorch version:
+Drives ``repro_torch``'s main paths — serving full-width qwen3-1.7b
+(random weights from a seed) through the paged ``Engine``, and training
+it through the offload compiler — and holds every hand-written kernel
+against its plain PyTorch version:
 
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
@@ -36,7 +37,22 @@ every hand-written kernel against its plain PyTorch version:
    ``plan_misses == 1``); profile an offloaded decode step; and take one
    decode step on the same state offloaded and eager, in bf16 and in
    f32 — logits agree;
-7. a ``kernels`` JSON line, then the card line, then the result line.
+7. training full-width qwen3-1.7b (f32 master parameters, bf16 compute,
+   2 x 1024 tokens a step) through ``make_train_step(offload=True)``:
+   plan the loss, every fused segment's backward and the update, build
+   all their translation units together, take three steps (launch counts
+   a step, the host clock, the device-busy time under the profiler, peak
+   memory, then one more step split into forward, backward and update
+   peaks); the offloaded step against the plain eager step in bf16 and,
+   at two layers, in f32; AdamW through ``apply_updates(use_kernel=True)``
+   against ``use_kernel=False`` and B8 against its plain version; every
+   distinct fused segment of the training plans — grid (B2), fwd (B3,
+   with the GEMM path each takes), dlhs (B4), drhs (B6) — at its own
+   shapes and strides, and B4 / B6 with ``batch`` = 2, against their
+   plain versions, the bf16 anchored ones and the most launched grid
+   ones timed beside the bound, the plain version and a library
+   yardstick;
+8. a ``kernels`` JSON line, then the card line, then the result line.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -46,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,6 +85,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_plain,
 )
 from repro_torch.models import build_model
+from repro_torch.models.layers import cast_params
 from repro_torch.serve import Engine, Request
 
 # datasheet figures of one H100 SXM (NVIDIA): the bound is computed
@@ -407,7 +425,8 @@ def phase_engine():
     cfg = get_config("qwen3-1.7b")
     model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
-    params = model.init(0)
+    # the serving copy, cast once (the engines then share it uncopied)
+    params = cast_params(model.init(0), model.dtype)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[4] qwen3-1.7b full width: {cfg.num_layers} layers, "
@@ -590,11 +609,41 @@ def run_seg(call: dict, vals, impl: str):
         vmem_bytes=call["vmem_bytes"], sms=call["sms"], impl=impl)
 
 
+def finite_parts(g: torch.Tensor, w: torch.Tensor):
+    """Whether ``g`` has the non-finite values where the plain ``w`` has
+    them (a seeded operand outside an op's domain: both sides agree), and
+    both with those values zeroed."""
+    g, w = g.float(), w.float()
+    fin = torch.isfinite(w)
+    inf = torch.isinf(w)
+    same = bool(torch.equal(torch.isnan(g), torch.isnan(w))) and \
+        bool((g[inf] == w[inf]).all())
+    return same, torch.where(fin, g, 0.0), torch.where(fin, w, 0.0)
+
+
+def n_outside(got, want, dtype) -> list[int]:
+    """Elements of each output outside the bound of ``close_f32`` (f32)
+    or ``seg_close`` (bf16)."""
+    rtol, atol = SEG_TOL[dtype]
+    out = []
+    for g, w in zip(got, want):
+        _, g, w = finite_parts(g, w)
+        if dtype == torch.float32:
+            bad = (g - w).abs() > TRAIN_F32_TOL * w.abs().max()
+        else:
+            rms = w.pow(2).mean().sqrt()
+            bad = ~torch.isclose(g, w, rtol=rtol, atol=atol) | (
+                (g - w).abs() > 2.0 ** -7 * w.abs() + 2.0 ** -7 * rms)
+        out.append(int(bad.sum()))
+    return out
+
+
 def seg_close(got, want, dtype) -> tuple[bool, float]:
     rtol, atol = SEG_TOL[dtype]
     ok, err = True, 0.0
     for g, w in zip(got, want):
-        g, w = g.float(), w.float()
+        same, g, w = finite_parts(g, w)
+        ok = ok and same
         err = max(err, max_err(g, w))
         ok = ok and torch.allclose(g, w, rtol=rtol, atol=atol)
         if dtype == torch.bfloat16:
@@ -876,6 +925,626 @@ def phase_offload(params, card: str):
     return timed, counts
 
 
+# ------------------------------------------------------------ training (7)
+
+#: the device the training phase runs on
+DEVICE = "cuda"
+#: sequence length and sequences of one training step at full width
+TRAIN_SHAPE = (1024, 2)
+#: the offloaded bf16 step against the port's plain eager step, same
+#: weights and batch: every fused GEMM (forward, recomputed forward,
+#: dlhs, drhs) sums in another order than cuBLAS and rounds its product
+#: to bf16 once, so activations and gradients move by bf16 ulps through
+#: 28 layers — loss within 2e-2 absolute, global gradient norm within
+#: 5e-2 relative
+TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL = 2e-2, 5e-2
+#: a 2-layer full-width build in f32: only the summation order differs —
+#: loss within 1e-4, every gradient leaf within 1e-3 of its own max-abs
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 1e-3
+#: B8 is held bit-equal to its plain version.  apply_updates with the
+#: kernel against apply_updates without it: the kernel takes 1 - b1 in f32
+#: from f32(b1) where the plain path takes f32(1 - b1) from Python floats
+#: (as the JAX package's two paths do), a few ulps of the coefficient —
+#: within 2^-20 of each leaf's max-abs (2.6e-7 measured on the CPU)
+ADAMW_PATH_TOL = 2.0 ** -20
+#: a segment of the f32 training plans against its plain version: 1e-4
+#: of the output's max-abs (sums in another order: up to K = 6144
+#: products, and lane reductions over up to 151,936 lanes, whose values
+#: can cancel to near zero).  Every segment of the bf16 plans as in
+#: phase 6 (SEG_TOL: one bf16 ulp of the value plus one of the output's
+#: rms)
+TRAIN_F32_TOL = 1e-4
+#: the grid segments of the training plans that are timed: the most
+#: launched ones
+TIMED_GRID = 3
+
+
+def train_segments(plans) -> dict:
+    """symbol -> (eqns, segment, count) of every distinct fused segment
+    of the plans — grid (B2), fwd (B3), dlhs (B4), drhs (B6) — with the
+    times the plans hold it."""
+    from repro_torch.core.offload import kernel_symbol, segment_call
+
+    out: dict = {}
+    for plan in plans:
+        eqns = plan.eqns
+        for seg in plan.segments:
+            sym = kernel_symbol(segment_call(eqns, seg))
+            e, s, n = out.get(sym, (eqns, seg, 0))
+            out[sym] = (e, s, n + 1)
+    return out
+
+
+def _span(t: torch.Tensor) -> int:
+    """Elements of the storage a strided view reaches."""
+    if t.numel() == 0:
+        return 0
+    return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+
+
+def seg_operands(seg, seed: int) -> list:
+    """Seeded operands of a planned segment at the graph's own shapes
+    and strides (a transposed or broadcast view stays one): unit normals
+    over the storage, integers 0..3.  The operands of an anchored
+    segment's contraction lie on a coarse grid — multiples of 1/2 on the
+    activation side, of 2^-3 times a power of two near 1/sqrt(K) on the
+    weight side (multiples of 2^-3 for the cotangent of a drhs) — exact
+    in bf16, so that every product and partial sum is exact in f32: the
+    accumulator is the same in any summation order, and the kernel and
+    its plain version round the same value."""
+    from repro_torch.core.offload import _segment_arg_vars, node_val
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mm = seg.matmul
+    lhs = {s.var for s in mm.lhs_specs} if mm else set()
+    rhs = {s.var for s in mm.rhs_specs} if mm else set()
+    scale = 2.0 ** round(-0.5 * math.log2(mm.k)) \
+        if mm and mm.form != "drhs" else 1.0
+    out = []
+    for v in _segment_arg_vars(seg):
+        val = node_val(v)
+        t = torch.randn(_span(val), generator=gen, device=DEVICE)
+        if v in lhs:
+            t = torch.round(2 * t) / 2
+        elif v in rhs:
+            t = torch.round(8 * t) / 8 * scale
+        if not val.dtype.is_floating_point:
+            t = t.abs().floor()
+        out.append(t.to(val.dtype).as_strided(tuple(val.shape),
+                                              tuple(val.stride())))
+    return out
+
+
+def plan_training(step, state, batch, label: str):
+    """Capture and plan the loss (forward), the backward of every fused
+    segment and the update, then build all their CUDA translation units
+    together.  Returns every plan of the step: the forward, the
+    backward ones and the update."""
+    from repro_torch.core.offload import bwd_plan_stats, clear_bwd_plans
+    from repro_torch.train.step import device_batch
+
+    clear_bwd_plans()
+    dbatch = device_batch(batch, DEVICE)
+    fplan = step.loss_fn.warm(state.params, dbatch)
+    bplans = step.loss_fn.warm_backward(state.params, dbatch)
+    uplan = step.update_fn.warm(state.params, state.params, state.opt)
+    fst, bst = step.stats, bwd_plan_stats()
+    t0 = time.perf_counter()
+    units = sorted({tuple(p.library) for p in [fplan, uplan, *bplans]
+                    if p.library})
+    logs = [fm.finish_library(h)[1]
+            for h in [fm.start_library(u, verbose=True) for u in units]]
+    build_s = time.perf_counter() - t0
+    regs = sorted({int(ln.split("Used ")[1].split()[0]) for log in logs
+                   for ln in log.splitlines() if "registers" in ln})
+    spills = sum("spill" in ln and "0 bytes spill stores" not in ln
+                 for log in logs for ln in log.splitlines())
+
+    def forms(plans, fused):
+        n: dict = {}
+        for p in plans:
+            for d in p.decisions:
+                if d.fused == fused:
+                    k = d.form or "grid"
+                    n[k] = n.get(k, 0) + 1
+        return n
+
+    print(f"[7] {label}: forward plan {len(fplan.segments)} fused "
+          f"{forms([fplan], True)} / {sum(not d.fused for d in fplan.decisions)}"
+          f" declined, traffic {fplan.traffic_reduction:.2f}x; update plan "
+          f"{len(uplan.segments)} fused / "
+          f"{sum(not d.fused for d in uplan.decisions)} declined")
+    print(f"[7] {label}: {len(bplans)} backward plans: fused "
+          f"{forms(bplans, True)}, declined {forms(bplans, False)}")
+    why: dict = {}
+    for p in [fplan, *bplans]:
+        for d in p.decisions:
+            if d.form and not d.fused:
+                why.setdefault(d.form, d.reason)
+    for form, reason in why.items():
+        print(f"[7] {label}: a declined {form} anchor, for example: {reason}")
+    print(f"[7] {label}: capture {fst.capture_s + bst.capture_s:.1f} s "
+          f"(forward {fst.capture_s:.1f}, backward {bst.capture_s:.1f}), plan "
+          f"{fst.plan_s + bst.plan_s:.1f} s (forward {fst.plan_s:.1f}, "
+          f"backward {bst.plan_s:.1f}); {len(units)} CUDA translation units "
+          f"for {sum(len(u) for u in units)} anchored segments built together "
+          f"in {build_s:.1f} s (registers per thread {regs}, {spills} with "
+          f"spills)")
+    return [fplan, *bplans, uplan]
+
+
+def global_norm_of(grads) -> float:
+    from repro_torch.optim import global_norm
+    return float(global_norm(grads))
+
+
+def train_steps(step, held: list, data, tokens: int):
+    """Three steps: the first cold (Triton builds), the second and third
+    under the profiler.  ``held`` is a one-element list holding the
+    state, emptied here so that no caller keeps the first state alive
+    (a step's peak memory is the old state beside the new one).  Returns
+    the state, the launches of every kernel over the three steps and the
+    step-3 reading."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = held.pop()
+    ops.reset_launch_counts()
+    times, per_step, losses, peaks = [], [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for i in range(3):
+        before = ops.launch_counts()
+        if i == 1:
+            prof.__enter__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data.batch(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] - before[k]})
+        losses.append(float(metrics["loss"]))
+        check(np.isfinite(losses[-1]) and
+              np.isfinite(float(metrics["grad_norm"])), "non-finite step")
+    prof.__exit__(None, None, None)
+    counts = ops.launch_counts()
+    peak = max(peaks)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and dev_us(e) > 0 and "Memcpy" not in e.key]
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / 2
+    host_ms = (times[1] + times[2]) / 2 * 1e3
+    print(f"[7] 3 steps of {tokens} tokens: {[round(t, 3) for t in times]} s "
+          f"by the host clock (step 1 builds the Triton kernels; steps 2-3 "
+          f"run under the profiler), losses {[round(x, 4) for x in losses]}")
+    print(f"[7] steps 2-3: {host_ms:.1f} ms a step, {tokens / host_ms * 1e3:.0f}"
+          f" tokens/s; device busy {busy_ms:.1f} ms a step "
+          f"({busy_ms / host_ms:.1%}), "
+          f"{sum(e.count for e in rows) / 2:.0f} device kernels a step; peak "
+          f"device memory {peak:.2f} GiB (steps 1-3: "
+          f"{[round(p, 2) for p in peaks]})")
+    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
+        print(f"[7]   {dev_us(e) / 2e3:9.3f} ms/step {e.count / 2:7.0f} "
+              f"calls/step  {e.key[:80]}")
+    print(f"[7] launches a step (step 3): {per_step[2]}")
+    return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak)
+
+
+def memory_split(step, state, batch, plans) -> dict:
+    """Device memory over one more offloaded step taken in its three
+    parts — the forward, the backward and the update — each with its own
+    peak; and the f32 workspace the anchored segments of the plans ask
+    for (the largest call's, and the LM head's)."""
+    import torch.utils._pytree as pytree
+    from repro_torch.core.offload import _matmul_gen, segment_call
+
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves, spec = pytree.tree_flatten(state.params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = step.loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated()
+    saved = torch.cuda.memory_allocated() - resident
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(loss, leaves)
+    del loss
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated()
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = step.update_fn(state.params, pytree.tree_unflatten(
+            list(grads), spec), state.opt)
+    torch.cuda.synchronize()
+    upd_peak = torch.cuda.max_memory_allocated()
+    del out, grads, leaves
+    ws = []
+    for plan in plans:
+        for seg in plan.segments:
+            if seg.matmul is not None and seg.matmul.form != "drhs":
+                gen = _matmul_gen(segment_call(plan.eqns, seg))
+                ws.append((4 * seg.rows * seg.matmul.n * gen["ks"],
+                           seg.matmul.n))
+    big = max(ws) if ws else (0, 0)
+    head = max((w for w in ws if w[1] == max(n for _, n in ws)),
+               default=(0, 0))
+    print(f"[7] memory of one step, split (GiB): resident before it "
+          f"{resident / gib:.2f} (f32 parameters and both moments); "
+          f"forward peak {fwd_peak / gib:.2f}, activations saved for the "
+          f"backward {saved / gib:.2f}; backward peak {bwd_peak / gib:.2f} "
+          f"(the f32 gradients {grad_bytes / gib:.2f}); update peak "
+          f"{upd_peak / gib:.2f}; the largest K-split workspace of one "
+          f"anchored call {big[0] / gib:.2f} (N = {big[1]}), the LM head's "
+          f"{head[0] / gib:.2f} (N = {head[1]})")
+    return dict(resident=resident / gib, fwd_peak=fwd_peak / gib,
+                saved=saved / gib, bwd_peak=bwd_peak / gib,
+                upd_peak=upd_peak / gib)
+
+
+def train_numerics(model, step, state, batch, tcfg, label: str, *,
+                   f32: bool):
+    """The offloaded and the plain eager step's loss and gradients on
+    the same weights and batch.  Returns the offloaded gradients."""
+    from repro_torch.train import make_train_step
+
+    plain = make_train_step(model, dataclasses.replace(tcfg, offload=False))
+    loss_o, _, grads_o = step.compute_grads(state.params, batch)
+    loss_p, _, grads_p = plain.compute_grads(state.params, batch)
+    gn_o, gn_p = global_norm_of(grads_o), global_norm_of(grads_p)
+    dl = abs(float(loss_o) - float(loss_p))
+    if f32:
+        worst = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(_leaves(grads_o), _leaves(grads_p)))
+        print(f"[7] {label}: loss offloaded {float(loss_o):.6f} vs plain "
+              f"{float(loss_p):.6f} (|diff| {dl:.2e}, tolerance "
+              f"{F32_LOSS_TOL}); worst gradient leaf {worst:.2e} of its "
+              f"max-abs (tolerance {F32_GRAD_TOL}); grad norm {gn_o:.4f} "
+              f"vs {gn_p:.4f}")
+        check(dl <= F32_LOSS_TOL and worst <= F32_GRAD_TOL,
+              f"{label}: offloaded and plain gradients differ")
+    else:
+        rel = abs(gn_o - gn_p) / gn_p
+        print(f"[7] {label}: loss offloaded {float(loss_o):.5f} vs plain "
+              f"{float(loss_p):.5f} (|diff| {dl:.2e}, tolerance "
+              f"{TRAIN_LOSS_TOL}); global grad norm {gn_o:.4f} vs "
+              f"{gn_p:.4f} (relative {rel:.2e}, tolerance "
+              f"{TRAIN_GNORM_RTOL})")
+        check(dl <= TRAIN_LOSS_TOL and rel <= TRAIN_GNORM_RTOL,
+              f"{label}: offloaded and plain step differ")
+    del grads_p
+    return grads_o
+
+
+def close_f32(got, want) -> tuple[bool, float]:
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        same, g, w = finite_parts(g, w)
+        e = max_err(g, w)
+        err = max(err, e)
+        ok = ok and same and e <= TRAIN_F32_TOL * float(w.abs().max())
+    return ok, err
+
+
+def describe_segment(eqns, seg, count: int) -> str:
+    """One line: the segment's form and shapes; for an anchored one the
+    GEMM path the generated kernel takes (WMMA on bf16 tiles, f32 FMA
+    otherwise), its prologues, K split and where the epilogue runs."""
+    from repro_torch.core.offload import _matmul_gen, node_val, segment_call
+
+    mm = seg.matmul
+    if mm is None:
+        roles: dict = {}
+        for s in seg.operand_specs:
+            roles[s.role] = roles.get(s.role, 0) + 1
+        return (f"grid rows {seg.rows}, {len(seg.out_cols)} outputs of "
+                f"{sorted(set(seg.out_cols))} lanes, operand roles {roles} "
+                f"x{count}")
+    gen = _matmul_gen(segment_call(eqns, seg))
+    if mm.form == "drhs":
+        shape = f"[{mm.k}x{seg.rows}]^T@[{mm.k}x{mm.n}]"
+    else:
+        shape = f"[{seg.rows}x{mm.k}]@[{mm.k}x{mm.n}]"
+    w = [str(node_val(s.var).dtype)[6:] for s in mm.rhs_specs]
+    pro = "+".join(p for p, on in (("lhs", mm.pro_eqns),
+                                   ("weight", mm.rhs_pro_eqns)) if on)
+    where = "in the tile" if gen["ks"] == 0 else \
+        f"in a second kernel over {gen['ks']} K split(s)"
+    return (f"{mm.form} {shape} weight-side {w} prologue {pro or 'none'} "
+            f"{'WMMA' if gen['wmma'] else 'FMA'} row block {gen['rb']}, "
+            f"epilogue {where} x{count}")
+
+
+def check_train_segments(plans, dtype, card: str, *, timed: bool) -> dict:
+    """Every distinct fused segment of the training plans — grid (B2),
+    fwd (B3), dlhs (B4), drhs (B6) — against its plain version at its own
+    shapes and strides.  With ``timed``, every anchored one and the
+    ``TIMED_GRID`` most launched grid ones are timed beside the bound,
+    the plain version and a library yardstick.  Returns the timing rows
+    by symbol."""
+    from repro_torch.core.offload import (
+        _segment_kernel,
+        segment_call,
+        segment_programs,
+    )
+
+    t0 = time.perf_counter()
+    segs = train_segments(plans)
+    grids = sorted((sym for sym, (_, s, _) in segs.items()
+                    if s.matmul is None), key=lambda sym: -segs[sym][2])
+    rows, summary, failed = {}, {}, []
+    for sym, (eqns, seg, count) in segs.items():
+        mm = seg.matmul
+        form = mm.form if mm is not None else "grid"
+        progs = segment_programs(eqns, seg)
+        call = _segment_kernel(seg, progs, impl="cuda")
+        ref = _segment_kernel(seg, progs, impl="ref")
+        vals = seg_operands(seg, zlib.crc32(sym.encode()) % 1000)
+        got = call(*vals)
+        torch.cuda.synchronize()
+        want = ref(*vals)
+        if dtype == torch.float32:
+            ok, err = close_f32(got, want)
+        else:
+            ok, err = seg_close(got, want, dtype)
+        n, n_launch, worst = summary.get(form, (0, 0, 0.0))
+        summary[form] = (n + 1, n_launch + count, max(worst, err))
+        bits = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"[7]   {describe_segment(eqns, seg, count)} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e}"
+              f"{', bit-equal' if bits else ''}")
+        if not ok:
+            print(f"[7]     FAILED: elements outside the bound "
+                  f"{n_outside(got, want, dtype)} of "
+                  f"{[w.numel() for w in want]}")
+            failed.append(f"{form} {sym}")
+            continue
+        if not timed or (mm is None and sym not in grids[:TIMED_GRID]):
+            continue
+        lib, lib_name = None, None
+        if mm is not None:
+            # g @ w^T (dlhs), x^T @ g (drhs), x @ w (fwd; a weight-side
+            # cast comes first): the operands are the graph's views
+            a, b = vals[0], vals[len(mm.lhs_specs)]
+            if mm.form == "fwd" and (mm.pro_eqns or b.dtype != a.dtype):
+                lib_name = "cast + torch.matmul"
+
+                def lib():
+                    return torch.matmul(a, b.to(a.dtype))
+            else:
+                lib_name = "torch.matmul"
+
+                def lib():
+                    return torch.matmul(a, b)
+        else:
+            fn = yardstick(segment_call(eqns, seg), vals)
+            if fn is not None:
+                lib, lib_name = (lambda: fn()), "F.rms_norm"
+        ms = graph_ms(lambda i: call(*vals), 2, replays=5)
+        plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
+        library_ms = graph_ms(lambda i: lib(), 2, replays=5) if lib else None
+        n_bytes = sum(_span(v) * v.element_size() for v in vals) + \
+            sum(o.numel() * o.element_size() for o in got)
+        flops = 2 * seg.rows * mm.k * mm.n if mm is not None else 0
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        rows[sym] = dict(kind=form, count=count, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", max_abs_err=err)
+        print(f"[7]     {ms:.4f} ms on the card (CUDA-graph replay), plain "
+              f"{plain_ms:.4f} ms, {lib_name or 'library'} "
+              f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms, "
+              f"bound {bound_ms:.4f} ms by {rows[sym]['bound_by']} "
+              f"({n_bytes} bytes, {flops} flops; bound / kernel = "
+              f"{bound_ms / ms:.1%}) on {card}")
+    for form, (n, n_launch, worst) in summary.items():
+        print(f"[7] {str(dtype)[6:]} {form}: {n} distinct segments checked "
+              f"({n_launch} in the plans), worst max_abs_err {worst:.3e}")
+    print(f"[7] {len(segs)} distinct segments checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not failed, f"segments differ from their plain versions: {failed}")
+    return rows
+
+
+def check_batched_bwd() -> None:
+    """B4 and B6 with ``batch`` = 2 (no plan forms them yet: ``bmm`` is
+    declined) against their plain versions, in f32 and bf16: each batch
+    slice of rows against its own slice of the weight (dlhs) or of both
+    operands (drhs)."""
+    from repro_torch.core import OffloadPolicy
+    from repro_torch.core.offload import offload_report, segment_call
+
+    nb, per, k, n = 2, 96, 320, 200
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=DEVICE).manual_seed(12)
+
+        def t(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen,
+                                        device=DEVICE)).to(dtype)
+        g, y = t(nb * per, k), t(nb * per, n)
+        plan = offload_report(lambda g, w, y: torch.tanh(g @ w.t()) + y, g,
+                              t(n, k), y,
+                              policy=OffloadPolicy(bulk_threshold=64))
+        dl = segment_call(plan.eqns, plan.segments[0])
+        w = t(nb, n, k, scale=k ** -0.5)            # a weight per slice
+        gg, wd = t(nb * per, n), t(k, n)
+        plan = offload_report(lambda x, g, w: x.t() @ g + 0.01 * w,
+                              t(nb * per, k), gg, wd,
+                              policy=OffloadPolicy(bulk_threshold=64))
+        dr = segment_call(plan.eqns, plan.segments[0])
+        x = t(nb * per, k // nb)           # x[m, rows] of each slice
+        check(dl["form"] == "dlhs" and dr["form"] == "drhs",
+              "batched check: plan forms")
+        for form, call, run in (
+                ("dlhs", dl, lambda impl: ops.fused_matmul_dlhs_segment(
+                    None, dl["progs"].body, [g], dl["specs"][:1], w, [y],
+                    dl["specs"][2:], rows=dl["rows"], k_dim=dl["k"],
+                    n_dim=dl["n"], acc_dtype=dl["acc_dtype"],
+                    out_cols=dl["out_cols"], out_dtypes=dl["out_dtypes"],
+                    vmem_bytes=dl["vmem_bytes"], sms=dl["sms"], batch=nb,
+                    impl=impl)),
+                ("drhs", dr, lambda impl: ops.fused_matmul_drhs_segment(
+                    dr["progs"].body, x, gg, [wd], dr["specs"][2:],
+                    m_dim=per, rows=dr["rows"], n_dim=dr["n"],
+                    acc_dtype=dr["acc_dtype"], out_cols=dr["out_cols"],
+                    out_dtypes=dr["out_dtypes"],
+                    vmem_bytes=dr["vmem_bytes"], batch=nb, impl=impl))):
+            got = run("cuda")
+            torch.cuda.synchronize()
+            want = run("ref")
+            if dtype == torch.bfloat16:
+                ok, err = seg_close(got, want, dtype)
+            else:
+                err = max_err(got[0], want[0])
+                ok = err <= TRAIN_F32_TOL * float(want[0].abs().max())
+            print(f"[7]   batched {form} (batch {nb}) {str(dtype)[6:]}: "
+                  f"max_abs_err {err:.3e}")
+            check(ok, f"batched {form} {dtype} vs plain")
+
+
+def phase_adamw(state, grads, tcfg, card: str) -> dict:
+    """B8 through apply_updates(use_kernel=True) over the full-width tree
+    (the launches counted), held leaf by leaf against use_kernel=False;
+    the kernel bit-equal to its plain version and timed at the largest
+    leaf."""
+    from repro_torch.kernels.adamw_update import adamw_update_plain
+    from repro_torch.optim import AdamWState, apply_updates, warmup_cosine
+    from repro_torch.optim.adamw import adamw_hyper
+
+    lr = warmup_cosine(tcfg, state.opt.step)
+    leaves = list(_leaves(state.params))
+    ops.reset_launch_counts()
+    new_p, new_opt = apply_updates(state.params, grads, state.opt, tcfg, lr,
+                                   use_kernel=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["adamw_update"]
+    check(launches == len(leaves), f"{launches} B8 launches for "
+          f"{len(leaves)} leaves")
+    worst = 0.0
+    for i, (p, g, m, v, pk, mk, vk) in enumerate(zip(
+            leaves, _leaves(grads), _leaves(state.opt.m),
+            _leaves(state.opt.v), _leaves(new_p), _leaves(new_opt.m),
+            _leaves(new_opt.v))):
+        pp, po = apply_updates({"x": p}, {"x": g}, AdamWState(
+            state.opt.step, {"x": m}, {"x": v}), tcfg, lr, use_kernel=False)
+        for a, b in ((pk, pp["x"]), (mk, po.m["x"]), (vk, po.v["x"])):
+            worst = max(worst, max_err(a, b) / max(float(b.abs().max()),
+                                                    1e-30))
+    del new_p, new_opt
+    step = state.opt.step + 1
+    bc1 = 1.0 - tcfg.beta1 ** step.float()
+    bc2 = 1.0 - tcfg.beta2 ** step.float()
+    hyper = adamw_hyper(tcfg, lr, bc1, bc2)
+    big = max(range(len(leaves)), key=lambda j: leaves[j].numel())
+    args = (leaves[big], list(_leaves(grads))[big],
+            list(_leaves(state.opt.m))[big], list(_leaves(state.opt.v))[big],
+            hyper)
+    got = ops.adamw_update(*args, impl="cuda")
+    want = adamw_update_plain(*args)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    print(f"[7] B8 through apply_updates(use_kernel=True): {launches} "
+          f"launches (one a leaf); against use_kernel=False the worst leaf "
+          f"differs by {worst:.2e} of its max-abs (tolerance "
+          f"{ADAMW_PATH_TOL:.2e}); kernel vs its plain version at the "
+          f"largest leaf {tuple(leaves[big].shape)}: bit-equal {equal}")
+    check(worst <= ADAMW_PATH_TOL, "apply_updates with and without B8 differ")
+    check(equal, "B8 differs from its plain version")
+    del got, want
+    ms = graph_ms(lambda i: ops.adamw_update(*args, impl="cuda"), 2,
+                  replays=5)
+    plain_ms = time_ms(lambda i: adamw_update_plain(*args), 2, warmup=1)
+    n = leaves[big].numel()
+    n_bytes = n * (3 * leaves[big].element_size() + 4 * 4)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, \
+        15 * n / PEAK_FLOPS[torch.float32] * 1e3
+    library_ms = None
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is not None:
+        lib = [t.clone() for t in args[:4]]
+        steps = [torch.ones((), device=DEVICE)]
+
+        def adamw_lib(i):
+            fused([lib[0]], [lib[1]], [lib[2]], [lib[3]], [], steps,
+                  lr=float(lr), beta1=tcfg.beta1, beta2=tcfg.beta2,
+                  weight_decay=tcfg.weight_decay, eps=tcfg.eps,
+                  amsgrad=False, maximize=False)
+        library_ms = time_ms(adamw_lib, 4, warmup=1)
+        del lib
+    print(f"[7] B8 at {tuple(leaves[big].shape)} f32: {ms:.4f} ms on the "
+          f"card (CUDA-graph replay), plain {plain_ms:.4f} ms, library "
+          f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms "
+          f"(torch._fused_adamw_), bound {max(t_bytes, t_ops):.4f} ms by "
+          f"bytes ({n_bytes} bytes; bound / kernel = "
+          f"{max(t_bytes, t_ops) / ms:.1%}) on {card}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+
+def phase_train(card: str):
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import device_batch
+
+    cfg = get_config("qwen3-1.7b")
+    tcfg = TrainConfig(remat=False, offload=True)
+    model = build_model(cfg, device=DEVICE)
+    state = init_train_state(model, 0)
+    data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
+                                                         *TRAIN_SHAPE)))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    print(f"[7] training qwen3-1.7b at full width and depth: f32 master "
+          f"parameters and AdamW moments, bf16 compute, "
+          f"{TRAIN_SHAPE[1]} x {TRAIN_SHAPE[0]} tokens a step, remat off, "
+          f"offload on")
+    step = make_train_step(model, tcfg)
+    plans = plan_training(step, state, data.batch(0), "bf16")
+    held = [state]
+    del state
+    state, counts, reading = train_steps(step, held, data, tokens)
+    reading.update(memory_split(step, state,
+                                device_batch(data.batch(3), DEVICE), plans))
+    batch = device_batch(data.batch(0), DEVICE)
+    grads = train_numerics(model, step, state, batch, tcfg,
+                           "bf16 offloaded vs plain step", f32=False)
+    b8 = phase_adamw(state, grads, tcfg, card)
+    del grads
+    rows = check_train_segments(plans, torch.bfloat16, card, timed=True)
+    check_batched_bwd()
+    del state, step, plans
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model32 = build_model(cfg32, device=DEVICE)
+    state32 = init_train_state(model32, 0)
+    step32 = make_train_step(model32, tcfg)
+    batch32 = SyntheticLM(make_data_config(cfg32, ShapeConfig(
+        "chip", *TRAIN_SHAPE))).batch(0)
+    plans32 = plan_training(step32, state32, batch32,
+                            "f32 2-layer full width")
+    train_numerics(model32, step32, state32, device_batch(batch32, DEVICE),
+                   tcfg, "f32 2-layer offloaded vs plain", f32=True)
+    check_train_segments(plans32, torch.float32, card, timed=False)
+    check(counts["fused_matmul_dlhs_segment"] > 0 and
+          counts["fused_matmul_drhs_segment"] > 0,
+          "the training steps launched no B4 / B6")
+    return rows, counts, b8, reading
+
+
 def kernel_entry(timed: dict, kind: str) -> dict:
     """The JSON fields of one fused kernel: its most-launched distinct
     segment that has a library yardstick (ties: the larger bound)."""
@@ -900,7 +1569,10 @@ def main() -> int:
     params = engine.params
     del engine
     timed, counts = phase_offload(params, card)
-    print(f"[7] total {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    train_rows, train_counts, b8, _ = phase_train(card)
+    print(f"[8] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -915,7 +1587,21 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
         "replaces": "src/repro/kernels/fused_matmul.py:240",
         "launches": counts["fused_matmul_segment"],
-        **kernel_entry(timed, "matmul")}]}))
+        **kernel_entry(timed, "matmul")}, {
+        "name": "fused_matmul_dlhs_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
+        "replaces": "src/repro/kernels/fused_matmul_bwd.py:178",
+        "launches": train_counts["fused_matmul_dlhs_segment"],
+        **kernel_entry(train_rows, "dlhs")}, {
+        "name": "fused_matmul_drhs_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
+        "replaces": "src/repro/kernels/fused_matmul_bwd.py:343",
+        "launches": train_counts["fused_matmul_drhs_segment"],
+        **kernel_entry(train_rows, "drhs")}, {
+        "name": "adamw_update", "route": "triton",
+        "source": "src/repro_torch/kernels/adamw_update.py",
+        "replaces": "src/repro/kernels/adamw_update.py:55",
+        **b8}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
 """Configuration dataclasses of the port (own copy of
 ``repro/configs/base.py``, field for field).
 
-Every architecture is described by a ``ModelConfig``.  Configs are
-plain frozen dataclasses so they hash, compare, and print
-deterministically.  ``TrainConfig``, ``ShapeConfig`` and ``MeshConfig``
-belong to the training and sharding slices and are not ported yet.
+Every architecture is described by a ``ModelConfig``; a training run by
+a ``ShapeConfig`` (sequence length x global batch) and a
+``TrainConfig``.  Configs are plain frozen dataclasses so they hash,
+compare, and print deterministically.  ``MeshConfig`` and the sharding
+knobs of ``TrainConfig`` (``zero3``, ``grad_compression``,
+``hierarchical_allreduce``) belong to the sharding slice and are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Literal
+from typing import TYPE_CHECKING, Literal
+
+if TYPE_CHECKING:
+    from repro_torch.core.policy import OffloadPolicy
 
 BlockKind = Literal["attention", "mamba2", "rwkv6", "shared_attention"]
 ModelKind = Literal["decoder", "encoder_decoder"]
@@ -185,6 +191,55 @@ class ModelConfig:
         inactive = n_moe_layers * (self.moe.num_experts - self.moe.top_k) * dense
         return full - inactive
 
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape cell: (kind, seq_len, global_batch)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"] = "train"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters and runtime knobs (one device)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1  # gradient accumulation factor
+    remat: bool = True
+    seed: int = 0
+    # the offload compiler (§IV-B1): ``offload`` switches it on;
+    # ``offload_policy`` (a repro_torch.core.policy.OffloadPolicy) picks
+    # the decision backend and planner knobs — None leaves the wrapper
+    # unpinned, resolving the active ``with offload_policy(...):`` scope
+    # (else the default greedy policy) at call time.
+    offload: bool = False
+    offload_policy: "OffloadPolicy | None" = None
+    # fault tolerance: checkpoints every this many steps (0 = none; the
+    # checkpoint manager arrives with the durability slice, and until then
+    # ``train`` refuses a positive value)
+    checkpoint_every: int = 0
+    # hard per-step wall-time deadline (0 = disabled): a step exceeding
+    # it is flagged by StragglerMonitor
+    step_deadline_s: float = 0.0
+
+    def resolved_offload_policy(self) -> "OffloadPolicy | None":
+        """The policy the train step pins (None: unpinned)."""
+        return self.offload_policy
 
 
 def reduced(config: ModelConfig, **overrides) -> ModelConfig:

@@ -15,6 +15,10 @@ returns the port's tree:
 
 Every leaf of the input must be consumed: a leaf the port has no place
 for raises instead of being dropped silently.
+
+``from_jax_train_state`` carries a whole JAX ``TrainState`` (params and
+the AdamW ``m``, ``v`` and ``step``, numpy leaves) across as the port's
+``TrainState``, everything f32 as the JAX package keeps it.
 """
 from __future__ import annotations
 
@@ -84,3 +88,21 @@ def from_jax_params(params: dict, cfg: ModelConfig, *,
             "parameters the port has no place for: "
             + ", ".join("/".join(p) for p in sorted(unused)))
     return cast_params(out, dtype, dev)
+
+
+def from_jax_train_state(state: Any, cfg: ModelConfig, *,
+                         device: str | torch.device = "cuda") -> Any:
+    """JAX-package ``TrainState`` (numpy leaves) -> the port's
+    ``TrainState`` on ``device``: f32 master parameters and f32 moments
+    laid out as the port's parameter tree, the step as a 0-d int32."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.step import TrainState
+
+    def tree(t):
+        return from_jax_params(t, cfg, device=device, dtype=torch.float32)
+
+    dev = resolve_device(device)
+    step = torch.as_tensor(np.array(state.opt.step), dtype=torch.int32,
+                           device=dev)
+    return TrainState(tree(state.params),
+                      AdamWState(step, tree(state.opt.m), tree(state.opt.v)))

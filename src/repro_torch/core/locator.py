@@ -7,7 +7,7 @@ call node.  Seeds:
 
     ld.global value   floating placeholders of rank >= 1          -> N
     ld.global addr    index / gather / scatter index operands      -> F
-    st.global value   floating graph outputs of rank >= 1          -> N
+    st.global value   floating graph outputs                       -> N
     integer values    every node of a non-floating dtype           -> F
     far opcode set    mm, index, scatter, reductions, ...          -> F
 
@@ -90,8 +90,12 @@ def annotate_graph(graph: fx.Graph) -> GraphAnnotation:
         if n.op in ("placeholder", "get_attr"):
             seed(n, Loc.N if _is_value(n) else Loc.F)
         elif n.op == "output":
+            # every floating output is stored, a scalar loss included
+            # (the JAX package seeds rank >= 1 only; a loss program
+            # would then annotate every op far and fuse no elementwise
+            # chain of the training forward)
             for v in _flat_nodes(n.args):
-                if _is_value(v):
+                if _is_float(v):
                     seed(v, Loc.N)
     for n in calls:
         name = node_name(n)

@@ -18,6 +18,7 @@ class H100:
     hbm_gbps: float = 3350.0            # device memory, GB/s
     smem_bytes: int = 232448            # shared memory one block can use
     sms: int = 132                      # streaming multiprocessors
+    l2_bytes: int = 50 * 1024 * 1024    # L2 cache
 
 
 H100_SXM = H100()

@@ -1,7 +1,8 @@
-"""The instruction offload engine (§IV-B1): the forward planner.
+"""The instruction offload engine (§IV-B1): the planner, the runner and
+the planned backward.
 
-The counterpart of ``repro/core/offload.py`` for the forward segments
-the serving path needs.  The architecture is the reference's:
+The counterpart of ``repro/core/offload.py``.  The architecture is the
+reference's:
 
   capture once  ``make_fx`` in **fake** tensor mode (no data is touched,
                 no in-place write runs) with one fixed decomposition
@@ -12,30 +13,44 @@ the serving path needs.  The architecture is the reference's:
                 maximal near runs over 2-D ``[rows, lanes]`` block views:
                 elementwise ops, lane-axis reductions (row statistics),
                 lane slices / concats / broadcasts and views that keep
-                the 2-D view, and ``mm`` anchors (x[M, K] @ w[K, N]) that
-                absorb an elementwise lhs prologue, a weight-side
-                dequant prologue and the whole epilogue.  Every
-                candidate is priced and fused or declined by the policy
+                the 2-D view, and ``mm`` anchors in three forms — the
+                forward x[M, K] @ w[K, N] (absorbing an elementwise lhs
+                prologue, a weight-side dequant prologue and the
+                epilogue), ``dlhs`` dx = g @ w^T (the weight a transposed
+                view, read in place; lhs prologue and epilogue) and
+                ``drhs`` dw = x^T @ g (the activation a transposed view;
+                an elementwise epilogue at full width).  Every candidate
+                is priced and fused or declined by the policy
                 (``OffloadPolicy.decide``); both verdicts are recorded
   run           the runner walks the graph in order: a fused segment is
                 ONE kernel call (``fused_segment_grid`` for elementwise
-                segments, ``fused_matmul_segment`` for anchored ones),
-                every other node calls its aten op unchanged — in-place
-                KV page writes included, so no read moves across a write
+                segments, ``fused_matmul_segment`` / ``_dlhs_segment`` /
+                ``_drhs_segment`` for anchored ones), every other node
+                calls its aten op unchanged — in-place KV page writes
+                included, so no read moves across a write
+  differentiate under autograd the far nodes differentiate as eager
+                PyTorch does and each fused segment is a
+                ``torch.autograd.Function`` whose backward is the
+                segment's cotangent program, captured with
+                ``torch.func.vjp`` over the segment's own nodes and
+                planned and run through the same planner and runner —
+                its recomputed forward anchors ``fwd`` again, its
+                gradient contractions ``dlhs`` and ``drhs``
 
 ``mpu_offload(fn, policy=...)`` caches one plan per (policy, direction,
-input signature) in an LRU bounded by the policy's ``max_plans``.
+input signature) in an LRU bounded by the policy's ``max_plans``;
+backward plans are cached per segment under "bwd"-tagged keys.
 
-Not in this slice (the planner declines them and records why, or never
-forms them): batched anchors (``bmm``), the transposed-weight (``dlhs``)
-and transposed-activation (``drhs``) contraction forms, flash-shaped
-attention segments, backward plans, segment-boundary donation, the
-persistent plan cache and the static plan verifier.
+Not planned yet (the planner declines them with the reason, or never
+forms them): batched anchors (``bmm``), flash-shaped attention segments,
+segment-boundary donation, the persistent plan cache and the static plan
+verifier.
 """
 from __future__ import annotations
 
 import dataclasses
 import operator
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
@@ -61,6 +76,7 @@ from repro_torch.core.prims import (
 )
 from repro_torch.kernels.blockprog import (
     DTYPES,
+    PLACEMENT_KWARGS,
     BlockProgram,
     Input,
     Op,
@@ -172,8 +188,13 @@ class MatmulAnchor:
     per lhs element as it is loaded), ``rhs_pro_eqns`` its weight
     (applied per weight element; the cast weight is never stored), and
     the segment's ``eqn_idx`` hold the epilogue on the f32 accumulator.
-    Only the forward, unbatched form (x[M, K] @ w[K, N]) is in this
-    slice."""
+
+    ``form`` is the contraction as the graph holds it (``mm(lhs, rhs)``,
+    lhs [M, K], rhs [K, N]): ``fwd`` (both row-major), ``dlhs`` (rhs is
+    the transposed view of a row-major [N, K] weight: dx = g @ w^T) or
+    ``drhs`` (lhs is the transposed view of a row-major [K, M]
+    activation: dw = x^T @ g; ``k`` is then the contracted token axis).
+    Batched contractions (``bmm``) are not planned."""
 
     eqn_idx: int
     lhs_var: Any
@@ -206,10 +227,14 @@ class Segment:
     # anchored kernel's row block and K split, as priced and as launched
     smem_budget: int
     sms: int
+    l2_bytes: int
     matmul: MatmulAnchor | None = None
     # (kind, cols) of every value the kernel computes: "bulk" rows or a
     # "param" row, cols == 1 for a row statistic
     views: dict = field(default_factory=dict)
+    # no lane reduction, slice or concat in the body: an anchored
+    # epilogue may run in the GEMM's tile (``fused_matmul.in_tile``)
+    elementwise: bool = True
 
     @property
     def all_eqn_idx(self) -> list[int]:
@@ -219,30 +244,44 @@ class Segment:
                        self.matmul.eqn_idx, *self.eqn_idx, *self.post_eqns})
 
     def io_bytes(self) -> int:
-        """Fused HBM bytes this segment moves: one read per operand, the
-        weight once per row block (``weight_streams``), the f32 row
-        workspace written and read once per K split, one write per
-        output.  Planner and kernel share the helpers."""
-        from repro_torch.kernels.fused_matmul import (
-            weight_streams,
-            workspace_bytes,
-        )
+        """Fused HBM bytes this segment moves: one read per operand, one
+        write per output and the contraction's re-reads, from the
+        kernels' own grid helpers (``fused_matmul.matmul_row_blocks`` /
+        ``column_tiles`` for fwd and dlhs, ``drhs_grid_blocks`` for
+        drhs) through ``operand_streams`` (the H100's L2 serves the
+        re-reads of blocks that run side by side).  fwd / dlhs add the
+        f32 workspace, written and read once per K split, unless the
+        epilogue runs in the tile.  Planner and kernels share the
+        helpers."""
+        from repro_torch.kernels import fused_matmul as fm
+        from repro_torch.kernels.fused_matmul_bwd import drhs_grid_blocks
 
         total = sum(_nbytes(sp.var) for sp in self.operand_specs)
         total += sum(_nbytes(v) for v in self.outputs)
         mm = self.matmul
-        if mm is not None:
-            total += sum(_nbytes(sp.var) for sp in mm.lhs_specs)
-            total += sum(_nbytes(sp.var) for sp in mm.rhs_specs
-                         if sp.role == "param_w")
-            total += sum(_nbytes(sp.var) for sp in mm.rhs_specs
-                         if sp.role != "param_w") * weight_streams(
-                self.rows, [sp.meta for sp in self.operand_specs], mm.n,
-                rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=self.smem_budget)
-            total += 2 * workspace_bytes(
-                self.rows, [sp.meta for sp in self.operand_specs], mm.k,
-                mm.n, rows_block=MATMUL_ROWS_BLOCK,
-                vmem_bytes=self.smem_budget, sms=self.sms)
+        if mm is None:
+            return total
+        metas = [sp.meta for sp in self.operand_specs]
+        if mm.form == "drhs":
+            row_blocks, col_tiles = drhs_grid_blocks(
+                self.rows, mm.n, vmem_bytes=self.smem_budget)
+        else:
+            row_blocks = fm.matmul_row_blocks(
+                self.rows, metas, min(mm.n, fm.BN), MATMUL_ROWS_BLOCK,
+                self.smem_budget)
+            col_tiles = fm.column_tiles(mm.n)
+        lhs_b = sum(_nbytes(sp.var) for sp in mm.lhs_specs)
+        rhs_b = sum(_nbytes(sp.var) for sp in mm.rhs_specs)
+        lhs_n, rhs_n = fm.operand_streams(lhs_b, row_blocks, col_tiles,
+                                          l2_bytes=self.l2_bytes,
+                                          sms=self.sms)
+        total += lhs_b * lhs_n + rhs_b * rhs_n
+        if mm.form != "drhs":
+            total += 2 * fm.workspace_bytes(
+                self.rows, metas, mm.k, mm.n, rows_block=MATMUL_ROWS_BLOCK,
+                vmem_bytes=self.smem_budget, sms=self.sms,
+                elt=_dtype(mm.rhs_specs[0].var).itemsize,
+                elementwise=self.elementwise, out_cols=self.out_cols)
         return total
 
 
@@ -277,12 +316,19 @@ class OffloadPlan:
 @dataclass
 class OffloadStats:
     """Plan-cache counters of one wrapper: ``traces`` counts graph
-    captures (one per plan miss)."""
+    captures (one per plan miss); ``capture_s`` and ``plan_s`` are the
+    host seconds spent capturing and planning (runner build included)."""
 
     plan_hits: int = 0
     plan_misses: int = 0
     traces: int = 0
     evictions: int = 0
+    capture_s: float = 0.0
+    plan_s: float = 0.0
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
 
     @property
     def hit_rate(self) -> float:
@@ -392,6 +438,33 @@ def _supported_dtype(v) -> bool:
     return dt is None or dtype_name(dt) in DTYPES
 
 
+def _row_major(v) -> bool:
+    val = node_val(v)
+    return isinstance(val, torch.Tensor) and val.is_contiguous()
+
+
+def _transposed_row_major(v) -> bool:
+    val = node_val(v)
+    return isinstance(val, torch.Tensor) and val.dim() == 2 and \
+        val.t().is_contiguous()
+
+
+def mm_form(node) -> str | None:
+    """The contraction form of an ``mm`` node from its operands' strides
+    (``fwd`` / ``dlhs`` / ``drhs``), or None when an operand is neither
+    row-major nor the transposed view of a row-major tensor."""
+    lhs, rhs = node.args[0], node.args[1]
+    if not isinstance(lhs, fx.Node) or not isinstance(rhs, fx.Node):
+        return None
+    if _row_major(lhs) and _row_major(rhs):
+        return "fwd"
+    if _row_major(lhs) and _transposed_row_major(rhs):
+        return "dlhs"
+    if _transposed_row_major(lhs) and _row_major(rhs):
+        return "drhs"
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Planning
 # ---------------------------------------------------------------------------
@@ -483,6 +556,34 @@ def plan_offload(gm: fx.GraphModule, *,
             return False
         oshape = _shape(node)
 
+        if mm is not None and mm["form"] == "drhs":
+            # a drhs epilogue runs on the finished [pb, 128] tile: pure
+            # elementwise ops at the full output width, over full-width,
+            # column and param operands only
+            if any(v in reduced_vars for v in nonlit):
+                return False
+            r_out, c_out = _bulk_view(oshape)
+            if r_out != cur_rows or c_out != mm["n"]:
+                return False
+            new_specs = {}
+            for v in nonlit:
+                if v in produced:
+                    if produced[v] != ("bulk", mm["n"]) or \
+                            _bulk_view(_shape(v)) != (cur_rows, mm["n"]):
+                        return False
+                    continue
+                cls = _classify_operand(_pad(_shape(v), len(oshape)), oshape,
+                                        cur_rows)
+                if cls is None or cls[0] not in ("bulk", "param") or \
+                        cls[2] not in (1, mm["n"]) or \
+                        not _merge_spec(new_specs, v, cls):
+                    return False
+            specs.update(new_specs)
+            produced[node] = ("bulk", c_out)
+            current.append(i)
+            n_compute += 1
+            return True
+
         if any(v in reduced_vars for v in nonlit) and cur_rows is not None \
                 and _prod(oshape) == cur_rows:
             # reduced space: every value is one element per row
@@ -534,6 +635,8 @@ def plan_offload(gm: fx.GraphModule, *,
         """Lane-axis sum / amax: the row statistic completes inside one
         [rows, lanes] block and fuses as a (rows, 1) column."""
         nonlocal cur_rows, n_compute
+        if mm is not None and mm["form"] == "drhs":
+            return False            # lanes are blocked: no row statistics
         v = node.args[0] if node.args else None
         if not isinstance(v, fx.Node) or v in reduced_vars:
             return False
@@ -576,6 +679,8 @@ def plan_offload(gm: fx.GraphModule, *,
         """Views that keep the 2-D view of a value the segment made, lane
         slices, lane concats and broadcasts."""
         nonlocal cur_rows
+        if mm is not None and mm["form"] == "drhs":
+            return False            # lanes are blocked: no lane remaps
         name = node_name(node)
         if not isinstance(node_val(node), torch.Tensor):
             return False
@@ -715,19 +820,13 @@ def plan_offload(gm: fx.GraphModule, *,
         return list(current), out_specs
 
     def out_of_slice(node) -> str | None:
-        """Why an anchor candidate is declined in this slice, or None."""
-        name = node_name(node)
-        if name == "bmm":
+        """Why an anchor candidate is declined outright, or None."""
+        if node_name(node) == "bmm":
             return ("batched anchor (bmm): batched contractions are not "
-                    "in this slice of the port; runs unfused")
-        lhs, rhs = node.args[0], node.args[1]
-        if isinstance(rhs, fx.Node) and not node_val(rhs).is_contiguous():
-            return ("dlhs form: the weight is a transposed view, not a "
-                    "[K, N] row-major operand; not in this slice, runs "
-                    "unfused")
-        if isinstance(lhs, fx.Node) and not node_val(lhs).is_contiguous():
-            return ("drhs form: the activation is a transposed view; not "
-                    "in this slice, runs unfused")
+                    "planned by the port yet; runs unfused")
+        if mm_form(node) is None:
+            return ("strided mm: an operand is neither row-major nor the "
+                    "transposed view of a row-major tensor; runs unfused")
         return None
 
     def try_admit_anchor(i, node) -> bool:
@@ -752,10 +851,15 @@ def plan_offload(gm: fx.GraphModule, *,
         k_dim = lshape[-1]
         if rshape != (k_dim, n_cols):
             return False
+        form = mm_form(node)
+        if form == "drhs":
+            return admit_drhs(i, node, lhs_v, rhs_v, dt)
         rhs_pro_eqns: list[int] = []
         rhs_specs = [OperandSpec(rhs_v, "bulk_w", k_dim, n_cols)]
         if rhs_v in produced:
-            if lhs_v in produced:
+            # a weight prologue only on the forward form: the dlhs kernel
+            # reads its weight along the rows of the forward tensor
+            if lhs_v in produced or form != "fwd":
                 return False
             conv = _chain_convertible(i, rhs_v, None, (k_dim, n_cols),
                                       ("bulk_w", "param_w"))
@@ -776,14 +880,34 @@ def plan_offload(gm: fx.GraphModule, *,
             pro_eqns = []
             lhs_specs = [OperandSpec(lhs_v, "bulk_k", m_rows, k_dim)]
             span0, n_pro = i, 0
-        mm = dict(eqn_idx=i, lhs_var=lhs_v, lhs_specs=lhs_specs, rhs=rhs_v,
-                  rhs_specs=rhs_specs, rhs_pro_eqns=rhs_pro_eqns,
+        mm = dict(form=form, eqn_idx=i, lhs_var=lhs_v, lhs_specs=lhs_specs,
+                  rhs=rhs_v, rhs_specs=rhs_specs, rhs_pro_eqns=rhs_pro_eqns,
                   pro_eqns=pro_eqns, k=k_dim, n=n_cols, out_var=node,
                   out_dtype=dt, span_start=span0,
                   pro_views=dict(produced))
         current, specs = [], {}
         produced = {node: ("bulk", n_cols)}
-        cur_rows, n_compute = m_rows, n_pro
+        cur_rows, n_compute = m_rows, n_pro + _rounding_op(form, dt)
+        return True
+
+    def admit_drhs(i, node, lhs_v, rhs_v, dt) -> bool:
+        """dw = x^T @ g opens a segment of its own: neither operand may
+        come from the open run (a shared cotangent chain is split), and
+        the epilogue that follows is elementwise at full width."""
+        nonlocal mm, cur_rows, n_compute, current, specs, produced
+        if current or lhs_v in produced or rhs_v in produced:
+            return False
+        rows, m_dim = _shape(lhs_v)
+        n_cols = _shape(rhs_v)[1]
+        mm = dict(form="drhs", eqn_idx=i, lhs_var=lhs_v,
+                  lhs_specs=[OperandSpec(lhs_v, "bulk_m", m_dim, rows)],
+                  rhs=rhs_v,
+                  rhs_specs=[OperandSpec(rhs_v, "bulk_w", m_dim, n_cols)],
+                  rhs_pro_eqns=[], pro_eqns=[], k=m_dim, n=n_cols,
+                  out_var=node, out_dtype=dt, span_start=i, pro_views={})
+        current, specs = [], {}
+        produced = {node: ("bulk", n_cols)}
+        cur_rows, n_compute = rows, _rounding_op("drhs", dt)
         return True
 
     def try_admit(i, node) -> bool:
@@ -808,7 +932,8 @@ def plan_offload(gm: fx.GraphModule, *,
             return False
         if any(v in produced for v in node.all_input_nodes):
             return False
-        if _same_view_src(node) is not None or node in const_nodes:
+        if _same_view_src(node) is not None or node in const_nodes or \
+                node_name(node) == "t":
             return True                  # moves no data / a constant
         if _size(node) >= bulk_threshold:
             return False
@@ -901,13 +1026,19 @@ def plan_offload(gm: fx.GraphModule, *,
                 lhs_specs=mm["lhs_specs"], rhs=mm["rhs"],
                 pro_eqns=mm["pro_eqns"], k=mm["k"], n=mm["n"],
                 out_var=mm["out_var"], out_dtype=mm["out_dtype"],
-                rhs_specs=mm["rhs_specs"], rhs_pro_eqns=mm["rhs_pro_eqns"])
+                form=mm["form"], rhs_specs=mm["rhs_specs"],
+                rhs_pro_eqns=mm["rhs_pro_eqns"])
         seg = Segment(
             eqn_idx=seg_idx, rows=cur_rows,
             operand_specs=operand_specs, outputs=outputs, out_cols=out_cols,
             pre_eqns=pre, post_eqns=post,
             span_start=span_start, span_end=span_end, matmul=anchor_spec,
             smem_budget=policy.budget, sms=policy.machine.sms,
+            l2_bytes=policy.machine.l2_bytes,
+            elementwise=not any(
+                eqn_tier(node_name(eqns[j]) or "") == "reduce" or
+                node_name(eqns[j]) in ("slice", "cat") and
+                _same_view_src(eqns[j]) is None for j in seg_idx),
             views={**(mm["pro_views"] if mm is not None else {}),
                    **produced})
 
@@ -941,7 +1072,7 @@ def plan_offload(gm: fx.GraphModule, *,
                 declined_anchors.add(i)
                 decisions.append(SegmentDecision(
                     tier="anchor", form=("bmm" if node_name(node) == "bmm"
-                                         else why.split()[0]),
+                                         else "strided"),
                     eqns=0, rows=_bulk_view(_shape(node))[0], roles=(),
                     near_bytes=0, far_bytes=_eqn_io_bytes(node),
                     near_us=0.0, far_us=0.0, fused=False, reason=why))
@@ -966,6 +1097,17 @@ def plan_offload(gm: fx.GraphModule, *,
         fused += s.io_bytes()
     return OffloadPlan(ann, segments, naive, fused, decisions=decisions,
                        policy=policy)
+
+
+def _rounding_op(form: str, dtype: torch.dtype) -> int:
+    """1 when a gradient contraction rounds its f32 accumulator to a
+    16-bit product, else 0: the fused op it holds besides its epilogue.
+    The JAX package's transpose rule writes that rounding out — the
+    cotangent product accumulates in f32 (``preferred_element_type``)
+    and a ``convert_element_type`` epilogue rounds it — while ``aten.mm``
+    folds it into the op; counting it keeps the greedy decision on the
+    same program (a forward product is bf16-out in both, and bare)."""
+    return int(form in ("dlhs", "drhs") and dtype.itemsize == 2)
 
 
 def _anchor_epilogue_misfit(seg: Segment, eqns, budget: int) -> str | None:
@@ -1039,7 +1181,8 @@ def _program(eqns: Sequence, eqn_idx: Sequence[int], in_vars: Sequence,
                     name=node.target.name().partition("::")[2],
                     args=tuple(ref(a) for a in node.args),
                     kwargs=tuple(sorted((k, _lit(x))
-                                        for k, x in node.kwargs.items())))
+                                        for k, x in node.kwargs.items()
+                                        if k not in PLACEMENT_KWARGS)))
         env[node] = len(ops)
         ops.append(op)
     return BlockProgram(tuple(inputs), tuple(ops),
@@ -1141,8 +1284,8 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                     ) -> Callable:
     """The fused call of one planned segment, its static arguments bound
     once: the grid kernel for an elementwise segment, the anchored GEMM
-    for a fwd anchor.  ``call(*vals)`` takes the operands in
-    ``_segment_arg_vars`` order and returns the outputs in their graph
+    of the segment's form otherwise.  ``call(*vals)`` takes the operands
+    in ``_segment_arg_vars`` order and returns the outputs in their graph
     shapes."""
     from repro_torch.kernels import ops as kops
 
@@ -1150,34 +1293,159 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
     shapes = [_shape(v) for v in seg.outputs]
     epi_meta = tuple(s.meta for s in seg.operand_specs)
     mm = seg.matmul
+    common = dict(acc_dtype=mm.out_dtype if mm else None,
+                  out_cols=seg.out_cols, out_dtypes=out_dtypes,
+                  vmem_bytes=seg.smem_budget, impl=impl)
     if mm is None:
         def run(vals):
             return kops.fused_segment_grid(
                 progs.body, vals, epi_meta, rows=seg.rows,
                 out_cols=seg.out_cols, out_dtypes=out_dtypes,
                 rows_block=GRID_ROWS_BLOCK, impl=impl)
+    elif mm.form == "drhs":
+        def run(vals):
+            # vals[0] is the [rows, m] transposed view of the activation
+            return kops.fused_matmul_drhs_segment(
+                progs.body, vals[0].t(), vals[1], vals[2:], epi_meta,
+                m_dim=mm.k, rows=seg.rows, n_dim=mm.n, **common)
     else:
         n_lhs, n_rhs = len(mm.lhs_specs), len(mm.rhs_specs)
         lhs_meta = tuple(s.meta for s in mm.lhs_specs)
         rhs_meta = tuple(s.meta for s in mm.rhs_specs)
+        kw = dict(rows=seg.rows, k_dim=mm.k, n_dim=mm.n,
+                  rows_block=MATMUL_ROWS_BLOCK, sms=seg.sms, **common)
+        if mm.form == "dlhs":
+            def run(vals):
+                # vals[n_lhs] is the [k, n] transposed view of the weight
+                return kops.fused_matmul_dlhs_segment(
+                    progs.lhs, progs.body, vals[:n_lhs], lhs_meta,
+                    vals[n_lhs].t(), vals[n_lhs + 1:], epi_meta, **kw)
+        else:
+            def run(vals):
+                return kops.fused_matmul_segment(
+                    progs.lhs, progs.rhs, progs.body, vals[:n_lhs],
+                    lhs_meta, vals[n_lhs:n_lhs + n_rhs], rhs_meta,
+                    vals[n_lhs + n_rhs:], epi_meta, **kw)
 
-        def run(vals):
-            return kops.fused_matmul_segment(
-                progs.lhs, progs.rhs, progs.body, vals[:n_lhs], lhs_meta,
-                vals[n_lhs:n_lhs + n_rhs], rhs_meta, vals[n_lhs + n_rhs:],
-                epi_meta, rows=seg.rows, k_dim=mm.k, n_dim=mm.n,
-                acc_dtype=mm.out_dtype, out_cols=seg.out_cols,
-                out_dtypes=out_dtypes, rows_block=MATMUL_ROWS_BLOCK,
-                vmem_bytes=seg.smem_budget, sms=seg.sms, impl=impl)
+    # an output the graph holds in a permuted dense layout (an einsum's)
+    # gets that layout back, so the views that follow it see the strides
+    # they were traced with (a broadcast layout stays contiguous: any view
+    # of a contiguous tensor is valid)
+    strides = [node_val(v).stride() if not node_val(v).is_contiguous()
+               and _dense(node_val(v)) else None
+               for v in seg.outputs]
 
     def call(*vals):
-        return tuple(o.view(shp) for o, shp in zip(run(list(vals)), shapes))
+        outs = []
+        for o, shp, st in zip(run(list(vals)), shapes, strides):
+            o = o.view(shp)
+            if st is not None:
+                o = torch.empty_strided(shp, st, dtype=o.dtype,
+                                        device=o.device).copy_(o)
+            outs.append(o)
+        return tuple(outs)
     return call
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s strides lay its elements out without gaps or
+    overlaps (a permutation of a contiguous layout)."""
+    expect = 1
+    for stride, size in sorted((st, sz) for sz, st in zip(t.shape, t.stride())
+                               if sz > 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _segment_replay(eqns: Sequence, seg: Segment) -> Callable:
+    """The segment's own nodes replayed over full tensors, in graph order
+    — the plain dispatch a backward plan differentiates (what the
+    reference's ``_segment_fn`` on the ``ref`` path is).  Takes the
+    operands in ``_segment_arg_vars`` order; returns the outputs."""
+    arg_vars = _segment_arg_vars(seg)
+    post = set(seg.post_eqns)
+    idx = [j for j in seg.all_eqn_idx if j not in post]
+
+    def replay(*vals):
+        env = dict(zip(arg_vars, vals))
+        for j in idx:
+            node = eqns[j]
+            env[node] = node.target(*fx.map_arg(node.args, env.__getitem__),
+                                    **fx.map_arg(node.kwargs,
+                                                 env.__getitem__))
+        return tuple(env[v] for v in seg.outputs)
+    return replay
 
 
 # ---------------------------------------------------------------------------
 # Capture and the runner
 # ---------------------------------------------------------------------------
+
+def _linearize_order(gm: fx.GraphModule) -> None:
+    """Schedule a captured program that differentiates itself (it seeds
+    a cotangent with ``ones_like``) as jax's linearization orders it:
+    an elementwise node after the seed that reads no cotangent (a
+    derivative factor such as ``2 * x`` of ``x ** 2``) moves to just
+    after its last input, so it runs with the forward values it reads.
+    A program without a seed (every forward capture of a model) keeps
+    its order."""
+    seeds = [n for n in gm.graph.nodes if node_name(n) == "ones_like"]
+    if not seeds:
+        return
+    nodes = list(gm.graph.nodes)
+    tangent, moved = set(seeds), set()
+    for node in nodes[nodes.index(seeds[0]) + 1:]:
+        if node.op != "call_function":
+            continue
+        if any(v in tangent for v in node.all_input_nodes):
+            tangent.add(node)
+            continue
+        if eqn_tier(node_name(node) or "") != "near" or \
+                not node.all_input_nodes:
+            continue
+        nodes.remove(node)
+        j = max(nodes.index(v) for v in node.all_input_nodes) + 1
+        while nodes[j] in moved:            # after earlier moved nodes
+            j += 1
+        nodes.insert(j, node)
+        moved.add(node)
+    for prev, node in zip(nodes, nodes[1:]):
+        if prev.next is not node:
+            prev.append(node)
+    gm.graph.lint()
+    gm.recompile()
+
+
+def _schedule_epilogues(gm: fx.GraphModule) -> None:
+    """Move the elementwise nodes that read a contraction's product (and
+    otherwise only values defined before it) to just after the ``mm``,
+    in their order, so that they can become its epilogue.  A cotangent
+    program lists autograd's derivative steps in its own order — the
+    f32 cast of a cast weight's gradient comes after the other operand's
+    product, for one — where a jaxpr puts them after the product they
+    transform."""
+    nodes = list(gm.graph.nodes)
+    for m in [n for n in nodes if node_name(n) == "mm"]:
+        at = nodes.index(m)
+        avail, chain = set(nodes[:at + 1]), [m]
+        for c in nodes[at + 1:]:
+            if c.op == "call_function" and \
+                    eqn_tier(node_name(c) or "") == "near" and \
+                    any(v in chain for v in c.all_input_nodes) and \
+                    all(v in avail for v in c.all_input_nodes):
+                chain.append(c)
+                avail.add(c)
+        for c in chain[1:]:
+            nodes.remove(c)
+        nodes[at + 1:at + 1] = chain[1:]
+    for prev, node in zip(nodes, nodes[1:]):
+        if prev.next is not node:
+            prev.append(node)
+    gm.graph.lint()
+    gm.recompile()
+
 
 def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
                                                    list[bool]]:
@@ -1202,19 +1470,30 @@ def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
         out_spec_box.append(spec)
         return flat
 
-    tensors = [x for x, t in zip(leaves, is_tensor) if t]
+    # one fresh tensor per leaf: a tensor passed twice must not be traced
+    # as one input (the plan serves every call of the same signature)
+    tensors = [x.detach() for x, t in zip(leaves, is_tensor) if t]
     gm = make_fx(flat_fn, tracing_mode="fake",
                  decomposition_table=DECOMPOSITIONS)(*tensors)
+    _linearize_order(gm)
     return gm, out_spec_box[-1], is_tensor
 
 
-def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str
+def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
+                  grad_policy: OffloadPolicy | None = None
                   ) -> fx.GraphModule:
     """Bake the plan into a new graph: every node the plan leaves far is
     copied in graph order, and each fused segment becomes ONE call of its
     kernel (after its hoisted ``pre_eqns``, before its escaping views).
     fx generates straight-line Python for the graph, so running a plan
-    costs what eager dispatch of the same calls costs."""
+    costs what eager dispatch of the same calls costs.
+
+    The runner runs under autograd: far nodes are aten calls, which
+    autograd differentiates as it does eager PyTorch.  With
+    ``grad_policy`` each segment call is differentiable too
+    (``_segment_vjp``: its backward re-plans the segment's cotangent
+    program under that policy); without it (a backward plan's own
+    runner) a segment is a plain kernel call."""
     eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
     seg_by_start = {s.span_start: s for s in plan.segments}
     plan.library = _register_library(eqns, plan)
@@ -1236,9 +1515,11 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str
             continue
         for j in seg.pre_eqns:
             copy(eqns[j])
+        fn = _segment_kernel(seg, segment_programs(eqns, seg), impl=impl)
+        if grad_policy is not None:
+            fn = _segment_vjp(eqns, seg, fn, policy=grad_policy)
         call = graph.call_function(
-            _segment_kernel(seg, segment_programs(eqns, seg), impl=impl),
-            tuple(env[v] for v in _segment_arg_vars(seg)))
+            fn, tuple(env[v] for v in _segment_arg_vars(seg)))
         for k, var in enumerate(seg.outputs):
             env[var] = graph.call_function(operator.getitem, (call, k))
         for j in seg.post_eqns:
@@ -1262,6 +1543,7 @@ def segment_call(eqns: Sequence, seg: Segment) -> dict:
     specs += [sp.meta for sp in seg.operand_specs]
     return dict(
         kind="grid" if mm is None else "matmul", progs=progs,
+        form=mm.form if mm is not None else None,
         specs=specs, dtypes=[_dtype(v) for v in _segment_arg_vars(seg)],
         rows=seg.rows, out_cols=list(seg.out_cols),
         out_dtypes=[_dtype(v) for v in seg.outputs],
@@ -1284,10 +1566,31 @@ def kernel_symbol(call: dict) -> str:
 
 
 def _matmul_gen(call: dict) -> dict:
+    """The generated code of an anchored segment, through the same
+    function its wrapper calls at launch (so the planner registers the
+    symbol the launch looks up)."""
     from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import fused_matmul_bwd as fmb
 
     nl, nr = call["n_lhs"], call["n_rhs"]
     specs, dts = call["specs"], [dtype_name(d) for d in call["dtypes"]]
+    outs = tuple(dtype_name(d) for d in call["out_dtypes"])
+    if call["form"] == "dlhs":
+        return fmb.dlhs_source(
+            call["progs"].lhs, call["progs"].body, tuple(specs[:nl]),
+            tuple(specs[nl + nr:]), lhs_dtypes=tuple(dts[:nl]),
+            rhs_dtype=dts[nl], epi_dtypes=tuple(dts[nl + nr:]),
+            out_dtypes=outs, rows=call["rows"], k_dim=call["k"],
+            n_dim=call["n"], acc_dtype=dtype_name(call["acc_dtype"]),
+            rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=call["vmem_bytes"],
+            sms=call["sms"])
+    if call["form"] == "drhs":
+        return fmb.drhs_source(
+            call["progs"].body, tuple(specs[2:]), lhs_dtype=dts[0],
+            rhs_dtype=dts[1], epi_dtypes=tuple(dts[2:]), out_dtypes=outs,
+            m_dim=call["k"], rows=call["rows"], n_dim=call["n"],
+            acc_dtype=dtype_name(call["acc_dtype"]),
+            vmem_bytes=call["vmem_bytes"])
     return fm.segment_source(
         call["progs"].lhs, call["progs"].rhs, call["progs"].body,
         tuple(specs[:nl]), tuple(specs[nl:nl + nr]),
@@ -1308,6 +1611,181 @@ def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
     gens = [_matmul_gen(segment_call(eqns, s)) for s in plan.segments
             if s.matmul is not None]
     return fm.prepare_library(gens) if gens else []
+
+
+# ---------------------------------------------------------------------------
+# Grad through offload: a differentiable fused-segment call.
+#
+# A fused kernel has no derivative of its own.  Each segment call of a
+# forward runner is a ``torch.autograd.Function`` whose forward is the
+# kernel and whose backward re-plans the segment's cotangent program
+# through the same planner: ``make_fx`` (fake mode) of ``torch.func.vjp``
+# over the segment's replayed nodes, so the recomputed forward anchors
+# fwd again and the cotangent contractions anchor dlhs (dx = g @ w^T)
+# and drhs (dw = x^T @ g).  Backward plans live in a per-segment cache
+# keyed ("bwd", policy, signatures), apart from every forward plan cache
+# (keyed "fwd" in ``mpu_offload``); module-level counters expose them.
+# ---------------------------------------------------------------------------
+
+_BWD_STATS = OffloadStats()
+_BWD_PLANS: list[OffloadPlan] = []
+_BWD_PLANS_KEEP = 256       # a bounded window of recent backward plans
+
+
+def bwd_plan_stats() -> OffloadStats:
+    """Plan-cache counters of segment backward (cotangent) planning."""
+    return _BWD_STATS
+
+
+def bwd_plans() -> list[OffloadPlan]:
+    """Recently compiled backward plans (most recent last)."""
+    return list(_BWD_PLANS)
+
+
+def clear_bwd_plans() -> None:
+    _BWD_PLANS.clear()
+    _BWD_STATS.reset()
+
+
+def _bwd_signature(t: torch.Tensor) -> tuple:
+    return (tuple(t.shape), tuple(t.stride()), str(t.dtype), str(t.device))
+
+
+def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
+                        policy: OffloadPolicy) -> Callable:
+    """``run_bwd(primals, cts)`` -> one gradient per primal (None for a
+    non-float one), with the cotangent program planned through
+    ``_build_runner`` once per (policy, signature) and cached on the
+    segment."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    replay = _segment_replay(eqns, seg)
+    cache: dict = seg.__dict__.setdefault("_bwd_plan_cache", {})
+
+    def compile_for(primals, cts):
+        diff = [i for i, v in enumerate(primals) if v.is_floating_point()]
+        rest = [i for i, v in enumerate(primals) if i not in diff]
+        outs = [j for j, v in enumerate(seg.outputs)
+                if _dtype(v).is_floating_point]
+
+        def ct_fn(fprimals, others, cts_f):
+            def f(*fp):
+                vals = [None] * len(primals)
+                for i, v in zip(diff, fp):
+                    vals[i] = v
+                for i, v in zip(rest, others):
+                    vals[i] = v
+                res = replay(*vals)
+                return tuple(res[j] for j in outs)
+            _, vjp_fn = torch.func.vjp(f, *fprimals)
+            return vjp_fn(tuple(cts_f))
+
+        t0 = time.perf_counter()
+        gm = make_fx(ct_fn, tracing_mode="fake",
+                     decomposition_table=DECOMPOSITIONS)(
+            [primals[i].detach() for i in diff],
+            [primals[i].detach() for i in rest],
+            [cts[j].detach() for j in outs])
+        gm.graph.eliminate_dead_code()
+        _schedule_epilogues(gm)
+        t1 = time.perf_counter()
+        plan = plan_offload(gm, policy=policy)
+        run = _build_runner(gm, plan, policy.impl)
+        _BWD_STATS.capture_s += t1 - t0
+        _BWD_STATS.plan_s += time.perf_counter() - t1
+        _BWD_PLANS.append(plan)
+        del _BWD_PLANS[:-_BWD_PLANS_KEEP]
+        return run, plan, diff, rest, outs
+
+    def entry_for(primals, cts):
+        key = ("bwd", policy, tuple(map(_bwd_signature, primals)),
+               tuple(_bwd_signature(c) for c in cts if c is not None))
+        entry = cache.get(key)
+        if entry is None:
+            _BWD_STATS.plan_misses += 1
+            _BWD_STATS.traces += 1
+            entry = cache[key] = compile_for(primals, cts)
+        else:
+            _BWD_STATS.plan_hits += 1
+        return entry
+
+    def run_bwd(primals, cts):
+        run, _, diff, rest, outs = entry_for(primals, cts)
+        flat = run(*[primals[i] for i in diff], *[primals[i] for i in rest],
+                   *[cts[j] for j in outs])
+        grads = [None] * len(primals)
+        for i, g in zip(diff, flat):
+            grads[i] = g
+        return grads
+
+    run_bwd.entry_for = entry_for
+    return run_bwd
+
+
+class _SegmentFn(torch.autograd.Function):
+    """One fused segment under autograd: the kernel forward, the planned
+    cotangent program backward."""
+
+    @staticmethod
+    def forward(ctx, seg_call, *vals):
+        outs = seg_call.kernel(*vals)
+        ctx.seg_call = seg_call
+        ctx.save_for_backward(*vals)
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        grads = ctx.seg_call.bwd(ctx.saved_tensors, cts)
+        return (None, *grads)
+
+
+def _segment_vjp(eqns: Sequence, seg: Segment, kernel: Callable, *,
+                 policy: OffloadPolicy) -> Callable:
+    """The differentiable call of one segment: the plain kernel call
+    when no input needs a gradient, ``_SegmentFn`` otherwise."""
+    bwd = _segment_bwd_runner(eqns, seg, policy=policy)
+
+    def call(*vals):
+        if torch.is_grad_enabled() and any(
+                isinstance(v, torch.Tensor) and v.requires_grad
+                for v in vals):
+            return _SegmentFn.apply(call, *vals)
+        return kernel(*vals)
+
+    call.kernel = kernel
+    call.bwd = bwd
+    call.segment = seg
+    return call
+
+
+def _warm_backward(run: fx.GraphModule) -> list[OffloadPlan]:
+    """Plan the backward of every differentiable segment call of a
+    forward runner now, from its graph's shapes (empty tensors of the
+    planned shapes and strides stand in for the values), as the first
+    backward would.  Returns the backward plans."""
+    plans = []
+    for node in run.graph.nodes:
+        call = node.target
+        if node.op != "call_function" or not hasattr(call, "bwd"):
+            continue
+        seg = call.segment
+        primals = [_empty_like_val(v) for v in _segment_arg_vars(seg)]
+        if not any(v.is_floating_point() for v in primals):
+            continue
+        cts = [_empty_like_val(v, contiguous=True) for v in seg.outputs]
+        plans.append(call.bwd.entry_for(primals, cts)[1])
+    return plans
+
+
+def _empty_like_val(v, contiguous: bool = False) -> torch.Tensor:
+    val = node_val(v)
+    if contiguous:
+        return torch.empty(tuple(val.shape), dtype=val.dtype,
+                           device=val.device)
+    return torch.empty_strided(tuple(val.shape), tuple(val.stride()),
+                               dtype=val.dtype, device=val.device)
 
 
 @dataclass
@@ -1338,9 +1816,15 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
     effective policy is the innermost ``offload_policy(...)`` scope,
     else ``policy``, else the default.
 
+    The runner is differentiable: calling ``wrapped`` under autograd
+    and differentiating its outputs runs each fused segment's planned
+    backward (``_segment_vjp``).
+
     ``wrapped`` exposes ``stats`` (OffloadStats), ``policy``,
-    ``warm(*a)`` (plan a signature without running it), ``plan_for(*a)``,
-    ``explain(*a)`` (the DecisionReport) and ``cache_size()``.  Introspection never mutates the LRU or the
+    ``warm(*a)`` (plan a signature without running it),
+    ``warm_backward(*a)`` (plan its segments' backward too),
+    ``plan_for(*a)``, ``explain(*a)`` (the DecisionReport) and
+    ``cache_size()``.  Introspection never mutates the LRU or the
     counters."""
     cache: OrderedDict[Any, _Compiled] = OrderedDict()
     stats = OffloadStats()
@@ -1353,10 +1837,14 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
         return policy if policy is not None else OffloadPolicy()
 
     def compile_for(pol: OffloadPolicy, args) -> _Compiled:
+        t0 = time.perf_counter()
         gm, out_spec, is_tensor = capture(fn, args)
+        t1 = time.perf_counter()
         plan = plan_offload(gm, policy=pol)
-        return _Compiled(gm, plan, _build_runner(gm, plan, pol.impl),
-                         out_spec, is_tensor)
+        run = _build_runner(gm, plan, pol.impl, grad_policy=pol)
+        stats.capture_s += t1 - t0
+        stats.plan_s += time.perf_counter() - t1
+        return _Compiled(gm, plan, run, out_spec, is_tensor)
 
     def entry_for(args, count: bool = True) -> tuple[_Compiled, list]:
         pol = effective_policy()
@@ -1389,9 +1877,16 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
         as that call's miss), without running it."""
         return entry_for(args)[0].plan
 
+    def warm_backward(*args) -> list[OffloadPlan]:
+        """Plan the backward of every fused segment of ``args``' plan
+        now, as the first backward would (``bwd_plan_stats`` counts the
+        misses); the plans' kernels can then be built together."""
+        return _warm_backward(entry_for(args)[0].run)
+
     wrapped.stats = stats
     wrapped.policy = policy
     wrapped.warm = warm
+    wrapped.warm_backward = warm_backward
     wrapped.plan_for = lambda *args: entry_for(args, count=False)[0].plan
     wrapped.explain = lambda *args: \
         entry_for(args, count=False)[0].plan.report()

@@ -9,7 +9,10 @@ fx graph captured by ``make_fx`` by **aten overload-packet name**
 The graph is captured with one fixed decomposition table
 (``DECOMPOSITIONS`` below), so that ``silu``, ``gelu``, ``softmax``,
 ``mean`` and ``split`` reach the planner as the primitive-level chains a
-jaxpr would hold (``x * sigmoid(x)``, ``amax/sub/exp/sum/div``, ...).
+jaxpr would hold (``x * sigmoid(x)``, ``amax/sub/exp/sum/div``, ...),
+and so do the derivatives autograd emits for them (``sigmoid_backward``,
+``tanh_backward``, ``gelu_backward``, ``silu_backward``), which a
+backward plan fuses as it fuses any elementwise chain.
 The tables name exactly what that table and the model code emit.
 
 Tier precedence in ``eqn_tier`` is anchor > reduce > near > layout > far.
@@ -41,11 +44,12 @@ LAYOUT_PRIMS = {
     "slice", "cat", "select", "alias",
 }
 
-# the anchor tier: ``mm`` may OPEN a fused segment (the forward form
-# x[M, K] @ w[K, N]).  ``bmm`` is an anchor candidate the planner always
-# declines in this slice (batched anchors are not ported yet), as it
-# declines an ``mm`` whose weight is a transposed view (the dlhs form)
-# or whose activation is (the drhs form), recording why.
+# the anchor tier: ``mm`` may OPEN a fused segment, in the forward form
+# x[M, K] @ w[K, N], the dlhs form g @ w^T (the weight a transposed
+# view) or the drhs form x^T @ g (the activation one).  ``bmm`` is an
+# anchor candidate the planner always declines (batched anchors are not
+# ported yet), as it declines an ``mm`` over any other strides,
+# recording why.
 ANCHOR_PRIMS = {"mm", "bmm"}
 
 # lane-axis reductions admissible inside a segment: the row statistic
@@ -160,6 +164,48 @@ def _split_with_sizes(x, split_sizes, dim=0):
     return out
 
 
+def _one_minus(x):
+    # 1 - x, written as the ops the tables hold (exactly equal)
+    return aten.add.Tensor(aten.neg.default(x), 1.0)
+
+
+def _sigmoid_backward(g, y):
+    return aten.mul.Tensor(g, aten.mul.Tensor(y, _one_minus(y)))
+
+
+def _tanh_backward(g, y):
+    return aten.mul.Tensor(g, _one_minus(aten.mul.Tensor(y, y)))
+
+
+def _silu_backward(g, x):
+    s = aten.sigmoid.default(x)
+    return aten.mul.Tensor(g, aten.mul.Tensor(s, aten.add.Tensor(
+        aten.mul.Tensor(x, _one_minus(s)), 1.0)))
+
+
+def _gelu_backward(g, x, approximate="none"):
+    if approximate == "tanh":
+        beta = math.sqrt(2.0) * (2.0 / math.sqrt(math.pi)) * 0.5
+        kappa = 0.044715
+        x_sq = aten.mul.Tensor(x, x)
+        inner = aten.mul.Tensor(aten.add.Tensor(
+            x, aten.mul.Tensor(aten.mul.Tensor(x_sq, x), kappa)), beta)
+        t = aten.tanh.default(inner)
+        left = aten.mul.Tensor(x, 0.5)
+        left_d = aten.mul.Tensor(aten.add.Tensor(t, 1.0), 0.5)
+        right_d = aten.mul.Tensor(left, _one_minus(aten.mul.Tensor(t, t)))
+        inner_d = aten.mul.Tensor(aten.add.Tensor(
+            aten.mul.Tensor(x_sq, 3.0 * kappa), 1.0), beta)
+        return aten.mul.Tensor(g, aten.add.Tensor(
+            left_d, aten.mul.Tensor(right_d, inner_d)))
+    cdf = aten.mul.Tensor(aten.add.Tensor(aten.erf.default(
+        aten.mul.Tensor(x, math.sqrt(0.5))), 1.0), 0.5)
+    pdf = aten.mul.Tensor(aten.exp.default(aten.mul.Tensor(
+        aten.mul.Tensor(x, x), -0.5)), (2.0 / math.sqrt(math.pi))
+        * math.sqrt(0.5) * 0.5)
+    return aten.mul.Tensor(g, aten.add.Tensor(cdf, aten.mul.Tensor(x, pdf)))
+
+
 def _addmm(bias, a, b, beta=1, alpha=1):
     if beta != 1 or alpha != 1:
         return NotImplemented
@@ -175,4 +221,8 @@ DECOMPOSITIONS = {
     aten.split.Tensor: _split,
     aten.split_with_sizes.default: _split_with_sizes,
     aten.addmm.default: _addmm,
+    aten.sigmoid_backward.default: _sigmoid_backward,
+    aten.tanh_backward.default: _tanh_backward,
+    aten.silu_backward.default: _silu_backward,
+    aten.gelu_backward.default: _gelu_backward,
 }

@@ -52,6 +52,9 @@ _BINARY = {
 }
 _CAST_KWARGS_OK = {"dtype", "layout", "device", "pin_memory",
                    "memory_format", "non_blocking"}
+#: cast kwargs that place the result, not compute it: a block program
+#: leaves them out (its blocks are where its operands are)
+PLACEMENT_KWARGS = ("device", "layout", "pin_memory")
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -84,10 +87,16 @@ def ew_opcode(target: Any, args: Sequence, kwargs: dict) -> str | None:
     if packet == "clone":
         return "copy"
     if packet == "_to_copy":
-        if set(kwargs) - _CAST_KWARGS_OK:
+        if set(kwargs) - _CAST_KWARGS_OK or kwargs.get("pin_memory"):
             return None
-        if kwargs.get("device") is not None or kwargs.get("pin_memory"):
-            return None
+        if kwargs.get("device") is not None:
+            # a cast that names its own device (autograd's cast of a
+            # cotangent) is a cast; a move to another device is not
+            src = args[0].meta.get("val") if args and hasattr(
+                args[0], "meta") else None
+            if not isinstance(src, torch.Tensor) or \
+                    torch.device(kwargs["device"]) != src.device:
+                return None
         return "cast"
     return None
 

@@ -1,34 +1,52 @@
-// Matmul-anchored fused segment for Hopper (sm_90a): the GEMM template.
+// Matmul-anchored fused segments for Hopper (sm_90a): the GEMM template
+// of all three contraction forms.
 //
-// Replaces the TPU kernel repro/kernels/fused_matmul.py:240
-// (fused_matmul_segment): [rows, K] @ [K, N] with an f32 accumulator, the
-// lhs prologue applied to each lhs element as it is loaded, the weight
-// prologue (a bf16 -> f32 dequant cast, per-channel scales) to each
-// weight element as it is loaded, and the epilogue on the accumulator
-// before one store.  This header is the hand-written part; the prologues
-// and the epilogue are generated per segment from its block program
+// Replaces the TPU kernels repro/kernels/fused_matmul.py:240
+// (fused_matmul_segment, B3) and repro/kernels/fused_matmul_bwd.py:178
+// and :343 (fused_matmul_dlhs_segment, B4; fused_matmul_drhs_segment,
+// B6).  Every form is C[row, col] = sum_k A(row, k) B(k, col) with an f32
+// accumulator; the generated struct ``S`` of a segment says where A and
+// B come from:
+//   fwd   x[rows, K] @ w[K, N]: A is the lhs (its prologue applied as each
+//         element is loaded), B the weight (its dequant prologue applied
+//         likewise, so the cast weight is never stored);
+//   dlhs  dx[rows, N] = g[rows, K] @ w[N, K]^T: B(k, n) = w[n, k] is read
+//         in place from the forward weight's rows (no transposed copy);
+//         the tile is staged column-major and fed to the tensor cores as
+//         ``wmma::col_major`` fragments;
+//   drhs  dw[rows, N] = x[K, rows]^T @ g[K, N]: A(r, k) = x[k, r] is read
+//         in place through the activation's strides, and the contraction
+//         runs over the token axis K inside one block, in a fixed order,
+//         with no atomics (two runs are bit-equal).
+// This header is the hand-written part; the accessors and the epilogues
+// are generated per segment from its block programs
 // (src/repro_torch/kernels/fused_matmul.py) into one translation unit
 // per plan.
 //
 // What bounds it: at decode (rows = 8) the product is a stream of the
 // weight — 2 operations per weight element against 295 bf16 operations
-// per byte of the card's balance — so it is bound by bytes.  The TPU's
+// per byte of the card's balance — so it is bound by bytes; at training
+// (rows = 2048 tokens) every form is bound by operations.  The TPU's
 // grid (row blocks x a sequential K axis) would give one thread block
 // streaming the whole weight on one of 132 SMs.  Here a block owns a
-// [RB, 128] output tile and one slice of K (grid = N tiles x row blocks
-// x K splits, the split count chosen from shapes so that the card holds
-// about two blocks per SM); each block writes its f32 partial tile to a
-// workspace, and a second kernel of the same wrapper call sums the
-// splits in a fixed order, rounds the sum to the product's dtype and
-// runs the epilogue — over a whole row when the epilogue reduces over
-// the lanes (the row held in shared memory), per lane chunk otherwise.
+// [RB, 128] output tile and, for fwd and dlhs, one slice of K (grid = N
+// tiles x row blocks x K splits, the split count chosen from shapes so
+// that the card holds about two blocks per SM); each block writes its
+// f32 partial tile to a workspace, and a second kernel of the same
+// wrapper call sums the splits in a fixed order, rounds the sum to the
+// product's dtype and runs the epilogue — over a whole row when the
+// epilogue reduces over the lanes (the row held in shared memory), per
+// lane chunk otherwise.  A drhs block owns its whole contraction, so its
+// (pure elementwise) epilogue runs on the finished tile before the one
+// store, with no workspace.
 //
-// Inside a block: 128 threads; the K slice is walked in 32-deep tiles
-// staged global -> registers (prologue applied, next tile loaded while
-// the current one is multiplied) -> shared memory.  bf16 x bf16 products
-// run on the tensor cores (WMMA m8n32k16, f32 accumulate: one warp owns
-// 32 columns and every 8-row fragment of the tile); anything else runs
-// an f32 FMA path (one thread owns a column of the tile).
+// Inside a block: 128 threads; the contraction is walked in 32-deep
+// tiles staged global -> registers (prologue applied, next tile loaded
+// while the current one is multiplied) -> shared memory, each operand
+// loaded along its contiguous axis.  bf16 x bf16 products run on the
+// tensor cores (WMMA m8n32k16, f32 accumulate: one warp owns 32 columns
+// and every 8-row fragment of the tile); anything else runs an f32 FMA
+// path (one thread owns a column of the tile).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // FM_BN (output columns of a block) and FM_BK (K depth of one staged
 // tile) are declared by the generated translation unit ahead of this
@@ -79,58 +99,125 @@ __device__ __forceinline__ float fm_block_max(float v, float* red) {
   return t;
 }
 
-// One staged tile: A [MT, BK] (rows past ``mrows`` and K past kend are
-// zero) and B [BK, BN] (columns past N zero), prologues applied.
+// Element (k, n) of the staged B tile in shared memory: row-major
+// [FM_BK][FM_BN], or column-major [FM_BN][FM_BK] when B is read along k
+// (dlhs) for the tensor cores.
+template <class S>
+__device__ __forceinline__ int fm_bidx(int k, int n) {
+  if constexpr (S::B_K_FAST && S::WMMA) return n * FM_BK + k;
+  else return k * FM_BN + n;
+}
+
+// One staged tile of the contraction [k0, k0 + FM_BK): A [MT, BK] (rows
+// past ``mrows`` and k past kend are zero) and B [BK, BN] (columns past N
+// zero), prologues applied.  Element e of a thread's registers is
+// e = t + i * FM_THREADS of the tile, laid along the operand's contiguous
+// axis: A's k (fwd, dlhs) or its rows (drhs); B's n (fwd, drhs) or its k
+// (dlhs).  ``b`` is the batch slice of the tile's rows.
 template <class S>
 __device__ __forceinline__ void fm_load_tile(const typename S::Args& a, int m0, int mrows,
-                                             int n0, int k0, int kend,
+                                             int n0, int k0, int kend, int b,
                                              float (&ra)[S::MT * FM_BK / FM_THREADS],
-                                             float (&rb)[FM_BK]) {
+                                             float (&rb)[FM_BK * FM_BN / FM_THREADS]) {
   const int t = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) {
     const int e = t + i * FM_THREADS;
-    const int r = e / FM_BK, gk = k0 + e % FM_BK;
-    ra[i] = (r < mrows && gk < kend) ? S::lhs(a, m0 + r, gk) : 0.f;
+    int r, gk;
+    if constexpr (S::A_ROW_FAST) {
+      r = e % S::MT;
+      gk = k0 + e / S::MT;
+    } else {
+      r = e / FM_BK;
+      gk = k0 + e % FM_BK;
+    }
+    ra[i] = (r < mrows && gk < kend) ? S::lhs(a, m0 + r, gk, b) : 0.f;
   }
-  const int gn = n0 + t;
+  if constexpr (S::B_K_FAST) {
 #pragma unroll
-  for (int i = 0; i < FM_BK; ++i) {
-    const int gk = k0 + i;
-    rb[i] = (gk < kend && gn < S::N) ? S::rhs(a, gk, gn) : 0.f;
+    for (int i = 0; i < FM_BK * FM_BN / FM_THREADS; ++i) {
+      const int e = t + i * FM_THREADS;
+      const int gn = n0 + e / FM_BK, gk = k0 + e % FM_BK;
+      rb[i] = (gk < kend && gn < S::N) ? S::rhs(a, gk, gn, b) : 0.f;
+    }
+  } else {
+    // thread t owns column t; element i is row k0 + i of the tile
+    const int gn = n0 + t;
+#pragma unroll
+    for (int i = 0; i < FM_BK; ++i) {
+      const int gk = k0 + i;
+      rb[i] = (gk < kend && gn < S::N) ? S::rhs(a, gk, gn, b) : 0.f;
+    }
+  }
+}
+
+// Where the registers of fm_load_tile go in shared memory.
+template <class S>
+__device__ __forceinline__ int fm_aidx(int i) {
+  const int e = threadIdx.x + i * FM_THREADS;
+  if constexpr (S::A_ROW_FAST) return (e % S::MT) * FM_BK + e / S::MT;
+  else return e;
+}
+
+template <class S>
+__device__ __forceinline__ int fm_bsidx(int i) {
+  if constexpr (S::B_K_FAST) {
+    const int e = threadIdx.x + i * FM_THREADS;
+    return fm_bidx<S>(e % FM_BK, e / FM_BK);
+  } else {
+    return i * FM_BN + threadIdx.x;
+  }
+}
+
+// One finished accumulator element: through the segment's elementwise
+// epilogue to its outputs when the block owns the whole contraction
+// (drhs; fwd and dlhs without a K split and with an elementwise
+// epilogue), else into the split's workspace.
+template <class S>
+__device__ __forceinline__ void fm_emit(const typename S::Args& a, float* __restrict__ ws,
+                                        int row, int col, float v) {
+  if constexpr (S::IN_TILE) {
+    S::epi(a, row, col, v);
+  } else {
+    ws[((size_t)blockIdx.z * S::ROWS + row) * S::N + col] = v;
   }
 }
 
 template <class S>
 __device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* __restrict__ ws) {
   using namespace nvcuda;
+  using BLayout = std::conditional_t<S::B_K_FAST, wmma::col_major, wmma::row_major>;
   __shared__ __align__(32) __nv_bfloat16 As[S::MT * FM_BK];
   __shared__ __align__(32) __nv_bfloat16 Bs[FM_BK * FM_BN];
   __shared__ __align__(32) float Cs[S::MT * FM_BN];
   const int t = threadIdx.x, warp = t >> 5;
-  const int n0 = blockIdx.x * FM_BN;
+  const int n0 = blockIdx.y * FM_BN;
   const int kbeg = blockIdx.z * S::KCH;
   const int kend = min(S::K, kbeg + S::KCH);
   for (int sub = 0; sub < S::NSUB; ++sub) {
-  const int m0 = blockIdx.y * S::RB + sub * S::MT;
+  const int m0 = blockIdx.x * S::RB + sub * S::MT;
   const int mrows = min(S::MT, S::RB - sub * S::MT);
+  const int b = m0 / S::PER;
   wmma::fragment<wmma::accumulator, 8, 32, 16, float> acc[S::MT / 8];
 #pragma unroll
   for (int f = 0; f < S::MT / 8; ++f) wmma::fill_fragment(acc[f], 0.f);
-  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK];
-  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, ra, rb);
+  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK * FM_BN / FM_THREADS];
+  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, b, ra, rb);
   for (int k0 = kbeg; k0 < kend; k0 += FM_BK) {
 #pragma unroll
-    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i)
-      As[t + i * FM_THREADS] = __float2bfloat16(ra[i]);
+    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) As[fm_aidx<S>(i)] = __float2bfloat16(ra[i]);
 #pragma unroll
-    for (int i = 0; i < FM_BK; ++i) Bs[i * FM_BN + t] = __float2bfloat16(rb[i]);
+    for (int i = 0; i < FM_BK * FM_BN / FM_THREADS; ++i) Bs[fm_bsidx<S>(i)] = __float2bfloat16(rb[i]);
     __syncthreads();
-    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, ra, rb);
+    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, b, ra, rb);
 #pragma unroll
     for (int ks = 0; ks < FM_BK; ks += 16) {
-      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
+      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, BLayout> bf;
+      if constexpr (S::B_K_FAST) {
+        wmma::load_matrix_sync(bf, Bs + warp * 32 * FM_BK + ks, FM_BK);
+      } else {
+        wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
+      }
 #pragma unroll
       for (int f = 0; f < S::MT / 8; ++f) {
         wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;
@@ -146,8 +233,7 @@ __device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* _
   __syncthreads();
   const int gn = n0 + t;
   if (gn < S::N) {
-    float* dst = ws + ((size_t)blockIdx.z * S::ROWS + m0) * S::N + gn;
-    for (int r = 0; r < mrows; ++r) dst[(size_t)r * S::N] = Cs[r * FM_BN + t];
+    for (int r = 0; r < mrows; ++r) fm_emit<S>(a, ws, m0 + r, gn, Cs[r * FM_BN + t]);
   }
   __syncthreads();
   }
@@ -158,46 +244,49 @@ __device__ __forceinline__ void fm_gemm_fma(const typename S::Args& a, float* __
   __shared__ float As[S::MT * FM_BK];
   __shared__ float Bs[FM_BK * FM_BN];
   const int t = threadIdx.x;
-  const int n0 = blockIdx.x * FM_BN;
+  const int n0 = blockIdx.y * FM_BN;
   const int kbeg = blockIdx.z * S::KCH;
   const int kend = min(S::K, kbeg + S::KCH);
   for (int sub = 0; sub < S::NSUB; ++sub) {
-  const int m0 = blockIdx.y * S::RB + sub * S::MT;
+  const int m0 = blockIdx.x * S::RB + sub * S::MT;
   const int mrows = min(S::MT, S::RB - sub * S::MT);
+  const int b = m0 / S::PER;
   float acc[S::MT];
 #pragma unroll
   for (int r = 0; r < S::MT; ++r) acc[r] = 0.f;
-  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK];
-  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, ra, rb);
+  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK * FM_BN / FM_THREADS];
+  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, b, ra, rb);
   for (int k0 = kbeg; k0 < kend; k0 += FM_BK) {
 #pragma unroll
-    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) As[t + i * FM_THREADS] = ra[i];
+    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) As[fm_aidx<S>(i)] = ra[i];
 #pragma unroll
-    for (int i = 0; i < FM_BK; ++i) Bs[i * FM_BN + t] = rb[i];
+    for (int i = 0; i < FM_BK * FM_BN / FM_THREADS; ++i) Bs[fm_bsidx<S>(i)] = rb[i];
     __syncthreads();
-    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, ra, rb);
+    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, b, ra, rb);
 #pragma unroll 8
     for (int kk = 0; kk < FM_BK; ++kk) {
-      const float b = Bs[kk * FM_BN + t];
+      const float bv = Bs[kk * FM_BN + t];
 #pragma unroll
-      for (int r = 0; r < S::MT; ++r) acc[r] = fmaf(As[r * FM_BK + kk], b, acc[r]);
+      for (int r = 0; r < S::MT; ++r) acc[r] = fmaf(As[r * FM_BK + kk], bv, acc[r]);
     }
     __syncthreads();
   }
   const int gn = n0 + t;
   if (gn < S::N) {
-    float* dst = ws + ((size_t)blockIdx.z * S::ROWS + m0) * S::N + gn;
 #pragma unroll
     for (int r = 0; r < S::MT; ++r)
-      if (r < mrows) dst[(size_t)r * S::N] = acc[r];
+      if (r < mrows) fm_emit<S>(a, ws, m0 + r, gn, acc[r]);
   }
   }
 }
 
-// Grid (ceil(N / FM_BN), ROWS / RB, KS): the partial product of one
-// [RB, FM_BN] tile over one K slice, into ws[split][row][col]; a row
-// block of more than MT (<= 64) rows is walked in NSUB sub-tiles, the
-// later ones finding the block's weight slice in L2.
+// Grid (ROWS / RB, ceil(N / FM_BN), KS): the product of one [RB, FM_BN]
+// tile over one K slice, into ws[split][row][col] or through the
+// in-tile epilogue; a row block of more than MT (<= 32) rows is walked
+// in NSUB sub-tiles, the later ones finding the block's slice of B in
+// L2.  Row blocks are the fastest grid axis, so the blocks that read one
+// column tile of B run side by side and share it in L2.  Row blocks
+// never straddle a batch slice (PER rows each).
 template <class S>
 __global__ void __launch_bounds__(FM_THREADS) fm_gemm(typename S::Args a, float* __restrict__ ws) {
   if constexpr (S::WMMA) {

@@ -12,7 +12,10 @@ splits, lane reductions) on the accumulator before one store.
 The GEMM is the hand-written template in ``csrc/fused_matmul.cuh`` (see
 the note there for what bounds it and how it splits N and K over the
 card); the prologues and the epilogue are CUDA code generated from the
-segment's block programs (``codegen.py``).  All anchored segments of a
+segment's block programs (``codegen.py``).  The same template and
+generator serve the two backward forms of ``fused_matmul_bwd.py`` (B4
+dlhs, B6 drhs): ``segment_source(form=...)`` emits each form's operand
+accessors, and ``launch_segment`` is the one launcher of all three.  All anchored segments of a
 plan go into ONE translation unit (``prepare_library``), so a plan costs
 one ``nvcc``, keyed by source hash into ``build/``; segments that are
 the same (28 layers of one model) share one function.
@@ -50,6 +53,9 @@ KERNEL = "fused_matmul_segment"
 #: translation unit as ``FM_BN`` / ``FM_BK``, which ``csrc/fused_matmul.cuh``
 #: reads)
 BN, BK = 128, 32
+#: rows of the tile one block holds in registers at a time: 32 keeps the
+#: f32 accumulator and both staged operands in 255 registers a thread
+MT_MAX = 32
 #: static shared memory of a lane-reduce epilogue: ``fm_red[32]`` floats
 _RED_SMEM_BYTES = 32 * 4
 
@@ -71,9 +77,12 @@ def _block_budget(block: int, n_dim: int, vmem_bytes: int) -> int:
 
 
 def _row_block(rows: int, epi_specs: Sequence[tuple],
-               rows_block: int, n_dim: int, vmem_bytes: int) -> int:
+               rows_block: int, n_dim: int, vmem_bytes: int,
+               batch: int = 1) -> int:
     """Row-block extent: the largest divisor of the rep/tile/bcast gcd
-    (or of ``rows``) that fits the clamped block budget."""
+    (or of ``rows``) that fits the clamped block budget; with ``batch``
+    > 1 it divides the per-batch rows too, so no block straddles a batch
+    slice."""
     limit = max(min(_block_budget(rows_block, n_dim, vmem_bytes), rows), 1)
     g = 0
     for spec in epi_specs:
@@ -84,32 +93,27 @@ def _row_block(rows: int, epi_specs: Sequence[tuple],
             g = math.gcd(g, op_rows)
         elif role == "bcast":
             g = math.gcd(g, spec[4][-1])
+    if batch > 1:
+        g = math.gcd(g, rows // batch)
     return _largest_divisor_leq(g if g else rows, limit)
 
 
 def matmul_row_blocks(rows: int, epi_specs: Sequence[tuple],
-                      n_dim: int, rows_block: int, vmem_bytes: int) -> int:
-    """Row blocks the kernel launches: the weight streams once per row
-    block."""
-    return rows // _row_block(rows, epi_specs, rows_block, n_dim,
-                              vmem_bytes)
+                      n_dim: int, rows_block: int, vmem_bytes: int,
+                      batch: int = 1) -> int:
+    """Per-batch row blocks the kernel launches: the weight slice streams
+    once per row block."""
+    return (rows // batch) // _row_block(rows, epi_specs, rows_block,
+                                         n_dim, vmem_bytes, batch)
 
 
 def row_block(rows: int, epi_specs: Sequence[tuple], n_dim: int,
-              rows_block: int, vmem_bytes: int) -> int:
+              rows_block: int, vmem_bytes: int, batch: int = 1) -> int:
     """The row block of the Hopper kernel: a block accumulates an
     [rb, BN] tile (the N axis is split over blocks), so the budget clamps
     ``rb x min(N, BN)`` f32, through the reference's ``_row_block``."""
     return _row_block(rows, epi_specs, rows_block, min(n_dim, BN),
-                      vmem_bytes)
-
-
-def weight_streams(rows: int, epi_specs: Sequence[tuple], n_dim: int,
-                   rows_block: int, vmem_bytes: int) -> int:
-    """How many times a call streams the weight: once per row block
-    (``matmul_row_blocks`` of the Hopper tile)."""
-    return matmul_row_blocks(rows, epi_specs, min(n_dim, BN), rows_block,
-                             vmem_bytes)
+                      vmem_bytes, batch)
 
 
 def k_splits(rows: int, rb: int, k_dim: int, n_dim: int, sms: int,
@@ -128,12 +132,46 @@ def k_splits(rows: int, rb: int, k_dim: int, n_dim: int, sms: int,
     return -(-k_tiles // chunk), chunk * BK
 
 
+def in_tile(ks: int, elementwise: bool, out_cols: Sequence[int],
+            n_dim: int) -> bool:
+    """Whether the epilogue runs on the finished tile inside the GEMM
+    kernel (no workspace, no second kernel): the block owns the whole
+    contraction (one K split) and the epilogue is elementwise (no lane
+    reduction, slice or concat) with every output at the full width."""
+    return ks == 1 and elementwise and all(c == n_dim for c in out_cols)
+
+
 def workspace_bytes(rows: int, epi_specs: Sequence[tuple], k_dim: int,
                     n_dim: int, rows_block: int, vmem_bytes: int,
-                    sms: int) -> int:
-    """Bytes of the f32 partial-product workspace of one call."""
-    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
-    return 4 * rows * n_dim * k_splits(rows, rb, k_dim, n_dim, sms)[0]
+                    sms: int, *, elt: int, elementwise: bool,
+                    out_cols: Sequence[int], batch: int = 1) -> int:
+    """Bytes of the f32 partial-product workspace of one fwd or dlhs
+    call (none when the epilogue runs in the tile).  ``elt`` is the
+    weight's element size."""
+    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes, batch)
+    ks = k_splits(rows, rb, k_dim, n_dim, sms, elt)[0]
+    if in_tile(ks, elementwise, out_cols, n_dim):
+        return 0
+    return 4 * rows * n_dim * ks
+
+
+def column_tiles(n_dim: int) -> int:
+    """Column tiles of the template's grid: ``BN`` output lanes each."""
+    return -(-n_dim // BN)
+
+
+def operand_streams(lhs_bytes: int, row_blocks: int, col_tiles: int, *,
+                    l2_bytes: int, sms: int) -> tuple[int, int]:
+    """How often a contraction's two operands come from device memory.
+    Row blocks are the grid's fastest axis, so the ``row_blocks`` blocks
+    that read one column tile of the rhs (the weight; the drhs
+    cotangent) run side by side and share it in L2 — once, unless there
+    are more of them than the card holds (two a SM).  Every column tile
+    re-reads the whole lhs: once when it fits in half the L2, else once
+    per tile."""
+    rhs = 1 if row_blocks <= 2 * sms else row_blocks
+    lhs = 1 if 2 * lhs_bytes <= l2_bytes else col_tiles
+    return lhs, rhs
 
 
 def row_smem_bytes(n_dim: int) -> int:
@@ -152,14 +190,25 @@ def row_fits(n_dim: int, vmem_bytes: int) -> bool:
 # The plain version
 # ---------------------------------------------------------------------------
 
-def _full(spec: tuple, v: torch.Tensor, rows: int, k: int, n: int
-          ) -> torch.Tensor:
+def _full(spec: tuple, v: torch.Tensor, rows: int, k: int, n: int,
+          batch: int = 1) -> torch.Tensor:
     role, op_rows, c = spec[0], spec[1], spec[2]
     if role in ("param_k", "param_w"):
         return v.reshape(1, c)
     if role == "bulk_k":
         return v.reshape(rows, k)
-    return v.reshape(k, n)
+    return v.reshape(batch * k, n)
+
+
+def _epilogue_blocks(epi: BlockProgram, outs, acc_rows, epi_specs,
+                     epi_views, i: int, rb: int, rows: int) -> None:
+    """Run the epilogue program on row block ``i`` (``acc_rows`` is the
+    block's rounded accumulator) and store every output's rows."""
+    eblocks = [role_block(s, v, i, rb, rows)
+               for s, v in zip(epi_specs, epi_views)]
+    for o, val in zip(outs, run_program(epi, [acc_rows, *eblocks],
+                                        block_rows=rb)):
+        o[i * rb:(i + 1) * rb] = val
 
 
 def fused_matmul_segment_plain(
@@ -168,14 +217,15 @@ def fused_matmul_segment_plain(
         epi_operands, epi_specs, *, rows: int, k_dim: int, n_dim: int,
         acc_dtype: torch.dtype, out_cols: Sequence[int],
         out_dtypes: Sequence[torch.dtype], rows_block: int,
-        vmem_bytes: int) -> tuple:
+        vmem_bytes: int, batch: int = 1) -> tuple:
     """The kernel's plain version: per row block, the lhs prologue on the
-    block, ``[rb, K] @ [K, N]`` in f32, the product rounded to its
-    dtype, then the epilogue program over the same role views."""
-    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
+    block, ``[rb, K] @ [K, N]`` in f32 against the block's batch slice of
+    the weight, the product rounded to its dtype, then the epilogue
+    program over the same role views."""
+    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes, batch)
     lhs_full = [_full(s, torch.as_tensor(v), rows, k_dim, n_dim)
                 for s, v in zip(lhs_specs, lhs_operands)]
-    rhs_full = [_full(s, torch.as_tensor(v), rows, k_dim, n_dim)
+    rhs_full = [_full(s, torch.as_tensor(v), rows, k_dim, n_dim, batch)
                 for s, v in zip(rhs_specs, rhs_operands)]
     rhs = (rhs_full[0] if rhs_pro is None else
            run_program(rhs_pro, rhs_full, block_rows=k_dim)[0])
@@ -184,18 +234,15 @@ def fused_matmul_segment_plain(
     dev = rhs.device
     outs = [torch.empty((rows, c), dtype=dt, device=dev)
             for c, dt in zip(out_cols, out_dtypes)]
-    rhs32 = rhs.float()
+    rhs32 = rhs.float().reshape(batch, k_dim, n_dim)
+    per = rows // batch
     for i in range(rows // rb):
         blocks = [role_block(s, v, i, rb, rows)
                   for s, v in zip(lhs_specs, lhs_full)]
         lhs = blocks[0] if pro is None else \
             run_program(pro, blocks, block_rows=rb)[0]
-        acc = (lhs.float() @ rhs32).to(acc_dtype)
-        eblocks = [role_block(s, v, i, rb, rows)
-                   for s, v in zip(epi_specs, epi_views)]
-        for o, val in zip(outs, run_program(epi, [acc, *eblocks],
-                                            block_rows=rb)):
-            o[i * rb:(i + 1) * rb] = val
+        acc = (lhs.float() @ rhs32[(i * rb) // per]).to(acc_dtype)
+        _epilogue_blocks(epi, outs, acc, epi_specs, epi_views, i, rb, rows)
     return tuple(outs)
 
 
@@ -390,30 +437,77 @@ def _rows_of(specs: Sequence[tuple], rows: int, rb: int) -> list:
 _EPI_CHUNK = 2048
 
 
+class _ElemEmitter(CudaEmitter):
+    """A drhs epilogue: pure elementwise at full output width, evaluated
+    for one (row, lane) element of the finished tile and stored once."""
+
+    def store(self, j, vid, op):
+        self.lane_bound = op.cols
+        x = self.lane_values(vid, "L") if self.lanedep[vid] else \
+            self.row_memo[vid]
+        self.lane_bound = None
+        self.line(f"a.o{j}[(size_t)row * {op.cols} + L] = "
+                  f"{self._to(x, op.dtype, _CT[op.dtype])};")
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                    lhs_dtypes, rhs_dtypes, epi_dtypes, out_dtypes,
                    rows: int, k_dim: int, n_dim: int, acc_dtype: str,
-                   rows_block: int, vmem_bytes: int, sms: int) -> dict:
+                   rows_block: int, vmem_bytes: int, sms: int,
+                   form: str = "fwd", batch: int = 1) -> dict:
     """Generate one anchored segment's CUDA code.  Returns its symbol
     name, source text and launch geometry (everything static is baked
-    in; the launcher takes only pointers and the stream)."""
-    rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes)
-    mt = min(-(-rb // 8) * 8, 64)
+    in; the launcher takes only pointers and the stream).
+
+    ``form`` is the contraction: ``fwd`` (x[rows, K] @ w[K, N]),
+    ``dlhs`` (g[rows, K] @ w[N, K]^T, the weight given as its forward
+    [N, K] rows) or ``drhs`` (x[K, rows]^T @ g[K, N], K the contracted
+    token axis).  ``batch`` > 1 contracts each of ``batch`` row slices
+    against its own slice of the weight (fwd, dlhs) or of both operands
+    (drhs)."""
+    if form not in ("fwd", "dlhs", "drhs"):
+        raise ValueError(f"contraction form {form!r}")
+    if (rhs_pro is not None and (form != "fwd" or batch > 1)) or \
+            (pro is not None and form == "drhs"):
+        raise ValueError(f"a {form} anchor with batch {batch} takes no "
+                         "prologue on that operand")
+    per = rows // batch
+    if form == "drhs":
+        from repro_torch.kernels.fused_matmul_bwd import drhs_blocks
+
+        rb, _ = drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes, batch=batch)
+        ks, kch = 1, -(-k_dim // BK) * BK
+    else:
+        rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes, batch)
+    mt = min(_pad8(rb), MT_MAX)
     nsub = -(-rb // mt)
     lhs_ct = pro.ops[pro.outputs[0]].dtype if pro else lhs_dtypes[0]
     rhs_ct = rhs_pro.ops[rhs_pro.outputs[0]].dtype if rhs_pro else \
         rhs_dtypes[0]
     wmma = lhs_ct == "bfloat16" and rhs_ct == "bfloat16"
-    elt = 2 if rhs_dtypes[0] in ("bfloat16", "float16") else 4
-    ks, kch = k_splits(rows, rb, k_dim, n_dim, sms, elt)
+    if form != "drhs":
+        elt = 2 if rhs_dtypes[0] in ("bfloat16", "float16") else 4
+        ks, kch = k_splits(rows, rb, k_dim, n_dim, sms, elt)
     reduce = bool(epi.reductions)
+    elementwise = not reduce and not any(op.kind in ("slice", "cat")
+                                         for op in epi.ops)
+    tile_epi = in_tile(ks, elementwise,
+                       [epi.ops[o].cols for o in epi.outputs], n_dim)
+    if form == "drhs" and not tile_epi:
+        raise ValueError("a drhs epilogue is elementwise at full width")
     smem = 4 * n_dim if reduce else 0       # the row; fm_red[] is static
     if reduce and not row_fits(n_dim, vmem_bytes):
         raise ValueError(f"lane-reduce epilogue over N={n_dim} does not fit "
                          "the shared-memory budget")
-    shape_key = repr((pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs,
-                      lhs_dtypes, rhs_dtypes, epi_dtypes, out_dtypes, rows,
-                      k_dim, n_dim, acc_dtype, rb, ks, kch))
+    shape_key = repr((form, batch, tile_epi, pro, rhs_pro, epi, lhs_specs,
+                      rhs_specs,
+                      epi_specs, lhs_dtypes, rhs_dtypes, epi_dtypes,
+                      out_dtypes, rows, k_dim, n_dim, acc_dtype, rb, ks,
+                      kch))
     name = "fm_" + hashlib.sha1(shape_key.encode()).hexdigest()[:16]
 
     members = ([f"const {_CT[d]}* __restrict__ l{i};"
@@ -426,13 +520,17 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                   for i, d in enumerate(out_dtypes)])
     src = [f"struct {name}_Args {{"] + [f"  {m}" for m in members] + ["};"]
 
+    def accessor(fn, row_var, lane_var, body):
+        return [f"  static __device__ __forceinline__ float {fn}("
+                f"const Args& a, int {row_var}, int {lane_var}, int b) {{",
+                "    (void)b;"] + body + ["  }"]
+
     def prologue(prog, fn, row_var, lane_var, roles_ptr, width):
         if prog is None:
             ptr = roles_ptr[0]
-            return [f"  static __device__ __forceinline__ float {fn}("
-                    f"const Args& a, int {row_var}, int {lane_var}) {{",
-                    f"    return fm_f(a.{ptr}[(size_t){row_var} * {width} + "
-                    f"{lane_var}]);", "  }"]
+            return accessor(fn, row_var, lane_var, [
+                f"    return fm_f(a.{ptr}[(size_t){row_var} * {width} + "
+                f"{lane_var}]);"])
         rows_of = [row_var if inp.role in ("bulk_k", "bulk_w") else None
                    for inp in prog.inputs]
         em = CudaEmitter(prog, rows_of, [f"a.{p}" for p in roles_ptr])
@@ -443,27 +541,77 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         em.lane_bound = width
         x = em.lane_values(out, lane_var)
         x = x if ctype(prog.ops[out].dtype) == "f" else f"(float)({x})"
-        return ([f"  static __device__ __forceinline__ float {fn}("
-                 f"const Args& a, int {row_var}, int {lane_var}) {{"]
-                + em.lines + [f"    return {x};", "  }"])
+        return accessor(fn, row_var, lane_var,
+                        em.lines + [f"    return {x};"])
 
     src += [f"struct {name}_S {{",
             f"  using Args = {name}_Args;",
             f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
             f"N = {n_dim}, RB = {rb}, MT = {mt}, NSUB = {nsub}, KS = {ks}, "
-            f"KCH = {kch};",
-            f"  static constexpr bool WMMA = {'true' if wmma else 'false'};"]
-    src += prologue(pro, "lhs", "r", "L",
-                    [f"l{i}" for i in range(len(lhs_dtypes))], k_dim)
-    src += prologue(rhs_pro, "rhs", "k", "L",
-                    [f"w{i}" for i in range(len(rhs_dtypes))], n_dim)
-    src += ["};"]
+            f"KCH = {kch}, PER = {per};",
+            f"  static constexpr bool WMMA = {_cbool(wmma)}, "
+            f"A_ROW_FAST = {_cbool(form == 'drhs')}, "
+            f"B_K_FAST = {_cbool(form == 'dlhs')}, "
+            f"IN_TILE = {_cbool(tile_epi)};"]
+    lhs_ptrs = [f"l{i}" for i in range(len(lhs_dtypes))]
+    if form == "drhs":
+        # A(r, k) = x[b][k][r - b * PER]: the activation read in place
+        src += accessor("lhs", "r", "k", [
+            f"    return fm_f(a.l0[((size_t)b * {k_dim} + k) * {per} + "
+            f"(r - b * {per})]);"])
+        src += accessor("rhs", "k", "n", [
+            f"    return fm_f(a.w0[((size_t)b * {k_dim} + k) * {n_dim} + "
+            "n]);"])
+    else:
+        src += prologue(pro, "lhs", "r", "L", lhs_ptrs, k_dim)
+        if form == "dlhs":
+            # B(k, n) = w[b][n][k]: the forward weight's rows, in place
+            src += accessor("rhs", "k", "n", [
+                f"    return fm_f(a.w0[(size_t)b * {n_dim * k_dim} + "
+                f"(size_t)n * {k_dim} + k]);"])
+        elif rhs_pro is None and batch > 1:
+            src += accessor("rhs", "k", "L", [
+                f"    return fm_f(a.w0[(size_t)b * {k_dim * n_dim} + "
+                f"(size_t)k * {n_dim} + L]);"])
+        else:
+            src += prologue(rhs_pro, "rhs", "k", "L",
+                            [f"w{i}" for i in range(len(rhs_dtypes))], n_dim)
 
-    # the epilogue kernel
     all_specs = [("acc", rows, n_dim)] + list(epi_specs)
     rows_of = _rows_of(all_specs, rows, rb)
     ptrs = [None] + [f"a.e{i}" for i in range(len(epi_dtypes))]
     round_acc = {"bfloat16": "fm_rbf", "float16": "fm_rh"}.get(acc_dtype, "")
+    if tile_epi:
+        em = _ElemEmitter(epi, rows_of, ptrs, lambda lane: f"{round_acc}(acc)")
+        em.indent = 2
+        em.body()
+        src += ["  static __device__ __forceinline__ void epi("
+                "const Args& a, int row, int L, float acc) {",
+                f"    const int pid = row / {rb}, lr = row % {rb};",
+                "    (void)pid; (void)lr;"] + em.lines + ["  }"]
+    src += ["};"]
+
+    k = 0
+    assign = []
+    for pre, dts, const in (("l", lhs_dtypes, True), ("w", rhs_dtypes, True),
+                            ("e", epi_dtypes, True), ("o", out_dtypes, False)):
+        for i, d in enumerate(dts):
+            q = "const " if const else ""
+            assign.append(f"  a.{pre}{i} = ({q}{_CT[d]}*)p[{k}];")
+            k += 1
+    n_tiles = -(-n_dim // BN)
+    head = [f'extern "C" int {name}_launch(void* const* p, void* stream) {{',
+            f"  {name}_Args a;"] + assign
+    if tile_epi:
+        src += head + [
+            "  cudaStream_t s = (cudaStream_t)stream;",
+            f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, 1), "
+            "FM_THREADS, 0, s>>>(a, nullptr);",
+            "  return (int)cudaGetLastError();", "}"]
+        return {"name": name, "source": "\n".join(src) + "\n", "rb": rb,
+                "ks": 0, "kch": kch, "wmma": wmma, "n_ptrs": k}
+
+    # the epilogue kernel reading the workspace
     if reduce:
         def acc_expr(lane):
             return f"fm_row[{lane}]" if lane == "L" else \
@@ -480,41 +628,31 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         grid = f"dim3({-(-width // _EPI_CHUNK)}, {rows})"
     em.indent = 1
     em.body()
-    head = [f"__global__ void __launch_bounds__(FM_EPI_THREADS) {name}_epi("
-            f"{name}_Args a, const float* __restrict__ ws) {{"]
+    epi_head = [f"__global__ void __launch_bounds__(FM_EPI_THREADS) {name}_epi("
+                f"{name}_Args a, const float* __restrict__ ws) {{"]
     if reduce:
-        head += ["  extern __shared__ float fm_row[];",
-                 "  __shared__ float fm_red[32];",
-                 "  const int row = blockIdx.x;"]
+        epi_head += ["  extern __shared__ float fm_row[];",
+                     "  __shared__ float fm_red[32];",
+                     "  const int row = blockIdx.x;"]
     else:
-        head += ["  const int row = blockIdx.y;"]
-    head += [f"  const int pid = row / {rb};",
-             f"  const int lr = row % {rb};",
-             "  (void)pid; (void)lr;"]
+        epi_head += ["  const int row = blockIdx.y;"]
+    epi_head += [f"  const int pid = row / {rb};",
+                 f"  const int lr = row % {rb};",
+                 "  (void)pid; (void)lr;"]
     if reduce:
-        head += [f"  for (int c = threadIdx.x; c < {n_dim}; c += blockDim.x)",
-                 f"    fm_row[c] = {round_acc}(fm_acc_sum<{ks}, {rows}, "
-                 f"{n_dim}>(ws, row, c));",
-                 "  __syncthreads();"]
-    src += head + em.lines + ["}"]
+        epi_head += [f"  for (int c = threadIdx.x; c < {n_dim}; c += blockDim.x)",
+                     f"    fm_row[c] = {round_acc}(fm_acc_sum<{ks}, {rows}, "
+                     f"{n_dim}>(ws, row, c));",
+                     "  __syncthreads();"]
+    src += epi_head + em.lines + ["}"]
 
-    assign = []
-    k = 0
-    for pre, dts, const in (("l", lhs_dtypes, True), ("w", rhs_dtypes, True),
-                            ("e", epi_dtypes, True), ("o", out_dtypes, False)):
-        for i, d in enumerate(dts):
-            q = "const " if const else ""
-            assign.append(f"  a.{pre}{i} = ({q}{_CT[d]}*)p[{k}];")
-            k += 1
-    n_tiles = -(-n_dim // BN)
-    src += [f'extern "C" int {name}_launch(void* const* p, void* stream) {{',
-            f"  {name}_Args a;"] + assign + [
-            f"  float* ws = (float*)p[{k}];",
-            "  cudaStream_t s = (cudaStream_t)stream;",
-            f"  fm_gemm<{name}_S><<<dim3({n_tiles}, {rows // rb}, {ks}), "
-            "FM_THREADS, 0, s>>>(a, ws);",
-            "  cudaError_t e = cudaGetLastError();",
-            "  if (e != cudaSuccess) return (int)e;"]
+    src += head + [
+        f"  float* ws = (float*)p[{k}];",
+        "  cudaStream_t s = (cudaStream_t)stream;",
+        f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, {ks}), "
+        "FM_THREADS, 0, s>>>(a, ws);",
+        "  cudaError_t e = cudaGetLastError();",
+        "  if (e != cudaSuccess) return (int)e;"]
     if smem > 48 * 1024:
         src += [f"  e = cudaFuncSetAttribute({name}_epi, "
                 f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
@@ -523,6 +661,10 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
             "  return (int)cudaGetLastError();", "}"]
     return {"name": name, "source": "\n".join(src) + "\n", "rb": rb,
             "ks": ks, "kch": kch, "wmma": wmma, "n_ptrs": k + 1}
+
+
+def _cbool(x: bool) -> str:
+    return "true" if x else "false"
 
 
 # ---------------------------------------------------------------------------
@@ -600,10 +742,11 @@ _GEN: dict[tuple, dict] = {}
 
 def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
              rhs_specs, epi_operands, epi_specs, *, rows, k_dim, n_dim,
-             acc_dtype, out_dtypes, rows_block, vmem_bytes, sms) -> dict:
+             acc_dtype, out_dtypes, rows_block, vmem_bytes, sms,
+             form: str = "fwd", batch: int = 1) -> dict:
     """``segment_source`` for concrete operands (dtypes read off them),
     generated once per distinct segment."""
-    key = (pro and pro.key, rhs_pro and rhs_pro.key, epi.key,
+    key = (form, batch, pro and pro.key, rhs_pro and rhs_pro.key, epi.key,
            tuple(map(tuple, lhs_specs)), tuple(map(tuple, rhs_specs)),
            tuple(map(tuple, epi_specs)),
            tuple(v.dtype for v in (*lhs_operands, *rhs_operands,
@@ -620,8 +763,46 @@ def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
             epi_dtypes=tuple(dtype_name(v.dtype) for v in epi_operands),
             out_dtypes=tuple(dtype_name(d) for d in out_dtypes), rows=rows,
             k_dim=k_dim, n_dim=n_dim, acc_dtype=dtype_name(acc_dtype),
-            rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms)
+            rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms,
+            form=form, batch=batch)
     return gen
+
+
+def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
+                   *, rows: int, n_dim: int, out_cols: Sequence[int],
+                   out_dtypes: Sequence[torch.dtype]) -> tuple:
+    """Launch one generated anchored segment (any form) on CUDA tensors
+    already in the layout its accessors read; one ``[rows, out_cols[j]]``
+    tensor per output.  Counts one launch of ``kernel``.  Raises on a
+    build or launch failure; nothing falls back."""
+    if not all(v.is_cuda for v in operands):
+        raise RuntimeError(
+            f"{kernel} launches a CUDA kernel: every operand must be a "
+            "CUDA tensor (CPU tensors take the plain version)")
+    _SEGMENTS.setdefault(gen["name"], gen["source"])
+    dev = operands[0].device
+    outs = [torch.empty((rows, c), dtype=dt, device=dev)
+            for c, dt in zip(out_cols, out_dtypes)]
+    bufs = [*operands, *outs]
+    if gen["ks"]:
+        bufs.append(torch.empty((gen["ks"] * rows * n_dim,),
+                                dtype=torch.float32, device=dev))
+    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    lib = _symbol_lib(gen["name"])
+    launch = _launcher(lib, gen["name"])
+    with torch.cuda.device(dev):
+        code = launch(ptrs, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           f"{lib.fm_error(code).decode()}")
+    kernel_guard().count_launch(kernel)
+    return tuple(outs)
+
+
+def epilogue_views(epi_operands, epi_specs) -> list[torch.Tensor]:
+    """The epilogue operands as the 2-D views the generated code reads."""
+    return [torch.as_tensor(v).reshape(s[1], s[2]).contiguous()
+            for v, s in zip(epi_operands, epi_specs)]
 
 
 def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
@@ -629,37 +810,20 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
                          rows: int, k_dim: int, n_dim: int,
                          acc_dtype: torch.dtype, out_cols: Sequence[int],
                          out_dtypes: Sequence[torch.dtype], rows_block: int,
-                         vmem_bytes: int, sms: int) -> tuple:
+                         vmem_bytes: int, sms: int, batch: int = 1) -> tuple:
     """Launch the anchored segment's CUDA kernels (the GEMM, then the
     epilogue) on CUDA tensors; one ``[rows, out_cols[j]]`` tensor per
     output.  One call counts as one launch.  Raises on anything the
     kernel does not take; never falls back to the plain version."""
-    operands = [*lhs_operands, *rhs_operands, *epi_operands]
-    if not all(torch.as_tensor(v).is_cuda for v in operands):
-        raise RuntimeError(
-            "fused_matmul_segment launches a CUDA kernel: every operand "
-            "must be a CUDA tensor (CPU tensors take the plain version)")
     gen = generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
                    rhs_specs, epi_operands, epi_specs, rows=rows, k_dim=k_dim,
                    n_dim=n_dim, acc_dtype=acc_dtype, out_dtypes=out_dtypes,
-                   rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms)
-    _SEGMENTS.setdefault(gen["name"], gen["source"])
-    views = [v.reshape(s[1], s[2]).contiguous() if s[0] not in (
-        "bulk_k", "bulk_w") else v.contiguous()
-        for v, s in zip(operands, [*lhs_specs, *rhs_specs, *epi_specs])]
-    dev = views[0].device
-    outs = [torch.empty((rows, c), dtype=dt, device=dev)
-            for c, dt in zip(out_cols, out_dtypes)]
-    ws = torch.empty((gen["ks"] * rows * n_dim,), dtype=torch.float32,
-                     device=dev)
-    ptrs = (ctypes.c_void_p * (len(views) + len(outs) + 1))(
-        *[t.data_ptr() for t in (*views, *outs, ws)])
-    lib = _symbol_lib(gen["name"])
-    launch = _launcher(lib, gen["name"])
-    with torch.cuda.device(dev):
-        code = launch(ptrs, torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"fused_matmul_segment launch failed: "
-                           f"{lib.fm_error(code).decode()}")
-    kernel_guard().count_launch(KERNEL)
-    return tuple(outs)
+                   rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms,
+                   batch=batch)
+    views = [v.reshape(s[1], s[2]).contiguous() if s[0] in (
+        "param_k", "param_w") else v.contiguous()
+        for v, s in zip([*lhs_operands, *rhs_operands],
+                        [*lhs_specs, *rhs_specs])]
+    views += epilogue_views(epi_operands, epi_specs)
+    return launch_segment(KERNEL, gen, views, rows=rows, n_dim=n_dim,
+                          out_cols=out_cols, out_dtypes=out_dtypes)

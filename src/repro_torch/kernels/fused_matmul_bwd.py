@@ -1,0 +1,259 @@
+"""The backward contraction forms of matmul-anchored segments: CUDA
+kernels B4 (dlhs) and B6 (drhs), their wrappers and plain versions.
+
+``fused_matmul_dlhs_segment`` replaces the TPU kernel of the same name
+in ``repro/kernels/fused_matmul_bwd.py`` (``pl.pallas_call`` at :178):
+
+  dx[rows, n] = g[rows, k] @ w[n, k]^T
+
+with ``w`` the FORWARD weight, read in place along its rows (never
+transposed in memory), the lhs prologue applied per cotangent element as
+it is loaded and the epilogue (the previous layer's activation backward,
+lane reductions, lane splits) on the accumulator before one store.
+``fused_matmul_drhs_segment`` replaces the kernel at :343:
+
+  dw[rows, n] = x[m, rows]^T @ g[m, n]
+
+with the contraction over the m (token) rows inside one thread block in
+a fixed order, both operands read along their contiguous axis, and a
+pure elementwise epilogue (the f32 cast of a cast weight's cotangent,
+``+ wd * w``-style adds) on the finished tile before its one store.
+
+Both run on the hand-written template of ``csrc/fused_matmul.cuh``
+through the generator of ``fused_matmul.py`` (``form="dlhs"`` /
+``"drhs"``): see the note in the header for the tiling and what bounds
+each form.  The dlhs form shares B3's row block, K split and workspace
+helpers; the drhs form's tile is ``drhs_blocks`` and its grid
+``drhs_grid_blocks``, which the offload planner's ``Segment.io_bytes``
+reads too.  ``batch`` > 1 contracts each batch slice against its own
+slice of the weight (dlhs) or of both operands (drhs); no row block
+straddles a slice.
+
+The plain versions beside the wrappers take the same row blocks,
+contract in f32, round the product to its dtype and run the same
+epilogue block program op by op in PyTorch.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import fused_matmul as fm
+from repro_torch.kernels.blockprog import BlockProgram, dtype_name, run_program
+from repro_torch.kernels.fused_elementwise import (
+    _largest_divisor_leq,
+    role_block,
+)
+
+KERNEL_DLHS = "fused_matmul_dlhs_segment"
+KERNEL_DRHS = "fused_matmul_drhs_segment"
+#: rows of a drhs output tile at most: one register tile of the template
+DRHS_ROWS = fm.MT_MAX
+
+
+# ---------------------------------------------------------------------------
+# Geometry shared by the planner and the kernel
+# ---------------------------------------------------------------------------
+
+def drhs_blocks(rows: int, n_dim: int, *, vmem_bytes: int,
+                batch: int = 1) -> tuple[int, int]:
+    """``(pb, nb)``: the drhs output tile.  The lane block is the
+    template's 128 columns; the row block is the largest divisor of the
+    per-batch rows that fits both one register tile (``DRHS_ROWS``) and
+    the accumulator budget (an f32 [pb, nb] tile in ``vmem_bytes``)."""
+    nb = min(n_dim, fm.BN)
+    per = rows // batch
+    limit = max(min(DRHS_ROWS, vmem_bytes // (4 * nb), per), 1)
+    return _largest_divisor_leq(per, limit), nb
+
+
+def drhs_grid_blocks(rows: int, n_dim: int, *, vmem_bytes: int,
+                     batch: int = 1) -> tuple[int, int]:
+    """``(row_blocks, n_blocks)`` of the drhs grid, per batch slice: the
+    activation is read once per lane block and the cotangent once per
+    row block."""
+    pb, nb = drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes, batch=batch)
+    return (rows // batch) // pb, -(-n_dim // nb)
+
+
+def dlhs_rhs_spec(n_dim: int, k_dim: int, batch: int = 1) -> tuple:
+    """The block view of a dlhs weight: the forward [n, k] rows."""
+    return ("bulk_w", batch * n_dim, k_dim)
+
+
+def drhs_specs(m_dim: int, rows: int, n_dim: int, batch: int = 1
+               ) -> tuple[tuple, tuple]:
+    """The block views of a drhs activation [m, rows] and cotangent
+    [m, n] (per batch slice)."""
+    return (("bulk_m", batch * m_dim, rows // batch),
+            ("bulk_w", batch * m_dim, n_dim))
+
+
+# ---------------------------------------------------------------------------
+# Code generation (one name per distinct segment, for planner and wrapper)
+# ---------------------------------------------------------------------------
+
+_GEN: dict[tuple, dict] = {}
+
+
+def dlhs_source(pro: BlockProgram | None, epi: BlockProgram, lhs_specs,
+                epi_specs, *, lhs_dtypes, rhs_dtype: str, epi_dtypes,
+                out_dtypes, rows: int, k_dim: int, n_dim: int,
+                acc_dtype: str, rows_block: int, vmem_bytes: int, sms: int,
+                batch: int = 1) -> dict:
+    """The generated code of a dlhs segment (``fm.segment_source``)."""
+    key = ("dlhs", pro and pro.key, epi.key, tuple(map(tuple, lhs_specs)),
+           tuple(map(tuple, epi_specs)), tuple(lhs_dtypes), rhs_dtype,
+           tuple(epi_dtypes), tuple(out_dtypes), rows, k_dim, n_dim,
+           acc_dtype, rows_block, vmem_bytes, sms, batch)
+    gen = _GEN.get(key)
+    if gen is None:
+        gen = _GEN[key] = fm.segment_source(
+            pro, None, epi, tuple(map(tuple, lhs_specs)),
+            (dlhs_rhs_spec(n_dim, k_dim, batch),),
+            tuple(map(tuple, epi_specs)), lhs_dtypes=tuple(lhs_dtypes),
+            rhs_dtypes=(rhs_dtype,), epi_dtypes=tuple(epi_dtypes),
+            out_dtypes=tuple(out_dtypes), rows=rows, k_dim=k_dim,
+            n_dim=n_dim, acc_dtype=acc_dtype, rows_block=rows_block,
+            vmem_bytes=vmem_bytes, sms=sms, form="dlhs", batch=batch)
+    return gen
+
+
+def drhs_source(epi: BlockProgram, epi_specs, *, lhs_dtype: str,
+                rhs_dtype: str, epi_dtypes, out_dtypes, m_dim: int,
+                rows: int, n_dim: int, acc_dtype: str, vmem_bytes: int,
+                batch: int = 1) -> dict:
+    """The generated code of a drhs segment (``fm.segment_source``)."""
+    key = ("drhs", epi.key, tuple(map(tuple, epi_specs)), lhs_dtype,
+           rhs_dtype, tuple(epi_dtypes), tuple(out_dtypes), m_dim, rows,
+           n_dim, acc_dtype, vmem_bytes, batch)
+    gen = _GEN.get(key)
+    if gen is None:
+        lhs_spec, rhs_spec = drhs_specs(m_dim, rows, n_dim, batch)
+        gen = _GEN[key] = fm.segment_source(
+            None, None, epi, (lhs_spec,), (rhs_spec,),
+            tuple(map(tuple, epi_specs)), lhs_dtypes=(lhs_dtype,),
+            rhs_dtypes=(rhs_dtype,), epi_dtypes=tuple(epi_dtypes),
+            out_dtypes=tuple(out_dtypes), rows=rows, k_dim=m_dim,
+            n_dim=n_dim, acc_dtype=acc_dtype, rows_block=0,
+            vmem_bytes=vmem_bytes, sms=0, form="drhs", batch=batch)
+    return gen
+
+
+def _names(ts) -> tuple[str, ...]:
+    return tuple(dtype_name(t.dtype) for t in ts)
+
+
+def _row_major(t: torch.Tensor, what: str) -> torch.Tensor:
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be row-major: the kernel reads it in "
+                         "place and never copies it")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# dlhs (B4)
+# ---------------------------------------------------------------------------
+
+def fused_matmul_dlhs_segment_plain(
+        pro: BlockProgram | None, epi: BlockProgram, lhs_operands,
+        lhs_specs, rhs, epi_operands, epi_specs, *, rows: int, k_dim: int,
+        n_dim: int, acc_dtype: torch.dtype, out_cols: Sequence[int],
+        out_dtypes: Sequence[torch.dtype], rows_block: int,
+        vmem_bytes: int, batch: int = 1) -> tuple:
+    """The kernel's plain version: per row block, the prologue on the
+    cotangent block, ``[rb, k] @ w[n, k]^T`` in f32 against the block's
+    batch slice, the product rounded to its dtype, then the epilogue."""
+    rb = fm.row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes, batch)
+    lhs_full = [fm._full(s, torch.as_tensor(v), rows, k_dim, n_dim)
+                for s, v in zip(lhs_specs, lhs_operands)]
+    w = torch.as_tensor(rhs).reshape(batch, n_dim, k_dim).float()
+    epi_views = [torch.as_tensor(v).reshape(s[1], s[2])
+                 for s, v in zip(epi_specs, epi_operands)]
+    outs = [torch.empty((rows, c), dtype=dt, device=w.device)
+            for c, dt in zip(out_cols, out_dtypes)]
+    per = rows // batch
+    for i in range(rows // rb):
+        blocks = [role_block(s, v, i, rb, rows)
+                  for s, v in zip(lhs_specs, lhs_full)]
+        g = blocks[0] if pro is None else \
+            run_program(pro, blocks, block_rows=rb)[0]
+        acc = (g.float() @ w[(i * rb) // per].t()).to(acc_dtype)
+        fm._epilogue_blocks(epi, outs, acc, epi_specs, epi_views, i, rb,
+                            rows)
+    return tuple(outs)
+
+
+def fused_matmul_dlhs_segment(
+        pro: BlockProgram | None, epi: BlockProgram, lhs_operands,
+        lhs_specs, rhs, epi_operands, epi_specs, *, rows: int, k_dim: int,
+        n_dim: int, acc_dtype: torch.dtype, out_cols: Sequence[int],
+        out_dtypes: Sequence[torch.dtype], rows_block: int,
+        vmem_bytes: int, sms: int, batch: int = 1) -> tuple:
+    """Launch B4 on CUDA tensors: ``rhs`` is the forward ``[n, k]``
+    weight (``[batch, n, k]``), row-major, read in place.  One call
+    counts as one launch; raises on anything the kernel does not take."""
+    w = _row_major(torch.as_tensor(rhs), "the dlhs weight")
+    gen = dlhs_source(
+        pro, epi, lhs_specs, epi_specs, lhs_dtypes=_names(lhs_operands),
+        rhs_dtype=dtype_name(w.dtype), epi_dtypes=_names(epi_operands),
+        out_dtypes=tuple(dtype_name(d) for d in out_dtypes), rows=rows,
+        k_dim=k_dim, n_dim=n_dim, acc_dtype=dtype_name(acc_dtype),
+        rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms, batch=batch)
+    views = [v.reshape(s[1], s[2]).contiguous() if s[0] == "param_k"
+             else v.contiguous() for v, s in zip(lhs_operands, lhs_specs)]
+    views += [w] + fm.epilogue_views(epi_operands, epi_specs)
+    return fm.launch_segment(KERNEL_DLHS, gen, views, rows=rows,
+                             n_dim=n_dim, out_cols=out_cols,
+                             out_dtypes=out_dtypes)
+
+
+# ---------------------------------------------------------------------------
+# drhs (B6)
+# ---------------------------------------------------------------------------
+
+def fused_matmul_drhs_segment_plain(
+        epi: BlockProgram, lhs, rhs, epi_operands, epi_specs, *,
+        m_dim: int, rows: int, n_dim: int, acc_dtype: torch.dtype,
+        out_cols: Sequence[int], out_dtypes: Sequence[torch.dtype],
+        vmem_bytes: int, batch: int = 1) -> tuple:
+    """The kernel's plain version: per output row block (inside one
+    batch slice), ``x[m, pb]^T @ g[m, n]`` in f32, rounded to the
+    product's dtype, then the elementwise epilogue."""
+    pb, _ = drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes, batch=batch)
+    per = rows // batch
+    x = torch.as_tensor(lhs).reshape(batch, m_dim, per).float()
+    g = torch.as_tensor(rhs).reshape(batch, m_dim, n_dim).float()
+    epi_views = [torch.as_tensor(v).reshape(s[1], s[2])
+                 for s, v in zip(epi_specs, epi_operands)]
+    outs = [torch.empty((rows, c), dtype=dt, device=x.device)
+            for c, dt in zip(out_cols, out_dtypes)]
+    for i in range(rows // pb):
+        b, r0 = divmod(i * pb, per)
+        acc = (x[b, :, r0:r0 + pb].t() @ g[b]).to(acc_dtype)
+        fm._epilogue_blocks(epi, outs, acc, epi_specs, epi_views, i, pb,
+                            rows)
+    return tuple(outs)
+
+
+def fused_matmul_drhs_segment(
+        epi: BlockProgram, lhs, rhs, epi_operands, epi_specs, *,
+        m_dim: int, rows: int, n_dim: int, acc_dtype: torch.dtype,
+        out_cols: Sequence[int], out_dtypes: Sequence[torch.dtype],
+        vmem_bytes: int, batch: int = 1) -> tuple:
+    """Launch B6 on CUDA tensors: ``lhs`` is the ``[m, rows]`` activation
+    and ``rhs`` the ``[m, n]`` cotangent (``[batch, m, ...]``), both
+    row-major and read in place.  One call counts as one launch."""
+    x = _row_major(torch.as_tensor(lhs), "the drhs activation")
+    g = _row_major(torch.as_tensor(rhs), "the drhs cotangent")
+    gen = drhs_source(
+        epi, epi_specs, lhs_dtype=dtype_name(x.dtype),
+        rhs_dtype=dtype_name(g.dtype), epi_dtypes=_names(epi_operands),
+        out_dtypes=tuple(dtype_name(d) for d in out_dtypes), m_dim=m_dim,
+        rows=rows, n_dim=n_dim, acc_dtype=dtype_name(acc_dtype),
+        vmem_bytes=vmem_bytes, batch=batch)
+    views = [x, g] + fm.epilogue_views(epi_operands, epi_specs)
+    return fm.launch_segment(KERNEL_DRHS, gen, views, rows=rows,
+                             n_dim=n_dim, out_cols=out_cols,
+                             out_dtypes=out_dtypes)

@@ -14,8 +14,10 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.offload import program_from_fn
+from repro_torch.kernels import adamw_update as _adamw
 from repro_torch.kernels import fused_elementwise as _fe
 from repro_torch.kernels import fused_matmul as _fm
+from repro_torch.kernels import fused_matmul_bwd as _fmb
 from repro_torch.kernels.blockprog import BlockProgram
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention as _paged_decode_cuda,
@@ -25,7 +27,8 @@ from repro_torch.kernels.guard import kernel_guard, resolve_impl
 
 #: every ported kernel, by the name its launch counter goes under
 KERNELS = ("paged_decode_attention", "fused_segment_grid",
-           "fused_matmul_segment")
+           "fused_matmul_segment", "fused_matmul_dlhs_segment",
+           "fused_matmul_drhs_segment", "adamw_update")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -62,7 +65,7 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
                          acc_dtype: torch.dtype, out_cols: Sequence[int],
                          out_dtypes: Sequence[torch.dtype],
                          rows_block: int = 512, vmem_bytes: int, sms: int,
-                         impl: str = "auto") -> tuple:
+                         batch: int = 1, impl: str = "auto") -> tuple:
     """Matmul-anchored segment: lhs prologue -> [rows, K] @ [K, N] in f32
     -> epilogue on the accumulator (what the runner emits for anchors).
     ``vmem_bytes`` is the accumulator budget and ``sms`` the SM count the
@@ -71,10 +74,58 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
             rhs_specs, epi_operands, epi_specs)
     kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
-              rows_block=rows_block, vmem_bytes=vmem_bytes)
+              rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
     if resolve_impl(impl, lhs_operands[0]) == "ref":
         return _fm.fused_matmul_segment_plain(*args, **kw)
     return _fm.fused_matmul_segment(*args, **kw, sms=sms)
+
+
+def fused_matmul_dlhs_segment(pro, epi, lhs_operands, lhs_specs, rhs,
+                              epi_operands, epi_specs, *, rows: int,
+                              k_dim: int, n_dim: int,
+                              acc_dtype: torch.dtype,
+                              out_cols: Sequence[int],
+                              out_dtypes: Sequence[torch.dtype],
+                              rows_block: int = 512, vmem_bytes: int,
+                              sms: int, batch: int = 1,
+                              impl: str = "auto") -> tuple:
+    """dGRAD_LHS-anchored segment: dx[rows, n] = g[rows, k] @ w[n, k]^T
+    with ``rhs`` the forward [n, k] weight, read in place."""
+    args = (pro, epi, lhs_operands, lhs_specs, rhs, epi_operands, epi_specs)
+    kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
+              out_cols=out_cols, out_dtypes=out_dtypes,
+              rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
+    if resolve_impl(impl, lhs_operands[0]) == "ref":
+        return _fmb.fused_matmul_dlhs_segment_plain(*args, **kw)
+    return _fmb.fused_matmul_dlhs_segment(*args, **kw, sms=sms)
+
+
+def fused_matmul_drhs_segment(epi, lhs, rhs, epi_operands, epi_specs, *,
+                              m_dim: int, rows: int, n_dim: int,
+                              acc_dtype: torch.dtype,
+                              out_cols: Sequence[int],
+                              out_dtypes: Sequence[torch.dtype],
+                              vmem_bytes: int, batch: int = 1,
+                              impl: str = "auto") -> tuple:
+    """dGRAD_RHS-anchored segment: dw[rows, n] = x[m, rows]^T @ g[m, n],
+    the m rows reduced inside one block in a fixed order."""
+    args = (epi, lhs, rhs, epi_operands, epi_specs)
+    kw = dict(m_dim=m_dim, rows=rows, n_dim=n_dim, acc_dtype=acc_dtype,
+              out_cols=out_cols, out_dtypes=out_dtypes,
+              vmem_bytes=vmem_bytes, batch=batch)
+    if resolve_impl(impl, lhs) == "ref":
+        return _fmb.fused_matmul_drhs_segment_plain(*args, **kw)
+    return _fmb.fused_matmul_drhs_segment(*args, **kw)
+
+
+def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, hyper: torch.Tensor, *,
+                 impl: str = "auto") -> tuple:
+    """One fused AdamW pass over a leaf: ``(p', m', v')``; ``hyper`` =
+    [lr, b1, b2, eps, wd, bc1, bc2] in f32."""
+    if resolve_impl(impl, p) == "ref":
+        return _adamw.adamw_update_plain(p, g, m, v, hyper)
+    return _adamw.adamw_update(p, g, m, v, hyper)
 
 
 def fused_segment(fn: Callable, bulk: Sequence[torch.Tensor],

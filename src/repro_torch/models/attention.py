@@ -34,6 +34,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
     Params,
     apply_rope,
+    at,
     dense_init,
     init_rmsnorm,
     rmsnorm_apply,
@@ -87,13 +88,13 @@ def project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """Project to q, k, v (with bias / qk-norm / rope as configured)."""
     h = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = x @ at(params["wq"], x.dtype)
+    k = x @ at(params["wk"], x.dtype)
+    v = x @ at(params["wv"], x.dtype)
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + at(params["bq"], x.dtype)
+        k = k + at(params["bk"], x.dtype)
+        v = v + at(params["bv"], x.dtype)
     q = q.reshape(*q.shape[:-1], nq, h)
     k = k.reshape(*k.shape[:-1], nkv, h)
     v = v.reshape(*v.shape[:-1], nkv, h)
@@ -238,6 +239,18 @@ def decode_attention(
 # module-level apply fns
 # ---------------------------------------------------------------------------
 
+def attention_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True
+                    ) -> torch.Tensor:
+    """Full-sequence self-attention (the training path): x [B, S, D],
+    positions [B, S] -> [B, S, D]."""
+    q, k, v = project_qkv(params, cfg, x, positions)
+    out = blockwise_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window)
+    out = out.reshape(*x.shape[:-1], cfg.num_heads * cfg.resolved_head_dim)
+    return out @ at(params["wo"], x.dtype)
+
+
 def attention_prefill_apply(
     params: Params,
     cfg: ModelConfig,
@@ -263,7 +276,7 @@ def attention_prefill_apply(
     out = blockwise_attention(q, k, v, causal=True,
                               window=cfg.sliding_window)
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    out = out @ params["wo"]
+    out = out @ at(params["wo"], x.dtype)
 
     w = cfg.sliding_window
     if w > 0:
@@ -357,7 +370,7 @@ def attention_decode_paged(
     out = paged_attention_op(q[:, 0], pages_k, pages_v,
                              block_tables, lengths, impl)
     out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ params["wo"], pages_k, pages_v
+    return out @ at(params["wo"], x.dtype), pages_k, pages_v
 
 
 def attention_prefill_chunk(
@@ -390,7 +403,7 @@ def attention_prefill_chunk(
     out = blockwise_attention(q, kg, vg, causal=True, window=0,
                               q_offset=ctx_len)
     out = out.reshape(1, c, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ params["wo"], pages_k, pages_v
+    return out @ at(params["wo"], x.dtype), pages_k, pages_v
 
 
 def attention_decode_apply(
@@ -419,7 +432,7 @@ def attention_decode_apply(
     cache_v[bidx, slot.long()] = v[:, 0].to(cache_v.dtype)
     out = decode_attention(q[:, 0], cache_k, cache_v, lengths, window=0)
     out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ params["wo"], cache_k, cache_v
+    return out @ at(params["wo"], x.dtype), cache_k, cache_v
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, q_offset=0):

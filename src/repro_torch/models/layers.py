@@ -1,11 +1,16 @@
-"""Shared layers: norms, gated MLP, rotary embedding, token embedding.
+"""Shared layers: norms, gated MLP, rotary embedding, token embedding,
+the LM head and the token cross-entropy.
 
 Everything is a plain function over explicit parameter dicts (nested
 dicts of tensors), as in ``repro/models/layers.py``.  Weights keep the
-``[in, out]`` orientation (``x @ w``).  Unlike the JAX package, which
-stores f32 and casts at every use, parameters here are cast **once** at
-load into the compute dtype (``cast_params``); RMSNorm scales stay f32
-and statistics (norm, softmax) are f32.
+``[in, out]`` orientation (``x @ w``).  As in the JAX package, a weight
+is cast to the activations' dtype where it is used (``at``), so the
+training state holds f32 master parameters and their gradients reach
+them through the cast.  Serving casts its copy once instead
+(``cast_params``, called by the engine): a cast to the dtype a tensor
+already has is no op at all, so the served graph is the same as with
+weights stored in the compute dtype.  RMSNorm scales stay f32 and
+statistics (norm, softmax, loss) are f32.
 """
 from __future__ import annotations
 
@@ -50,9 +55,16 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
     return (w * 0.02).to(dtype)
 
 
+def at(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype`` for one use: the tensor itself when it already
+    has it (no graph node), else a cast."""
+    return w if w.dtype == dtype else w.to(dtype)
+
+
 def cast_params(tree: Any, dtype: torch.dtype, device=None) -> Any:
-    """Cast a parameter tree once into the compute dtype; leaves named
-    ``scale`` (RMSNorm) stay f32."""
+    """Cast a parameter tree once into the compute dtype (the serving
+    copy); leaves named ``scale`` (RMSNorm) stay f32.  A leaf that is
+    already in place is kept, not copied."""
     def walk(node, name=""):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
@@ -96,12 +108,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu"
               ) -> torch.Tensor:
-    u = x @ params["up"]
+    u = x @ at(params["up"], x.dtype)
     if "gate" in params:
-        h = activation(act)(x @ params["gate"]) * u
+        h = activation(act)(x @ at(params["gate"], x.dtype)) * u
     else:
         h = activation(act)(u)
-    return h @ params["down"]
+    return h @ at(params["down"], x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -145,15 +157,34 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, *,
     return params
 
 
-def embed_apply(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed_apply(params: Params, tokens: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``tokens`` in ``dtype`` (gathered, then cast: the
+    same values as casting the table first)."""
+    return at(params["table"][tokens], dtype)
 
 
 def lm_head_apply(params: Params, x: torch.Tensor, vocab: int
                   ) -> torch.Tensor:
     """Returns f32 logits truncated to the logical vocab size."""
     if "head" in params:
-        logits = x @ params["head"]
+        logits = x @ at(params["head"], x.dtype)
     else:
-        logits = x @ params["table"].T
+        logits = x @ at(params["table"], x.dtype).T
     return logits[..., :vocab].float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  logits [B, S, V], labels
+    [B, S].  The log-sum-exp subtracts the row max without a gradient,
+    as ``jax.scipy.special.logsumexp`` does."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

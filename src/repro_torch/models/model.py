@@ -3,18 +3,24 @@
 ``build_model(cfg, device=...)`` returns a ``Model`` of plain functions,
 named as in ``repro/models/model.py``:
 
-    init(seed)                                   -> params
+    init(seed)                                   -> params (f32 masters)
+    forward(params, batch, remat=False)          -> (hidden, aux, offset)
+    loss_fn(params, batch, remat=True)           -> (loss, metrics)
     prefill(params, batch, max_len, length)      -> (last_logits, cache)
     decode_step(params, cache, token, pos)       -> (logits, cache)
     init_cache / init_paged_cache
     decode_step_paged(params, cache, token, pos, block_tables, active)
     prefill_chunk(params, cache, tokens, block_table, ctx_len, n_valid)
 
-Parameters are ``{"embed", "final_ln", "layers": [block, ...]}`` with
-weights already in the compute dtype.  Caches are updated in place and
-returned.  Nothing here records gradients: every function runs under
-``torch.no_grad``.  ``loss_fn``, the encoder and the frontends arrive
-with the training and model-zoo slices.
+Parameters are ``{"embed", "final_ln", "layers": [block, ...]}``.
+``init`` gives f32 master parameters, as the JAX package's ``init``
+does; every function casts a weight to the compute dtype where it uses
+it (``layers.at``), so ``loss_fn``'s gradients reach the masters.  The
+serving engine casts its copy once (``layers.cast_params``), after
+which those casts are no ops.  Caches are updated in place and
+returned.  The serving functions run under ``torch.no_grad``;
+``forward`` and ``loss_fn`` record gradients.  The encoder and the
+frontends arrive with the model-zoo slice.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch import compute_dtype, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     Params,
+    cross_entropy_loss,
     embed_apply,
     init_embedding,
     init_rmsnorm,
@@ -39,6 +46,7 @@ from repro_torch.models.transformer import (
     init_stack,
     init_stack_cache,
     init_stack_cache_paged,
+    stack_apply,
     stack_decode,
     stack_decode_paged,
     stack_prefill,
@@ -51,6 +59,8 @@ class Model(NamedTuple):
     device: torch.device
     dtype: torch.dtype
     init: Callable[..., Params]
+    forward: Callable[..., tuple[torch.Tensor, torch.Tensor, int]]
+    loss_fn: Callable[..., tuple[torch.Tensor, dict]]
     prefill: Callable[..., tuple[torch.Tensor, Cache]]
     decode_step: Callable[..., tuple[torch.Tensor, Cache]]
     init_cache: Callable[..., Cache]
@@ -77,17 +87,46 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 
     # ---------------- init ----------------
     def init(seed: int = 0) -> Params:
-        """Random parameters drawn on the device from an explicit
-        ``torch.Generator`` (scales as the JAX initializers: N(0, 1/in)
-        for dense weights, N(0, 0.02²) for the embedding table)."""
+        """Random f32 master parameters drawn on the device from an
+        explicit ``torch.Generator`` (scales as the JAX initializers:
+        N(0, 1/in) for dense weights, N(0, 0.02²) for the embedding
+        table)."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return {
             "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
-                                    tie=cfg.tie_embeddings, dtype=dtype),
+                                    tie=cfg.tie_embeddings),
             "final_ln": init_rmsnorm(cfg.d_model, dev),
-            "layers": init_stack(gen, cfg, dtype),
+            "layers": init_stack(gen, cfg),
         }
+
+    # ---------------- training ----------------
+    def forward(params: Params, batch: dict, *, remat: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """Returns (hidden [B, S, D] after the final norm, aux, text
+        offset); aux is the MoE loss (0 for a dense stack)."""
+        tokens = _tokens(batch["tokens"])
+        b, s = tokens.shape
+        x = embed_apply(params["embed"], tokens, dtype)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        h = stack_apply(params["layers"], cfg, x, positions, remat=remat)
+        h = rmsnorm_apply(params["final_ln"], h, cfg.norm_eps)
+        return h, torch.zeros((), dtype=torch.float32, device=dev), 0
+
+    def loss_fn(params: Params, batch: dict, *, remat: bool = True
+                ) -> tuple[torch.Tensor, dict]:
+        """Mean token cross-entropy (masked by ``batch["mask"]``) plus
+        the aux loss; metrics ``loss``, ``moe_aux``, ``tokens``."""
+        h, aux, offset = forward(params, batch, remat=remat)
+        logits = lm_head_apply(params["embed"], h[:, offset:],
+                               cfg.vocab_size)
+        mask = batch.get("mask")
+        loss = cross_entropy_loss(
+            logits, _tokens(batch["labels"]),
+            None if mask is None else torch.as_tensor(mask, device=dev))
+        n = torch.as_tensor(batch["tokens"]).numel()
+        return loss + aux, {"loss": loss, "moe_aux": aux,
+                            "tokens": torch.full((), float(n), device=dev)}
 
     # ---------------- serving ----------------
     def init_cache(batch: int, max_len: int) -> Cache:
@@ -104,7 +143,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         and the SWA rolling capture arranges by the real length."""
         tokens = _tokens(batch["tokens"])
         b, s = tokens.shape
-        x = embed_apply(params["embed"], tokens)
+        x = embed_apply(params["embed"], tokens, dtype)
         positions = torch.arange(s, device=dev)[None].expand(b, s)
         h, cache = stack_prefill(params["layers"], cfg, x, positions,
                                  max_len, cache_dtype=dtype, length=length)
@@ -115,7 +154,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
     def decode_step(params: Params, cache: Cache, token: torch.Tensor,
                     pos: torch.Tensor) -> tuple[torch.Tensor, Cache]:
         """token [B] int; pos [B] absolute positions."""
-        x = embed_apply(params["embed"], _tokens(token)[:, None])
+        x = embed_apply(params["embed"], _tokens(token)[:, None], dtype)
         h, cache = stack_decode(params["layers"], cfg, x, cache, pos)
         return _head(params, h[:, 0]), cache
 
@@ -133,7 +172,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         Inactive rows compute but write only the reserved scratch page.
         ``impl`` picks the paged attention: ``"auto"`` is the CUDA kernel
         on the GPU and the plain version on the CPU."""
-        x = embed_apply(params["embed"], _tokens(token)[:, None])
+        x = embed_apply(params["embed"], _tokens(token)[:, None], dtype)
         h, cache = stack_decode_paged(params["layers"], cfg, x, cache, pos,
                                       block_tables, active, max_len=max_len,
                                       impl=impl)
@@ -148,10 +187,11 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         last *real* token (meaningful only on the final chunk).  Dense
         attention-only decoder stacks (no SWA)."""
         assert cfg.sliding_window == 0 and attention_only_pattern(cfg)
-        x = embed_apply(params["embed"], _tokens(tokens))
+        x = embed_apply(params["embed"], _tokens(tokens), dtype)
         h, cache = stack_prefill_chunk(params["layers"], cfg, x, cache,
                                        block_table, ctx_len, n_valid)
         return _head(params, h[:, max(n_valid - 1, 0)]), cache
 
-    return Model(cfg, dev, dtype, init, prefill, decode_step, init_cache,
-                 init_paged_cache, decode_step_paged, prefill_chunk)
+    return Model(cfg, dev, dtype, init, forward, loss_fn, prefill,
+                 decode_step, init_cache, init_paged_cache, decode_step_paged,
+                 prefill_chunk)

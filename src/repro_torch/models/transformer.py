@@ -13,6 +13,15 @@ Block kinds ported so far:
 ``shared_attention``, ``mamba2``, ``rwkv6`` and the MoE FFN raise
 ``NotImplementedError`` until the model-zoo slice ports them.
 
+``stack_apply`` is the full-sequence (training) stack.  With
+``remat=True`` each block runs as ONE op, ``repro_torch::remat_block``:
+its backward recomputes the block from the saved inputs instead of
+keeping the block's activations — the counterpart of the reference's
+``jax.checkpoint`` — and, being one op, it is one far node in the graph
+the offload planner captures (its fake implementation gives the output
+shape without running it), as the reference's checkpointed block is one
+``remat`` eqn the planner leaves far.
+
 Caches are updated in place; see ``repro_torch.models.attention``.
 """
 from __future__ import annotations
@@ -20,9 +29,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
+    attention_apply,
     attention_decode_apply,
     attention_decode_paged,
     attention_prefill_apply,
@@ -85,6 +96,72 @@ def _ffn_residual(params: Params, cfg: ModelConfig, x: torch.Tensor
     return x + mlp_apply(params["ffn"], h, cfg.act)
 
 
+def block_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """One block over the full sequence (the training path)."""
+    h = rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
+    x = x + attention_apply(params["attn"], cfg, h, positions)
+    return _ffn_residual(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# remat: one block as one op whose backward recomputes it
+# ---------------------------------------------------------------------------
+
+# the static side of a remat block (its config and the structure of its
+# parameter tree), by the string key the op carries
+_REMAT: dict[str, tuple[ModelConfig, Any]] = {}
+_REMAT_KEYS: dict[tuple, str] = {}
+
+
+def _remat_key(cfg: ModelConfig, spec: Any) -> str:
+    k = (cfg, str(spec))
+    if k not in _REMAT_KEYS:
+        _REMAT_KEYS[k] = key = f"block{len(_REMAT_KEYS)}"
+        _REMAT[key] = (cfg, spec)
+    return _REMAT_KEYS[k]
+
+
+def _remat_run(key: str, x, positions, leaves):
+    cfg, spec = _REMAT[key]
+    return block_apply(pytree.tree_unflatten(list(leaves), spec), cfg, x,
+                       positions)
+
+
+@torch.library.custom_op("repro_torch::remat_block", mutates_args=())
+def remat_block_op(x: torch.Tensor, positions: torch.Tensor,
+                   leaves: list[torch.Tensor], key: str) -> torch.Tensor:
+    """``block_apply`` as one op (see the module docstring)."""
+    with torch.no_grad():
+        return _remat_run(key, x, positions, leaves)
+
+
+@remat_block_op.register_fake
+def _remat_block_fake(x, positions, leaves, key):
+    return torch.empty_like(x)
+
+
+def _remat_setup(ctx, inputs, output):
+    x, positions, leaves, key = inputs
+    ctx.key = key
+    ctx.save_for_backward(x, positions, *leaves)
+
+
+def _remat_backward(ctx, grad):
+    x, positions, *leaves = ctx.saved_tensors
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_()
+        ld = [t.detach().requires_grad_() for t in leaves]
+        y = _remat_run(ctx.key, xd, positions, ld)
+        grads = torch.autograd.grad(y, [xd, *ld], grad, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, [xd, *ld])]
+    return grads[0], None, grads[1:], None
+
+
+remat_block_op.register_autograd(_remat_backward, setup_context=_remat_setup)
+
+
 # ---------------------------------------------------------------------------
 # stack
 # ---------------------------------------------------------------------------
@@ -93,6 +170,20 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig,
                dtype=torch.float32) -> list[Params]:
     check_supported(cfg)
     return [init_block(gen, cfg, dtype) for _ in range(cfg.num_layers)]
+
+
+def stack_apply(params: list[Params], cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, remat: bool = False
+                ) -> torch.Tensor:
+    """The full-sequence stack (training forward): x [B, S, D] ->
+    [B, S, D].  ``remat`` runs each block as one recomputing op."""
+    for bp in params:
+        if remat:
+            leaves, spec = pytree.tree_flatten(bp)
+            x = remat_block_op(x, positions, leaves, _remat_key(cfg, spec))
+        else:
+            x = block_apply(bp, cfg, x, positions)
+    return x
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,

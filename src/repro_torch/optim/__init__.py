@@ -1,0 +1,11 @@
+from repro_torch.optim.adamw import (
+    AdamWState,
+    apply_updates,
+    clip_by_global_norm,
+    global_norm,
+    init_state,
+)
+from repro_torch.optim.schedule import warmup_cosine
+
+__all__ = ["AdamWState", "apply_updates", "clip_by_global_norm",
+           "global_norm", "init_state", "warmup_cosine"]

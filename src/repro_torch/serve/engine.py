@@ -56,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.guard import kernel_guard
 from repro_torch.models import build_model
+from repro_torch.models.layers import cast_params
 from repro_torch.models.transformer import Cache, attention_only_pattern
 from repro_torch.serve.kv_pool import PagePool, bucket_length, ceil_pow2
 
@@ -101,7 +102,9 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device)
-        self.params = params
+        # the serving copy: cast once into the compute dtype (no copy of
+        # a tree that is cast already)
+        self.params = cast_params(params, self.model.dtype, self.device)
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size

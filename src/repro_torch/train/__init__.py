@@ -1,0 +1,10 @@
+from repro_torch.train.loop import train
+from repro_torch.train.step import (
+    TrainState,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = ["TrainState", "init_train_state", "make_eval_step",
+           "make_train_step", "train"]

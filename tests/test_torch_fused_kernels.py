@@ -334,3 +334,134 @@ def test_bcast_row_index_and_its_emitted_arithmetic(dims, keep, rb_pick):
     n_blocks = int(np.prod(out_lead)) // rb
     for i in range(n_blocks):
         assert fn(i) == jfn(i) == eval(expr, {"i": i})
+
+
+# ------------------------------------------------------------- B4, B6
+jfmb = importlib.import_module("repro.kernels.fused_matmul_bwd")
+jadamw = importlib.import_module("repro.kernels.adamw_update")
+
+
+def _bwd_cases(dtype):
+    rng = np.random.default_rng(7)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dtype)
+    B, S, K, N = 2, 12, 40, 24
+    yield ("dlhs", "param/rep/tile", 1,
+           lambda g, w, p, r, q: (torch.tanh(g @ w.t()) * p + r) * q,
+           (t(B, S, K), t(N, K, scale=K ** -0.5), t(N), t(B, 1, N),
+            t(1, S, N)))
+    yield ("dlhs", "bcast", 1, lambda g, w, o: torch.tanh(g @ w.t()) * o,
+           (t(2, 3, 4, 2, K), t(N, K, scale=K ** -0.5), t(2, 1, 4, 1, N)))
+    yield ("dlhs", "lhs prologue, lane reduce", 1,
+           lambda g, s, w: (lambda h: h * torch.rsqrt(torch.mean(
+               h * h, -1, keepdim=True) + 1e-5))((g * s) @ w.t()),
+           (t(B * S, K), t(K), t(N, K, scale=K ** -0.5)))
+    yield ("dlhs", "batch 2", 2, lambda g, w, y: torch.tanh(g @ w.t()) + y,
+           (t(B * S, K), t(N, K, scale=K ** -0.5), t(B * S, N)))
+    yield ("drhs", "bulk/column/param", 1,
+           lambda x, g, w, c, b: ((x.t() @ g) * 0.5 + 0.01 * w + c) * b,
+           (t(B * S, K), t(B * S, N), t(K, N), t(K, 1), t(N)))
+    yield ("drhs", "batch 2", 2, lambda x, g, w: x.t() @ g + 0.01 * w,
+           (t(B * S, K), t(B * S, N), t(K, N)))
+
+
+def _bwd_call(fn, args, form):
+    calls = [c for c in _plan_calls(fn, args, threshold=16)
+             if c["kind"] == "matmul"]
+    assert len(calls) == 1 and calls[0]["form"] == form
+    return calls[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_contraction_plain_versions_match_jax_interpret(dtype):
+    """B4 (dlhs) and B6 (drhs) plain versions against the Pallas kernels
+    in interpret mode, for every epilogue role, an lhs prologue, a lane
+    reduction and ``batch`` > 1 (each batch slice against its own slice
+    of the weight, or of both operands)."""
+    roles = {"dlhs": set(), "drhs": set()}
+    rng = np.random.default_rng(8)
+    for form, label, batch, fn, args in _bwd_cases(dtype):
+        call = _bwd_call(fn, args, form)
+        progs, sp = call["progs"], call["specs"]
+        nl = call["n_lhs"]
+        rows, k, n = call["rows"], call["k"], call["n"]
+        vals = _operands(call, 9, dtype)
+        epi_vals, epi_specs = vals[nl + 1:], sp[nl + 1:]
+        roles[form] |= {s[0] for s in sp}
+        jepi = jax_program(progs.body)
+        common = dict(acc_dtype=call["acc_dtype"], out_cols=call["out_cols"],
+                      out_dtypes=call["out_dtypes"], batch=batch)
+        jcommon = dict(common, acc_dtype=_JD[call["acc_dtype"]],
+                       out_dtypes=[_JD[d] for d in call["out_dtypes"]],
+                       interpret=True)
+        if form == "dlhs":
+            # the forward weight: [n, k] rows, one slice per batch
+            w = torch.from_numpy((rng.standard_normal((batch, n, k))
+                                  / np.sqrt(k)).astype(np.float32)).to(dtype)
+            w = w[0] if batch == 1 else w
+            got = ops.fused_matmul_dlhs_segment(
+                progs.lhs, progs.body, vals[:nl], sp[:nl], w, epi_vals,
+                epi_specs, rows=rows, k_dim=k, n_dim=n,
+                rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=call["vmem_bytes"],
+                sms=call["sms"], impl="ref", **common)
+
+            def pro(*b, block_rows):
+                return jax_program(progs.lhs)(*b, block_rows=block_rows)[0] \
+                    if progs.lhs else b[0]
+            jv = [_jx(v) for v in vals]
+            want = jfmb.fused_matmul_dlhs_segment(
+                pro, jepi, jv[:nl], sp[:nl], _jx(w), jv[nl + 1:], epi_specs,
+                rows=rows, k_dim=k, n_dim=n, **jcommon)
+        else:
+            # x [m, rows] and g [m, n], per batch slice
+            m = k // batch
+            x = torch.from_numpy(rng.standard_normal(
+                (batch * m, rows // batch)).astype(np.float32)).to(dtype)
+            gg = torch.from_numpy(rng.standard_normal(
+                (batch * m, n)).astype(np.float32)).to(dtype)
+            got = ops.fused_matmul_drhs_segment(
+                progs.body, x, gg, epi_vals, epi_specs, m_dim=m, rows=rows,
+                n_dim=n, vmem_bytes=call["vmem_bytes"], impl="ref", **common)
+            want = jfmb.fused_matmul_drhs_segment(
+                jepi, _jx(x), _jx(gg), [_jx(v) for v in epi_vals],
+                epi_specs, m_dim=m, rows=rows, n_dim=n, **jcommon)
+        _close(got, want, dtype)
+    assert roles["dlhs"] >= {"bulk_k", "param_k", "bulk_w", "bulk", "param",
+                             "rep", "tile", "bcast"}
+    assert roles["drhs"] >= {"bulk_m", "bulk_w", "bulk", "param"}
+
+
+def test_drhs_geometry_helpers():
+    """The drhs tile: 128 lanes, rows a divisor of the per-batch rows
+    within one 32-row register tile and the accumulator budget."""
+    from repro_torch.kernels import fused_matmul_bwd as fmb
+    assert fmb.drhs_blocks(2048, 152064, vmem_bytes=232448) == (32, 128)
+    assert fmb.drhs_blocks(96, 24, vmem_bytes=232448) == (32, 24)
+    assert fmb.drhs_blocks(4096, 512, vmem_bytes=4096) == (8, 128)
+    assert fmb.drhs_blocks(40, 64, vmem_bytes=232448, batch=2) == (20, 64)
+    assert fmb.drhs_grid_blocks(2048, 6144, vmem_bytes=232448) == (64, 48)
+
+
+# ------------------------------------------------------------------- B8
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_adamw_plain_version_matches_jax_interpret(pdtype):
+    rng = np.random.default_rng(10)
+    hyper = np.array([1e-3, 0.9, 0.95, 1e-8, 0.1, 1 - 0.9 ** 3,
+                      1 - 0.95 ** 3], np.float32)
+    for shape in ((5, 24), (40,), (3, 4, 16)):
+        p, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(pdtype) for _ in range(2))
+        m = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        v = torch.from_numpy(rng.random(shape).astype(np.float32))
+        got = ops.adamw_update(p, g, m, v, torch.from_numpy(hyper),
+                               impl="ref")
+        want = jadamw.adamw_update(_jx(p), _jx(g), _jx(m), _jx(v),
+                                   jnp.asarray(hyper), interpret=True)
+        for a, b in zip(got, want, strict=True):
+            assert tuple(a.shape) == tuple(b.shape)
+            tol = TOL[torch.bfloat16] if a.dtype == torch.bfloat16 else \
+                dict(rtol=2e-6, atol=1e-7)
+            np.testing.assert_allclose(
+                a.float().numpy(), np.asarray(b.astype(jnp.float32)), **tol)

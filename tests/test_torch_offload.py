@@ -249,9 +249,14 @@ def test_decoder_block_chain_plans_like_jax(name):
 
 # ------------------------------------------------------ declines / modes
 def test_transposed_weight_mm_and_bmm_are_declined_with_a_reason():
+    """A transposed weight is the dlhs form and is planned; a batched
+    contraction (``bmm``) and an ``mm`` over a strided operand (neither
+    row-major nor a transposed row-major view) are declined, each with
+    its reason, and run unfused."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((48, 32)).astype(np.float32))
+    wide = torch.from_numpy(rng.standard_normal((32, 48)).astype(np.float32))
     xb = torch.from_numpy(rng.standard_normal((4, 16, 32)).astype(
         np.float32))
     wb = torch.from_numpy(rng.standard_normal((4, 32, 24)).astype(
@@ -263,14 +268,23 @@ def test_transposed_weight_mm_and_bmm_are_declined_with_a_reason():
     def batched(xb, wb):
         return torch.tanh(torch.bmm(xb, wb)) * 2.0 + 1.0
 
+    def strided(x, wide):
+        return torch.tanh(x @ wide[:, ::2]) * 2.0 + 1.0
+
     policy = OffloadPolicy(bulk_threshold=64)
-    for fn, args, form in ((dlhs, (x, w), "dlhs"),
-                           (batched, (xb, wb), "bmm")):
+    plan = offload_report(dlhs, x, w, policy=policy)
+    assert [s.matmul.form for s in plan.segments] == ["dlhs"]
+    for fn, args, form, why in (
+            (batched, (xb, wb), "bmm", "batched contractions are not "
+             "planned"),
+            (strided, (x, wide), "strided", "neither row-major nor")):
         plan = offload_report(fn, *args, policy=policy)
         assert all(s.matmul is None for s in plan.segments)
         declined = [d for d in plan.decisions if d.form == form]
         assert len(declined) == 1 and not declined[0].fused
-        assert "not in this slice" in declined[0].reason
+        assert why in declined[0].reason
+    for fn, args in ((dlhs, (x, w)), (batched, (xb, wb)),
+                     (strided, (x, wide))):
         torch.testing.assert_close(mpu_offload(fn, policy=policy)(*args),
                                    fn(*args), **TOL)
 
@@ -423,3 +437,31 @@ def test_row_statistics_broadcast_only_in_their_keepdim_form():
     for fn in (rank_reduced, keepdim):
         torch.testing.assert_close(mpu_offload(fn, policy=policy)(x), fn(x),
                                    **TOL)
+
+
+def test_decode_plan_counts_stay_as_the_forward_slice_left_them():
+    """Casting weights at use adds nothing to the served graph (the
+    engine's copy is cast once): the paged decode step of the tiny
+    2-layer engine plans exactly what it planned before the training
+    slice — the same fused and declined counts over the same nodes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+
+    pinned = {"float32": (15, 9, 6, 265), "bfloat16": (16, 8, 7, 292)}
+    for dtype, (fused, declined, anchored, nodes) in pinned.items():
+        cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
+                                  dtype=dtype, num_layers=2)
+        masters = build_model(cfg, device="cpu").init(0)
+        assert all(t.dtype == torch.float32
+                   for t in torch.utils._pytree.tree_leaves(masters))
+        eng = Engine(cfg, masters, device="cpu", slots=2, max_len=48,
+                     page_size=8, offload_policy=OffloadPolicy(
+                         bulk_threshold=32))
+        plan = eng.decode_plan()
+        report = plan.report()
+        assert (report.n_fused, report.n_declined) == (fused, declined)
+        assert sum(s.matmul is not None for s in plan.segments) == anchored
+        assert len(plan.eqns) == nodes

@@ -57,7 +57,10 @@ def test_every_module_of_the_slice_is_there():
             "launch.serve", "core.isa", "core.machine", "core.prims",
             "core.locator", "core.policy", "core.offload",
             "kernels.blockprog", "kernels.codegen",
-            "kernels.fused_elementwise", "kernels.fused_matmul"}
+            "kernels.fused_elementwise", "kernels.fused_matmul",
+            "kernels.fused_matmul_bwd", "kernels.adamw_update",
+            "data.pipeline", "optim.adamw", "optim.schedule",
+            "ckpt.manager", "train.step", "train.loop", "launch.train"}
     have = {n.removeprefix("repro_torch.") for n in _submodules()}
     assert want <= have, want - have
     csrc = ROOT / "src/repro_torch/kernels/csrc/paged_decode_attention.cu"

@@ -318,9 +318,10 @@ def test_engine_surface_of_this_slice(setup):
     assert not any(k.endswith("_traces") for k in eng.serve_counters)
     stats = eng.serve_stats
     assert stats["pages_used"] == 0 and stats["decode_steps"] == 0
-    assert stats["kernel_launches"] == {"paged_decode_attention": 0,
-                                        "fused_segment_grid": 0,
-                                        "fused_matmul_segment": 0}
+    assert stats["kernel_launches"] == {
+        "paged_decode_attention": 0, "fused_segment_grid": 0,
+        "fused_matmul_segment": 0, "fused_matmul_dlhs_segment": 0,
+        "fused_matmul_drhs_segment": 0, "adamw_update": 0}
     assert stats["table_width"] == 8 and stats["guard_epoch"] == 0
 
 
