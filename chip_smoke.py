@@ -48,11 +48,25 @@ against its plain PyTorch version:
    against ``use_kernel=False`` and B8 against its plain version; every
    distinct fused segment of the training plans — grid (B2), fwd (B3,
    with the GEMM path each takes), dlhs (B4), drhs (B6) — at its own
-   shapes and strides, and B4 / B6 with ``batch`` = 2, against their
-   plain versions, the bf16 anchored ones and the most launched grid
-   ones timed beside the bound, the plain version and a library
-   yardstick;
-8. a ``kernels`` JSON line, then the card line, then the result line.
+   shapes and strides against its plain version, the bf16 anchored ones
+   and the most launched grid ones timed beside the bound, the plain
+   version and a library yardstick; the forward plan unchanged by
+   batched anchors, its attention ``bmm`` declined;
+8. flash and batched anchors at the attention width of qwen3-1.7b (16
+   query / 8 kv heads, head_dim 128, 2 x 2048 tokens, bf16):
+   ``mpu_offload`` of the GQA attention chain plans one flash segment
+   over batch axes (2, 16), launches ``flash_attention`` (B5) and agrees
+   with the unwrapped chain, and its gradients through the planned
+   backward (batched dlhs / drhs / fwd segments) with autograd of the
+   chain; B5 on the segment's operands against its plain version;
+   ``ops.flash_attention`` causal, windowed, unmasked and with the
+   log-sum-exp, and ``flash_attention_diff`` forward and backward (B7:
+   ``dkv``, ``dq``) against the plain versions, and both at the CPU
+   tests' shapes in f32 and bf16; every distinct segment of the
+   ``BATCHED_GEMM_BWD`` chain (f32, bf16) and of the backward plans
+   against its plain version; B5 and each B7 kernel timed beside the
+   bound, the plain version and ``scaled_dot_product_attention``;
+9. a ``kernels`` JSON line, then the card line, then the result line.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -957,6 +971,10 @@ TRAIN_F32_TOL = 1e-4
 #: the grid segments of the training plans that are timed: the most
 #: launched ones
 TIMED_GRID = 3
+#: the full-width bf16 training forward plan (fused, fused by form,
+#: declined) as measured before batched contractions were planned; they
+#: must not move it (the attention bmm stay declined)
+TRAIN_FORWARD_PLAN = (719, {"grid": 557, "fwd": 162}, 1019)
 
 
 def train_segments(plans) -> dict:
@@ -1015,6 +1033,21 @@ def seg_operands(seg, seed: int) -> list:
     return out
 
 
+def build_units(plans) -> tuple[list, float, list, int]:
+    """Build the CUDA translation units of the plans, one ``nvcc`` each,
+    all started together.  Returns the units, the seconds, the registers
+    per thread by instantiation and the number with spills."""
+    t0 = time.perf_counter()
+    units = sorted({tuple(p.library) for p in plans if p.library})
+    logs = [fm.finish_library(h)[1]
+            for h in [fm.start_library(u, verbose=True) for u in units]]
+    regs = sorted({int(ln.split("Used ")[1].split()[0]) for log in logs
+                   for ln in log.splitlines() if "registers" in ln})
+    spills = sum("spill" in ln and "0 bytes spill stores" not in ln
+                 for log in logs for ln in log.splitlines())
+    return units, time.perf_counter() - t0, regs, spills
+
+
 def plan_training(step, state, batch, label: str):
     """Capture and plan the loss (forward), the backward of every fused
     segment and the update, then build all their CUDA translation units
@@ -1029,16 +1062,7 @@ def plan_training(step, state, batch, label: str):
     bplans = step.loss_fn.warm_backward(state.params, dbatch)
     uplan = step.update_fn.warm(state.params, state.params, state.opt)
     fst, bst = step.stats, bwd_plan_stats()
-    t0 = time.perf_counter()
-    units = sorted({tuple(p.library) for p in [fplan, uplan, *bplans]
-                    if p.library})
-    logs = [fm.finish_library(h)[1]
-            for h in [fm.start_library(u, verbose=True) for u in units]]
-    build_s = time.perf_counter() - t0
-    regs = sorted({int(ln.split("Used ")[1].split()[0]) for log in logs
-                   for ln in log.splitlines() if "registers" in ln})
-    spills = sum("spill" in ln and "0 bytes spill stores" not in ln
-                 for log in logs for ln in log.splitlines())
+    units, build_s, regs, spills = build_units([fplan, uplan, *bplans])
 
     def forms(plans, fused):
         n: dict = {}
@@ -1056,6 +1080,17 @@ def plan_training(step, state, batch, label: str):
           f"{sum(not d.fused for d in uplan.decisions)} declined")
     print(f"[7] {label}: {len(bplans)} backward plans: fused "
           f"{forms(bplans, True)}, declined {forms(bplans, False)}")
+    bmm = [d for d in fplan.decisions if d.form == "bmm"]
+    print(f"[7] {label}: {len(bmm)} attention bmm in the forward, "
+          f"{sum(not d.fused and 'batch axes not leading' in d.reason for d in bmm)}"
+          f" declined for batch axes that a copy moved")
+    check(all(not d.fused and "batch axes not leading" in d.reason
+              for d in bmm), f"{label}: an attention bmm was anchored")
+    if label == "bf16":
+        check((len(fplan.segments), forms([fplan], True),
+               sum(not d.fused for d in fplan.decisions)) ==
+              TRAIN_FORWARD_PLAN, f"{label}: the forward plan moved from "
+              f"{TRAIN_FORWARD_PLAN}")
     why: dict = {}
     for p in [fplan, *bplans]:
         for d in p.decisions:
@@ -1263,7 +1298,8 @@ def describe_segment(eqns, seg, count: int) -> str:
             f"epilogue {where} x{count}")
 
 
-def check_train_segments(plans, dtype, card: str, *, timed: bool) -> dict:
+def check_train_segments(plans, dtype, card: str, *, timed: bool,
+                         tag: str = "[7]") -> dict:
     """Every distinct fused segment of the training plans — grid (B2),
     fwd (B3), dlhs (B4), drhs (B6) — against its plain version at its own
     shapes and strides.  With ``timed``, every anchored one and the
@@ -1298,11 +1334,11 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool) -> dict:
         n, n_launch, worst = summary.get(form, (0, 0, 0.0))
         summary[form] = (n + 1, n_launch + count, max(worst, err))
         bits = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"[7]   {describe_segment(eqns, seg, count)} "
+        print(f"{tag}   {describe_segment(eqns, seg, count)} "
               f"{str(dtype)[6:]}: max_abs_err {err:.3e}"
               f"{', bit-equal' if bits else ''}")
         if not ok:
-            print(f"[7]     FAILED: elements outside the bound "
+            print(f"{tag}     FAILED: elements outside the bound "
                   f"{n_outside(got, want, dtype)} of "
                   f"{[w.numel() for w in want]}")
             failed.append(f"{form} {sym}")
@@ -1341,75 +1377,19 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool) -> dict:
                          library_ms=library_ms, bound_ms=bound_ms,
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", max_abs_err=err)
-        print(f"[7]     {ms:.4f} ms on the card (CUDA-graph replay), plain "
+        print(f"{tag}     {ms:.4f} ms on the card (CUDA-graph replay), plain "
               f"{plain_ms:.4f} ms, {lib_name or 'library'} "
               f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms, "
               f"bound {bound_ms:.4f} ms by {rows[sym]['bound_by']} "
               f"({n_bytes} bytes, {flops} flops; bound / kernel = "
               f"{bound_ms / ms:.1%}) on {card}")
     for form, (n, n_launch, worst) in summary.items():
-        print(f"[7] {str(dtype)[6:]} {form}: {n} distinct segments checked "
+        print(f"{tag} {str(dtype)[6:]} {form}: {n} distinct segments checked "
               f"({n_launch} in the plans), worst max_abs_err {worst:.3e}")
-    print(f"[7] {len(segs)} distinct segments checked in "
+    print(f"{tag} {len(segs)} distinct segments checked in "
           f"{time.perf_counter() - t0:.1f} s")
     check(not failed, f"segments differ from their plain versions: {failed}")
     return rows
-
-
-def check_batched_bwd() -> None:
-    """B4 and B6 with ``batch`` = 2 (no plan forms them yet: ``bmm`` is
-    declined) against their plain versions, in f32 and bf16: each batch
-    slice of rows against its own slice of the weight (dlhs) or of both
-    operands (drhs)."""
-    from repro_torch.core import OffloadPolicy
-    from repro_torch.core.offload import offload_report, segment_call
-
-    nb, per, k, n = 2, 96, 320, 200
-    for dtype in (torch.float32, torch.bfloat16):
-        gen = torch.Generator(device=DEVICE).manual_seed(12)
-
-        def t(*shape, scale=1.0):
-            return (scale * torch.randn(shape, generator=gen,
-                                        device=DEVICE)).to(dtype)
-        g, y = t(nb * per, k), t(nb * per, n)
-        plan = offload_report(lambda g, w, y: torch.tanh(g @ w.t()) + y, g,
-                              t(n, k), y,
-                              policy=OffloadPolicy(bulk_threshold=64))
-        dl = segment_call(plan.eqns, plan.segments[0])
-        w = t(nb, n, k, scale=k ** -0.5)            # a weight per slice
-        gg, wd = t(nb * per, n), t(k, n)
-        plan = offload_report(lambda x, g, w: x.t() @ g + 0.01 * w,
-                              t(nb * per, k), gg, wd,
-                              policy=OffloadPolicy(bulk_threshold=64))
-        dr = segment_call(plan.eqns, plan.segments[0])
-        x = t(nb * per, k // nb)           # x[m, rows] of each slice
-        check(dl["form"] == "dlhs" and dr["form"] == "drhs",
-              "batched check: plan forms")
-        for form, call, run in (
-                ("dlhs", dl, lambda impl: ops.fused_matmul_dlhs_segment(
-                    None, dl["progs"].body, [g], dl["specs"][:1], w, [y],
-                    dl["specs"][2:], rows=dl["rows"], k_dim=dl["k"],
-                    n_dim=dl["n"], acc_dtype=dl["acc_dtype"],
-                    out_cols=dl["out_cols"], out_dtypes=dl["out_dtypes"],
-                    vmem_bytes=dl["vmem_bytes"], sms=dl["sms"], batch=nb,
-                    impl=impl)),
-                ("drhs", dr, lambda impl: ops.fused_matmul_drhs_segment(
-                    dr["progs"].body, x, gg, [wd], dr["specs"][2:],
-                    m_dim=per, rows=dr["rows"], n_dim=dr["n"],
-                    acc_dtype=dr["acc_dtype"], out_cols=dr["out_cols"],
-                    out_dtypes=dr["out_dtypes"],
-                    vmem_bytes=dr["vmem_bytes"], batch=nb, impl=impl))):
-            got = run("cuda")
-            torch.cuda.synchronize()
-            want = run("ref")
-            if dtype == torch.bfloat16:
-                ok, err = seg_close(got, want, dtype)
-            else:
-                err = max_err(got[0], want[0])
-                ok = err <= TRAIN_F32_TOL * float(want[0].abs().max())
-            print(f"[7]   batched {form} (batch {nb}) {str(dtype)[6:]}: "
-                  f"max_abs_err {err:.3e}")
-            check(ok, f"batched {form} {dtype} vs plain")
 
 
 def phase_adamw(state, grads, tcfg, card: str) -> dict:
@@ -1524,7 +1504,6 @@ def phase_train(card: str):
     b8 = phase_adamw(state, grads, tcfg, card)
     del grads
     rows = check_train_segments(plans, torch.bfloat16, card, timed=True)
-    check_batched_bwd()
     del state, step, plans
     torch.cuda.empty_cache()
 
@@ -1543,6 +1522,481 @@ def phase_train(card: str):
           counts["fused_matmul_drhs_segment"] > 0,
           "the training steps launched no B4 / B6")
     return rows, counts, b8, reading
+
+
+# --------------------------------------------- flash and batched anchors (8)
+
+#: the attention width of qwen3-1.7b: 16 query heads over 8 kv heads,
+#: head_dim 128; 2 sequences of 2,048 tokens
+FLASH_SHAPE = (2, 2048, 16, 8, 128)
+#: the CPU tests' shapes (tests/test_torch_flash.py): B, S, NQ, NK, H,
+#: causal, window
+FLASH_SMALL = [(1, 64, 4, 4, 16, True, 0), (2, 128, 8, 2, 32, True, 0),
+               (1, 96, 4, 1, 64, False, 0), (2, 160, 4, 2, 16, True, 24),
+               (1, 70, 2, 2, 16, True, 0)]
+#: B5 / B7 against their plain versions: f32 2e-5 (tests/test_kernels.py);
+#: bf16 forward 2e-2 (P is rounded to bf16 for the tensor cores, the plain
+#: version keeps it f32); bf16 gradients 5e-2 (tests/test_offload_
+#: attention.py), and besides within 5e-2 of the gradient's max-abs;
+#: the log-sum-exp (f32 statistics from products summed in another
+#: order) 1e-4
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+LSE_TOL = 1e-4
+#: a backward segment on the path's operands, where phase 6's bf16 rule
+#: fails: at most twice the spread of the eager ops around the plain
+#: version (``check_path_segments``; chosen after a run in which 2 of the
+#: flash backward's 5 segments missed phase 6's rule on 1 to 880 elements,
+#: each by exactly the eager ops' own spread)
+PATH_SPREAD = 2.0
+
+
+def attention_chain(q, k, v):
+    """The reference test's GQA chain (tests/test_offload_attention.py):
+    kv heads repeated per group, QK^T / sqrt(d), softmax, PV."""
+    g = q.shape[1] // k.shape[1]
+    k = torch.repeat_interleave(k, g, dim=1)
+    v = torch.repeat_interleave(v, g, dim=1)
+    scale = torch.tensor(math.sqrt(q.shape[-1])).to(q.dtype)
+    s = torch.einsum("bhsd,bhtd->bhst", q, k) / scale
+    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1), v)
+
+
+def batched_gemm_bwd(g, x, w):
+    """benchmarks/offload_bench.py's BATCHED_GEMM_BWD chain, in torch."""
+    dx = torch.tanh(g @ w.transpose(1, 2)) * 0.5 + x * 0.1
+    dw = x.transpose(1, 2) @ g + 0.01 * w
+    return dx, dw
+
+
+def within(got, want, tol: float, rel_max: float | None = None
+           ) -> tuple[bool, float]:
+    """``got`` against ``want``: allclose at ``tol`` (rtol = atol), and,
+    with ``rel_max``, every difference within that share of the
+    reference's max-abs.  Returns (ok, max_abs_err)."""
+    g, w = got.detach().float(), want.detach().float()
+    err = max_err(g, w)
+    ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=tol,
+                                                          atol=tol)
+    if rel_max is not None:
+        ok = ok and err <= rel_max * float(w.abs().max())
+    return ok, err
+
+
+def seeded(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def flash_small_shapes() -> None:
+    """B5 (with lse) and both B7 kernels against their plain versions at
+    the CPU tests' shapes, f32 and bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, s, nq, nk, h, causal, window) in enumerate(FLASH_SMALL):
+            gen = torch.Generator(device=DEVICE).manual_seed(100 + i)
+            q, k, v, do = (seeded(gen, shape, dtype) for shape in (
+                (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
+            kw = dict(causal=causal, window=window)
+            o, lse = ops.flash_attention(q, k, v, return_lse=True,
+                                         impl="cuda", **kw)
+            grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            wo, wl = flash_attention_plain(q, k, v, return_lse=True, **kw)
+            wgrads = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            res = [("fwd", *within(o, wo, FLASH_TOL[dtype])),
+                   ("lse", *within(lse, wl, LSE_TOL))]
+            res += [(n, *within(a, w, GRAD_TOL[dtype]))
+                    for n, a, w in zip(("dq", "dk", "dv"), grads, wgrads)]
+            for name, ok, err in res:
+                key = (str(dtype)[6:], name)
+                worst[key] = max(worst.get(key, 0.0), err)
+                check(ok, f"B5/B7 {name} at {FLASH_SMALL[i]} {dtype}: "
+                      f"max_abs_err {err:.3e}")
+    print(f"[8] B5 / B7 at the CPU tests' {len(FLASH_SMALL)} shapes, f32 "
+          f"and bf16, against the plain versions: worst max_abs_err "
+          f"{ {f'{d} {n}': f'{e:.2e}' for (d, n), e in worst.items()} }")
+
+
+def flash_library(card: str) -> tuple[dict, dict]:
+    """The kernel library at full width: ``ops.flash_attention`` causal,
+    windowed, unmasked and with the log-sum-exp, and
+    ``flash_attention_diff`` forward and backward against autograd of
+    the plain version; B7's kernels timed.  Returns the B7 rows of the
+    kernels line and the launches of the diff call."""
+    from repro_torch.kernels import flash_attention_diff
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        row_dot,
+    )
+
+    b, s, nq, nk, h = FLASH_SHAPE
+    dt = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    q, k, v, do = (seeded(gen, shape, dt) for shape in (
+        (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
+    for causal, window in ((True, 0), (True, 512), (False, 0)):
+        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=True, impl="cuda")
+        torch.cuda.synchronize()
+        wo, wl = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ok_o, err_o = within(o, wo, FLASH_TOL[dt])
+        ok_l, err_l = within(lse, wl, LSE_TOL)
+        print(f"[8] ops.flash_attention {tuple(q.shape)} x "
+              f"{tuple(k.shape)} bf16 causal={causal} window={window}: "
+              f"out max_abs_err {err_o:.3e}, lse {err_l:.3e}")
+        check(ok_o and ok_l, f"B5 full width causal={causal} "
+              f"window={window} vs plain")
+    del o, lse, wo, wl
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = flash_attention_diff(*leaves, True, 0)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    pout = flash_attention_plain(*plain, causal=True)
+    want = torch.autograd.grad(pout, plain, do)
+    ok, err = within(out, pout, FLASH_TOL[dt])
+    msgs = [f"out {err:.3e}"]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        ok_g, err_g = within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])
+        ok = ok and ok_g
+        msgs.append(f"{name} {err_g:.3e} (max-abs {float(w.abs().max()):.3f})")
+    print(f"[8] flash_attention_diff causal, forward and backward against "
+          f"autograd of the plain version: max_abs_err {', '.join(msgs)}; "
+          f"launches {({k_: n for k_, n in counts.items() if n})}")
+    check(ok, "flash_attention_diff vs autograd of the plain version")
+    check(counts["flash_attention"] == 1 and
+          counts["flash_attention_bwd_dkv"] == 1 and
+          counts["flash_attention_bwd_dq"] == 1,
+          f"flash_attention_diff launches {counts}")
+    del leaves, out, got, plain, pout, want
+
+    # B7 alone at the full width, windowed and unmasked; each kernel is
+    # timed on the unmasked shape
+    for causal, window in ((True, 512), (False, 0)):
+        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=True, impl="cuda")
+        dvec = row_dot(do, o)
+        kw = dict(causal=causal, window=window)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
+        torch.cuda.synchronize()
+        wq, wk, wv = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs = {"dkv": max(within(dk, wk, GRAD_TOL[dt])[1],
+                           within(dv, wv, GRAD_TOL[dt])[1]),
+                "dq": within(dq, wq, GRAD_TOL[dt])[1]}
+        print(f"[8] B7 causal={causal} window={window} against its plain "
+              f"version: max_abs_err dkv {errs['dkv']:.3e}, dq "
+              f"{errs['dq']:.3e}")
+        check(all(within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])[0]
+                  for a, w in ((dk, wk), (dv, wv), (dq, wq))),
+              f"B7 causal={causal} window={window} full width vs plain")
+        del wq, wk, wv
+    plain_ms = time_ms(lambda i: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), 2, warmup=1)
+    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, enable_gqa=True)
+    ldo = do.transpose(1, 2)
+    library_ms = time_ms(lambda i: torch.autograd.grad(
+        lout, (lq, lk, lv), ldo, retain_graph=True), 4)
+    # products of the reference's backward (2 * S * T * H each, per batch
+    # and query head): dkv recomputes S and dP and forms dV and dK (4),
+    # dq recomputes S and dP and forms dQ (3) — 7 in all, unmasked
+    unit = 2 * b * nq * s * s * h
+    io = {"dkv": [q, k, v, do, lse, dvec, dk, dv],
+          "dq": [q, k, v, do, lse, dvec, dq]}
+    rows = {}
+    for name, fn, n_prod in (
+            ("dkv", lambda i: flash_attention_bwd_dkv(
+                q, k, v, do, lse, dvec, **kw), 4),
+            ("dq", lambda i: flash_attention_bwd_dq(
+                q, k, v, do, lse, dvec, **kw), 3)):
+        ms = graph_ms(fn, 2, replays=5)
+        n_bytes = sum(t.numel() * t.element_size() for t in io[name])
+        t_ops = n_prod * unit / PEAK_FLOPS[dt] * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", library_ms=library_ms)
+        print(f"[8] B7 {name} unmasked {tuple(q.shape)} x {tuple(k.shape)} "
+              f"bf16: {ms:.4f} ms on the card (CUDA-graph replay), plain "
+              f"(all three gradients) {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms (scaled_dot_product_attention's "
+              f"backward, enable_gqa, all three gradients), bound "
+              f"{rows[name]['bound_ms']:.4f} ms by {rows[name]['bound_by']} "
+              f"({n_prod} products, {n_prod * unit} flops; {n_bytes} bytes; "
+              f"bound / kernel = {rows[name]['bound_ms'] / ms:.1%}) on {card}")
+    return rows, counts
+
+
+def flash_path(card: str) -> tuple[dict, dict]:
+    """The slice's path at full width: ``mpu_offload`` of the GQA
+    attention chain plans one flash segment over (2, 16) batch axes,
+    launches B5, agrees with the unwrapped chain; its gradients through
+    the planned backward agree with autograd of the chain.  Returns the
+    B5 row of the kernels line and the launches of the forward run."""
+    from repro_torch.core import OffloadPolicy, mpu_offload
+    from repro_torch.core.offload import (
+        _build_runner,
+        bwd_plans,
+        capture,
+        clear_bwd_plans,
+        node_val,
+        plan_offload,
+    )
+
+    b, s, nq, nk, h = FLASH_SHAPE
+    dt = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    q = seeded(gen, (b, nq, s, h), dt)
+    k = seeded(gen, (b, nk, s, h), dt)
+    v = seeded(gen, (b, nk, s, h), dt)
+    wrapped = mpu_offload(attention_chain, policy=OffloadPolicy())
+    plan = wrapped.warm(q, k, v)
+    flash = [seg for seg in plan.segments
+             if seg.matmul is not None and seg.matmul.flash is not None]
+    print(f"[8] mpu_offload(attention chain) q {tuple(q.shape)} k, v "
+          f"{tuple(k.shape)} bf16: {len(plan.segments)} fused segments "
+          f"{[d.form or 'grid' for d in plan.decisions if d.fused]}, "
+          f"{sum(not d.fused for d in plan.decisions)} declined; flash "
+          f"batch_shape {[seg.matmul.batch_shape for seg in flash]}, scale "
+          f"{[seg.matmul.flash['scale'] for seg in flash]}; traffic "
+          f"{plan.traffic_reduction:.2f}x ({plan.naive_hbm_bytes} -> "
+          f"{plan.fused_hbm_bytes} bytes)")
+    check(len(flash) == 1 and flash[0].matmul.batch_shape == (b, nq),
+          "the attention chain did not plan one flash segment over (2, 16)")
+    check(plan.traffic_reduction >= 4.0, "flash traffic reduction < 4x")
+    scale = flash[0].matmul.flash["scale"]
+
+    ops.reset_launch_counts()
+    out = wrapped(q, k, v)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = attention_chain(q, k, v)
+    ok, err = within(out, want, FLASH_TOL[dt], rel_max=FLASH_TOL[dt])
+    print(f"[8] offloaded chain vs the unwrapped chain: max_abs_err "
+          f"{err:.3e} (max-abs {float(want.abs().max()):.3f}); launches "
+          f"{({k_: n for k_, n in counts.items() if n})}")
+    check(ok, "offloaded attention chain vs the unwrapped chain")
+    check(counts["flash_attention"] == 1, "the flash segment launched no B5")
+    del out, want
+
+    # B5 on the flash segment's own operands, against its plain version
+    g = nq // nk
+    q3 = q.reshape(b * nq * s, h)
+    k3 = torch.repeat_interleave(k, g, dim=1).reshape(b * nq * s, h)
+    v3 = torch.repeat_interleave(v, g, dim=1).reshape(b * nq * s, h)
+    kw = dict(batch=b * nq, rows=b * nq * s, head_dim=h, t_dim=s, n_dim=h,
+              scale=scale, out_dtype=dt)
+    (got,) = ops.fused_flash_segment(q3, k3, v3, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    (ref,) = ops.fused_flash_segment(q3, k3, v3, impl="ref", **kw)
+    ok, b5_err = within(got, ref, FLASH_TOL[dt])
+    check(ok, f"B5 on the flash segment vs plain: {b5_err:.3e}")
+    ms = graph_ms(lambda i: ops.fused_flash_segment(q3, k3, v3, impl="cuda",
+                                                    **kw), 4)
+    plain_ms = time_ms(lambda i: ops.fused_flash_segment(
+        q3, k3, v3, impl="ref", **kw), 2, warmup=1)
+    sq, sk, sv = (t.reshape(b, nq, s, h) for t in (q3, k3, v3))
+    library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+        sq, sk, sv, scale=scale), 4)
+    flops = 2 * 2 * b * nq * s * s * h
+    n_bytes = 4 * q3.numel() * q3.element_size()
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    b5 = dict(max_abs_err=b5_err, ms=ms, plain_ms=plain_ms,
+              bound_ms=max(t_ops, t_bytes),
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              library_ms=library_ms)
+    print(f"[8] B5 on the flash segment ({b * nq} slices x [{s}x{h}], "
+          f"unmasked, scale {scale:.6f}) bf16: max_abs_err {b5_err:.3e} vs "
+          f"plain; {ms:.4f} ms on the card (CUDA-graph replay), plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+          f"(scaled_dot_product_attention), bound {b5['bound_ms']:.4f} ms "
+          f"by {b5['bound_by']} (2 products, {flops} flops; {n_bytes} bytes;"
+          f" bound / kernel = {b5['bound_ms'] / ms:.1%}) on {card}")
+    del got, ref, q3, k3, v3, sq, sk, sv
+
+    # the planned backward of the flash segment
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ct = seeded(gen, (b, nq, s, h), dt)
+    clear_bwd_plans()
+    ops.reset_launch_counts()
+    grads = torch.autograd.grad(wrapped(*leaves), leaves, ct)
+    torch.cuda.synchronize()
+    bwd_counts = ops.launch_counts()
+    plans = bwd_plans()
+    for p in plans:
+        print(f"[8] backward plan: fused "
+              f"{[(d.form or 'grid', d.batch) for d in p.decisions if d.fused]}"
+              f"; declined "
+              f"{[(d.form or 'grid', d.batch) for d in p.decisions if not d.fused]}")
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_chain(*plain), plain, ct)
+    ok, msgs = True, []
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        ok_g, err_g = within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])
+        ok = ok and ok_g
+        msgs.append(f"{name} {err_g:.3e} (max-abs {float(w.abs().max()):.3f})")
+    print(f"[8] gradients through the offloaded chain vs autograd of the "
+          f"chain: max_abs_err {', '.join(msgs)}; launches "
+          f"{({k_: n for k_, n in bwd_counts.items() if n})}")
+    check(ok, "gradients through the offloaded attention chain")
+    check(any(d.fused and d.form in ("dlhs", "drhs") and d.batch
+              for p in plans for d in p.decisions),
+          "the flash segment's backward planned no batched contraction")
+    del grads, want, leaves, plain
+
+    # every segment of that backward plan on the operands the path gives
+    # it: the chain's runner is run once more, recording the flash call's
+    # operands, and its backward plan's runner on them and the cotangent
+    pol = OffloadPolicy()
+    gm, _, _ = capture(attention_chain, (q, k, v))
+    rec = SegmentRecorder(_build_runner(gm, plan_offload(gm, policy=pol),
+                                        pol.impl, grad_policy=pol))
+    rec.run(q, k, v)
+    fcall, primals = next((t, a) for t, a in rec.calls
+                          if t.segment.matmul is not None
+                          and t.segment.matmul.flash is not None)
+    cts = [ct.reshape(node_val(fcall.segment.outputs[0]).shape)]
+    run, bplan, diff, rest, outs = fcall.bwd.entry_for(list(primals), cts)
+    brec = SegmentRecorder(run)
+    brec.run(*[primals[i] for i in diff], *[primals[i] for i in rest],
+             *[cts[j] for j in outs])
+    check_path_segments(bplan.eqns, brec.calls, card)
+    return b5, counts
+
+
+class SegmentRecorder(torch.fx.Interpreter):
+    """Runs a plan's runner graph, keeping the operands of every fused
+    segment call (the calls carry their ``segment``)."""
+
+    def __init__(self, gm):
+        super().__init__(gm)
+        self.calls = []
+
+    def call_function(self, target, args, kwargs):
+        if getattr(target, "segment", None) is not None:
+            self.calls.append((target, args))
+        return super().call_function(target, args, kwargs)
+
+
+def check_path_segments(eqns, calls, card: str) -> None:
+    """Every segment call of a backward plan (``eqns`` its graph's call
+    nodes) against its plain version on the operands the path gave it,
+    timed beside the bound, the plain version and torch.matmul.
+
+    The kernel sums a product's f32 terms in another order than the plain
+    version, so a bf16 product can round one ulp apart, and an epilogue
+    that carries it through ``exp`` or a second row sum widens that.  Each
+    output is held to phase 6's bf16 rule or, where that fails, to
+    ``PATH_SPREAD`` times the largest difference between the plain version
+    and the segment's own ops run unfused in eager PyTorch (cuBLAS's
+    product, the same epilogue ops) on the same operands: the kernel as
+    close to the plain version as eager PyTorch is."""
+    from repro_torch.core.offload import (
+        _segment_kernel,
+        _segment_replay,
+        segment_programs,
+    )
+
+    failed = []
+    for run, vals in calls:
+        seg = run.segment
+        mm = seg.matmul
+        # a 0-dim constant is moved to the card before any graph capture
+        vals = [v.to(DEVICE) if v.dim() == 0 else v for v in vals]
+        ref = _segment_kernel(seg, segment_programs(eqns, seg), impl="ref")
+        got = run(*vals)
+        torch.cuda.synchronize()
+        want = ref(*vals)
+        eager = _segment_replay(eqns, seg)(*vals)
+        ok, errs, spreads = True, [], []
+        for g, w, e in zip(got, want, eager):
+            rule, err = seg_close([g], [w], torch.bfloat16)
+            spread = seg_close([e], [w], torch.bfloat16)[1]
+            ok = ok and (rule or err <= PATH_SPREAD * spread)
+            errs.append(err)
+            spreads.append(spread)
+        bits = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"[8]   {describe_segment(eqns, seg, 1)} bf16 on the path's "
+              f"operands: max_abs_err by output {[f'{x:.2e}' for x in errs]}"
+              f"{', bit-equal' if bits else ''}; eager ops vs plain "
+              f"{[f'{x:.2e}' for x in spreads]}; outside phase 6's rule "
+              f"{n_outside(got, want, torch.bfloat16)} of "
+              f"{[w.numel() for w in want]}")
+        if not ok:
+            failed.append(f"{mm.form if mm else 'grid'}")
+            continue
+        ms = graph_ms(lambda i: run(*vals), 2, replays=5)
+        plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
+        lib = None
+        if mm is not None:
+            a, b = vals[0], vals[len(mm.lhs_specs)]
+            lib = graph_ms(lambda i: torch.matmul(a, b), 2, replays=5)
+        n_bytes = sum(_span(v) * v.element_size() for v in vals) + \
+            sum(o.numel() * o.element_size() for o in got)
+        flops = 2 * seg.rows * mm.k * mm.n if mm is not None else 0
+        bound = max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
+            torch.bfloat16]) * 1e3
+        print(f"[8]     {ms:.4f} ms on the card (CUDA-graph replay), plain "
+              f"{plain_ms:.4f} ms, torch.matmul "
+              f"{'-' if lib is None else f'{lib:.4f}'} ms, bound "
+              f"{bound:.4f} ms ({n_bytes} bytes, {flops} flops; bound / "
+              f"kernel = {bound / ms:.1%}) on {card}")
+    check(not failed, f"backward segments differ from their plain versions: "
+          f"{failed}")
+
+
+def phase_flash(card: str) -> tuple[dict, dict]:
+    """Phase 8: the flash segment and batched anchors at full width.
+    Returns the kernels line's rows of B5 and of B7's two kernels."""
+    from repro_torch.core import OffloadPolicy
+    from repro_torch.core.offload import offload_report
+
+    t0 = time.perf_counter()
+    flash_small_shapes()
+    b5, path_counts = flash_path(card)
+    b7, diff_counts = flash_library(card)
+    # every distinct segment of the BATCHED_GEMM_BWD chain (bench shapes,
+    # f32 and bf16) on seeded operands
+    plans = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=DEVICE).manual_seed(15)
+        args = (seeded(gen, (8, 256, 64), dt), seeded(gen, (8, 256, 128), dt),
+                (0.1 * torch.randn((8, 128, 64), generator=gen,
+                                   device=DEVICE)).to(dt))
+        plan = offload_report(batched_gemm_bwd, *args,
+                              policy=OffloadPolicy(bulk_threshold=4096))
+        forms = [(s.matmul.form, s.matmul.batch_shape)
+                 for s in plan.segments if s.matmul is not None]
+        print(f"[8] BATCHED_GEMM_BWD {str(dt)[6:]}: {len(plan.segments)} "
+              f"segments {forms}, traffic {plan.traffic_reduction:.2f}x")
+        check(sorted(f for f, _ in forms) == ["dlhs", "drhs"],
+              "BATCHED_GEMM_BWD did not plan batched dlhs and drhs")
+        plans[dt] = [plan]
+    check_train_segments(plans[torch.float32], torch.float32, card,
+                         timed=False, tag="[8]")
+    check_train_segments(plans[torch.bfloat16], torch.bfloat16, card,
+                         timed=True, tag="[8]")
+    print(f"[8] flash and batched anchors in {time.perf_counter() - t0:.1f} s")
+    return (dict(launches=path_counts["flash_attention"], **b5),
+            {name: dict(launches=diff_counts[f"flash_attention_bwd_{name}"],
+                        **row) for name, row in b7.items()})
 
 
 def kernel_entry(timed: dict, kind: str) -> dict:
@@ -1572,7 +2026,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     train_rows, train_counts, b8, _ = phase_train(card)
-    print(f"[8] total {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    b5, b7 = phase_flash(card)
+    print(f"[9] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -1601,7 +2057,19 @@ def main() -> int:
         "name": "adamw_update", "route": "triton",
         "source": "src/repro_torch/kernels/adamw_update.py",
         "replaces": "src/repro/kernels/adamw_update.py:55",
-        **b8}]}))
+        **b8}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:145",
+        **b5}, {
+        "name": "flash_attention_bwd_dkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:196",
+        **b7["dkv"]}, {
+        "name": "flash_attention_bwd_dq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:218",
+        **b7["dq"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The offload compiler of the port: Algorithm 1 over fx graphs, the
-§IV-B1 policy, and the forward planner + runner (``mpu_offload``)."""
+§IV-B1 policy, and the planner + runner (``mpu_offload``) with its
+planned backward."""
 from repro_torch.core.isa import Loc
 from repro_torch.core.locator import GraphAnnotation, annotate_graph
 from repro_torch.core.machine import H100, H100_SXM

@@ -13,19 +13,29 @@ reference's:
                 maximal near runs over 2-D ``[rows, lanes]`` block views:
                 elementwise ops, lane-axis reductions (row statistics),
                 lane slices / concats / broadcasts and views that keep
-                the 2-D view, and ``mm`` anchors in three forms — the
-                forward x[M, K] @ w[K, N] (absorbing an elementwise lhs
-                prologue, a weight-side dequant prologue and the
-                epilogue), ``dlhs`` dx = g @ w^T (the weight a transposed
-                view, read in place; lhs prologue and epilogue) and
-                ``drhs`` dw = x^T @ g (the activation a transposed view;
-                an elementwise epilogue at full width).  Every candidate
-                is priced and fused or declined by the policy
-                (``OffloadPolicy.decide``); both verdicts are recorded
+                the 2-D view, and ``mm`` / ``bmm`` anchors in three
+                forms — the forward x[M, K] @ w[K, N] (absorbing an
+                elementwise lhs prologue, a weight-side dequant prologue
+                and the epilogue), ``dlhs`` dx = g @ w^T (the weight a
+                transposed view, read in place; lhs prologue and
+                epilogue) and ``drhs`` dw = x^T @ g (the activation a
+                transposed view; an elementwise epilogue at full width);
+                a ``bmm`` whose batch axis leads both operands is the
+                same form per batch slice (the views ``torch.einsum``
+                writes around it are folded first, the batch axes
+                recovered from them), and a batched dlhs QK^T whose
+                epilogue is a scale and a row softmax, followed by the
+                batched PV product, fuses as ONE flash-shaped segment
+                (B5; the [S, T] scores never reach device memory).
+                Every candidate is priced and fused or declined by the
+                policy (``OffloadPolicy.decide``); both verdicts are
+                recorded
   run           the runner walks the graph in order: a fused segment is
                 ONE kernel call (``fused_segment_grid`` for elementwise
                 segments, ``fused_matmul_segment`` / ``_dlhs_segment`` /
-                ``_drhs_segment`` for anchored ones), every other node
+                ``_drhs_segment`` for anchored ones, with ``batch`` for a
+                ``bmm``, ``fused_flash_segment`` for the flash pair),
+                every other node
                 calls its aten op unchanged — in-place KV page writes
                 included, so no read moves across a write
   differentiate under autograd the far nodes differentiate as eager
@@ -35,16 +45,22 @@ reference's:
                 ``torch.func.vjp`` over the segment's own nodes and
                 planned and run through the same planner and runner —
                 its recomputed forward anchors ``fwd`` again, its
-                gradient contractions ``dlhs`` and ``drhs``
+                gradient contractions ``dlhs`` and ``drhs`` (batched for
+                a batched or flash segment, whose backward is planned as
+                batched contractions)
 
 ``mpu_offload(fn, policy=...)`` caches one plan per (policy, direction,
 input signature) in an LRU bounded by the policy's ``max_plans``;
 backward plans are cached per segment under "bwd"-tagged keys.
 
-Not planned yet (the planner declines them with the reason, or never
-forms them): batched anchors (``bmm``), flash-shaped attention segments,
-segment-boundary donation, the persistent plan cache and the static plan
-verifier.
+A ``bmm`` whose batch axes were moved into place by a copy (a ``clone``
+of a permute, as ``torch.einsum`` writes the model attention's
+``bqkgh,bckh->bqkgc``) is declined with that reason: the reference's
+``dot_general`` there has batch axes that are not leading, and the
+reference never anchors it.
+
+Not planned yet (never formed): segment-boundary donation, the
+persistent plan cache and the static plan verifier.
 """
 from __future__ import annotations
 
@@ -183,9 +199,9 @@ class OperandSpec:
 
 @dataclass(frozen=True)
 class MatmulAnchor:
-    """The ``mm`` a matmul-anchored segment is built around: the product
-    runs inside the fused kernel, ``pro_eqns`` produce its lhs (applied
-    per lhs element as it is loaded), ``rhs_pro_eqns`` its weight
+    """The ``mm`` / ``bmm`` a matmul-anchored segment is built around: the
+    product runs inside the fused kernel, ``pro_eqns`` produce its lhs
+    (applied per lhs element as it is loaded), ``rhs_pro_eqns`` its weight
     (applied per weight element; the cast weight is never stored), and
     the segment's ``eqn_idx`` hold the epilogue on the f32 accumulator.
 
@@ -194,7 +210,22 @@ class MatmulAnchor:
     the transposed view of a row-major [N, K] weight: dx = g @ w^T) or
     ``drhs`` (lhs is the transposed view of a row-major [K, M]
     activation: dw = x^T @ g; ``k`` is then the contracted token axis).
-    Batched contractions (``bmm``) are not planned."""
+
+    A ``bmm`` is the same three forms with a leading batch axis on both
+    operands: ``batch`` is its extent (1 for ``mm``), ``batch_shape`` the
+    leading axes it folds (recovered from the views around the ``bmm``:
+    a [B, H, S, D] einsum gives ``(B, H)``); ``k`` / ``n`` stay per-batch
+    extents and ``Segment.rows`` folds the batch into the row axis.
+
+    ``flash`` (a dict) marks a flash-shaped segment: this batched dlhs
+    anchor's scaled, row-softmaxed scores feed a second batched product
+    with the values, and the whole QK^T -> softmax -> PV chain runs as
+    one launch of B5 (the [S, T] scores never reach device memory).
+    Keys: ``scale`` (the factor the chain applies to the scores),
+    ``t_dim`` (keys per batch slice) and ``consts`` (the scalar constants
+    the chain reads, kept as segment operands for its planned backward).
+    ``extra_eqns`` hold the absorbed chain and the second product; for a
+    flash segment ``k`` is the head dim and ``n`` the value width."""
 
     eqn_idx: int
     lhs_var: Any
@@ -208,6 +239,10 @@ class MatmulAnchor:
     form: str = "fwd"
     rhs_specs: list[OperandSpec] = field(default_factory=list)
     rhs_pro_eqns: list[int] = field(default_factory=list)
+    extra_eqns: list[int] = field(default_factory=list)
+    batch: int = 1
+    batch_shape: tuple = ()
+    flash: Any = None
 
 
 @dataclass
@@ -241,7 +276,8 @@ class Segment:
         if self.matmul is None:
             return sorted({*self.eqn_idx, *self.post_eqns})
         return sorted({*self.matmul.pro_eqns, *self.matmul.rhs_pro_eqns,
-                       self.matmul.eqn_idx, *self.eqn_idx, *self.post_eqns})
+                       *self.matmul.extra_eqns, self.matmul.eqn_idx,
+                       *self.eqn_idx, *self.post_eqns})
 
     def io_bytes(self) -> int:
         """Fused HBM bytes this segment moves: one read per operand, one
@@ -249,11 +285,15 @@ class Segment:
         kernels' own grid helpers (``fused_matmul.matmul_row_blocks`` /
         ``column_tiles`` for fwd and dlhs, ``drhs_grid_blocks`` for
         drhs) through ``operand_streams`` (the H100's L2 serves the
-        re-reads of blocks that run side by side).  fwd / dlhs add the
-        f32 workspace, written and read once per K split, unless the
-        epilogue runs in the tile.  Planner and kernels share the
-        helpers."""
+        re-reads of blocks that run side by side); a batched weight
+        re-streams once per per-batch row block.  fwd / dlhs add the f32
+        workspace, written and read once per K split, unless the
+        epilogue runs in the tile.  A flash segment reads q once and k
+        and v once per q tile (``flash_attention.q_blocks``), and its
+        [S, T] scores contribute zero bytes.  Planner and kernels share
+        the helpers."""
         from repro_torch.kernels import fused_matmul as fm
+        from repro_torch.kernels.flash_attention import q_blocks
         from repro_torch.kernels.fused_matmul_bwd import drhs_grid_blocks
 
         total = sum(_nbytes(sp.var) for sp in self.operand_specs)
@@ -261,17 +301,20 @@ class Segment:
         mm = self.matmul
         if mm is None:
             return total
+        lhs_b = sum(_nbytes(sp.var) for sp in mm.lhs_specs)
+        rhs_b = sum(_nbytes(sp.var) for sp in mm.rhs_specs)
+        if mm.flash is not None:
+            return total + lhs_b + rhs_b * q_blocks(self.rows // mm.batch)
         metas = [sp.meta for sp in self.operand_specs]
         if mm.form == "drhs":
             row_blocks, col_tiles = drhs_grid_blocks(
-                self.rows, mm.n, vmem_bytes=self.smem_budget)
+                self.rows, mm.n, vmem_bytes=self.smem_budget,
+                batch=mm.batch)
         else:
             row_blocks = fm.matmul_row_blocks(
                 self.rows, metas, min(mm.n, fm.BN), MATMUL_ROWS_BLOCK,
-                self.smem_budget)
+                self.smem_budget, mm.batch)
             col_tiles = fm.column_tiles(mm.n)
-        lhs_b = sum(_nbytes(sp.var) for sp in mm.lhs_specs)
-        rhs_b = sum(_nbytes(sp.var) for sp in mm.rhs_specs)
         lhs_n, rhs_n = fm.operand_streams(lhs_b, row_blocks, col_tiles,
                                           l2_bytes=self.l2_bytes,
                                           sms=self.sms)
@@ -281,7 +324,8 @@ class Segment:
                 self.rows, metas, mm.k, mm.n, rows_block=MATMUL_ROWS_BLOCK,
                 vmem_bytes=self.smem_budget, sms=self.sms,
                 elt=_dtype(mm.rhs_specs[0].var).itemsize,
-                elementwise=self.elementwise, out_cols=self.out_cols)
+                elementwise=self.elementwise, out_cols=self.out_cols,
+                batch=mm.batch)
         return total
 
 
@@ -444,15 +488,18 @@ def _row_major(v) -> bool:
 
 
 def _transposed_row_major(v) -> bool:
+    """The transposed view (last two axes) of a row-major matrix or batch
+    of matrices."""
     val = node_val(v)
-    return isinstance(val, torch.Tensor) and val.dim() == 2 and \
-        val.t().is_contiguous()
+    return isinstance(val, torch.Tensor) and val.dim() in (2, 3) and \
+        val.transpose(-1, -2).is_contiguous()
 
 
 def mm_form(node) -> str | None:
-    """The contraction form of an ``mm`` node from its operands' strides
-    (``fwd`` / ``dlhs`` / ``drhs``), or None when an operand is neither
-    row-major nor the transposed view of a row-major tensor."""
+    """The contraction form of an ``mm`` / ``bmm`` node from its operands'
+    strides (``fwd`` / ``dlhs`` / ``drhs``; a ``bmm``'s batch axis leads
+    both operands), or None when an operand is neither row-major nor the
+    transposed view of a row-major tensor."""
     lhs, rhs = node.args[0], node.args[1]
     if not isinstance(lhs, fx.Node) or not isinstance(rhs, fx.Node):
         return None
@@ -463,6 +510,134 @@ def mm_form(node) -> str | None:
     if _transposed_row_major(lhs) and _row_major(rhs):
         return "drhs"
     return None
+
+
+# ---------------------------------------------------------------------------
+# The views around a batched contraction
+# ---------------------------------------------------------------------------
+
+# ops that only re-describe a tensor's memory (no data moves, no offset)
+_VIEW_STEPS = frozenset({"view", "_unsafe_view", "reshape", "unsqueeze",
+                         "squeeze", "permute", "alias", "expand",
+                         "transpose", "t"})
+
+
+def _view_step(node) -> bool:
+    """A view node whose operand is a graph value: ``expand`` only when it
+    broadcasts nothing."""
+    name = node_name(node) if isinstance(node, fx.Node) else None
+    if name not in _VIEW_STEPS or not node.args or \
+            not isinstance(node.args[0], fx.Node):
+        return False
+    return name != "expand" or _shape(node) == _shape(node.args[0])
+
+
+def _view_root(v):
+    """Follow view steps back from ``v`` to the first value that is not a
+    view."""
+    while _view_step(v):
+        v = v.args[0]
+    return v
+
+
+def _moved_by_copy(v, batch: int) -> bool:
+    """Whether a ``bmm`` operand's ``batch`` axes were moved into place by
+    a copy: ``v`` is a view of a ``clone`` whose source holds the axes
+    that make up the batch (its leading ones) at smaller strides than an
+    axis behind them — how ``torch.einsum`` brings non-leading batch axes
+    to the front (the model attention's ``bqkgh,bckh->bqkgc``).  The
+    contraction a jaxpr holds there has batch axes that are not leading;
+    the reference never anchors it.  Broadcast (stride-0) axes move
+    nothing."""
+    root = _view_root(v)
+    if node_name(root) != "clone" or not isinstance(root.args[0], fx.Node):
+        return False
+    src = node_val(root.args[0])
+    j, extent = 0, 1
+    while extent < batch and j < src.dim():
+        extent *= src.shape[j]
+        j += 1
+    if extent != batch:
+        return False
+    live = [(d > 1 and st > 0, st) for d, st in zip(src.shape, src.stride())]
+    lead = [st for ok, st in live[:j] if ok]
+    rest = [st for ok, st in live[j:] if ok]
+    return bool(lead and rest) and min(lead) < max(rest)
+
+
+def _batch_shape(node) -> tuple:
+    """The leading axes a ``bmm``'s batch axis folds, recovered from a
+    view of its product or of its lhs' source ([B, H, S, D] -> (B, H)),
+    else ``(batch,)``."""
+    b, m, n = _shape(node)
+    cands = [(_shape(u), (m, n)) for u in node.users if _view_step(u)]
+    cands.append((_shape(_view_root(node.args[0])), _shape(node.args[0])[1:]))
+    for shape, tail in cands:
+        if len(shape) >= 3 and shape[-2:] == tuple(tail) and \
+                _prod(shape[:-2]) == b:
+            return tuple(shape[:-2])
+    return (b,)
+
+
+def _contiguous(v) -> bool:
+    val = node_val(v)
+    return isinstance(val, torch.Tensor) and val.is_contiguous()
+
+
+def _fold_bmm_views(gm: fx.GraphModule) -> None:
+    """Collapse the chains of views around each ``bmm`` whose batch axes
+    lead (``torch.einsum`` writes ``view -> permute -> view`` where a
+    jaxpr holds one ``dot_general``): a contiguous operand reached through
+    views of a contiguous value of the same size becomes one ``view`` of
+    that value, and the last contiguous view of the product reached
+    through single-use views becomes one ``view`` of the product.  Element
+    order is the same on both ends, so the values are unchanged; the views
+    left without users are removed."""
+    aten = torch.ops.aten
+    gone: list = []
+
+    def refold(n, root) -> None:
+        shape = list(_shape(n))
+        chain = []
+        u = n.args[0]
+        while u is not root:
+            chain.append(u)
+            u = u.args[0]
+        n.target = aten.view.default
+        n.args, n.kwargs = (root, shape), {}
+        n.meta["val"] = node_val(root).view(shape)
+        gone.extend(chain)
+
+    for node in list(gm.graph.nodes):
+        if node_name(node) != "bmm" or any(
+                _moved_by_copy(a, _shape(node)[0]) for a in node.args[:2]):
+            continue
+        for a in node.args[:2]:
+            if not (_view_step(a) and _contiguous(a)):
+                continue
+            root, u = None, a
+            while _view_step(u):
+                u = u.args[0]
+                if _contiguous(u) and _size(u) == _size(a):
+                    root = u
+            if root is not None and root is not a.args[0]:
+                refold(a, root)
+        last, u = None, node
+        while len(u.users) == 1:
+            nxt = next(iter(u.users))
+            if not _view_step(nxt) or nxt.args[0] is not u:
+                break
+            u = nxt
+            if _contiguous(u) and _size(u) == _size(node):
+                last = u
+        if last is not None and last.args[0] is not node:
+            refold(last, node)
+    for n in dict.fromkeys(gone):
+        if not n.users:
+            gm.graph.erase_node(n)
+    if gone:
+        gm.graph.lint()
+        gm.recompile()
 
 
 # ---------------------------------------------------------------------------
@@ -679,8 +854,6 @@ def plan_offload(gm: fx.GraphModule, *,
         """Views that keep the 2-D view of a value the segment made, lane
         slices, lane concats and broadcasts."""
         nonlocal cur_rows
-        if mm is not None and mm["form"] == "drhs":
-            return False            # lanes are blocked: no lane remaps
         name = node_name(node)
         if not isinstance(node_val(node), torch.Tensor):
             return False
@@ -712,6 +885,8 @@ def plan_offload(gm: fx.GraphModule, *,
             current.append(i)
             return True
 
+        if mm is not None and mm["form"] == "drhs":
+            return False            # lanes are blocked: no lane remaps
         continuation = any(v in produced for v in node.all_input_nodes)
         if _size(node) < bulk_threshold and not continuation:
             return False
@@ -821,9 +996,12 @@ def plan_offload(gm: fx.GraphModule, *,
 
     def out_of_slice(node) -> str | None:
         """Why an anchor candidate is declined outright, or None."""
-        if node_name(node) == "bmm":
-            return ("batched anchor (bmm): batched contractions are not "
-                    "planned by the port yet; runs unfused")
+        if node_name(node) == "bmm" and any(
+                _moved_by_copy(a, _shape(node)[0]) for a in node.args[:2]):
+            return ("batched anchor (bmm): batch axes not leading — a copy "
+                    "(clone of a permute) moved them into place; runs "
+                    "unfused, as the reference leaves a dot_general with "
+                    "non-leading batch axes")
         if mm_form(node) is None:
             return ("strided mm: an operand is neither row-major nor the "
                     "transposed view of a row-major tensor; runs unfused")
@@ -832,8 +1010,10 @@ def plan_offload(gm: fx.GraphModule, *,
     def try_admit_anchor(i, node) -> bool:
         nonlocal mm, cur_rows, n_compute, current, specs, produced
         if mm is not None:
-            return False                 # one anchor per segment
-        if node_name(node) != "mm" or i in declined_anchors:
+            return try_admit_flash(i, node)  # one anchor per segment,
+            #                                  except the flash pair
+        name = node_name(node)
+        if name not in ("mm", "bmm") or i in declined_anchors:
             return False
         lhs_v, rhs_v = node.args[0], node.args[1]
         if not isinstance(lhs_v, fx.Node) or not isinstance(rhs_v, fx.Node):
@@ -847,19 +1027,22 @@ def plan_offload(gm: fx.GraphModule, *,
         if _size(node) < bulk_threshold:
             return False
         lshape, rshape, oshape = _shape(lhs_v), _shape(rhs_v), _shape(node)
-        m_rows, n_cols = oshape
+        batch = oshape[0] if name == "bmm" else 1
+        batch_shape = _batch_shape(node) if name == "bmm" else ()
+        m_rows, n_cols = batch * oshape[-2], oshape[-1]
         k_dim = lshape[-1]
-        if rshape != (k_dim, n_cols):
+        if rshape[-2:] != (k_dim, n_cols) or rshape[:-2] != lshape[:-2]:
             return False
         form = mm_form(node)
         if form == "drhs":
-            return admit_drhs(i, node, lhs_v, rhs_v, dt)
+            return admit_drhs(i, node, lhs_v, rhs_v, dt, batch, batch_shape)
         rhs_pro_eqns: list[int] = []
-        rhs_specs = [OperandSpec(rhs_v, "bulk_w", k_dim, n_cols)]
+        rhs_specs = [OperandSpec(rhs_v, "bulk_w", batch * k_dim, n_cols)]
         if rhs_v in produced:
-            # a weight prologue only on the forward form: the dlhs kernel
-            # reads its weight along the rows of the forward tensor
-            if lhs_v in produced or form != "fwd":
+            # a weight prologue only on the unbatched forward form: the
+            # dlhs kernel reads its weight along the rows of the forward
+            # tensor, a batched one per batch slice
+            if lhs_v in produced or form != "fwd" or batch > 1:
                 return False
             conv = _chain_convertible(i, rhs_v, None, (k_dim, n_cols),
                                       ("bulk_w", "param_w"))
@@ -883,34 +1066,167 @@ def plan_offload(gm: fx.GraphModule, *,
         mm = dict(form=form, eqn_idx=i, lhs_var=lhs_v, lhs_specs=lhs_specs,
                   rhs=rhs_v, rhs_specs=rhs_specs, rhs_pro_eqns=rhs_pro_eqns,
                   pro_eqns=pro_eqns, k=k_dim, n=n_cols, out_var=node,
-                  out_dtype=dt, span_start=span0,
+                  out_dtype=dt, span_start=span0, extra_eqns=[],
+                  batch=batch, batch_shape=batch_shape, flash=None,
                   pro_views=dict(produced))
         current, specs = [], {}
         produced = {node: ("bulk", n_cols)}
         cur_rows, n_compute = m_rows, n_pro + _rounding_op(form, dt)
         return True
 
-    def admit_drhs(i, node, lhs_v, rhs_v, dt) -> bool:
+    def admit_drhs(i, node, lhs_v, rhs_v, dt, batch, batch_shape) -> bool:
         """dw = x^T @ g opens a segment of its own: neither operand may
         come from the open run (a shared cotangent chain is split), and
-        the epilogue that follows is elementwise at full width."""
+        the epilogue that follows is elementwise at full width.  Batched,
+        each batch slice reduces its own token rows."""
         nonlocal mm, cur_rows, n_compute, current, specs, produced
         if current or lhs_v in produced or rhs_v in produced:
             return False
-        rows, m_dim = _shape(lhs_v)
-        n_cols = _shape(rhs_v)[1]
+        rows, m_dim = _shape(lhs_v)[-2:]
+        n_cols = _shape(rhs_v)[-1]
         mm = dict(form="drhs", eqn_idx=i, lhs_var=lhs_v,
-                  lhs_specs=[OperandSpec(lhs_v, "bulk_m", m_dim, rows)],
+                  lhs_specs=[OperandSpec(lhs_v, "bulk_m", batch * m_dim,
+                                         rows)],
                   rhs=rhs_v,
-                  rhs_specs=[OperandSpec(rhs_v, "bulk_w", m_dim, n_cols)],
+                  rhs_specs=[OperandSpec(rhs_v, "bulk_w", batch * m_dim,
+                                         n_cols)],
                   rhs_pro_eqns=[], pro_eqns=[], k=m_dim, n=n_cols,
-                  out_var=node, out_dtype=dt, span_start=i, pro_views={})
+                  out_var=node, out_dtype=dt, span_start=i, extra_eqns=[],
+                  batch=batch, batch_shape=batch_shape, flash=None,
+                  pro_views={})
         current, specs = [], {}
         produced = {node: ("bulk", n_cols)}
-        cur_rows, n_compute = rows, _rounding_op("drhs", dt)
+        cur_rows, n_compute = batch * rows, _rounding_op("drhs", dt)
+        return True
+
+    def scalar_value(v) -> float | None:
+        """The value of a scalar the graph computes from constants alone
+        (a literal, or a tensor constant and its casts), else None."""
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return float(v)
+        if not isinstance(v, fx.Node) or v not in const_nodes or \
+                _size(v) != 1:
+            return None
+        env: dict = {}
+
+        def value(n):
+            if n not in env:
+                if n.op == "get_attr":
+                    env[n] = getattr(gm, n.target)
+                else:
+                    env[n] = n.target(*fx.map_arg(n.args, value),
+                                      **fx.map_arg(n.kwargs, value))
+            return env[n]
+        return float(value(v).reshape(()).item())
+
+    def try_admit_flash(i, node) -> bool:
+        """Second-anchor admission: ride a batched ``dlhs`` anchor whose
+        open epilogue is exactly a scalar scale and a row softmax of the
+        scores (the capture's ``amax / sub / exp / sum / div``, through
+        views that keep the block view) when ``node`` is the batched PV
+        product.  The pair fuses as one flash-shaped segment, dispatched
+        to B5: the [S, T] scores never reach device memory.  Anything
+        else (a mask, other value lanes, a chain value read outside)
+        falls back to flush-then-readmit: two ordinary segments."""
+        nonlocal mm, cur_rows, current, specs, produced
+        if (mm["form"] != "dlhs" or mm["flash"] is not None or
+                mm["pro_eqns"] or mm["rhs_pro_eqns"] or
+                not mm["batch_shape"] or node_name(node) != "bmm"):
+            return False
+        if any(scalar_value(v) is None for v in specs):
+            return False             # an operand that is not a scale
+        lhs_v, rhs_v = node.args[0], node.args[1]
+        if lhs_v not in produced or rhs_v in produced or \
+                mm_form(node) != "fwd":
+            return False
+        lshape, rshape, out = _shape(lhs_v), _shape(rhs_v), node
+        batch, t_dim = mm["batch"], mm["n"]
+        if lshape[0] != batch or lshape[0] * lshape[1] != cur_rows or \
+                lshape[2] != t_dim or rshape[:2] != (batch, t_dim):
+            return False
+        n2 = rshape[2]
+        # B5's accumulator and PV tile take a value width equal to the
+        # head dim; other widths stay two ordinary anchored segments
+        if n2 != mm["k"]:
+            return False
+        dt = _dtype(out)
+        if not dt.is_floating_point or dt.itemsize > 4 or \
+                _dtype(rhs_v) != _dtype(mm["lhs_var"]):
+            return False
+
+        chain = list(current)
+        pos = 0
+
+        def through_views(x):
+            nonlocal pos
+            while pos < len(chain) and _same_view_src(eqns[chain[pos]]) is x:
+                x = eqns[chain[pos]]
+                pos += 1
+            return x
+
+        def step(op, *args):
+            """The next chain node if it is ``op(*args, ...)``."""
+            nonlocal pos
+            if pos < len(chain):
+                e = eqns[chain[pos]]
+                if node_name(e) == op and tuple(e.args[:len(args)]) == args:
+                    pos += 1
+                    return e
+            return None
+
+        def row_stat(op, x):
+            """The next chain node if it is ``op(x, [last], keepdim)``."""
+            e = step(op, x)
+            rank = len(_shape(x))
+            if e is None or e.kwargs or e.args[2:3] != (True,) or \
+                    [d % rank for d in e.args[1]] != [rank - 1]:
+                return None
+            return e
+
+        x = through_views(mm["out_var"])
+        scale = 1.0
+        while pos < len(chain):          # leading scalar scale ops
+            e = eqns[chain[pos]]
+            nm, a = node_name(e), e.args
+            if nm not in ("mul", "div") or len(a) != 2 or e.kwargs:
+                break
+            if a[0] is x:
+                sv = scalar_value(a[1])
+            elif nm == "mul" and a[1] is x:
+                sv = scalar_value(a[0])
+            else:
+                break
+            if sv is None or (nm == "div" and sv == 0.0):
+                return False
+            scale = scale / sv if nm == "div" else scale * sv
+            pos += 1
+            x = through_views(e)
+        stat = row_stat("amax", x)
+        xs = stat and step("sub", x, stat)
+        ex = xs and step("exp", xs)
+        den = ex and row_stat("sum", ex)
+        p = den and step("div", ex, den)
+        if p is None or through_views(p) is not lhs_v or pos != len(chain):
+            return False                 # not a plain scaled softmax
+        chain_set = set(chain)
+        for v in [mm["out_var"], *(eqns[j] for j in chain)]:
+            if v in outvar_set or any(c not in chain_set and c != i
+                                      for c in consumers.get(v, [])):
+                return False             # a chain value escapes
+        mm["flash"] = dict(scale=scale, t_dim=t_dim,
+                           consts={v: specs[v] for v in specs})
+        mm["extra_eqns"] = chain + [i]
+        mm["rhs_specs"] = mm["rhs_specs"] + [
+            OperandSpec(rhs_v, "bulk_v", batch * t_dim, n2)]
+        mm["n"], mm["out_var"], mm["out_dtype"] = n2, out, dt
+        current = []
+        produced = {out: ("bulk", n2)}
+        reduced_vars.clear()
         return True
 
     def try_admit(i, node) -> bool:
+        if mm is not None and mm["flash"] is not None:
+            return False     # the PV product closes a flash segment
         tier = eqn_tier(node_name(node) or "")
         if tier == "near":
             return try_admit_elementwise(i, node)
@@ -949,7 +1265,7 @@ def plan_offload(gm: fx.GraphModule, *,
             span_start, span_end = seg_idx[0], seg_idx[-1]
         else:
             span_start = mm["span_start"]
-            span_end = max([mm["eqn_idx"], *seg_idx])
+            span_end = max([mm["eqn_idx"], *seg_idx, *mm["extra_eqns"]])
         pre = sorted(i for i in hoisted if i < span_end)
 
         member_set = set(seg_set)
@@ -957,6 +1273,7 @@ def plan_offload(gm: fx.GraphModule, *,
             member_set.add(mm["eqn_idx"])
             member_set.update(mm["pro_eqns"])
             member_set.update(mm["rhs_pro_eqns"])
+            member_set.update(mm["extra_eqns"])
 
         def escapes(v) -> bool:
             return v in outvar_set or any(
@@ -990,7 +1307,12 @@ def plan_offload(gm: fx.GraphModule, *,
             produced_f[out] = produced[out]
             out_candidates.append(out)
 
-        operand_specs: list[OperandSpec] = []
+        # a flash segment's scalar constants stay operands: its planned
+        # backward replays the chain that reads them
+        operand_specs: list[OperandSpec] = [
+            OperandSpec(v, *cls) for v, cls in
+            (mm["flash"]["consts"].items() if mm is not None and
+             mm["flash"] is not None else ())]
         seen: set[Any] = set()
         for i in seg_idx:
             for v in eqns[i].all_input_nodes:
@@ -1027,7 +1349,9 @@ def plan_offload(gm: fx.GraphModule, *,
                 pro_eqns=mm["pro_eqns"], k=mm["k"], n=mm["n"],
                 out_var=mm["out_var"], out_dtype=mm["out_dtype"],
                 form=mm["form"], rhs_specs=mm["rhs_specs"],
-                rhs_pro_eqns=mm["rhs_pro_eqns"])
+                rhs_pro_eqns=mm["rhs_pro_eqns"], extra_eqns=mm["extra_eqns"],
+                batch=mm["batch"], batch_shape=mm["batch_shape"],
+                flash=mm["flash"])
         seg = Segment(
             eqn_idx=seg_idx, rows=cur_rows,
             operand_specs=operand_specs, outputs=outputs, out_cols=out_cols,
@@ -1056,9 +1380,14 @@ def plan_offload(gm: fx.GraphModule, *,
             why = _anchor_epilogue_misfit(seg, eqns, policy.budget)
             if why is not None:
                 decision = decision._with(fused=False, reason=why)
+        form = None
+        if anchor_spec is not None:
+            form = "flash" if anchor_spec.flash is not None \
+                else anchor_spec.form
         decision = decision._with(
-            form=anchor_spec.form if anchor_spec is not None else None,
-            rows=cur_rows, roles=tuple(roles))
+            form=form, rows=cur_rows, roles=tuple(roles),
+            batch=anchor_spec.batch_shape if anchor_spec is not None
+            else ())
         decisions.append(decision)
         if decision.fused:
             segments.append(seg)
@@ -1070,12 +1399,13 @@ def plan_offload(gm: fx.GraphModule, *,
             why = out_of_slice(node)
             if why is not None:
                 declined_anchors.add(i)
+                bmm = node_name(node) == "bmm"
                 decisions.append(SegmentDecision(
-                    tier="anchor", form=("bmm" if node_name(node) == "bmm"
-                                         else "strided"),
+                    tier="anchor", form="bmm" if bmm else "strided",
                     eqns=0, rows=_bulk_view(_shape(node))[0], roles=(),
                     near_bytes=0, far_bytes=_eqn_io_bytes(node),
-                    near_us=0.0, far_us=0.0, fused=False, reason=why))
+                    near_us=0.0, far_us=0.0, fused=False, reason=why,
+                    batch=_batch_shape(node) if bmm else ()))
         if try_admit(i, node):
             continue
         if hoistable(i, node):
@@ -1302,24 +1632,36 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                 progs.body, vals, epi_meta, rows=seg.rows,
                 out_cols=seg.out_cols, out_dtypes=out_dtypes,
                 rows_block=GRID_ROWS_BLOCK, impl=impl)
+    elif mm.flash is not None:
+        def run(vals):
+            # q, the transposed view of k, v; the chain's scalar
+            # constants (vals[3:]) are folded into the extracted scale
+            return kops.fused_flash_segment(
+                vals[0], vals[1].transpose(-1, -2), vals[2], batch=mm.batch,
+                rows=seg.rows, head_dim=mm.k, t_dim=mm.flash["t_dim"],
+                n_dim=mm.n, scale=mm.flash["scale"],
+                out_dtype=mm.out_dtype, impl=impl)
     elif mm.form == "drhs":
         def run(vals):
             # vals[0] is the [rows, m] transposed view of the activation
             return kops.fused_matmul_drhs_segment(
-                progs.body, vals[0].t(), vals[1], vals[2:], epi_meta,
-                m_dim=mm.k, rows=seg.rows, n_dim=mm.n, **common)
+                progs.body, vals[0].transpose(-1, -2), vals[1], vals[2:],
+                epi_meta, m_dim=mm.k, rows=seg.rows, n_dim=mm.n,
+                batch=mm.batch, **common)
     else:
         n_lhs, n_rhs = len(mm.lhs_specs), len(mm.rhs_specs)
         lhs_meta = tuple(s.meta for s in mm.lhs_specs)
         rhs_meta = tuple(s.meta for s in mm.rhs_specs)
         kw = dict(rows=seg.rows, k_dim=mm.k, n_dim=mm.n,
-                  rows_block=MATMUL_ROWS_BLOCK, sms=seg.sms, **common)
+                  rows_block=MATMUL_ROWS_BLOCK, sms=seg.sms, batch=mm.batch,
+                  **common)
         if mm.form == "dlhs":
             def run(vals):
                 # vals[n_lhs] is the [k, n] transposed view of the weight
                 return kops.fused_matmul_dlhs_segment(
                     progs.lhs, progs.body, vals[:n_lhs], lhs_meta,
-                    vals[n_lhs].t(), vals[n_lhs + 1:], epi_meta, **kw)
+                    vals[n_lhs].transpose(-1, -2), vals[n_lhs + 1:],
+                    epi_meta, **kw)
         else:
             def run(vals):
                 return kops.fused_matmul_segment(
@@ -1336,6 +1678,12 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                for v in seg.outputs]
 
     def call(*vals):
+        # a 0-dim CPU tensor (a constant such as ``torch.tensor(2.0)``)
+        # joins CUDA operands, as it may in an eager op
+        dev = next((v.device for v in vals if v.is_cuda), None)
+        if dev is not None:
+            vals = [v.to(dev) if v.dim() == 0 and not v.is_cuda else v
+                    for v in vals]
         outs = []
         for o, shp, st in zip(run(list(vals)), shapes, strides):
             o = o.view(shp)
@@ -1344,6 +1692,7 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                                         device=o.device).copy_(o)
             outs.append(o)
         return tuple(outs)
+    call.segment = seg
     return call
 
 
@@ -1427,7 +1776,7 @@ def _schedule_epilogues(gm: fx.GraphModule) -> None:
     product, for one — where a jaxpr puts them after the product they
     transform."""
     nodes = list(gm.graph.nodes)
-    for m in [n for n in nodes if node_name(n) == "mm"]:
+    for m in [n for n in nodes if node_name(n) in ("mm", "bmm")]:
         at = nodes.index(m)
         avail, chain = set(nodes[:at + 1]), [m]
         for c in nodes[at + 1:]:
@@ -1476,6 +1825,7 @@ def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
     gm = make_fx(flat_fn, tracing_mode="fake",
                  decomposition_table=DECOMPOSITIONS)(*tensors)
     _linearize_order(gm)
+    _fold_bmm_views(gm)
     return gm, out_spec_box[-1], is_tensor
 
 
@@ -1515,7 +1865,9 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
             continue
         for j in seg.pre_eqns:
             copy(eqns[j])
-        fn = _segment_kernel(seg, segment_programs(eqns, seg), impl=impl)
+        progs = None if seg.matmul is not None and \
+            seg.matmul.flash is not None else segment_programs(eqns, seg)
+        fn = _segment_kernel(seg, progs, impl=impl)
         if grad_policy is not None:
             fn = _segment_vjp(eqns, seg, fn, policy=grad_policy)
         call = graph.call_function(
@@ -1533,17 +1885,23 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
 def segment_call(eqns: Sequence, seg: Segment) -> dict:
     """Everything one fused call of ``seg`` needs besides the operand
     values: its programs, the operands' 2-D views and dtypes, the
-    outputs, and (anchored) the contraction extents.  What a kernel
-    check on the card builds its inputs from."""
-    progs = segment_programs(eqns, seg)
+    outputs, and (anchored) the contraction extents and batch.  What a
+    kernel check on the card builds its inputs from.  A flash segment
+    (``kind="flash"``) has no programs: B5 computes its fixed chain."""
     mm = seg.matmul
+    flash = mm is not None and mm.flash is not None
+    progs = None if flash else segment_programs(eqns, seg)
     specs = ([sp.meta for sp in mm.lhs_specs] + [sp.meta for sp in
                                                    mm.rhs_specs]
              if mm is not None else [])
     specs += [sp.meta for sp in seg.operand_specs]
     return dict(
-        kind="grid" if mm is None else "matmul", progs=progs,
-        form=mm.form if mm is not None else None,
+        kind="grid" if mm is None else "flash" if flash else "matmul",
+        progs=progs, form=mm.form if mm is not None else None,
+        batch=mm.batch if mm is not None else 1,
+        batch_shape=mm.batch_shape if mm is not None else (),
+        scale=mm.flash["scale"] if flash else None,
+        t_dim=mm.flash["t_dim"] if flash else 0,
         specs=specs, dtypes=[_dtype(v) for v in _segment_arg_vars(seg)],
         rows=seg.rows, out_cols=list(seg.out_cols),
         out_dtypes=[_dtype(v) for v in seg.outputs],
@@ -1562,6 +1920,8 @@ def kernel_symbol(call: dict) -> str:
         return fe.triton_source(call["progs"].body, rows=call["rows"],
                                 specs=call["specs"],
                                 rows_block=GRID_ROWS_BLOCK)[0]
+    if call["kind"] == "flash":
+        return "flash_attention"
     return _matmul_gen(call)["name"]
 
 
@@ -1583,14 +1943,14 @@ def _matmul_gen(call: dict) -> dict:
             out_dtypes=outs, rows=call["rows"], k_dim=call["k"],
             n_dim=call["n"], acc_dtype=dtype_name(call["acc_dtype"]),
             rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=call["vmem_bytes"],
-            sms=call["sms"])
+            sms=call["sms"], batch=call["batch"])
     if call["form"] == "drhs":
         return fmb.drhs_source(
             call["progs"].body, tuple(specs[2:]), lhs_dtype=dts[0],
             rhs_dtype=dts[1], epi_dtypes=tuple(dts[2:]), out_dtypes=outs,
             m_dim=call["k"], rows=call["rows"], n_dim=call["n"],
             acc_dtype=dtype_name(call["acc_dtype"]),
-            vmem_bytes=call["vmem_bytes"])
+            vmem_bytes=call["vmem_bytes"], batch=call["batch"])
     return fm.segment_source(
         call["progs"].lhs, call["progs"].rhs, call["progs"].body,
         tuple(specs[:nl]), tuple(specs[nl:nl + nr]),
@@ -1600,7 +1960,7 @@ def _matmul_gen(call: dict) -> dict:
         rows=call["rows"], k_dim=call["k"], n_dim=call["n"],
         acc_dtype=dtype_name(call["acc_dtype"]),
         rows_block=MATMUL_ROWS_BLOCK, vmem_bytes=call["vmem_bytes"],
-        sms=call["sms"])
+        sms=call["sms"], batch=call["batch"])
 
 
 def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
@@ -1609,7 +1969,7 @@ def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
     from repro_torch.kernels import fused_matmul as fm
 
     gens = [_matmul_gen(segment_call(eqns, s)) for s in plan.segments
-            if s.matmul is not None]
+            if s.matmul is not None and s.matmul.flash is None]
     return fm.prepare_library(gens) if gens else []
 
 
@@ -1688,6 +2048,7 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
             [cts[j].detach() for j in outs])
         gm.graph.eliminate_dead_code()
         _schedule_epilogues(gm)
+        _fold_bmm_views(gm)
         t1 = time.perf_counter()
         plan = plan_offload(gm, policy=policy)
         run = _build_runner(gm, plan, policy.impl)
@@ -1698,7 +2059,8 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
         return run, plan, diff, rest, outs
 
     def entry_for(primals, cts):
-        key = ("bwd", policy, tuple(map(_bwd_signature, primals)),
+        key = ("bwd", policy, seg.matmul.batch_shape if seg.matmul
+               else (), tuple(map(_bwd_signature, primals)),
                tuple(_bwd_signature(c) for c in cts if c is not None))
         entry = cache.get(key)
         if entry is None:

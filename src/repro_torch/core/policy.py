@@ -167,7 +167,7 @@ class SegmentDecision:
     """One candidate segment's §IV-B1 verdict."""
 
     tier: str                    # "elementwise" | "anchor"
-    form: str | None             # "fwd" for anchored candidates
+    form: str | None             # fwd/dlhs/drhs/flash for anchored candidates
     eqns: int                    # fused ALU ops (n_compute)
     rows: int                    # shared row extent of the block views
     roles: tuple[str, ...]       # operand roles (bulk/param/rep/tile/...)
@@ -177,6 +177,7 @@ class SegmentDecision:
     far_us: float
     fused: bool
     reason: str
+    batch: tuple = ()            # batch grid axes of a batched anchor
 
     def _with(self, **kw) -> "SegmentDecision":
         return dataclasses.replace(self, **kw)
@@ -213,11 +214,13 @@ class DecisionReport:
                f"traffic {self.traffic_reduction:.2f}x "
                f"({self.naive_bytes / 1e6:.2f} -> "
                f"{self.fused_bytes / 1e6:.2f} MB)")
-        cols = ("idx", "tier", "form", "eqns", "rows", "near_mb", "far_mb",
-                "near_us", "far_us", "decision")
+        cols = ("idx", "tier", "form", "batch", "eqns", "rows", "near_mb",
+                "far_mb", "near_us", "far_us", "decision")
         rows = [cols]
         for i, d in enumerate(self.decisions):
-            rows.append((str(i), d.tier, d.form or "-", str(d.eqns),
+            rows.append((str(i), d.tier, d.form or "-",
+                         "x".join(map(str, d.batch)) if d.batch else "-",
+                         str(d.eqns),
                          str(d.rows), f"{d.near_bytes / 1e6:.2f}",
                          f"{d.far_bytes / 1e6:.2f}", f"{d.near_us:.2f}",
                          f"{d.far_us:.2f}", "FUSE" if d.fused else "decline"))

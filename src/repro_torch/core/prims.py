@@ -44,12 +44,13 @@ LAYOUT_PRIMS = {
     "slice", "cat", "select", "alias",
 }
 
-# the anchor tier: ``mm`` may OPEN a fused segment, in the forward form
-# x[M, K] @ w[K, N], the dlhs form g @ w^T (the weight a transposed
-# view) or the drhs form x^T @ g (the activation one).  ``bmm`` is an
-# anchor candidate the planner always declines (batched anchors are not
-# ported yet), as it declines an ``mm`` over any other strides,
-# recording why.
+# the anchor tier: ``mm`` / ``bmm`` may OPEN a fused segment, in the
+# forward form x[M, K] @ w[K, N], the dlhs form g @ w^T (the weight a
+# transposed view) or the drhs form x^T @ g (the activation one); a
+# ``bmm`` per slice of its leading batch axis, and a batched dlhs QK^T
+# may pair with the PV ``bmm`` into a flash segment.  The planner
+# declines, recording why, an operand over any other strides and a
+# ``bmm`` whose batch axes a copy moved into place.
 ANCHOR_PRIMS = {"mm", "bmm"}
 
 # lane-axis reductions admissible inside a segment: the row statistic

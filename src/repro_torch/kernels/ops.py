@@ -19,6 +19,7 @@ from repro_torch.kernels import fused_elementwise as _fe
 from repro_torch.kernels import fused_matmul as _fm
 from repro_torch.kernels import fused_matmul_bwd as _fmb
 from repro_torch.kernels.blockprog import BlockProgram
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention as _paged_decode_cuda,
     paged_decode_attention_plain,
@@ -28,7 +29,8 @@ from repro_torch.kernels.guard import kernel_guard, resolve_impl
 #: every ported kernel, by the name its launch counter goes under
 KERNELS = ("paged_decode_attention", "fused_segment_grid",
            "fused_matmul_segment", "fused_matmul_dlhs_segment",
-           "fused_matmul_drhs_segment", "adamw_update")
+           "fused_matmul_drhs_segment", "adamw_update", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,6 +43,41 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                             block_tables, lengths)
     return _paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths,
                               **kw)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None, return_lse: bool = False,
+                    impl: str = "auto"):
+    """Flash attention forward: q ``[B, S, NQ, H]``, k / v ``[B, T, NK,
+    H]`` (GQA), causal / sliding-window masks, ``scale`` (default
+    1/sqrt(H)); returns ``out`` or ``(out, lse)``.  The reference's
+    ``q_block`` / ``kv_block`` / ``interpret`` arguments shape TPU blocks
+    only and are not carried over (B5 picks its tiles from the shapes)."""
+    kw = dict(causal=causal, window=window, scale=scale,
+              return_lse=return_lse)
+    if resolve_impl(impl, q) == "ref":
+        return _flash.flash_attention_plain(q, k, v, **kw)
+    return _flash.flash_attention(q, k, v, **kw)
+
+
+def fused_flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        batch: int, rows: int, head_dim: int, t_dim: int,
+                        n_dim: int, scale: float, out_dtype: torch.dtype,
+                        impl: str = "auto") -> tuple:
+    """Flash-shaped anchored segment: QK^T -> scale / row-softmax -> PV
+    as ONE launch of B5, the [S, T] score matrix never touching device
+    memory.  Per batch slice q is ``[S, head_dim]`` (``rows`` spans all
+    slices), k ``[t_dim, head_dim]`` and v ``[t_dim, n_dim]`` with
+    ``n_dim == head_dim``; one head per slice, no mask, the ``scale``
+    the planner extracted from the chain.  Returns ``([rows, n_dim],)``."""
+    s_pb = rows // batch
+    out = flash_attention(
+        q.reshape(batch, s_pb, 1, head_dim),
+        k.reshape(batch, t_dim, 1, head_dim),
+        v.reshape(batch, t_dim, 1, n_dim), causal=False, window=0,
+        scale=scale, impl=impl)
+    return (out.reshape(rows, n_dim).to(out_dtype),)
 
 
 def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],

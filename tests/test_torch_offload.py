@@ -250,9 +250,10 @@ def test_decoder_block_chain_plans_like_jax(name):
 # ------------------------------------------------------ declines / modes
 def test_transposed_weight_mm_and_bmm_are_declined_with_a_reason():
     """A transposed weight is the dlhs form and is planned; a batched
-    contraction (``bmm``) and an ``mm`` over a strided operand (neither
-    row-major nor a transposed row-major view) are declined, each with
-    its reason, and run unfused."""
+    contraction (``bmm``) with leading batch axes anchors the batched
+    forward form; an ``mm`` over a strided operand (neither row-major nor
+    a transposed row-major view) is declined with its reason and runs
+    unfused."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((48, 32)).astype(np.float32))
@@ -274,15 +275,16 @@ def test_transposed_weight_mm_and_bmm_are_declined_with_a_reason():
     policy = OffloadPolicy(bulk_threshold=64)
     plan = offload_report(dlhs, x, w, policy=policy)
     assert [s.matmul.form for s in plan.segments] == ["dlhs"]
-    for fn, args, form, why in (
-            (batched, (xb, wb), "bmm", "batched contractions are not "
-             "planned"),
-            (strided, (x, wide), "strided", "neither row-major nor")):
-        plan = offload_report(fn, *args, policy=policy)
-        assert all(s.matmul is None for s in plan.segments)
-        declined = [d for d in plan.decisions if d.form == form]
-        assert len(declined) == 1 and not declined[0].fused
-        assert why in declined[0].reason
+    plan = offload_report(batched, xb, wb, policy=policy)
+    assert [(s.matmul.form, s.matmul.batch, s.matmul.batch_shape)
+            for s in plan.segments] == [("fwd", 4, (4,))]
+    assert [(d.form, d.batch, d.fused) for d in plan.decisions] == \
+        [("fwd", (4,), True)]
+    plan = offload_report(strided, x, wide, policy=policy)
+    assert all(s.matmul is None for s in plan.segments)
+    declined = [d for d in plan.decisions if d.form == "strided"]
+    assert len(declined) == 1 and not declined[0].fused
+    assert "neither row-major nor" in declined[0].reason
     for fn, args in ((dlhs, (x, w)), (batched, (xb, wb)),
                      (strided, (x, wide))):
         torch.testing.assert_close(mpu_offload(fn, policy=policy)(*args),

@@ -253,6 +253,12 @@ def _train_step(x, w1, b1, w2, m1, m2):
     return w1n, w2n, b1n, m1n, m2n
 
 
+def _batched_gemm_bwd(g, x, w):
+    dx = torch.tanh(g @ w.transpose(1, 2)) * 0.5 + x * 0.1
+    dw = x.transpose(1, 2) @ g + 0.01 * w
+    return dx, dw
+
+
 # the bench's shapes (its inputs are jax.random; these are numpy)
 BWD_CHAINS = {
     "GEMM_BWD": (_gemm_bwd, [((4096, 256), 1.0), ((4096, 256), 1.0),
@@ -263,13 +269,16 @@ BWD_CHAINS = {
     "TRAIN_STEP": (_train_step, [((2048, 256), 1.0), ((256, 512), 0.05),
                                  ((512,), 1.0), ((512, 256), 0.05),
                                  ((256, 512), 0.0), ((512, 256), 0.0)]),
+    "BATCHED_GEMM_BWD": (_batched_gemm_bwd, [
+        ((8, 256, 64), 1.0), ((8, 256, 128), 1.0), ((8, 128, 64), 0.1)]),
 }
 
 
 def test_backward_chains_are_the_three_with_a_backward_floor():
+    """Every MUST_FUSE chain with a backward floor — the three unbatched
+    ones and the batched GEMM backward — is held below."""
     assert sorted(n for n, (_, _, bwd) in _BENCH.MUST_FUSE.items()
-                  if bwd and not n.startswith("BATCHED")) == \
-        sorted(BWD_CHAINS)
+                  if bwd) == sorted(BWD_CHAINS)
 
 
 @pytest.mark.parametrize("name", sorted(BWD_CHAINS))

@@ -321,7 +321,9 @@ def test_engine_surface_of_this_slice(setup):
     assert stats["kernel_launches"] == {
         "paged_decode_attention": 0, "fused_segment_grid": 0,
         "fused_matmul_segment": 0, "fused_matmul_dlhs_segment": 0,
-        "fused_matmul_drhs_segment": 0, "adamw_update": 0}
+        "fused_matmul_drhs_segment": 0, "adamw_update": 0,
+        "flash_attention": 0, "flash_attention_bwd_dkv": 0,
+        "flash_attention_bwd_dq": 0}
     assert stats["table_width"] == 8 and stats["guard_epoch"] == 0
 
 

@@ -276,6 +276,30 @@ def test_offloaded_train_step_matches_the_jax_plain_step(pair):
                                    ["0"]["ffn"]["up"][0])))
 
 
+def test_model_attention_bmm_stays_declined_and_the_plan_is_unchanged(pair):
+    """The model attention's einsums reach ``bmm`` through a permute and a
+    copy (their batch axes are not leading, as in the reference's
+    jaxpr): with batched anchors planned, the 2-layer loss still declines
+    its 4 attention ``bmm`` with that reason, and every other count of
+    the plan is as before (18 grid + 7 fwd fused; 12 grid + 8 fwd
+    declined)."""
+    step = make_train_step(pair["tmodel"], TrainConfig(remat=False),
+                           offload=True)
+    plan = step.loss_fn.plan_for(pair["state"].params,
+                                 device_batch(pair["batch"], "cpu"))
+    counts = {}
+    for d in plan.decisions:
+        key = (d.fused, d.form or "grid")
+        counts[key] = counts.get(key, 0) + 1
+    assert counts == {(True, "grid"): 18, (True, "fwd"): 7,
+                      (False, "grid"): 12, (False, "fwd"): 8,
+                      (False, "bmm"): 4}, counts
+    bmm = [d for d in plan.decisions if d.form == "bmm"]
+    assert all("batch axes not leading" in d.reason for d in bmm)
+    assert all(s.matmul is None or s.matmul.batch == 1
+               for s in plan.segments)
+
+
 def test_bf16_offloaded_step_fuses_both_gradient_forms():
     """With f32 masters and bf16 compute the backward plans anchor every
     gradient contraction — dlhs and drhs round their f32 products to
