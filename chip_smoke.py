@@ -10,7 +10,8 @@ against its plain PyTorch version:
 
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
-   ``build/`` (one ``nvcc`` per source, started together);
+   ``build/`` (one ``nvcc`` per source, started together), naming each
+   instantiation whose registers spill;
 3. ``paged_decode_attention`` vs its plain version on the card: small
    shapes in f32 (2e-5) and bf16 (2e-2, and within one bf16 rounding of
    the plain version run in f32) with permuted tables, ragged lengths
@@ -66,7 +67,24 @@ against its plain PyTorch version:
    ``BATCHED_GEMM_BWD`` chain (f32, bf16) and of the backward plans
    against its plain version; B5 and each B7 kernel timed beside the
    bound, the plain version and ``scaled_dot_product_attention``;
-9. a ``kernels`` JSON line, then the card line, then the result line.
+9. the kernel library's rmsnorm (B9, forward and backward), rotary (B10)
+   and dense decode attention (B11, token-major and head-major) through
+   ``ops``: each against its plain version at the CPU tests' shapes in f32
+   (2e-5) and bf16 (2e-2), plus rows too wide for B9's registers (the
+   wide kernels, any D) and a misaligned x, and decode with ragged, full
+   and empty rows in one split and in several (by T); at the width of qwen3-1.7b (hidden states
+   [2, 1024, 2048], the q-norm [2, 1024, 16, 128], q / k [2048, 16 | 8,
+   128] at theta 1e6, phase 3's cache gathered into dense caches), bf16
+   and f32, one counted run of the path (every call a kernel launch, the
+   plain versions only where asked for by ``impl="ref"``), B9's gradient
+   through ``RMSNormFn`` against autograd of the plain version with a
+   bit-equal ``ds`` over three launches, B10 at positions to 32,767, B11
+   against B1 on the same cache and bit-equal across layouts; each timed
+   (CUDA-graph replay, inputs rotated past the L2) beside the bound, the
+   plain version and ``F.rms_norm`` / its fused backward / SDPA; and
+   B9 at d_model 16,384, the backward on its wide kernel, checked and
+   timed beside the same;
+10. a ``kernels`` JSON line, then the card line, then the result line.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -75,9 +93,11 @@ matrix products run in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -92,7 +112,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels import fused_elementwise as fe
 from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
@@ -101,6 +120,8 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.models import build_model
 from repro_torch.models.layers import cast_params
 from repro_torch.serve import Engine, Request
+# the module, not the entry point of the same name the package exports
+fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
 
 # datasheet figures of one H100 SXM (NVIDIA): the bound is computed
 # against these whatever the card's power limit, which is printed beside
@@ -244,17 +265,32 @@ def phase_environment() -> str:
     return card
 
 
+def spilling_entries(log: str) -> list[str]:
+    """The kernels (demangled where ``c++filt`` is at hand) whose
+    ``ptxas -v`` report shows spill stores."""
+    names, entry = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln and "0 bytes spill stores" not in ln:
+            names.append(entry)
+    if names and shutil.which("c++filt"):
+        names = run(["c++filt", *names]).splitlines()
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            for n in names]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     for name, log in logs.items():
         usage = [ln for ln in log.splitlines() if "registers" in ln]
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in usage})
-        spills = sum("spill" in ln and "0 bytes spill stores" not in ln
-                     for ln in log.splitlines())
+        spills = spilling_entries(log)
         print(f"[2] built {name}.cu in {_build.BUILD_SECONDS[name]:.1f} s "
               f"(registers per thread by instantiation: {regs}; "
-              f"{spills} with spills)")
+              f"{len(spills)} with spills{': ' if spills else ''}"
+              f"{', '.join(spills)})")
     print(f"[2] build total {time.perf_counter() - t0:.1f} s -> "
           f"{_build.build_dir()}")
 
@@ -1999,6 +2035,457 @@ def phase_flash(card: str) -> tuple[dict, dict]:
                         **row) for name, row in b7.items()})
 
 
+# --- phase 9: the kernel library's rmsnorm (B9), rotary (B10) and dense
+# decode attention (B11) ---------------------------------------------------
+
+#: the CPU tests' shapes (tests/test_torch_library_kernels.py), plus a D
+#: that takes the scalar path in both dtypes, one wide enough that a
+#: thread holds several vectors, and rows too wide for the registers (the
+#: wide kernels, csrc/rmsnorm.cu): a scalar D of 2,050 (bf16 forward; the
+#: backward still in registers), 4,099 (scalar, both directions, both
+#: dtypes), 8,200 over 300 rows (f32 both directions, bf16 backward; more
+#: rows than backward blocks), 16,392 (vectors, both) and 40,968 over 140
+#: rows (the wide backward's partial row too large for shared memory)
+NORM_SMALL = [(64, 128), (33, 96), (257, 64), (31, 99), (5, 8192),
+              (7, 2050), (3, 4099), (300, 8200), (5, 16392), (140, 40968)]
+ROPE_SMALL = [(100, 4, 32, 1e4), (64, 1, 64, 1e6), (16, 3, 20, 1e4)]
+#: B11 cuts live tokens into 64-token chunks and the chunks into splits by
+#: the shapes alone: T = 40 is one split, the others several (4, 2, 9)
+DECODE_SMALL = [(3, 40, 4, 2, 32), (2, 256, 8, 2, 32), (3, 100, 4, 4, 16),
+                (1, 513, 2, 1, 64)]
+#: full width: the training batch's hidden states [2, 1024, d_model]
+LIB_TOKENS = (2, 1024)
+#: B9's ds sums one product a row over every row, in another order than
+#: the plain version (per-block runs, then the block partials); in f32
+#: each order errs by a few units of 2^-24 of the column's sum of
+#: |g * xhat| per addition level, so the difference is held to 2^-19 (32
+#: such units) of that sum, beside 2e-5 of |ds|
+DS_ULPS_F32 = 2.0 ** -19
+#: distinct input buffers the timed loops rotate through, so that each
+#: call finds its inputs out of the 50 MB L2 (8 MB each for B9 / B10, 67
+#: MB of K + V each for B11)
+LIB_ROTATE = {"rmsnorm": 8, "rmsnorm_bwd": 4, "rotary": 8,
+              "decode_attention": 3}
+
+
+def rope_far_bound(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """Per-element bound of B10 against its plain version at large
+    positions: a one-ulp difference in a frequency f (2^-24 f for f in
+    [0.5, 1)) moves the angle at position P by up to P 2^-23 f, and the
+    output by that times |x1| + |x2|; plus the f32 slack (2e-5)."""
+    from repro_torch.kernels.rotary import rotary_freqs
+
+    h = x.shape[-1]
+    freqs = rotary_freqs(h, theta, x.device)
+    shift = pos.float()[:, None, None] * 2.0 ** -23 * freqs[None, None, :]
+    mag = x[..., : h // 2].float().abs() + x[..., h // 2:].float().abs()
+    return torch.cat([shift * mag] * 2, dim=-1) + 2e-5
+
+
+def norm_case(gen, rows_shape, d, dtype, scale_dtype):
+    x = torch.randn((*rows_shape, d), generator=gen, device=DEVICE).to(dtype)
+    s = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)).to(
+        scale_dtype)
+    g = torch.randn((*rows_shape, d), generator=gen, device=DEVICE).to(dtype)
+    return x, s, g
+
+
+def norm_grads(x, s, g, eps, impl):
+    """dx, ds of ``ops.rmsnorm`` under the cotangent g (autograd)."""
+    xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+    y = ops.rmsnorm(xl, sl, eps=eps, impl=impl)
+    y.backward(g)
+    return y.detach(), xl.grad, sl.grad
+
+
+def decode_case(shape, dtype, seed):
+    """Dense caches and ragged lengths (T and 1, and 0 with three rows),
+    token-major and head-major copies of the same values."""
+    b, t, nq, nk, h = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = seeded(gen, (b, nq, h), dtype)
+    kc, vc = (seeded(gen, (b, t, nk, h), dtype) for _ in range(2))
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+    if b >= 2:
+        lengths[0], lengths[-1] = t, 1
+    if b >= 3:
+        lengths[1] = 0
+    hm = [c.transpose(1, 2).contiguous() for c in (kc, vc)]
+    return q, kc, vc, hm[0], hm[1], lengths
+
+
+def library_small_shapes() -> None:
+    """B9 (forward, backward), B10 and B11 against their plain versions
+    on the card at the CPU tests' shapes, f32 (2e-5) and bf16 (2e-2)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+
+    worst: dict = {}
+
+    def note(key, ok, err, what):
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(ok, f"{what}: max_abs_err {err:.3e}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for i, (rows, d) in enumerate(NORM_SMALL):
+            gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
+            for sdt in dict.fromkeys((dtype, torch.float32)):
+                x, s, g = norm_case(gen, (rows,), d, dtype, sdt)
+                y, dx, ds = norm_grads(x, s, g, 1e-5, "cuda")
+                wdx, wds = rmsnorm_bwd_plain(x, s, g)
+                check(dx.dtype == dtype and ds.dtype == sdt,
+                      f"B9 gradient dtypes {dx.dtype}, {ds.dtype}")
+                note((dn, "rmsnorm"), *within(y, ops.rmsnorm(
+                    x, s, impl="ref"), TOL[dtype]),
+                    f"B9 at ({rows}, {d}) {dn}")
+                note((dn, "rmsnorm_bwd dx"), *within(dx, wdx, TOL[dtype]),
+                     f"B9-bwd dx at ({rows}, {d}) {dn}")
+                note((dn, "rmsnorm_bwd ds"), *within(ds, wds, TOL[sdt]),
+                     f"B9-bwd ds at ({rows}, {d}) {dn}, scale {sdt}")
+        # x and g one element off 16-byte alignment: scalar loads, and a
+        # row of 2,048 too wide for them in the forward's registers
+        gen = torch.Generator(device=DEVICE).manual_seed(209)
+        x, g = (seeded(gen, (64 * 2048 + 1,), dtype)[1:].view(64, 2048)
+                for _ in range(2))
+        s = norm_case(gen, (1,), 2048, dtype, dtype)[1]
+        check(x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0,
+              "the misaligned B9 case is aligned")
+        note((dn, "rmsnorm"), *within(ops.rmsnorm(x, s, impl="cuda"),
+                                      ops.rmsnorm(x, s, impl="ref"),
+                                      TOL[dtype]),
+             f"B9 on a misaligned x (64, 2048) {dn}")
+        for got, want, what in zip(rmsnorm_bwd(x, s, g),
+                                   rmsnorm_bwd_plain(x, s, g), ("dx", "ds")):
+            note((dn, f"rmsnorm_bwd {what}"), *within(got, want, TOL[dtype]),
+                 f"B9-bwd {what} on a misaligned x, g (64, 2048) {dn}")
+        for i, (r, n, h, theta) in enumerate(ROPE_SMALL):
+            gen = torch.Generator(device=DEVICE).manual_seed(210 + i)
+            x = seeded(gen, (r, n, h), dtype)
+            pos = torch.randint(0, 4096, (r,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+            got = ops.rotary(x, pos, theta=theta, impl="cuda")
+            note((dn, "rotary"), *within(got, ops.rotary(
+                x, pos, theta=theta, impl="ref"), TOL[dtype]),
+                f"B10 at {(r, n, h, theta)} {dn}")
+            check(torch.equal(got, ops.rotary(x, pos.long(), theta=theta,
+                                              impl="cuda")),
+                  "B10 with int64 positions differs from int32")
+        for i, shape in enumerate(DECODE_SMALL):
+            q, kc, vc, kh, vh, lengths = decode_case(shape, dtype, 220 + i)
+            want = ops.decode_attention(q, kc, vc, lengths, impl="ref")
+            tm = ops.decode_attention(q, kc, vc, lengths, impl="cuda")
+            hm = ops.decode_attention(q, kh, vh, lengths, head_major=True,
+                                      impl="cuda")
+            note((dn, "decode_attention"), *within(tm, want, TOL[dtype]),
+                 f"B11 at {shape} {dn}")
+            check(torch.equal(tm, hm), f"B11 token-major and head-major "
+                  f"differ at {shape} {dn}")
+            if shape[0] >= 3:
+                check(bool((tm[1] == 0).all()),
+                      "B11: a row with length 0 must come out as zeros")
+    errs = {f"{d} {n}": f"{e:.2e}" for (d, n), e in worst.items()}
+    print(f"[9] B9 / B10 / B11 at the CPU tests' shapes (and scalar-path, "
+          f"wide and misaligned rows for B9; one and several splits for "
+          f"B11), f32 and bf16, against the plain versions: worst "
+          f"max_abs_err {errs}")
+
+
+def lib_row(ms, plain_ms, library_ms, n_bytes, n_flops, dtype, err) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms, n_bytes=n_bytes)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def library_full_width(card: str) -> tuple[dict, dict]:
+    """The kernel library at the width of qwen3-1.7b: one counted run of
+    the path (``ops.rmsnorm`` forward and backward on the hidden states,
+    the q-norm, ``ops.rotary`` on q and k, ``ops.decode_attention`` in
+    both layouts), its outputs against the plain versions in bf16 and f32,
+    B11 against B1 on the same cache, then each kernel timed.  Returns the
+    kernels line's rows and the path run's launches."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_bwd,
+        rmsnorm_bwd_plain,
+        rmsnorm_plain,
+    )
+    from repro_torch.kernels.rotary import rotary, rotary_plain
+
+    cfg = get_config("qwen3-1.7b")
+    d, nq, nk = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    h, theta, eps = cfg.resolved_head_dim, cfg.rope_theta, cfg.norm_eps
+    b, s = LIB_TOKENS
+    rows = {}
+    counts = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        gen = torch.Generator(device=DEVICE).manual_seed(230)
+        x, sc, g = norm_case(gen, LIB_TOKENS, d, dtype, dtype)
+        xq, scq, _ = norm_case(gen, (*LIB_TOKENS, nq), h, dtype, dtype)
+        q, k = (seeded(gen, (b * s, n, h), dtype) for n in (nq, nk))
+        pos = torch.arange(s, device=DEVICE, dtype=torch.int32).repeat(b)
+        pq, pk, pv, tables, lengths = make_case(MAIN_SHAPE, dtype, seed=100,
+                                                full_row=True)
+        bb, np_, page = MAIN_SHAPE[:3]
+        gath = [c[tables.long()] for c in (pk, pv)]   # [B, NP, NK, page, H]
+        tok = [c.permute(0, 1, 3, 2, 4).reshape(bb, np_ * page, nk, h)
+               .contiguous() for c in gath]
+        hm = [c.permute(0, 2, 1, 3, 4).reshape(bb, nk, np_ * page, h)
+              .contiguous() for c in gath]
+        del gath
+
+        # the path, counted: every call launches its kernel
+        ops.reset_launch_counts()
+        y, dx, ds = norm_grads(x, sc, g, eps, "auto")
+        yq = ops.rmsnorm(xq, scq, eps=eps)
+        rq = ops.rotary(q, pos, theta=theta)
+        rk = ops.rotary(k, pos, theta=theta)
+        o_tm = ops.decode_attention(pq, tok[0], tok[1], lengths)
+        o_hm = ops.decode_attention(pq, hm[0], hm[1], lengths,
+                                    head_major=True)
+        torch.cuda.synchronize()
+        run = ops.launch_counts()
+        want = {"rmsnorm": 2, "rmsnorm_bwd": 1, "rotary": 2,
+                "decode_attention": 2}
+        check(run == {k_: want.get(k_, 0) for k_ in run},
+              f"phase 9 path launches {run}, expected {want}")
+        if dtype == torch.bfloat16:
+            counts = run
+
+        # the plain versions, asked for by impl="ref": no kernel launches
+        ops.reset_launch_counts()
+        wy = ops.rmsnorm(x, sc, eps=eps, impl="ref")
+        wyq = ops.rmsnorm(xq, scq, eps=eps, impl="ref")
+        wrq = ops.rotary(q, pos, theta=theta, impl="ref")
+        wrk = ops.rotary(k, pos, theta=theta, impl="ref")
+        w_tm = ops.decode_attention(pq, tok[0], tok[1], lengths, impl="ref")
+        xl, sl = x.clone().requires_grad_(), sc.clone().requires_grad_()
+        rmsnorm_plain(xl, sl, eps).backward(g)
+        torch.cuda.synchronize()
+        check(not any(ops.launch_counts().values()),
+              f"impl='ref' launched kernels: {ops.launch_counts()}")
+
+        res = {"rmsnorm": within(y, wy, TOL[dtype]),
+               "rmsnorm q-norm": within(yq, wyq, TOL[dtype]),
+               "rmsnorm_bwd dx": within(dx, xl.grad, TOL[dtype]),
+               "rmsnorm_bwd ds": within(ds, sl.grad, TOL[dtype]),
+               "rotary q": within(rq, wrq, TOL[dtype]),
+               "rotary k": within(rk, wrk, TOL[dtype])}
+        if dtype == torch.float32:
+            xhat = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+            mass = (g * xhat).abs().reshape(-1, d).sum(0)
+            diff = (ds - sl.grad).abs()
+            res["rmsnorm_bwd ds"] = (bool((diff <= 2e-5 * sl.grad.abs()
+                                           + DS_ULPS_F32 * mass).all()),
+                                     float(diff.max()))
+            del xhat, mass
+        ok_d = close_to_plain(o_tm, w_tm, (pq, pk, pv, tables, lengths))
+        res["decode_attention"] = (ok_d, max_err(o_tm, w_tm))
+        del xl, sl
+        b1 = paged_decode_attention(pq, pk, pv, tables, lengths)
+        res["decode vs B1"] = (close_to_plain(o_tm, b1, (pq, pk, pv, tables,
+                                                          lengths)),
+                               max_err(o_tm, b1))
+        ds2 = rmsnorm_bwd(x, sc, g, eps=eps)[1]
+        ds3 = rmsnorm_bwd(x, sc, g, eps=eps)[1]
+        torch.cuda.synchronize()
+        for name, (ok, err) in res.items():
+            check(ok, f"{name} full width {dn}: max_abs_err {err:.3e}")
+        check(torch.equal(ds2, ds3) and torch.equal(ds, ds2),
+              f"B9-bwd ds differs between launches ({dn})")
+        check(torch.equal(o_tm, o_hm),
+              f"B11 token-major and head-major differ at full width ({dn})")
+        print(f"[9] full width {dn} (d_model {d}, x {tuple(x.shape)}, q-norm "
+              f"{tuple(xq.shape)}, q {tuple(q.shape)}, k {tuple(k.shape)}, "
+              f"theta {theta:g}, eps {eps:g}; B11 on phase 3's data as dense "
+              f"caches {tuple(tok[0].shape)} / {tuple(hm[0].shape)}): "
+              f"max_abs_err { {n: f'{e:.2e}' for n, (_, e) in res.items()} }; "
+              f"ds bit-equal over three launches, B11 layouts bit-equal, "
+              f"B11 {'bit-equal to' if torch.equal(o_tm, b1) else 'within '
+                     'the rule of'} B1")
+
+        # B10 far out: positions up to 32,767, f32, the stated bound
+        if dtype == torch.float32:
+            gen = torch.Generator(device=DEVICE).manual_seed(231)
+            xf = seeded(gen, (b * s, nq, h), torch.float32)
+            far = torch.randint(0, 32768, (b * s,), generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+            far[:2] = torch.tensor([32767, 0], device=DEVICE)
+            got = rotary(xf, far, theta=theta)
+            want_f = rotary_plain(xf, far, theta)
+            diff = (got - want_f).abs()
+            check(bool((diff <= rope_far_bound(xf, far, theta)).all()),
+                  f"B10 at positions to 32,767: max_abs_err "
+                  f"{float(diff.max()):.3e} beyond the one-ulp bound")
+            print(f"[9] B10 f32 at positions 0..32,767 against its plain "
+                  f"version: max_abs_err {float(diff.max()):.3e} (bound "
+                  f"per element: one ulp of a frequency, at most "
+                  f"{float(rope_far_bound(xf, far, theta).max()):.3e})")
+            continue
+
+        # timing, bf16, CUDA-graph replay, inputs rotated past the L2
+        xs = [x] + [x.clone() for _ in range(LIB_ROTATE["rmsnorm"] - 1)]
+        ms = graph_ms(lambda i: ops.rmsnorm(xs[i % len(xs)], sc, eps=eps),
+                      len(xs))
+        plain_ms = time_ms(lambda i: rmsnorm_plain(xs[i % len(xs)], sc, eps),
+                           len(xs))
+        # every yardstick runs once eagerly, against the plain version,
+        # before a graph captures it (cuDNN allocates on its first call)
+        check(within(F.rms_norm(x, (d,), sc, eps), wy, TOL[dtype])[0],
+              "F.rms_norm disagrees with the plain version")
+        lib_ms = graph_ms(lambda i: F.rms_norm(xs[i % len(xs)], (d,), sc,
+                                               eps), len(xs))
+        rows["rmsnorm"] = lib_row(ms, plain_ms, lib_ms, nbytes(x, y, sc), 0,
+                                  dtype, res["rmsnorm"][1])
+        del xs
+        sets = [(x, g)] + [(x.clone(), g.clone())
+                           for _ in range(LIB_ROTATE["rmsnorm_bwd"] - 1)]
+        n_sets = len(sets)
+        ms = graph_ms(lambda i: rmsnorm_bwd(sets[i % n_sets][0], sc,
+                                            sets[i % n_sets][1], eps=eps),
+                      n_sets)
+        plain_ms = time_ms(lambda i: rmsnorm_bwd_plain(
+            sets[i % n_sets][0], sc, sets[i % n_sets][1], eps), n_sets)
+        # F.rms_norm's autograd backward (FusedRmsNormBackward0) is this
+        # one op; called directly it replays in a graph (autograd does not)
+        _, rstd = torch.ops.aten._fused_rms_norm(x, [d], sc, eps)
+        lib_dx, lib_ds = torch.ops.aten._fused_rms_norm_backward(
+            g, x, [d], rstd, sc, [True, True])
+        check(within(lib_dx, dx, TOL[dtype])[0]
+              and within(lib_ds, ds, TOL[dtype])[0],
+              "_fused_rms_norm_backward disagrees with B9-bwd")
+        lib_ms = graph_ms(lambda i: torch.ops.aten._fused_rms_norm_backward(
+            sets[i % n_sets][1], sets[i % n_sets][0], [d], rstd, sc,
+            [True, True]), n_sets)
+        rows["rmsnorm_bwd"] = lib_row(ms, plain_ms, lib_ms,
+                                      nbytes(x, g, sc, dx, ds), 0, dtype,
+                                      max(res["rmsnorm_bwd dx"][1],
+                                          res["rmsnorm_bwd ds"][1]))
+        del sets, rstd
+        for name, t in (("rotary", q), ("rotary k", k)):
+            ts = [t] + [t.clone() for _ in range(LIB_ROTATE["rotary"] - 1)]
+            ms = graph_ms(lambda i: rotary(ts[i % len(ts)], pos, theta=theta),
+                          len(ts))
+            plain_ms = time_ms(lambda i: rotary_plain(ts[i % len(ts)], pos,
+                                                      theta), len(ts))
+            rows[name] = lib_row(ms, plain_ms, None, 2 * nbytes(t) +
+                                 nbytes(pos), 0, dtype,
+                                 res["rotary q" if t is q else "rotary k"][1])
+            del ts
+        # B11: rotate whole caches; time both layouts
+        n_rot = LIB_ROTATE["decode_attention"]
+        tms = [tok] + [[c.clone() for c in tok] for _ in range(n_rot - 1)]
+        hms = [hm] + [[c.clone() for c in hm] for _ in range(n_rot - 1)]
+        ms = graph_ms(lambda i: ops.decode_attention(
+            pq, *tms[i % n_rot], lengths), n_rot)
+        ms_hm = graph_ms(lambda i: ops.decode_attention(
+            pq, *hms[i % n_rot], lengths, head_major=True), n_rot)
+        plain_ms = time_ms(lambda i: decode_attention_plain(
+            pq, *tms[i % n_rot], lengths), n_rot)
+        mask = (torch.arange(np_ * page, device=DEVICE)[None, :]
+                < lengths[:, None])[:, None, None, :]
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(
+                pq[:, :, None, :], *hms[i % n_rot], attn_mask=mask,
+                enable_gqa=True)
+        check(within(sdpa(0)[:, :, 0], w_tm, TOL[dtype])[0],
+              "scaled_dot_product_attention disagrees with the plain version")
+        lib_ms = graph_ms(sdpa, n_rot)
+        live = int(lengths.sum())
+        elt = pq.element_size()
+        rows["decode_attention"] = lib_row(
+            ms, plain_ms, lib_ms, 2 * live * nk * h * elt + nbytes(pq, o_tm)
+            + nbytes(lengths), 4 * live * nq * h, dtype,
+            res["decode_attention"][1])
+        rows["decode_attention"]["ms_head_major"] = ms_hm
+        del tms, hms
+    for name, r in rows.items():
+        lib = ("none (no one PyTorch call computes it)"
+               if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        extra = (f", head-major {r['ms_head_major']:.4f} ms"
+                 if "ms_head_major" in r else "")
+        print(f"[9]   {name} bf16: {r['ms']:.4f} ms on the card (CUDA-graph "
+              f"replay, {LIB_ROTATE.get(name.split()[0], 1)} rotated input "
+              f"sets{extra}), plain {r['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['n_bytes']} bytes; bound / kernel = "
+              f"{r['bound_ms'] / r['ms']:.1%}), launches in the path run "
+              f"{counts[name.split()[0]]}, on {card}")
+    return rows, counts
+
+
+def library_wide_rows(card: str) -> None:
+    """B9 on rows too wide for the backward's registers: d_model 16,384
+    (the widest dense decoders), 2,048 rows, bf16.  The forward stays on
+    its register path, the backward takes the wide kernel (each row read
+    twice).  Held against the plain versions, then timed beside the bound
+    and the library calls; not an entry of the kernels line."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+
+    d, n_rows, dtype, eps = 16384, 2048, torch.bfloat16, 1e-5
+    gen = torch.Generator(device=DEVICE).manual_seed(232)
+    # two input sets of 67 MB each: every call finds its inputs out of L2
+    sets = [norm_case(gen, (n_rows,), d, dtype, dtype) for _ in range(2)]
+    x, sc, g = sets[0]
+    y = ops.rmsnorm(x, sc, eps=eps, impl="cuda")
+    dx, ds = rmsnorm_bwd(x, sc, g, eps=eps)
+    wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
+    for what, got, want in (("y", y, ops.rmsnorm(x, sc, eps=eps, impl="ref")),
+                            ("dx", dx, wdx), ("ds", ds, wds)):
+        ok, err = within(got, want, TOL[dtype])
+        check(ok, f"B9 {what} at ({n_rows}, {d}) bf16: max_abs_err {err:.3e}")
+    rstd = [torch.ops.aten._fused_rms_norm(xs, [d], ss, eps)[1]
+            for xs, ss, _ in sets]
+    lib_dx = torch.ops.aten._fused_rms_norm_backward(
+        g, x, [d], rstd[0], sc, [True, True])[0]
+    check(within(F.rms_norm(x, (d,), sc, eps), y, TOL[dtype])[0]
+          and within(lib_dx, dx, TOL[dtype])[0],
+          "F.rms_norm or its fused backward disagrees with B9 at d 16,384")
+    fwd = graph_ms(lambda i: ops.rmsnorm(sets[i % 2][0], sets[i % 2][1],
+                                         eps=eps), 2)
+    bwd = graph_ms(lambda i: rmsnorm_bwd(*sets[i % 2], eps=eps), 2)
+    lib_fwd = graph_ms(lambda i: F.rms_norm(sets[i % 2][0], (d,),
+                                            sets[i % 2][1], eps), 2)
+    lib_bwd = graph_ms(lambda i: torch.ops.aten._fused_rms_norm_backward(
+        sets[i % 2][2], sets[i % 2][0], [d], rstd[i % 2], sets[i % 2][1],
+        [True, True]), 2)
+    b_fwd = nbytes(x, y, sc) / HBM_BYTES_PER_S * 1e3
+    b_bwd = nbytes(x, g, dx, sc, ds) / HBM_BYTES_PER_S * 1e3
+    print(f"[9] B9 at d_model 16,384 ({n_rows} rows, bf16; the backward on "
+          f"the wide kernel): forward {fwd:.4f} ms (bound {b_fwd:.4f}, "
+          f"{b_fwd / fwd:.1%}; F.rms_norm {lib_fwd:.4f}), backward "
+          f"{bwd:.4f} ms (bound {b_bwd:.4f}, {b_bwd / bwd:.1%}; fused "
+          f"library backward {lib_bwd:.4f}), on {card}")
+
+
+def phase_library(card: str) -> dict:
+    """Phase 9: the kernel library's B9 (forward, backward), B10 and B11
+    at the CPU tests' shapes and at full width.  Returns the kernels
+    line's four rows."""
+    t0 = time.perf_counter()
+    library_small_shapes()
+    rows, counts = library_full_width(card)
+    library_wide_rows(card)
+    print(f"[9] path launches (bf16 run): "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    print(f"[9] kernel library in {time.perf_counter() - t0:.1f} s")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {name: dict(launches=counts[name],
+                       **{k: rows[name][k] for k in keys})
+            for name in ("rmsnorm", "rmsnorm_bwd", "rotary",
+                         "decode_attention")}
+
+
 def kernel_entry(timed: dict, kind: str) -> dict:
     """The JSON fields of one fused kernel: its most-launched distinct
     segment that has a library yardstick (ties: the larger bound)."""
@@ -2028,7 +2515,9 @@ def main() -> int:
     train_rows, train_counts, b8, _ = phase_train(card)
     torch.cuda.empty_cache()
     b5, b7 = phase_flash(card)
-    print(f"[9] total {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    lib = phase_library(card)
+    print(f"[10] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -2069,7 +2558,23 @@ def main() -> int:
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:218",
-        **b7["dq"]}]}))
+        **b7["dq"]}, {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:52",
+        **lib["rmsnorm"]}, {
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:76",
+        **lib["rmsnorm_bwd"]}, {
+        "name": "rotary", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rotary.cu",
+        "replaces": "src/repro/kernels/rotary.py:42",
+        **lib["rotary"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:118",
+        **lib["decode_attention"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

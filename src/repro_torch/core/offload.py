@@ -1914,12 +1914,12 @@ def segment_call(eqns: Sequence, seg: Segment) -> dict:
 
 def kernel_symbol(call: dict) -> str:
     """The generated kernel's name: one per distinct segment."""
-    from repro_torch.kernels import fused_elementwise as fe
+    from repro_torch.kernels.fused_elementwise import triton_source
 
     if call["kind"] == "grid":
-        return fe.triton_source(call["progs"].body, rows=call["rows"],
-                                specs=call["specs"],
-                                rows_block=GRID_ROWS_BLOCK)[0]
+        return triton_source(call["progs"].body, rows=call["rows"],
+                             specs=call["specs"],
+                             rows_block=GRID_ROWS_BLOCK)[0]
     if call["kind"] == "flash":
         return "flash_attention"
     return _matmul_gen(call)["name"]

@@ -21,7 +21,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.flash_attention import (
+    allowed_keys,
+    check_operands,
+    default_scale,
+    flash_attention as _flash_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.guard import kernel_guard, resolve_impl
 
 SOURCE = "flash_attention_bwd"
@@ -42,12 +48,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     b, s, nq, h = q.shape
     t, nk = k.shape[1], k.shape[2]
     g = nq // nk
-    sc = _fa.default_scale(h) if scale is None else scale
+    sc = default_scale(h) if scale is None else scale
     qg = q.float().reshape(b, s, nk, g, h)
     dog = do.float().reshape(b, s, nk, g, h)
     kf, vf = k.float(), v.float()
-    ok = _fa.allowed_keys(s, t, causal=causal, window=window,
-                          device=q.device)[None, :, None, None, :]
+    ok = allowed_keys(s, t, causal=causal, window=window,
+                      device=q.device)[None, :, None, None, :]
     scores = torch.einsum("bskgh,btkh->bskgt", qg, kf) * sc
     p = torch.where(ok, torch.exp(scores - lse.float().reshape(
         b, s, nk, g, 1)), 0.0)
@@ -78,7 +84,7 @@ def _check_bwd(q, k, v, do, lse, dvec) -> None:
         raise RuntimeError(
             f"flash_attention_bwd launches CUDA kernels; q is on {q.device} "
             "(CPU tensors go through flash_attention_bwd_plain)")
-    _fa.check_operands(q, k, v, do)
+    check_operands(q, k, v, do)
     b, s, nq, h = q.shape
     for name, t in (("lse", lse), ("D", dvec)):
         if t.shape != (b, s, nq) or t.dtype != torch.float32 or \
@@ -104,7 +110,7 @@ def _launch(name: str, q, k, v, do, lse, dvec, outs, causal, window,
                   lse.data_ptr(), dvec.data_ptr(),
                   *(x.data_ptr() for x in outs), b, s, t, nq, nk, h,
                   int(q.dtype == torch.bfloat16), int(causal), int(window),
-                  _fa.default_scale(h) if scale is None else float(scale),
+                  default_scale(h) if scale is None else float(scale),
                   torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = lib.flash_attention_bwd_error(code).decode()
@@ -137,7 +143,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     forward's ``[B, S, NQ]`` f32 log-sum-exp.  Raises on anything the
     kernels do not take (f32 takes head_dim at most 64) or on a refused
     launch.  Returns ``(dq, dk, dv)``."""
-    _fa.check_operands(q, k, v, o)
+    check_operands(q, k, v, o)
     dvec = row_dot(do, o)
     kw = dict(causal=causal, window=window, scale=scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
@@ -151,11 +157,11 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, impl):
         if resolve_impl(impl, q) == "ref":
-            o, lse = _fa.flash_attention_plain(q, k, v, causal=causal,
-                                               window=window, return_lse=True)
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
         else:
-            o, lse = _fa.flash_attention(q, k, v, causal=causal,
-                                         window=window, return_lse=True)
+            o, lse = _flash_cuda(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.impl = causal, window, impl
         return o

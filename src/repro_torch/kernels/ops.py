@@ -13,24 +13,37 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core.offload import program_from_fn
-from repro_torch.kernels import adamw_update as _adamw
-from repro_torch.kernels import fused_elementwise as _fe
+from repro_torch.kernels.adamw_update import (
+    adamw_update as _adamw_cuda,
+    adamw_update_plain,
+)
+from repro_torch.kernels.fused_elementwise import (
+    fused_segment_grid as _grid_cuda,
+    fused_segment_grid_plain,
+)
 from repro_torch.kernels import fused_matmul as _fm
 from repro_torch.kernels import fused_matmul_bwd as _fmb
 from repro_torch.kernels.blockprog import BlockProgram
-from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.decode_attention import (
+    decode_attention as _decode_cuda,
+    decode_attention_plain,
     paged_decode_attention as _paged_decode_cuda,
     paged_decode_attention_plain,
 )
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.guard import kernel_guard, resolve_impl
+from repro_torch.kernels.rmsnorm import RMSNormFn
+from repro_torch.kernels.rotary import rotary as _rotary_cuda, rotary_plain
 
 #: every ported kernel, by the name its launch counter goes under
 KERNELS = ("paged_decode_attention", "fused_segment_grid",
            "fused_matmul_segment", "fused_matmul_dlhs_segment",
            "fused_matmul_drhs_segment", "adamw_update", "flash_attention",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rmsnorm",
+           "rmsnorm_bwd", "rotary", "decode_attention")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -45,6 +58,39 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                               **kw)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     head_major: bool = False, impl: str = "auto"
+                     ) -> torch.Tensor:
+    """Decode attention over a dense cache: q ``[B, NQ, H]``, caches
+    ``[B, T, NK, H]`` or, with ``head_major``, ``[B, NK, T, H]``, each
+    read in place; ``lengths [B]``.  A row of length 0 gives zeros.  The
+    reference's ``kv_block`` / ``interpret`` arguments shape TPU blocks
+    only and are not carried over."""
+    if resolve_impl(impl, q) == "ref":
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      head_major=head_major)
+    return _decode_cuda(q, k_cache, v_cache, lengths, head_major=head_major)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+            impl: str = "auto") -> torch.Tensor:
+    """RMSNorm over the last axis of x ``[..., D]`` (any D) with scale
+    ``[D]``, differentiable: B9's forward and, under autograd, its backward
+    (``RMSNormFn``).  The reference's ``rows_block`` / ``interpret``
+    arguments shape TPU blocks only and are not carried over."""
+    return RMSNormFn.apply(x, scale, eps, impl)
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor, *,
+           theta: float = 10000.0, impl: str = "auto") -> torch.Tensor:
+    """Half-split RoPE on x ``[R, N, H]`` at ``positions [R]`` (int32 or
+    int64), sin / cos made from ``theta`` in the kernel."""
+    if resolve_impl(impl, x) == "ref":
+        return rotary_plain(x, positions, theta)
+    return _rotary_cuda(x, positions, theta=theta)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None, return_lse: bool = False,
@@ -57,8 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, scale=scale,
               return_lse=return_lse)
     if resolve_impl(impl, q) == "ref":
-        return _flash.flash_attention_plain(q, k, v, **kw)
-    return _flash.flash_attention(q, k, v, **kw)
+        return flash_attention_plain(q, k, v, **kw)
+    return _flash_cuda(q, k, v, **kw)
 
 
 def fused_flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -88,12 +134,11 @@ def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
     """Cross-shape elementwise / lane-reduce segment over per-operand
     block views (what the offload runner emits for grid segments)."""
     if resolve_impl(impl, operands[0]) == "ref":
-        return _fe.fused_segment_grid_plain(
+        return fused_segment_grid_plain(
             prog, operands, specs, rows=rows, out_cols=out_cols,
             out_dtypes=out_dtypes, rows_block=rows_block)
-    return _fe.fused_segment_grid(prog, operands, specs, rows=rows,
-                                  out_cols=out_cols, out_dtypes=out_dtypes,
-                                  rows_block=rows_block)
+    return _grid_cuda(prog, operands, specs, rows=rows, out_cols=out_cols,
+                      out_dtypes=out_dtypes, rows_block=rows_block)
 
 
 def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
@@ -161,8 +206,8 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     """One fused AdamW pass over a leaf: ``(p', m', v')``; ``hyper`` =
     [lr, b1, b2, eps, wd, bc1, bc2] in f32."""
     if resolve_impl(impl, p) == "ref":
-        return _adamw.adamw_update_plain(p, g, m, v, hyper)
-    return _adamw.adamw_update(p, g, m, v, hyper)
+        return adamw_update_plain(p, g, m, v, hyper)
+    return _adamw_cuda(p, g, m, v, hyper)
 
 
 def fused_segment(fn: Callable, bulk: Sequence[torch.Tensor],
@@ -173,6 +218,9 @@ def fused_segment(fn: Callable, bulk: Sequence[torch.Tensor],
     ``fn(*bulk_blocks, *param_blocks)`` over bulk operands of one shape
     [..., C] and [C] / scalar params, lowered onto the grid template
     with ``bulk`` and ``param`` roles.  Always returns a tuple."""
+    # the offload compiler imports this package: resolve it at call time
+    from repro_torch.core.offload import program_from_fn
+
     prog, specs, rows, c = program_from_fn(fn, bulk, params,
                                            len(out_dtypes))
     shape = tuple(bulk[0].shape)

@@ -12,6 +12,8 @@ phase 8 holds them against these plain versions.
 Tolerances: the reference's (``tests/test_kernels.py``) — f32 2e-5,
 bf16 2e-2 forward; gradients 2e-4 relative / 2e-5 absolute (f32).
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +30,12 @@ from repro.kernels.flash_attention_bwd import (
     flash_attention_diff as jflash_diff,
 )
 from repro_torch.kernels import flash_attention_diff, ops
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
 )
+# the module, not the entry point of the same name the package exports
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 torch.set_num_threads(1)
 

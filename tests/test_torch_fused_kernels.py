@@ -27,10 +27,11 @@ from repro_torch.core.offload import (
     offload_report,
     segment_call,
 )
-from repro_torch.kernels import fused_elementwise as fe
 from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels.codegen import bcast_row_expr
+# the module, not the entry point of the same name the package exports
+fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
 
 try:
     import hypothesis.strategies as st

@@ -31,8 +31,9 @@ from repro_torch.core.offload import (
     offload_report,
     segment_call,
 )
-from repro_torch.kernels import fused_elementwise as fe
 from repro_torch.kernels import fused_matmul as fm
+# the module, not the entry point of the same name the package exports
+fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
 
 torch.set_num_threads(1)
 
