@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch``'s main paths — serving full-width qwen3-1.7b
-(random weights from a seed) through the paged ``Engine``, and training
-it through the offload compiler — and holds every hand-written kernel
-against its plain PyTorch version:
+Drives ``repro_torch``'s main paths — serving full-width qwen3-1.7b,
+zamba2-1.2b and rwkv6-1.6b (random weights from a seed) through the
+paged ``Engine``, and training qwen3-1.7b through the offload compiler —
+and holds every hand-written kernel against its plain PyTorch version:
 
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
@@ -66,7 +66,10 @@ against its plain PyTorch version:
    tests' shapes in f32 and bf16; every distinct segment of the
    ``BATCHED_GEMM_BWD`` chain (f32, bf16) and of the backward plans
    against its plain version; B5 and each B7 kernel timed beside the
-   bound, the plain version and ``scaled_dot_product_attention``;
+   bound, the plain version and ``scaled_dot_product_attention``; and a
+   chain whose flash pair B5 refuses (head_dim 96, f32: queue C1)
+   declined with B5's reason and run on the card against the unwrapped
+   chain;
 9. the kernel library's rmsnorm (B9, forward and backward), rotary (B10)
    and dense decode attention (B11, token-major and head-major) through
    ``ops``: each against its plain version at the CPU tests' shapes in f32
@@ -83,8 +86,25 @@ against its plain PyTorch version:
    (CUDA-graph replay, inputs rotated past the L2) beside the bound, the
    plain version and ``F.rms_norm`` / its fused backward / SDPA; and
    B9 at d_model 16,384, the backward on its wide kernel, checked and
-   timed beside the same;
-10. a ``kernels`` JSON line, then the card line, then the result line.
+   timed beside the same; and the inputs B1, B5, B7 and B11 refuse
+   (queue C2), each raising before anything launches;
+10. the kernel library's ssd_scan (B12) and wkv6 (B13) through ``ops``:
+    each against its plain version at the CPU tests' shapes, at S = 999
+    and odd widths, f32 and bf16, B13 at strong decay (w in [0.05, 0.2],
+    finite); at full width (B = 2, S = 2,048; B12 at zamba2-1.2b's H = 64,
+    P = N = 64, B13 at rwkv6-1.6b's H = 32, K = V = 64; bf16 and f32), one
+    counted run of the path, each timed (CUDA-graph replay) beside the
+    bound and the plain version;
+11. zamba2-1.2b and rwkv6-1.6b at full width and depth (random bf16
+    weights from seed 0) through ``Engine(slots=8, max_len=2048,
+    page_size=64)``: 12 greedy requests x 64 tokens (every request
+    completes, B1 launched 6 times a decode step for zamba2's shared
+    attention, 0 for rwkv6), a decode step profiled with 8 active slots
+    (zamba2: the step through B1 against its plain version), peak memory,
+    and the engine's prefill and decode logits of 3 requests against a
+    full-sequence forward of the same tokens (bf16 at full depth; f32 at
+    12 / 4 layers);
+12. a ``kernels`` JSON line, then the card line, then the result line.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -93,6 +113,7 @@ matrix products run in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -118,7 +139,8 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_plain,
 )
 from repro_torch.models import build_model
-from repro_torch.models.layers import cast_params
+from repro_torch.models.layers import cast_params, lm_head_apply
+from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
 from repro_torch.serve import Engine, Request
 # the module, not the entry point of the same name the package exports
 fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
@@ -438,10 +460,15 @@ def make_requests(cfg, lens, new_tokens, seed):
         for i, n in enumerate(lens)]
 
 
-def serve(engine, reqs, label: str) -> int:
+def attention_layers(cfg) -> int:
+    """Layers whose decode launches B1 (attention and shared attention)."""
+    return sum(k in ATTENTION_KINDS for k in layer_kinds(cfg))
+
+
+def serve(engine, reqs, label: str, tag: str = "[4]") -> int:
     """Run ``reqs`` to completion with the launch counts zeroed just
     before; returns the kernel's launches, read just after."""
-    layers = engine.cfg.num_layers
+    layers = attention_layers(engine.cfg)
     ops.reset_launch_counts()
     steps0 = engine.decode_steps
     torch.cuda.synchronize()
@@ -452,7 +479,7 @@ def serve(engine, reqs, label: str) -> int:
     launches = ops.launch_counts()["paged_decode_attention"]
     steps = engine.decode_steps - steps0
     tokens = sum(len(c.tokens) for c in done.values())
-    print(f"[4] {label}: {len(reqs)} requests, {tokens} tokens, {steps} "
+    print(f"{tag} {label}: {len(reqs)} requests, {tokens} tokens, {steps} "
           f"decode steps, {wall:.2f} s wall, {tokens / wall:.1f} tokens/s, "
           f"{launches} kernel launches (each one wrapper call: the "
           f"attention kernel plus, when split, its combine kernel), "
@@ -467,7 +494,8 @@ def serve(engine, reqs, label: str) -> int:
               f"request {r.rid}: token outside the vocabulary")
     check(engine.pool.used_pages == 0, "pages leaked")
     check(steps > 0 and launches == steps * layers,
-          f"{launches} launches != {steps} decode steps x {layers} layers")
+          f"{launches} launches != {steps} decode steps x {layers} "
+          "attention layers")
     return launches
 
 
@@ -552,9 +580,10 @@ def profile_decode(engine, steps: int = 5, tag: str = "[5]") -> None:
               f"{e.count / steps:6.0f} calls/step  {e.key[:90]}")
 
 
-def phase_full_width_check(engine) -> None:
+def phase_full_width_check(engine, tag: str = "[5]") -> None:
     """Stop the engine mid-flight and take one decode step twice on the
-    same state: through the kernel, and through the plain version."""
+    same state: through the kernel, and through the plain version (the
+    recurrent layers' state rows restored after each step)."""
     cfg = engine.cfg
     lens = [33, 700, 64, 129, 511, 250, 17, 400]
     for r in make_requests(cfg, lens, 32, seed=3):
@@ -563,21 +592,27 @@ def phase_full_width_check(engine) -> None:
     t0 = time.perf_counter()
     engine._pump()
     torch.cuda.synchronize()
-    print(f"[5] admitted {len(lens)} prompts (lengths {lens}) in "
+    print(f"{tag} admitted {len(lens)} prompts (lengths {lens}) in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    profile_decode(engine)
+    profile_decode(engine, tag=tag)
     st = engine._state
     tables = torch.as_tensor(engine.pool.tables, device="cuda")
     active = st["active"]
     check(int(active.sum()) == len(lens), "not every slot is decoding")
+    state = [{n: t.clone() for n, t in c.items() if n not in ("k", "v")}
+             for c in engine.cache]
     out = {}
     for impl in ("cuda", "ref"):
         # the step writes the same K/V entry either way, so repeating it
-        # on the same state is harmless
+        # on the same state is harmless; a recurrent row is put back
         logits, _ = engine.model.decode_step_paged(
             engine.params, engine.cache, st["tok"], st["pos"], tables,
             active, max_len=engine.max_len, impl=impl)
         out[impl] = logits
+        for c, saved in zip(engine.cache, state):
+            for n, t in saved.items():
+                c[n].copy_(t)
+    del state
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out["cuda"]).all()), "non-finite logits")
     check(out["cuda"].shape == (engine.slots, cfg.vocab_size), "logits shape")
@@ -589,7 +624,7 @@ def phase_full_width_check(engine) -> None:
     # a differing greedy token is accepted only as a tie within tolerance
     gap = (out["ref"].max(-1).values
            - out["ref"].gather(1, tok_c[:, None])[:, 0]).max()
-    print(f"[5] full-width decode step, kernel vs plain version: max abs "
+    print(f"{tag} full-width decode step, kernel vs plain version: max abs "
           f"logit difference {err:.4f} (tolerance {LOGIT_TOL}), mean "
           f"{mean_err:.5f} (tolerance {LOGIT_MEAN_TOL}, mean |logit| "
           f"{float(live.abs().mean()):.3f}; logits span "
@@ -1998,6 +2033,46 @@ def check_path_segments(eqns, calls, card: str) -> None:
           f"{failed}")
 
 
+#: the declined flash chain (queue C, C1): the attention chain with one
+#: kv head per query head at a head dim B5 refuses, f32; [B, heads, S, d]
+DECLINED_SHAPE = (2, 8, 256, 96)
+
+
+def flash_declined() -> None:
+    """A chain whose flash pair B5 refuses (head_dim 96, f32): the planner
+    declines the pair with B5's reason, the chain runs end to end on the
+    card through its ordinary segments, launches no B5, and agrees with
+    the unwrapped chain (f32 anchored segments: 1e-4, SEG_TOL's rule)."""
+    from repro_torch.core import OffloadPolicy, mpu_offload
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    q, k, v = (seeded(gen, DECLINED_SHAPE, torch.float32) for _ in range(3))
+    wrapped = mpu_offload(attention_chain,
+                          policy=OffloadPolicy(bulk_threshold=64))
+    report = wrapped.explain(q, k, v)
+    plan = wrapped.warm(q, k, v)
+    reasons = [d.reason for d in report.decisions
+               if d.form == "flash" and not d.fused]
+    check(not any(seg.matmul is not None and seg.matmul.flash is not None
+                  for seg in plan.segments) and len(reasons) == 1
+          and "head_dim 96" in reasons[0],
+          f"the head_dim-96 chain was not declined as a flash pair: "
+          f"{reasons}")
+    ops.reset_launch_counts()
+    out = wrapped(q, k, v)
+    torch.cuda.synchronize()
+    counts = {k_: n for k_, n in ops.launch_counts().items() if n}
+    ok, err = within(out, attention_chain(q, k, v),
+                     SEG_TOL[torch.float32][1])
+    print(f"[8] C1: chain q, k, v {DECLINED_SHAPE} f32 — {reasons[0]}; "
+          f"{len(plan.segments)} fused segments "
+          f"{[d.form or 'grid' for d in report.decisions if d.fused]}, run "
+          f"on the card with launches {counts}: max_abs_err {err:.3e} "
+          f"against the unwrapped chain")
+    check(ok and "flash_attention" not in counts and counts,
+          "the declined chain on the card")
+
+
 def phase_flash(card: str) -> tuple[dict, dict]:
     """Phase 8: the flash segment and batched anchors at full width.
     Returns the kernels line's rows of B5 and of B7's two kernels."""
@@ -2007,6 +2082,7 @@ def phase_flash(card: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     flash_small_shapes()
     b5, path_counts = flash_path(card)
+    flash_declined()
     b7, diff_counts = flash_library(card)
     # every distinct segment of the BATCHED_GEMM_BWD chain (bench shapes,
     # f32 and bf16) on seeded operands
@@ -2467,11 +2543,60 @@ def library_wide_rows(card: str) -> None:
           f"library backward {lib_bwd:.4f}), on {card}")
 
 
+def refused_inputs() -> None:
+    """Queue C2: inputs the reference takes and a port kernel refuses, as
+    the ``ops`` docstrings state them.  Each wrapper raises a clear error
+    on the card before anything launches."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def expect(what, exc, match, fn):
+        try:
+            fn()
+        except exc as e:
+            check(match in str(e), f"{what}: {type(e).__name__} {e!s} "
+                  f"does not name {match!r}")
+            print(f"[9] C2: {what} refused: {type(e).__name__}: {e}")
+            return
+        check(False, f"{what} was not refused")
+
+    def qkv(b, s, nq, nk, h, dtype):
+        return (seeded(gen, (b, s, nq, h), dtype),
+                seeded(gen, (b, s, nk, h), dtype),
+                seeded(gen, (b, s, nk, h), dtype))
+
+    ops.reset_launch_counts()
+    expect("B5 head_dim 96", ValueError, "head_dim 96",
+           lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 96, torch.float32)))
+    expect("B5 float16", TypeError, "float16",
+           lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 64, torch.float16)))
+    expect("B5 G = 128", ValueError, "G=128",
+           lambda: ops.flash_attention(*qkv(1, 16, 128, 1, 32,
+                                            torch.bfloat16)))
+    q, k, v = qkv(1, 64, 2, 2, 128, torch.float32)
+    lse = torch.zeros((1, 64, 2), device=DEVICE)
+    expect("B7 f32 head_dim 128", ValueError, "head_dim <= 64",
+           lambda: flash_attention_bwd(q, k, v, q, lse, q))
+    pq, pk, pv, tables, lengths = make_case((2, 2, 16, 4, 2, 40),
+                                            torch.bfloat16, seed=18)
+    expect("B1 bf16 head_dim 40", ValueError, "head_dim 40",
+           lambda: ops.paged_decode_attention(pq, pk, pv, tables, lengths))
+    dq = seeded(gen, (2, 4, 24), torch.float32)
+    dk, dv = (seeded(gen, (2, 32, 2, 24), torch.float32) for _ in range(2))
+    expect("B11 f32 head_dim 24", ValueError, "head_dim 24",
+           lambda: ops.decode_attention(dq, dk, dv, lengths))
+    torch.cuda.synchronize()
+    check(not any(ops.launch_counts().values()),
+          f"a refused input launched: {ops.launch_counts()}")
+
+
 def phase_library(card: str) -> dict:
     """Phase 9: the kernel library's B9 (forward, backward), B10 and B11
-    at the CPU tests' shapes and at full width.  Returns the kernels
-    line's four rows."""
+    at the CPU tests' shapes and at full width, and the inputs B1, B5, B7
+    and B11 refuse.  Returns the kernels line's four rows."""
     t0 = time.perf_counter()
+    refused_inputs()
     library_small_shapes()
     rows, counts = library_full_width(card)
     library_wide_rows(card)
@@ -2484,6 +2609,367 @@ def phase_library(card: str) -> dict:
                        **{k: rows[name][k] for k in keys})
             for name in ("rmsnorm", "rmsnorm_bwd", "rotary",
                          "decode_attention")}
+
+
+# --- phase 10: the kernel library's ssd_scan (B12) and wkv6 (B13) ---------
+
+#: the CPU tests' shapes (tests/test_torch_scan_kernels.py) plus S that is
+#: a multiple of no chunk (999) and odd P, N / K, V: B12 (B, S, H, P, N),
+#: B13 (B, S, H, K, V)
+SSD_SMALL = [(2, 64, 2, 16, 8), (1, 100, 3, 8, 16), (1, 999, 4, 64, 64),
+             (1, 77, 2, 40, 24)]
+WKV_SMALL = [(2, 48, 2, 16, 16), (1, 70, 1, 32, 32), (1, 999, 3, 64, 64),
+             (1, 45, 2, 24, 40)]
+#: full width, B = 2, S = 2,048: B12 at zamba2-1.2b's (H = 2 * 2048 / 64,
+#: P = N = 64), B13 at rwkv6-1.6b's (H = 32, K = V = 64)
+SSD_FULL = (2, 2048, 64, 64, 64)
+WKV_FULL = (2, 2048, 32, 64, 64)
+#: B12 / B13 against their plain versions.  Both sum in f32, in another
+#: order (the plain version's einsum against the kernel's FMA loops), so
+#: the difference is a few units of 2^-24 of the terms a sum adds, which
+#: are at most the output's largest magnitude: 2e-5 of that.  A bf16
+#: output may besides round to the other neighbour: one bf16 ulp, at most
+#: 2^-7 of the value
+SCAN_F32_SLACK = 2e-5
+
+
+def scan_close(got, want) -> tuple[bool, float]:
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bound = SCAN_F32_SLACK * float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * w.abs()
+    ok = bool(torch.isfinite(g).all()) and bool((diff <= bound).all())
+    return ok, float(diff.max())
+
+
+def ssd_case(shape, dtype, seed):
+    """x in ``dtype``, the rest f32: dt = softplus(normal), a = -exp
+    (normal) per head, logd = dt * a, unit-normal B and C."""
+    b, s, h, p, n = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = seeded(gen, (b, s, h, p), dtype)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=DEVICE))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=DEVICE))
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=DEVICE)
+              for _ in range(2))
+    return x, dt * a, dt, bm, cm
+
+
+def wkv_case(shape, dtype, seed, lo=0.45, hi=0.95):
+    """r, k, v in ``dtype``; w uniform in [lo, hi] and u f32."""
+    b, s, h, k, v = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    r, kk = (seeded(gen, (b, s, h, k), dtype) for _ in range(2))
+    vv = seeded(gen, (b, s, h, v), dtype)
+    w = lo + (hi - lo) * torch.rand((b, s, h, k), generator=gen,
+                                    device=DEVICE)
+    u = 0.1 * torch.randn((h, k), generator=gen, device=DEVICE)
+    return r, kk, vv, w, u
+
+
+def ssd_flops(shape, chunk: int) -> int:
+    """f32 operations of the chunked SSD scan with C B^T formed once per
+    batch row and chunk (B and C are shared by the heads): per chunk of q
+    rows, q(q+1)/2 (C.B) dot products of N; per head q(q+1)/2 P (scores
+    times dt x), q N P (C against the state), N P q (the state update)
+    multiply-adds."""
+    b, s, h, p, n = shape
+    total = 0
+    for s0 in range(0, s, chunk):
+        q = min(chunk, s - s0)
+        tri = q * (q + 1) // 2
+        total += 2 * b * tri * n + 2 * b * h * (tri * p + 2 * q * n * p)
+    return total
+
+
+def wkv_flops(shape, chunk: int) -> int:
+    """f32 operations of the chunked WKV6 form: per chunk of q rows and
+    head, the q(q-1)/2 pair scores over K (three operations a channel:
+    r k, times the decay, added) and the diagonal, the scores times v,
+    r against the state and the state update (multiply-adds)."""
+    b, s, h, k, v = shape
+    total = 0
+    for s0 in range(0, s, chunk):
+        q = min(chunk, s - s0)
+        total += b * h * (3 * q * (q - 1) // 2 * k + 3 * q * k
+                          + q * (q + 1) * v + 4 * q * k * v)
+    return total
+
+
+def scan_small_shapes() -> dict:
+    """B12 and B13 against their plain versions at the CPU tests' shapes
+    (and S a multiple of no chunk), f32 and bf16, and B13 at strong
+    decay.  Returns the worst max_abs_err by name."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for i, shape in enumerate(SSD_SMALL):
+            args = ssd_case(shape, dtype, 300 + i)
+            ok, err = scan_close(ops.ssd_scan(*args, impl="cuda"),
+                                 ssd_scan_plain(*args)[0])
+            worst[f"{dn} ssd_scan"] = max(worst.get(f"{dn} ssd_scan", 0), err)
+            check(ok, f"B12 at {shape} {dn}: max_abs_err {err:.3e}")
+        for i, shape in enumerate(WKV_SMALL):
+            args = wkv_case(shape, dtype, 310 + i)
+            ok, err = scan_close(ops.wkv6(*args, impl="cuda"),
+                                 wkv6_plain(*args)[0])
+            worst[f"{dn} wkv6"] = max(worst.get(f"{dn} wkv6", 0), err)
+            check(ok, f"B13 at {shape} {dn}: max_abs_err {err:.3e}")
+        # strong decay: w in [0.05, 0.2], a chunk of 32 sums log-decays to
+        # about -96 at worst, past f32's exp range for the reference's form
+        args = wkv_case((2, 256, 4, 64, 64), dtype, 320, lo=0.05, hi=0.2)
+        got = ops.wkv6(*args, impl="cuda")
+        ok, err = scan_close(got, wkv6_plain(*args)[0])
+        worst[f"{dn} wkv6 strong decay"] = err
+        check(ok and bool(torch.isfinite(got).all()),
+              f"B13 at strong decay {dn}: max_abs_err {err:.3e}")
+    torch.cuda.synchronize()
+    print(f"[10] B12 / B13 at the CPU tests' shapes, S = 999 and odd widths, "
+          f"and B13 at w in [0.05, 0.2] (finite), f32 and bf16, against "
+          f"the plain versions: worst max_abs_err "
+          f"{ {k: f'{e:.2e}' for k, e in worst.items()} }")
+    return worst
+
+
+def phase_scan(card: str) -> dict:
+    """Phase 10: the kernel library's B12 and B13 through ``ops`` at the
+    CPU tests' shapes and at full width (zamba2's and rwkv6's), one
+    counted run of the library path, each timed beside its bound and its
+    plain version.  Returns the kernels line's two rows."""
+    from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.wkv6 import CHUNK as WKV_CHUNK
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    t0 = time.perf_counter()
+    scan_small_shapes()
+    rows, counts = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        s_args = ssd_case(SSD_FULL, dtype, 330)
+        w_args = wkv_case(WKV_FULL, dtype, 331)
+        # the path, counted: every call launches its kernel
+        ops.reset_launch_counts()
+        y_s = ops.ssd_scan(*s_args)
+        y_w = ops.wkv6(*w_args)
+        torch.cuda.synchronize()
+        run = ops.launch_counts()
+        want = {"ssd_scan": 1, "wkv6": 1}
+        check(run == {k_: want.get(k_, 0) for k_ in run},
+              f"phase 10 path launches {run}, expected {want}")
+        if dtype == torch.bfloat16:
+            counts = run
+        ops.reset_launch_counts()
+        p_s = ops.ssd_scan(*s_args, impl="ref")
+        p_w = ops.wkv6(*w_args, impl="ref")
+        torch.cuda.synchronize()
+        check(not any(ops.launch_counts().values()),
+              f"impl='ref' launched kernels: {ops.launch_counts()}")
+        res = {"ssd_scan": scan_close(y_s, p_s), "wkv6": scan_close(y_w, p_w)}
+        for name, (ok, err) in res.items():
+            check(ok, f"{name} full width {dn}: max_abs_err {err:.3e}")
+        print(f"[10] full width {dn}: B12 x {tuple(s_args[0].shape)} "
+              f"(N {SSD_FULL[4]}), B13 r {tuple(w_args[0].shape)}: "
+              f"max_abs_err { {n: f'{e:.2e}' for n, (_, e) in res.items()} } "
+              f"(max-abs {float(p_s.float().abs().max()):.1f} / "
+              f"{float(p_w.float().abs().max()):.1f})")
+        if dtype != torch.bfloat16:
+            continue
+        # timing, bf16: two input sets (71 / 101 MB each, past the L2)
+        for name, args, fn, plain, out, flops in (
+                ("ssd_scan", s_args, ops.ssd_scan, ssd_scan_plain, y_s,
+                 ssd_flops(SSD_FULL, SSD_CHUNK)),
+                ("wkv6", w_args, ops.wkv6, wkv6_plain, y_w,
+                 wkv_flops(WKV_FULL, WKV_CHUNK))):
+            sets = [args, tuple(t.clone() for t in args)]
+            ms = graph_ms(lambda i: fn(*sets[i % 2]), 2)
+            plain_ms = time_ms(lambda i: plain(*sets[i % 2]), 2, warmup=1)
+            rows[name] = lib_row(ms, plain_ms, None, nbytes(*args, out),
+                                 flops, torch.float32, res[name][1])
+            del sets
+    for name, r in rows.items():
+        print(f"[10]   {name} bf16: {r['ms']:.4f} ms on the card (CUDA-graph "
+              f"replay, 2 rotated input sets), plain {r['plain_ms']:.4f} ms, "
+              f"library none (no one PyTorch call computes it), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['n_bytes']} "
+              f"bytes; bound / kernel = {r['bound_ms'] / r['ms']:.1%}), "
+              f"launches in the path run {counts[name]}, on {card}")
+    print(f"[10] ssd_scan and wkv6 in {time.perf_counter() - t0:.1f} s")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {name: dict(launches=counts[name],
+                       **{k: rows[name][k] for k in keys})
+            for name in ("ssd_scan", "wkv6")}
+
+
+# --- phase 11: zamba2-1.2b and rwkv6-1.6b served at full width -------------
+
+ZOO_ARCHS = ("zamba2-1.2b", "rwkv6-1.6b")
+#: the engine's logits (prefill, then each decode step) against one
+#: full-sequence forward of the same tokens, bf16, full depth.  The two
+#: paths run the same weights through different kernels (a recurrent step
+#: against the chunked scan, paged decode against blockwise attention,
+#: [8, d] products against [S, d] ones), so each layer's bf16 rounding of
+#: its output may flip, and the flips add up over the depth.  Both are
+#: held to the same forward in f32 (the bf16 weights upcast): the
+#: engine's mean and max distance from it may be at most ZOO_BF16_SPREAD
+#: times the bf16 forward's own (two bf16 computations of one function,
+#: each its rounding away from the f32 one).  A state dropped or carried
+#: wrong moves the logits by their own magnitude, far past that
+ZOO_BF16_SPREAD = 2.0
+#: the same in f32 at a cut depth: only the order of f32 sums differs
+ZOO_F32_TOL = 1e-3
+#: the f32 depths (two zamba2 periods: two tied shared-attention layers)
+ZOO_F32_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
+
+
+def capture_logits(engine):
+    """Wrap the engine's model so that every prefill and every decode
+    step's logits are kept, with the slot -> request map of the step.
+    Returns the two lists and ``restore()``, which unwraps the model."""
+    prefills, steps = [], []
+    model = engine.model
+
+    def prefill(*a, **kw):
+        logits, cache = model.prefill(*a, **kw)
+        prefills.append(logits[0].float().clone())
+        return logits, cache
+
+    def decode(*a, **kw):
+        logits, cache = model.decode_step_paged(*a, **kw)
+        steps.append((logits.float().clone(), engine._slot_rid.copy(),
+                      engine._state["active"].clone()))
+        return logits, cache
+
+    def restore():
+        engine.model = model     # drops the cycle engine -> capture -> engine
+
+    engine.model = model._replace(prefill=prefill, decode_step_paged=decode)
+    return prefills, steps, restore
+
+
+def forward_logits(model, params, seq, start: int) -> torch.Tensor:
+    """f32 logits of one full-sequence forward from position ``start``."""
+    with torch.no_grad():
+        h, _, _ = model.forward(params, {"tokens": seq[None]})
+        return lm_head_apply(params["embed"], h[0, start:],
+                             model.cfg.vocab_size).float()
+
+
+def engine_vs_forward(cfg, params, lens, new_tokens, seed, label: str
+                      ) -> None:
+    """Serve ``lens`` prompts, then hold each request's prefill and decode
+    logits against a full-sequence forward of its prompt and emitted
+    tokens on the card: in f32 within ZOO_F32_TOL; in bf16 no farther
+    from the f32 forward than ZOO_BF16_SPREAD times the bf16 forward."""
+    engine = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                    page_size=64)
+    prefills, steps, restore = capture_logits(engine)
+    reqs = make_requests(cfg, lens, new_tokens, seed)
+    done = engine.generate(reqs)
+    restore()
+    bf16 = engine.model.dtype == torch.bfloat16
+    if bf16:
+        f32_model = build_model(dataclasses.replace(cfg, dtype="float32"),
+                                device="cuda")
+        f32_params = cast_params(engine.params, torch.float32)
+    stats, failed = {}, []
+    for i, r in enumerate(reqs):
+        toks = done[r.rid].tokens
+        check(len(toks) == new_tokens, f"{label} request {r.rid} short")
+        got = [prefills[i]] + [lg[list(rid).index(r.rid)]
+                               for lg, rid, act in steps
+                               if r.rid in rid and
+                               bool(act[list(rid).index(r.rid)])]
+        got = torch.stack(got[:new_tokens])
+        seq = np.concatenate([r.prompt, np.asarray(toks[:-1], np.int32)])
+        start = len(r.prompt) - 1
+        fwd = forward_logits(engine.model, engine.params, seq, start)
+        direct = float((got - fwd).abs().max())
+        same = float((got.argmax(-1) == fwd.argmax(-1)).float().mean())
+        if bf16:
+            ref = forward_logits(f32_model, f32_params, seq, start)
+            e_eng, e_fwd = (got - ref).abs(), (fwd - ref).abs()
+            row = dict(engine_mean=float(e_eng.mean()),
+                       engine_max=float(e_eng.max()),
+                       fwd_mean=float(e_fwd.mean()),
+                       fwd_max=float(e_fwd.max()))
+            ok = (row["engine_mean"] <= ZOO_BF16_SPREAD * row["fwd_mean"]
+                  and row["engine_max"] <= ZOO_BF16_SPREAD * row["fwd_max"])
+        else:
+            row, ok = {}, direct <= ZOO_F32_TOL
+        stats[r.rid] = {**{k: f"{v:.4g}" for k, v in row.items()},
+                        "engine_vs_fwd_max": f"{direct:.4g}",
+                        "same_argmax": f"{same:.3f}",
+                        "mean_abs_logit": f"{float(fwd.abs().mean()):.3f}"}
+        if not ok:
+            failed.append(r.rid)
+    rule = (f"distance from the f32 forward at most {ZOO_BF16_SPREAD}x the "
+            "bf16 forward's" if bf16 else f"within {ZOO_F32_TOL}")
+    print(f"[11] {label}: engine prefill + decode logits vs one "
+          f"full-sequence forward of the same tokens ({rule}), per request "
+          f"(prompt lengths {list(lens)}, {new_tokens} positions each): "
+          f"{stats}")
+    check(not failed, f"{label}: engine logits vs the full-sequence "
+          f"forward outside the rule for requests {failed}")
+    del engine
+
+
+def phase_zoo(card: str) -> None:
+    """Phase 11: zamba2-1.2b and rwkv6-1.6b at full width and depth,
+    random bf16 weights from seed 0, served through the paged Engine as
+    phase 4 serves qwen3; a decode step profiled mid-flight; the engine's
+    logits against full-sequence forwards (bf16 at full depth, f32 at a
+    cut depth)."""
+    t0 = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gib = 2.0 ** 30
+        before = torch.cuda.memory_allocated() / gib
+        model = build_model(cfg, device="cuda")
+        params = cast_params(model.init(0), model.dtype)
+        n_params = sum({id(t): t.numel() for t in _leaves(params)}.values())
+        kinds = layer_kinds(cfg)
+        print(f"[11] {arch} full width: {cfg.num_layers} layers "
+              f"({ {k: kinds.count(k) for k in dict.fromkeys(kinds)} }), "
+              f"d_model {cfg.d_model}, {n_params / 1e9:.2f} B parameters "
+              f"in {model.dtype} (tied ones once); device memory "
+              f"{before:.2f} GiB before, {torch.cuda.memory_allocated() / gib:.2f} "
+              f"GiB with the bf16 weights, peak {torch.cuda.max_memory_allocated() / gib:.2f} "
+              f"GiB while the f32 masters were cast")
+        torch.cuda.reset_peak_memory_stats()
+        engine = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                        page_size=64)
+        lens = np.random.default_rng(0).integers(16, 701, size=12)
+        lens[0], lens[1] = 16, 700
+        launches = serve(engine, make_requests(cfg, lens, 64, seed=1),
+                         f"{arch} whole-prompt prefill", tag="[11]")
+        n_attn = attention_layers(cfg)
+        print(f"[11] {arch}: B1 launched {launches} times, "
+              f"{n_attn} a decode step (its attention layers)")
+        phase_full_width_check(engine, tag="[11]")
+        print(f"[11] {arch} serving peak device memory "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (weights, "
+              f"caches, prefill of 700 tokens, 8-slot decode)")
+        del engine
+        engine_vs_forward(cfg, params, [100, 333, 700], 64, 5,
+                          f"{arch} bf16")
+        del params, model
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, num_layers=ZOO_F32_LAYERS[arch],
+                                  dtype="float32")
+        cmodel = build_model(cut, device="cuda")
+        engine_vs_forward(cut, cmodel.init(0), [40, 257], 16, 6,
+                          f"{arch} f32 at {cut.num_layers} layers")
+        del cmodel
+    print(f"[11] zamba2 and rwkv6 served in {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_entry(timed: dict, kind: str) -> dict:
@@ -2517,7 +3003,11 @@ def main() -> int:
     b5, b7 = phase_flash(card)
     torch.cuda.empty_cache()
     lib = phase_library(card)
-    print(f"[10] total {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    scan = phase_scan(card)
+    torch.cuda.empty_cache()
+    phase_zoo(card)
+    print(f"[12] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -2574,7 +3064,15 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:118",
-        **lib["decode_attention"]}]}))
+        **lib["decode_attention"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:91",
+        **scan["ssd_scan"]}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:83",
+        **scan["wkv6"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

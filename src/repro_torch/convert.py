@@ -9,9 +9,14 @@ returns the port's tree:
   blocks stacked ``[n_periods, ...]`` and ``["rem"][pos]`` the leftover
   layers; they are unstacked into the port's per-layer list in layer
   order ``layer = period * len(pattern) + pos``.
+* ``params["decoder"]["shared_attn"]`` (the tied block of the
+  ``shared_attention`` positions, which the stack leaves out) becomes
+  ONE dict that every such layer's entry holds.
 * Weights keep their ``[in, out]`` orientation (both sides do
   ``x @ w``); ``embed.table`` / ``embed.head`` keep the padded vocab.
-* Everything is cast once into ``dtype``; RMSNorm scales stay f32.
+* Everything is cast once into ``dtype``; the leaves the model reads in
+  f32 (``layers.F32_LEAVES``: RMSNorm scales, the recurrent blocks'
+  decay and bonus vectors) stay f32.
 
 Every leaf of the input must be consumed: a leaf the port has no place
 for raises instead of being dropped silently.
@@ -71,10 +76,14 @@ def from_jax_params(params: dict, cfg: ModelConfig, *,
 
     pattern = cfg.block_pattern
     n_periods = cfg.num_layers // len(pattern)
+    shared = (take_tree(("decoder", "shared_attn"))
+              if "shared_attention" in pattern else None)
     layers = []
     for layer in range(cfg.num_layers):
         period, pos = divmod(layer, len(pattern))
-        if period < n_periods:
+        if pattern[pos] == "shared_attention":
+            layers.append(shared)        # tied: one dict at every position
+        elif period < n_periods:
             layers.append(take_tree(("decoder", "stack", str(pos)), period))
         else:
             layers.append(take_tree(("decoder", "rem", str(pos))))

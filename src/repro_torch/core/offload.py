@@ -90,6 +90,7 @@ from repro_torch.core.prims import (
     eqn_tier,
     node_name,
 )
+from repro_torch.kernels.flash_attention import refusal as flash_refusal
 from repro_torch.kernels.blockprog import (
     DTYPES,
     PLACEMENT_KWARGS,
@@ -1127,7 +1128,10 @@ def plan_offload(gm: fx.GraphModule, *,
         product.  The pair fuses as one flash-shaped segment, dispatched
         to B5: the [S, T] scores never reach device memory.  Anything
         else (a mask, other value lanes, a chain value read outside)
-        falls back to flush-then-readmit: two ordinary segments."""
+        falls back to flush-then-readmit: two ordinary segments.  So
+        does a pair whose operands B5 refuses (``flash_attention.refusal``:
+        its head dims, f32 / bf16), with that reason in ``explain()`` —
+        where the reference's Pallas kernel takes any head dim."""
         nonlocal mm, cur_rows, current, specs, produced
         if (mm["form"] != "dlhs" or mm["flash"] is not None or
                 mm["pro_eqns"] or mm["rhs_pro_eqns"] or
@@ -1213,6 +1217,20 @@ def plan_offload(gm: fx.GraphModule, *,
             if v in outvar_set or any(c not in chain_set and c != i
                                       for c in consumers.get(v, [])):
                 return False             # a chain value escapes
+        # B5 must take what ops.fused_flash_segment passes it: one head
+        # per slice (G = 1), head_dim mm["k"], the operands' dtype
+        why = flash_refusal(mm["k"], _dtype(mm["lhs_var"]))
+        if why is None and _dtype(mm["rhs"]) != _dtype(mm["lhs_var"]):
+            why = "q and k differ in dtype"
+        if why is not None:
+            decisions.append(SegmentDecision(
+                tier="anchor", form="flash", eqns=0, rows=cur_rows,
+                roles=(), near_bytes=0, far_bytes=0, near_us=0.0,
+                far_us=0.0, fused=False, batch=mm["batch_shape"],
+                reason=f"flash pair declined: flash_attention (B5) "
+                       f"refuses its operands ({why}); the scores and "
+                       f"the PV product are planned on their own"))
+            return False
         mm["flash"] = dict(scale=scale, t_dim=t_dim,
                            consts={v: specs[v] for v in specs})
         mm["extra_eqns"] = chain + [i]

@@ -1,12 +1,12 @@
 """Hand-written GPU kernels of the port and their dispatch (``ops``),
-under the reference's names for what is ported (``ssd_scan`` and
-``wkv6`` are not yet).
+under the reference's names: every TPU kernel of the reference has its
+counterpart here.
 
 The entry points exported here (``rmsnorm``, ``rotary``,
 ``decode_attention``, ``flash_attention``, ``fused_elementwise``,
-``adamw_update``, ``flash_attention_bwd``) share their names with
-submodules of this package.  Importing a submodule binds its name here
-to the module; the ``from ... import`` lines below rebind it to the
+``adamw_update``, ``flash_attention_bwd``, ``ssd_scan``, ``wkv6``) share
+their names with submodules of this package.  Importing a submodule
+binds its name here to the module; the ``from ... import`` lines below rebind it to the
 function, so they must stay the last imports of this file.  Elsewhere,
 reach a submodule by its full path (``from
 repro_torch.kernels.rotary import rotary_plain`` or
@@ -32,6 +32,8 @@ from repro_torch.kernels.ops import (
     paged_decode_attention,
     rmsnorm,
     rotary,
+    ssd_scan,
+    wkv6,
 )
 
 __all__ = [
@@ -51,4 +53,6 @@ __all__ = [
     "paged_decode_attention",
     "rmsnorm",
     "rotary",
+    "ssd_scan",
+    "wkv6",
 ]

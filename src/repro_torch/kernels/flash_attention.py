@@ -106,6 +106,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def refusal(head_dim: int, dtype: torch.dtype, group: int = 1) -> str | None:
+    """Why B5 refuses operands of this head dim, dtype and GQA group (G
+    query heads per kv head), or None when it takes them: H in
+    ``HEAD_DIMS``, f32 or bf16, G at most ``G_MAX``.  ``check_operands``
+    raises with this reason; the offload planner declines a flash pair
+    with it."""
+    if head_dim not in HEAD_DIMS:
+        return f"head_dim {head_dim} is not one of {HEAD_DIMS}"
+    if dtype not in _DTYPES:
+        return f"dtype {dtype} is not float32 or bfloat16"
+    if not 1 <= group <= G_MAX:
+        return f"G={group} query heads per kv head is not in 1..{G_MAX}"
+    return None
+
+
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    *more: torch.Tensor) -> None:
     """What the flash kernels take: q (and ``more``, shaped as q) ``[B, S,
@@ -120,14 +135,15 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != h:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head_dim")
-    if h not in HEAD_DIMS:
-        raise ValueError(f"head_dim {h} is not one of {HEAD_DIMS}")
     nk = k.shape[2]
-    if nq % nk or not 1 <= nq // nk <= G_MAX:
+    if nq % nk:
         raise ValueError(f"NQ={nq} must be G * NK={nk} with G <= {G_MAX}")
+    why = refusal(h, q.dtype, nq // nk)
+    if why is not None:
+        raise (TypeError if why.startswith("dtype") else ValueError)(why)
     for name, t in (("q", q), ("k", k), ("v", v),
                     *((f"operand {i}", t) for i, t in enumerate(more))):
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+        if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}: q, k, v share float32 "
                             f"or bfloat16 (q is {q.dtype})")
         if t.device != q.device:

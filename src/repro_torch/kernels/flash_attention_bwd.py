@@ -141,8 +141,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Launch B7 on CUDA tensors: ``D = rowsum(dO * o)``, then ``dkv``
     and ``dq`` (each counts as one launch of its kernel).  ``lse`` is the
     forward's ``[B, S, NQ]`` f32 log-sum-exp.  Raises on anything the
-    kernels do not take (f32 takes head_dim at most 64) or on a refused
-    launch.  Returns ``(dq, dk, dv)``."""
+    kernels do not take — what B5 refuses (``flash_attention.refusal``),
+    and f32 with head_dim above 64 — or on a refused launch.  Returns
+    ``(dq, dk, dv)``."""
     check_operands(q, k, v, o)
     dvec = row_dot(do, o)
     kw = dict(causal=causal, window=window, scale=scale)
@@ -184,5 +185,8 @@ def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable flash attention (``scale = 1/sqrt(H)``, as the
     reference's).  The reference's ``q_block`` / ``kv_block`` /
     ``interpret`` arguments shape TPU blocks only and are not carried
-    over."""
+    over.  On CUDA tensors it takes what B5 takes (``ops.flash_attention``)
+    and its backward B7 besides refuses f32 with head_dim above 64 (the
+    f32 tiles of 128 do not fit 227 KB of shared memory): such inputs
+    raise ``ValueError``, where the reference's Pallas kernels take them."""
     return _FlashAttentionFn.apply(q, k, v, causal, window, impl)

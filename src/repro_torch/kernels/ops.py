@@ -37,20 +37,28 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.guard import kernel_guard, resolve_impl
 from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.rotary import rotary as _rotary_cuda, rotary_plain
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_cuda, ssd_scan_plain
+from repro_torch.kernels.wkv6 import wkv6 as _wkv6_cuda, wkv6_plain
 
 #: every ported kernel, by the name its launch counter goes under
 KERNELS = ("paged_decode_attention", "fused_segment_grid",
            "fused_matmul_segment", "fused_matmul_dlhs_segment",
            "fused_matmul_drhs_segment", "adamw_update", "flash_attention",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rmsnorm",
-           "rmsnorm_bwd", "rotary", "decode_attention")
+           "rmsnorm_bwd", "rotary", "decode_attention", "ssd_scan", "wkv6")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, *, impl: str = "auto",
                            **kw) -> torch.Tensor:
-    """Decode attention over a paged KV pool (block-table indexed)."""
+    """Decode attention over a paged KV pool (block-table indexed): q
+    ``[B, NQ, H]``, pools ``[P, NK, page, H]``, tables ``[B, NP]``,
+    lengths ``[B]``.  On CUDA tensors B1 refuses, with ``ValueError`` /
+    ``TypeError``, where the reference's Pallas kernel takes them: a
+    dtype other than f32 or bf16, and a head_dim that is not a
+    power-of-two count (at most 32) of 16-byte vectors — f32 takes H in
+    {4, 8, ..., 128}, bf16 H in {8, 16, ..., 256}."""
     if resolve_impl(impl, q) == "ref":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, lengths)
@@ -66,7 +74,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``[B, T, NK, H]`` or, with ``head_major``, ``[B, NK, T, H]``, each
     read in place; ``lengths [B]``.  A row of length 0 gives zeros.  The
     reference's ``kv_block`` / ``interpret`` arguments shape TPU blocks
-    only and are not carried over."""
+    only and are not carried over.  On CUDA tensors B11 refuses what B1
+    refuses (see ``paged_decode_attention``): a dtype other than f32 or
+    bf16, a head_dim that is not a power-of-two count (at most 32) of
+    16-byte vectors, and rows not 16-byte aligned."""
     if resolve_impl(impl, q) == "ref":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       head_major=head_major)
@@ -91,6 +102,37 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
     return _rotary_cuda(x, positions, theta=theta)
 
 
+def ssd_scan(x: torch.Tensor, logd: torch.Tensor, dt: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, *,
+             impl: str = "auto") -> torch.Tensor:
+    """Mamba2 SSD chunk scan (B12): x ``[B, S, H, P]`` (f32 or bf16),
+    logd (= dt * a, at most 0) and dt ``[B, S, H]``, B / C ``[B, S, N]``
+    shared by all heads; returns y ``[B, S, H, P]`` in x's dtype (the
+    final state is not returned, as the reference's ``ops`` returns y
+    only).  Any S.  The reference's ``chunk`` / ``interpret`` arguments
+    shape TPU blocks only and are not carried over: B12 picks its chunk
+    itself, and the result does not depend on it beyond rounding."""
+    if resolve_impl(impl, x) == "ref":
+        return ssd_scan_plain(x, logd, dt, bmat, cmat)[0]
+    return _ssd_cuda(x, logd, dt, bmat, cmat)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, *, impl: str = "auto"
+         ) -> torch.Tensor:
+    """RWKV6 WKV recurrence (B13): r, k ``[B, S, H, K]`` and v ``[B, S,
+    H, V]`` (f32 or bf16), the decay w ``[B, S, H, K]`` in (0, 1), the
+    bonus u ``[H, K]``; returns y ``[B, S, H, V]`` in r's dtype.  Any S.
+    Its exponents are all at most 0, so it follows the sequential
+    recurrence at any decay, where the reference's Pallas kernel
+    overflows below a chunk's summed log-decay of about -88 (by design,
+    see ``kernels/wkv6.py``).  The reference's ``chunk`` / ``interpret``
+    arguments are not carried over: B13 picks its chunk itself."""
+    if resolve_impl(impl, r) == "ref":
+        return wkv6_plain(r, k, v, w, u)[0]
+    return _wkv6_cuda(r, k, v, w, u)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None, return_lse: bool = False,
@@ -99,7 +141,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H]`` (GQA), causal / sliding-window masks, ``scale`` (default
     1/sqrt(H)); returns ``out`` or ``(out, lse)``.  The reference's
     ``q_block`` / ``kv_block`` / ``interpret`` arguments shape TPU blocks
-    only and are not carried over (B5 picks its tiles from the shapes)."""
+    only and are not carried over (B5 picks its tiles from the shapes).
+    On CUDA tensors B5 refuses, with ``ValueError`` / ``TypeError``,
+    where the reference's Pallas kernel takes them: head_dim outside
+    {16, 32, 64, 128}, more than 64 query heads per kv head, and a dtype
+    other than f32 or bf16 (f16 included); ``flash_attention.refusal``
+    names the reason, and the offload planner declines a flash pair by
+    it."""
     kw = dict(causal=causal, window=window, scale=scale,
               return_lse=return_lse)
     if resolve_impl(impl, q) == "ref":

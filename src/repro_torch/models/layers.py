@@ -9,7 +9,8 @@ training state holds f32 master parameters and their gradients reach
 them through the cast.  Serving casts its copy once instead
 (``cast_params``, called by the engine): a cast to the dtype a tensor
 already has is no op at all, so the served graph is the same as with
-weights stored in the compute dtype.  RMSNorm scales stay f32 and
+weights stored in the compute dtype.  The leaves read in f32 (RMSNorm
+scales and the recurrent blocks' ``F32_LEAVES``) stay f32 and
 statistics (norm, softmax, loss) are f32.
 """
 from __future__ import annotations
@@ -61,17 +62,29 @@ def at(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
 
 
+#: leaves every function reads in f32 (``.float()`` where used, as the
+#: reference casts its f32 masters): RMSNorm scales, the SSM's decay, skip
+#: and step bias, RWKV6's decay base, bonus and head norm
+F32_LEAVES = frozenset({"scale", "A_log", "D", "dt_bias", "w0", "u",
+                        "ln_x_scale", "ln_x_bias"})
+
+
 def cast_params(tree: Any, dtype: torch.dtype, device=None) -> Any:
     """Cast a parameter tree once into the compute dtype (the serving
-    copy); leaves named ``scale`` (RMSNorm) stay f32.  A leaf that is
-    already in place is kept, not copied."""
+    copy); the leaves named in ``F32_LEAVES`` stay f32.  A leaf that is
+    already in place is kept, not copied, and a dict that appears at
+    several places (tied weights) stays one dict."""
+    seen: dict[int, Any] = {}
+
     def walk(node, name=""):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            if id(node) not in seen:
+                seen[id(node)] = {k: walk(v, k) for k, v in node.items()}
+            return seen[id(node)]
         if isinstance(node, (list, tuple)):
             return [walk(v, name) for v in node]
-        return node.to(device=device,
-                       dtype=torch.float32 if name == "scale" else dtype)
+        return node.to(device=device, dtype=torch.float32
+                       if name in F32_LEAVES else dtype)
     return walk(tree)
 
 

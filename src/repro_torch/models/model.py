@@ -1,4 +1,5 @@
-"""Public model API of the port: build a dense decoder from its config.
+"""Public model API of the port: build a decoder from its config (dense,
+hybrid Mamba2 with tied shared attention, or RWKV6).
 
 ``build_model(cfg, device=...)`` returns a ``Model`` of plain functions,
 named as in ``repro/models/model.py``:
@@ -20,7 +21,8 @@ serving engine casts its copy once (``layers.cast_params``), after
 which those casts are no ops.  Caches are updated in place and
 returned.  The serving functions run under ``torch.no_grad``;
 ``forward`` and ``loss_fn`` record gradients.  The encoder and the
-frontends arrive with the model-zoo slice.
+frontends arrive with the rest of the model zoo.  A ``shared_attention``
+layer's entry in ``layers`` is the one tied dict.
 """
 from __future__ import annotations
 
@@ -185,7 +187,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         """One prompt chunk [1, C] for a single request: scatter its K/V
         into the request's pages and return the logits at the chunk's
         last *real* token (meaningful only on the final chunk).  Dense
-        attention-only decoder stacks (no SWA)."""
+        attention-only decoder stacks (no SWA, no recurrent state)."""
         assert cfg.sliding_window == 0 and attention_only_pattern(cfg)
         x = embed_apply(params["embed"], _tokens(tokens), dtype)
         h, cache = stack_prefill_chunk(params["layers"], cfg, x, cache,

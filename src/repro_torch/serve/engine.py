@@ -37,6 +37,12 @@ plan — fused segments as single kernel launches, everything else as
 its op.  ``offload_stats`` shows the plan cache (``plan_misses == 1``
 at steady state), ``explain_decode()`` the per-segment decisions.
 
+Recurrent stacks (zamba2's mamba2 layers, rwkv6) keep one state row per
+slot: admit writes the prompt's final state into the slot's row, a
+decode step keeps the new state of the active slots only.  Prompt
+bucketing and chunked prefill stay off for them, as in the JAX engine;
+``offload=True`` is not ported for them yet and raises.
+
 ``fault_injector`` is duck-typed (``page_alloc()``, ``slow_step()``,
 ``poison_slots(active)``).  The fixed-slot baseline engine, the fault
 injector itself and the static table verifier arrive with later slices
@@ -171,6 +177,11 @@ class Engine:
         # through the offload compiler, planned once for the pool's decode
         # signature; ``offload_policy`` implies offload
         self.offload = offload or offload_policy is not None
+        if self.offload and not attention_only_pattern(cfg):
+            raise NotImplementedError(
+                f"offload=True for {cfg.name} (blocks {cfg.block_pattern}) "
+                "is not ported yet: the offloaded decode step serves "
+                "attention-only stacks")
         self.offload_policy = offload_policy
         self._decode_offload = None
         if self.offload:
@@ -435,7 +446,7 @@ class Engine:
         tokens[0, :s] = toks
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": tokens}, self.max_len, int(s))
-        _scatter_admit(self.cache, cache1, self._table_row(slot),
+        _scatter_admit(self.cache, cache1, self._table_row(slot), slot,
                        page=self.page_size, n_pr=need)
         self._activate(slot, logits, int(s), int(req.max_new_tokens - 1),
                        float(req.temperature))
@@ -710,15 +721,30 @@ def _fit_len(x: torch.Tensor, length: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((length - t,) + x.shape[1:])])
 
 
-def _scatter_admit(cache: Cache, cache1: Cache, table_row: torch.Tensor, *,
-                   page: int, n_pr: int) -> None:
+#: the leaves of a recurrent layer's cache, each with the batch (slot)
+#: row on axis 0 (``models.ssm.init_mamba2_cache``,
+#: ``models.rwkv.init_rwkv6_cache``)
+RECURRENT_LEAVES = ("ssm", "conv", "wkv", "tshift", "cshift")
+
+
+def _scatter_admit(cache: Cache, cache1: Cache, table_row: torch.Tensor,
+                   slot: int, *, page: int, n_pr: int) -> None:
     """Merge a single-request prefill cache into the paged pools, in
-    place: each layer's K/V ``[1, T, NK, H]`` scatters its first
-    ``n_pr`` pages through the slot's block-table row."""
+    place: each attention layer's K/V ``[1, T, NK, H]`` scatters its
+    first ``n_pr`` pages through the slot's block-table row; each
+    recurrent leaf writes the slot's state row.  A leaf of another name
+    raises."""
     ids = table_row[:n_pr].long()
     for pool_layer, one in zip(cache, cache1):
-        for name in ("k", "v"):
-            x = _fit_len(one[name][0], n_pr * page)
-            _, nk, h = x.shape
-            x = x.reshape(n_pr, page, nk, h).permute(0, 2, 1, 3)
-            pool_layer[name][ids] = x.to(pool_layer[name].dtype)
+        for name, t in one.items():
+            if name in ("k", "v"):
+                x = _fit_len(t[0], n_pr * page)
+                _, nk, h = x.shape
+                x = x.reshape(n_pr, page, nk, h).permute(0, 2, 1, 3)
+                pool_layer[name][ids] = x.to(pool_layer[name].dtype)
+            elif name in RECURRENT_LEAVES and \
+                    t.shape[1:] == pool_layer[name].shape[1:]:
+                pool_layer[name][slot] = t[0].to(pool_layer[name].dtype)
+            else:
+                raise ValueError(f"cannot merge cache leaf {name!r} "
+                                 f"{tuple(t.shape)} into the paged cache")

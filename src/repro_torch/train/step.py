@@ -24,6 +24,7 @@ import torch.utils._pytree as pytree
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import attention_only_pattern
 from repro_torch.optim import (
     AdamWState,
     apply_updates,
@@ -62,7 +63,13 @@ def make_train_step(model: Model, tcfg: TrainConfig, *,
     ``compute_grads(params, batch) -> (loss, metrics, grads)`` and, when
     offloaded, ``loss_fn`` / ``update_fn`` (the wrappers), ``stats`` /
     ``update_stats`` (their plan-cache counters) and ``explain_loss`` /
-    ``explain_update`` (their decision reports)."""
+    ``explain_update`` (their decision reports).  Stacks with recurrent
+    or tied blocks (zamba2, rwkv6) are served, not yet trained: raises."""
+    if not attention_only_pattern(model.cfg) or \
+            "shared_attention" in model.cfg.block_pattern:
+        raise NotImplementedError(
+            f"training {model.cfg.name} (blocks {model.cfg.block_pattern}) "
+            "is not ported yet: the port trains dense attention stacks")
     use_offload = tcfg.offload if offload is None else offload
 
     def loss_fn(params, batch):

@@ -295,11 +295,11 @@ def test_launch_counters_are_registered():
 
 
 def test_package_exports_the_reference_names_that_are_ported():
-    """Every name ``repro.kernels`` exports, but ``ssd_scan`` and
-    ``wkv6`` (not yet ported, and not there as stubs)."""
-    want = set(jkernels.__all__) - {"ssd_scan", "wkv6"}
+    """Every name ``repro.kernels`` exports: since ``ssd_scan`` and
+    ``wkv6`` (B12, B13) every one is ported, none a stub."""
+    want = set(jkernels.__all__)
     assert set(tkernels.__all__) == want
     for name in want:
         assert getattr(tkernels, name) is not None
     for name in ("ssd_scan", "wkv6"):
-        assert not hasattr(tkernels, name) and not hasattr(ops, name)
+        assert getattr(tkernels, name) is getattr(ops, name)

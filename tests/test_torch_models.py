@@ -19,7 +19,7 @@ import torch
 from conftest import tiny
 
 from repro.models import attention as jattn, build_model as jbuild, layers as jlayers
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.convert import from_jax_params
 from repro_torch.models import attention as tattn, build_model, layers as tlayers
 from repro_torch.models.transformer import check_supported
@@ -316,9 +316,11 @@ def test_own_init_has_the_reference_shapes_and_scales(pair):
 
 def test_unported_kinds_raise_naming_the_later_slice():
     base = reduced(get_config("qwen3-1.7b"))
+    check_supported(dataclasses.replace(      # ported since the SSM slice
+        base, block_pattern=("mamba2", "attention")))
     with pytest.raises(NotImplementedError, match="model-zoo"):
-        check_supported(dataclasses.replace(
-            base, block_pattern=("mamba2", "attention")))
+        check_supported(reduced(get_config("qwen3-1.7b"), moe=MoEConfig(
+            num_experts=4, top_k=2)))
     with pytest.raises(NotImplementedError, match="model-zoo"):
         build_model(dataclasses.replace(base, frontend="vision"),
                     device="cpu")

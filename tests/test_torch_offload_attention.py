@@ -224,6 +224,45 @@ def test_mismatched_value_lanes_do_not_flash_but_match():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("d,dtype,admitted", [
+    (24, torch.float32, False), (96, torch.float32, False),
+    (256, torch.float32, False), (32, torch.float16, False),
+    (64, torch.bfloat16, True), (128, torch.bfloat16, True)])
+def test_flash_pair_only_where_b5_takes_the_operands(d, dtype, admitted):
+    """The planner admits the flash pair only where B5 takes what the
+    flash segment would pass it (``flash_attention.refusal``: head dims
+    16 / 32 / 64 / 128, f32 or bf16).  Otherwise it declines the pair
+    with B5's reason in ``explain()`` and the chain runs as ordinary
+    segments, matching the unwrapped chain (f32 1e-5; f16 2e-3, two ulps
+    of an O(1) value; bf16 2e-2).  The JAX planner admits every f32 one:
+    its Pallas kernel takes any head dim — a plan difference by design."""
+    arrays = _qkv(d=d)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    plan = offload_report(_tattn, q, k, v, policy=POLICY)
+    flash = [s for s in plan.segments if _flash(s)]
+    declined = [x.reason for x in plan.decisions
+                if x.form == "flash" and not x.fused]
+    report = str(mpu_offload(_tattn, policy=POLICY).explain(q, k, v))
+    if admitted:
+        assert len(flash) == 1 and not declined
+    else:
+        assert not flash and len(declined) == 1
+        assert "flash pair declined" in declined[0]
+        assert ("head_dim" if dtype != torch.float16 else "float16") in \
+            declined[0]
+        assert declined[0] in report
+    if dtype == torch.float32:
+        jplan = joffload_report(_jattn, *map(jnp.asarray, arrays),
+                                bulk_threshold=64)
+        assert sum(_flash(s) for s in jplan.segments) == 1
+    tol = {torch.float32: 1e-5, torch.float16: 2e-3,
+           torch.bfloat16: 2e-2}[dtype]
+    got = mpu_offload(_tattn, policy=POLICY)(q, k, v)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(_np(got), _np(_tattn(q, k, v)), rtol=tol,
+                               atol=tol)
+
+
 def test_a_copy_decides_by_where_it_moves_the_batch_axes():
     """A ``bmm`` operand that is a copy still anchors when the copy keeps
     the batch axes leading (a transposed matrix made contiguous); one

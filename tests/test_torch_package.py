@@ -60,7 +60,9 @@ def test_every_module_of_the_slice_is_there():
             "kernels.fused_elementwise", "kernels.fused_matmul",
             "kernels.fused_matmul_bwd", "kernels.adamw_update",
             "data.pipeline", "optim.adamw", "optim.schedule",
-            "ckpt.manager", "train.step", "train.loop", "launch.train"}
+            "ckpt.manager", "train.step", "train.loop", "launch.train",
+            "kernels.ssd_scan", "kernels.wkv6", "models.ssm",
+            "models.rwkv", "configs.zamba2_1_2b", "configs.rwkv6_1_6b"}
     have = {n.removeprefix("repro_torch.") for n in _submodules()}
     assert want <= have, want - have
     csrc = ROOT / "src/repro_torch/kernels/csrc/paged_decode_attention.cu"

@@ -324,7 +324,7 @@ def test_engine_surface_of_this_slice(setup):
         "fused_matmul_drhs_segment": 0, "adamw_update": 0,
         "flash_attention": 0, "flash_attention_bwd_dkv": 0,
         "flash_attention_bwd_dq": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
-        "rotary": 0, "decode_attention": 0}
+        "rotary": 0, "decode_attention": 0, "ssd_scan": 0, "wkv6": 0}
     assert stats["table_width"] == 8 and stats["guard_epoch"] == 0
 
 
