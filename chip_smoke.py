@@ -47,12 +47,17 @@ and holds every hand-written kernel against its plain PyTorch version:
    peaks); the offloaded step against the plain eager step in bf16 and,
    at two layers, in f32; AdamW through ``apply_updates(use_kernel=True)``
    against ``use_kernel=False`` and B8 against its plain version; every
-   distinct fused segment of the training plans — grid (B2), fwd (B3,
-   with the GEMM path each takes), dlhs (B4), drhs (B6) — at its own
+   distinct fused segment of the training plans — grid (B2), fwd (B3),
+   dlhs (B4), drhs (B6), each anchored one with the GEMM path it takes
+   (``sm90 TMA`` / ``sm90 register-staged`` / WMMA / FMA; every bf16
+   dlhs / drhs must take the sm90 mainloop, no instantiation of it may
+   spill, and each bf16 drhs is launched twice, bit-equal) — at its own
    shapes and strides against its plain version, the bf16 anchored ones
    and the most launched grid ones timed beside the bound, the plain
-   version and a library yardstick; the forward plan unchanged by
-   batched anchors, its attention ``bmm`` declined;
+   version and a library yardstick; B3 / B4 / B6's device time a step
+   by form; every sm90 variant at the CPU tests' shapes, on misaligned
+   operands and with a K split; the forward plan unchanged by batched
+   anchors, its attention ``bmm`` declined;
 8. flash and batched anchors at the attention width of qwen3-1.7b (16
    query / 8 kv heads, head_dim 128, 2 x 2048 tokens, bf16):
    ``mpu_offload`` of the GQA attention chain plans one flash segment
@@ -65,7 +70,8 @@ and holds every hand-written kernel against its plain PyTorch version:
    ``dkv``, ``dq``) against the plain versions, and both at the CPU
    tests' shapes in f32 and bf16; every distinct segment of the
    ``BATCHED_GEMM_BWD`` chain (f32, bf16) and of the backward plans
-   against its plain version; B5 and each B7 kernel timed beside the
+   against its plain version (the batched B4 / B6 timed beside
+   ``torch.bmm``); B5 and each B7 kernel timed beside the
    bound, the plain version and ``scaled_dot_product_attention``; and a
    chain whose flash pair B5 refuses (head_dim 96, f32: queue C1)
    declined with B5's reason and run on the card against the unwrapped
@@ -118,6 +124,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -138,6 +145,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
 )
+from repro_torch.kernels.guard import kernel_guard
 from repro_torch.models import build_model
 from repro_torch.models.layers import cast_params, lm_head_apply
 from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
@@ -1046,6 +1054,9 @@ TIMED_GRID = 3
 #: declined) as measured before batched contractions were planned; they
 #: must not move it (the attention bmm stay declined)
 TRAIN_FORWARD_PLAN = (719, {"grid": 557, "fwd": 162}, 1019)
+#: B4 / B6 launches a bf16 step as planned before the sm90 cost model: a
+#: difference is a backward decision the new modeled bytes flip
+EARLIER_BWD_LAUNCHES = (162, 162)
 
 
 def train_segments(plans) -> dict:
@@ -1104,10 +1115,26 @@ def seg_operands(seg, seed: int) -> list:
     return out
 
 
+def sm90_resources(logs) -> tuple[list, list]:
+    """The registers per thread of every sm90 mainloop instantiation in
+    ``-Xptxas -v`` output, and the instantiations that spill."""
+    regs, spilling, entry = [], [], ""
+    for ln in (ln for log in logs for ln in log.splitlines()):
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "fm90_gemm" in entry and "spill" in ln and \
+                "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spilling.append(entry)
+        elif "fm90_gemm" in entry and "Used " in ln:
+            regs.append(int(ln.split("Used ")[1].split()[0]))
+    return sorted(set(regs)), spilling
+
+
 def build_units(plans) -> tuple[list, float, list, int]:
     """Build the CUDA translation units of the plans, one ``nvcc`` each,
     all started together.  Returns the units, the seconds, the registers
-    per thread by instantiation and the number with spills."""
+    per thread by instantiation and the number with spills; fails if an
+    instantiation of the sm90 mainloop spills."""
     t0 = time.perf_counter()
     units = sorted({tuple(p.library) for p in plans if p.library})
     logs = [fm.finish_library(h)[1]
@@ -1116,6 +1143,11 @@ def build_units(plans) -> tuple[list, float, list, int]:
                    for ln in log.splitlines() if "registers" in ln})
     spills = sum("spill" in ln and "0 bytes spill stores" not in ln
                  for log in logs for ln in log.splitlines())
+    sm90_regs, sm90_spilling = sm90_resources(logs)
+    if sm90_regs or sm90_spilling:
+        print(f"[7] sm90 mainloop instantiations: registers per thread "
+              f"{sm90_regs}, {len(sm90_spilling)} spilling")
+    check(not sm90_spilling, f"sm90 instantiations spill: {sm90_spilling}")
     return units, time.perf_counter() - t0, regs, spills
 
 
@@ -1184,13 +1216,38 @@ def global_norm_of(grads) -> float:
     return float(global_norm(grads))
 
 
-def train_steps(step, held: list, data, tokens: int):
+#: the kernel of each anchored form, as the profiler's symbols name it
+FORM_KERNEL = {"fwd": "B3", "dlhs": "B4", "drhs": "B6"}
+
+
+def form_device_ms(rows, plans, dev_us) -> dict:
+    """Device milliseconds a step of B3 / B4 / B6 (profiler rows of two
+    steps), summed by form: every kernel whose name holds a generated
+    segment symbol of the plans (its GEMM, and its epilogue kernel)."""
+    from repro_torch.core.offload import kernel_symbol, segment_call
+
+    form_of = {}
+    for plan in plans:
+        for seg in plan.segments:
+            if seg.matmul is not None and seg.matmul.flash is None:
+                sym = kernel_symbol(segment_call(plan.eqns, seg))
+                form_of[sym] = seg.matmul.form
+    out = {k: 0.0 for k in FORM_KERNEL.values()}
+    for e in rows:
+        for sym in re.findall(r"fm_[0-9a-f]{16}", e.key)[:1]:
+            if sym in form_of:
+                out[FORM_KERNEL[form_of[sym]]] += dev_us(e) / 2e3
+    return out
+
+
+def train_steps(step, held: list, data, tokens: int, plans):
     """Three steps: the first cold (Triton builds), the second and third
     under the profiler.  ``held`` is a one-element list holding the
     state, emptied here so that no caller keeps the first state alive
     (a step's peak memory is the old state beside the new one).  Returns
     the state, the launches of every kernel over the three steps and the
-    step-3 reading."""
+    step-3 reading (with the device time a step of B3 / B4 / B6, by the
+    plans' segment symbols)."""
     from torch.profiler import ProfilerActivity, profile
 
     state = held.pop()
@@ -1238,8 +1295,17 @@ def train_steps(step, held: list, data, tokens: int):
     for e in sorted(rows, key=dev_us, reverse=True)[:8]:
         print(f"[7]   {dev_us(e) / 2e3:9.3f} ms/step {e.count / 2:7.0f} "
               f"calls/step  {e.key[:80]}")
-    print(f"[7] launches a step (step 3): {per_step[2]}")
-    return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak)
+    by_form = form_device_ms(rows, plans, dev_us)
+    print(f"[7] device time a step of the anchored GEMMs by form (their "
+          f"epilogue kernels included): "
+          f"{', '.join(f'{k} {v:.1f} ms' for k, v in by_form.items())}")
+    print(f"[7] launches a step (step 3): {per_step[2]}; B4 / B6 "
+          f"{per_step[2].get('fused_matmul_dlhs_segment', 0)} / "
+          f"{per_step[2].get('fused_matmul_drhs_segment', 0)} (before the "
+          f"sm90 cost model: {EARLIER_BWD_LAUNCHES[0]} / "
+          f"{EARLIER_BWD_LAUNCHES[1]})")
+    return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak,
+                               **by_form)
 
 
 def memory_split(step, state, batch, plans) -> dict:
@@ -1340,10 +1406,20 @@ def close_f32(got, want) -> tuple[bool, float]:
     return ok, err
 
 
+def gemm_path(gen: dict) -> str:
+    """The GEMM path of a generated anchored segment: the variant of the
+    sm90 mainloop its last launch took (``sm90 TMA`` / ``sm90
+    register-staged``), else ``WMMA`` (bf16 tiles) or ``FMA``."""
+    if gen["path"] == "sm90":
+        return kernel_guard().last_variant.get(gen["name"],
+                                               "sm90 (not launched)")
+    return gen["path"].upper()
+
+
 def describe_segment(eqns, seg, count: int) -> str:
     """One line: the segment's form and shapes; for an anchored one the
-    GEMM path the generated kernel takes (WMMA on bf16 tiles, f32 FMA
-    otherwise), its prologues, K split and where the epilogue runs."""
+    GEMM path the generated kernel takes (``gemm_path``), its prologues,
+    tile, K split and where the epilogue runs."""
     from repro_torch.core.offload import _matmul_gen, node_val, segment_call
 
     mm = seg.matmul
@@ -1364,9 +1440,10 @@ def describe_segment(eqns, seg, count: int) -> str:
                                    ("weight", mm.rhs_pro_eqns)) if on)
     where = "in the tile" if gen["ks"] == 0 else \
         f"in a second kernel over {gen['ks']} K split(s)"
+    tile = f"tile [128x{gen['tn']}]" if gen["path"] == "sm90" else \
+        f"row block {gen['rb']}"
     return (f"{mm.form} {shape} weight-side {w} prologue {pro or 'none'} "
-            f"{'WMMA' if gen['wmma'] else 'FMA'} row block {gen['rb']}, "
-            f"epilogue {where} x{count}")
+            f"{gemm_path(gen)} {tile}, epilogue {where} x{count}")
 
 
 def check_train_segments(plans, dtype, card: str, *, timed: bool,
@@ -1378,6 +1455,7 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
     the plain version and a library yardstick.  Returns the timing rows
     by symbol."""
     from repro_torch.core.offload import (
+        _matmul_gen,
         _segment_kernel,
         segment_call,
         segment_programs,
@@ -1387,7 +1465,7 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
     segs = train_segments(plans)
     grids = sorted((sym for sym, (_, s, _) in segs.items()
                     if s.matmul is None), key=lambda sym: -segs[sym][2])
-    rows, summary, failed = {}, {}, []
+    rows, summary, failed, off_sm90 = {}, {}, [], []
     for sym, (eqns, seg, count) in segs.items():
         mm = seg.matmul
         form = mm.form if mm is not None else "grid"
@@ -1405,9 +1483,23 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
         n, n_launch, worst = summary.get(form, (0, 0, 0.0))
         summary[form] = (n + 1, n_launch + count, max(worst, err))
         bits = all(torch.equal(g, w) for g, w in zip(got, want))
+        repeat = ""
+        if form in ("dlhs", "drhs") and dtype == torch.bfloat16:
+            gen = _matmul_gen(segment_call(eqns, seg))
+            if gen["path"] != "sm90" or "sm90" not in gemm_path(gen):
+                off_sm90.append(f"{form} {sym}")
+            if form == "drhs":
+                # no K split, no atomics: a second launch is bit-equal
+                again = call(*vals)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
+                repeat = f", relaunch bit-equal {same}"
+                if not same:
+                    failed.append(f"drhs relaunch {sym}")
+                del again
         print(f"{tag}   {describe_segment(eqns, seg, count)} "
               f"{str(dtype)[6:]}: max_abs_err {err:.3e}"
-              f"{', bit-equal' if bits else ''}")
+              f"{', bit-equal' if bits else ''}{repeat}")
         if not ok:
             print(f"{tag}     FAILED: elements outside the bound "
                   f"{n_outside(got, want, dtype)} of "
@@ -1427,7 +1519,7 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
                 def lib():
                     return torch.matmul(a, b.to(a.dtype))
             else:
-                lib_name = "torch.matmul"
+                lib_name = "torch.bmm" if a.dim() == 3 else "torch.matmul"
 
                 def lib():
                     return torch.matmul(a, b)
@@ -1457,10 +1549,107 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
     for form, (n, n_launch, worst) in summary.items():
         print(f"{tag} {str(dtype)[6:]} {form}: {n} distinct segments checked "
               f"({n_launch} in the plans), worst max_abs_err {worst:.3e}")
+    variants = {f"{k} / {v}": n
+                for (k, v), n in kernel_guard().variants.items()}
     print(f"{tag} {len(segs)} distinct segments checked in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; sm90 launches by variant "
+          f"since the last count reset {variants}")
     check(not failed, f"segments differ from their plain versions: {failed}")
+    check(not off_sm90, f"bf16 B4 / B6 segments off the sm90 mainloop: "
+          f"{off_sm90}")
     return rows
+
+
+def sm90_chains():
+    """(label, fn, shapes) of bf16 backward chains that reach every
+    variant of the sm90 mainloop: the CPU tests' shapes
+    (tests/test_torch_sm90_gemm.py; an lhs prologue is register-staged),
+    rows and a width TMA refuses (no multiple of 16 bytes), and a long
+    contraction on one tile (a K split)."""
+    B, S, K, N = 2, 12, 40, 24
+    yield ("dlhs param/rep/tile",
+           lambda g, w, p, r, q: (torch.tanh(g @ w.t()) * p + r) * q,
+           [(B, S, K), (N, K), (N,), (B, 1, N), (1, S, N)])
+    yield ("dlhs lhs prologue, lane reduce",
+           lambda g, s, w: (lambda h: h * torch.rsqrt(torch.mean(
+               h * h, -1, keepdim=True) + 1e-5))((g * s) @ w.t()),
+           [(B * S, K), (K,), (N, K)])
+    yield ("dlhs batch 2",
+           lambda g, w, y: torch.tanh(torch.bmm(g, w.transpose(1, 2))) + y,
+           [(B, S, K), (B, N, K), (B, S, N)])
+    yield ("drhs bulk/param",
+           lambda x, g, w, b: ((x.t() @ g) * 0.5 + 0.01 * w) * b,
+           [(B * S, K), (B * S, N), (K, N), (N,)])
+    yield ("drhs batch 2",
+           lambda x, g, w: torch.bmm(x.transpose(1, 2), g) + 0.01 * w,
+           [(B, S, K), (B, S, N), (B, K, N)])
+    yield ("drhs rows 70, width 36", lambda x, g: (x.t() @ g) * 2.0,
+           [(100, 70), (100, 36)])
+    yield ("dlhs K split", lambda g, w, y: g @ w.t() + y,
+           [(128, 8192), (128, 8192), (128, 128)])
+
+
+def misaligned(v: torch.Tensor) -> torch.Tensor:
+    """A copy of ``v`` (same shape and strides) one element past a
+    16-byte boundary: a base TMA refuses."""
+    base = torch.empty(_span(v) + 8, dtype=v.dtype, device=v.device)
+    return base.as_strided(v.shape, v.stride(), storage_offset=1).copy_(v)
+
+
+def sm90_variants() -> None:
+    """Every variant of the sm90 mainloop (``sm90 TMA``, ``sm90
+    register-staged``) of B4 and B6 against its plain version: the
+    chains of ``sm90_chains`` planned on the card, each anchored segment
+    on its seeded operands as given and on misaligned copies of them;
+    every output bit-equal or within phase 6's rule, and both variants
+    of both kernels launched."""
+    from repro_torch.core import OffloadPolicy
+    from repro_torch.core.offload import (
+        _matmul_gen,
+        _segment_kernel,
+        offload_report,
+        segment_call,
+        segment_programs,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    before = dict(kernel_guard().variants)
+    failed, lines = [], []
+    for label, fn, shapes in sm90_chains():
+        args = [seeded(gen, sh, torch.bfloat16) for sh in shapes]
+        plan = offload_report(fn, *args,
+                              policy=OffloadPolicy(bulk_threshold=16))
+        for seg in plan.segments:
+            if seg.matmul is None:
+                continue
+            progs = segment_programs(plan.eqns, seg)
+            call = _segment_kernel(seg, progs, impl="cuda")
+            ref = _segment_kernel(seg, progs, impl="ref")
+            name = _matmul_gen(segment_call(plan.eqns, seg))["name"]
+            vals = seg_operands(seg, 17)
+            for how, vs in (("as given", vals),
+                            ("misaligned", [misaligned(v) for v in vals])):
+                got = call(*vs)
+                torch.cuda.synchronize()
+                want = ref(*vs)
+                ok, err = seg_close(got, want, torch.bfloat16)
+                bits = all(torch.equal(g, w) for g, w in zip(got, want))
+                lines.append(f"{label} {how}: "
+                             f"{kernel_guard().last_variant[name]}, "
+                             f"max_abs_err {err:.1e}"
+                             f"{' bit-equal' if bits else ''}")
+                if not ok:
+                    failed.append(f"{label} {how}")
+    ran = {k: n - before.get(k, 0)
+           for k, n in kernel_guard().variants.items()}
+    print(f"[7] sm90 variants at the CPU tests' shapes, rows TMA refuses and"
+          f" a K split: {'; '.join(lines)}; launches {ran}")
+    check(not failed, f"sm90 variants differ from the plain versions: "
+          f"{failed}")
+    check(all(ran.get((k, v), 0) > 0 for k in
+              ("fused_matmul_dlhs_segment", "fused_matmul_drhs_segment")
+              for v in (fm.SM90_TMA, fm.SM90_STAGED)),
+          f"an sm90 variant was not launched: {ran}")
 
 
 def phase_adamw(state, grads, tcfg, card: str) -> dict:
@@ -1566,7 +1755,7 @@ def phase_train(card: str):
     plans = plan_training(step, state, data.batch(0), "bf16")
     held = [state]
     del state
-    state, counts, reading = train_steps(step, held, data, tokens)
+    state, counts, reading = train_steps(step, held, data, tokens, plans)
     reading.update(memory_split(step, state,
                                 device_batch(data.batch(3), DEVICE), plans))
     batch = device_batch(data.batch(0), DEVICE)
@@ -1575,6 +1764,7 @@ def phase_train(card: str):
     b8 = phase_adamw(state, grads, tcfg, card)
     del grads
     rows = check_train_segments(plans, torch.bfloat16, card, timed=True)
+    sm90_variants()
     del state, step, plans
     torch.cuda.empty_cache()
 
@@ -2015,17 +2205,18 @@ def check_path_segments(eqns, calls, card: str) -> None:
             continue
         ms = graph_ms(lambda i: run(*vals), 2, replays=5)
         plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
-        lib = None
+        lib, lib_name = None, "torch.matmul"
         if mm is not None:
             a, b = vals[0], vals[len(mm.lhs_specs)]
             lib = graph_ms(lambda i: torch.matmul(a, b), 2, replays=5)
+            lib_name = "torch.bmm" if a.dim() == 3 else lib_name
         n_bytes = sum(_span(v) * v.element_size() for v in vals) + \
             sum(o.numel() * o.element_size() for o in got)
         flops = 2 * seg.rows * mm.k * mm.n if mm is not None else 0
         bound = max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
             torch.bfloat16]) * 1e3
         print(f"[8]     {ms:.4f} ms on the card (CUDA-graph replay), plain "
-              f"{plain_ms:.4f} ms, torch.matmul "
+              f"{plain_ms:.4f} ms, {lib_name} "
               f"{'-' if lib is None else f'{lib:.4f}'} ms, bound "
               f"{bound:.4f} ms ({n_bytes} bytes, {flops} flops; bound / "
               f"kernel = {bound / ms:.1%}) on {card}")
@@ -3024,12 +3215,12 @@ def main() -> int:
         "launches": counts["fused_matmul_segment"],
         **kernel_entry(timed, "matmul")}, {
         "name": "fused_matmul_dlhs_segment", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul_sm90.cuh",
         "replaces": "src/repro/kernels/fused_matmul_bwd.py:178",
         "launches": train_counts["fused_matmul_dlhs_segment"],
         **kernel_entry(train_rows, "dlhs")}, {
         "name": "fused_matmul_drhs_segment", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul_sm90.cuh",
         "replaces": "src/repro/kernels/fused_matmul_bwd.py:343",
         "launches": train_counts["fused_matmul_drhs_segment"],
         **kernel_entry(train_rows, "drhs")}, {

@@ -285,17 +285,18 @@ class Segment:
         write per output and the contraction's re-reads, from the
         kernels' own grid helpers (``fused_matmul.matmul_row_blocks`` /
         ``column_tiles`` for fwd and dlhs, ``drhs_grid_blocks`` for
-        drhs) through ``operand_streams`` (the H100's L2 serves the
-        re-reads of blocks that run side by side); a batched weight
-        re-streams once per per-batch row block.  fwd / dlhs add the f32
-        workspace, written and read once per K split, unless the
-        epilogue runs in the tile.  A flash segment reads q once and k
-        and v once per q tile (``flash_attention.q_blocks``), and its
-        [S, T] scores contribute zero bytes.  Planner and kernels share
-        the helpers."""
+        drhs, ``sm90_tiles`` / ``sm90_grid_blocks`` for a bf16 dlhs or
+        drhs on the Hopper mainloop) through ``operand_streams`` (the
+        H100's L2 serves the re-reads of blocks that run side by side);
+        a batched weight re-streams once per per-batch row block.  fwd /
+        dlhs add the f32 workspace, written and read once per K split,
+        unless the epilogue runs in the tile.  A flash segment reads q
+        once and k and v once per q tile (``flash_attention.q_blocks``),
+        and its [S, T] scores contribute zero bytes.  Planner and kernels
+        share the helpers."""
         from repro_torch.kernels import fused_matmul as fm
+        from repro_torch.kernels import fused_matmul_bwd as fmb
         from repro_torch.kernels.flash_attention import q_blocks
-        from repro_torch.kernels.fused_matmul_bwd import drhs_grid_blocks
 
         total = sum(_nbytes(sp.var) for sp in self.operand_specs)
         total += sum(_nbytes(v) for v in self.outputs)
@@ -307,8 +308,17 @@ class Segment:
         if mm.flash is not None:
             return total + lhs_b + rhs_b * q_blocks(self.rows // mm.batch)
         metas = [sp.meta for sp in self.operand_specs]
-        if mm.form == "drhs":
-            row_blocks, col_tiles = drhs_grid_blocks(
+        workspace = 0
+        if fmb.sm90_eligible(mm.form, dtype_name(_dtype(mm.lhs_var)),
+                             dtype_name(_dtype(mm.rhs))):
+            tm, tn, ks = fmb.sm90_tiles(mm.form, self.rows, mm.k, mm.n,
+                                        mm.batch, self.sms)
+            row_blocks, col_tiles = fmb.sm90_grid_blocks(
+                self.rows, mm.n, tm, tn, mm.batch)
+            if not fm.in_tile(ks, self.elementwise, self.out_cols, mm.n):
+                workspace = 4 * self.rows * mm.n * ks
+        elif mm.form == "drhs":
+            row_blocks, col_tiles = fmb.drhs_grid_blocks(
                 self.rows, mm.n, vmem_bytes=self.smem_budget,
                 batch=mm.batch)
         else:
@@ -316,18 +326,16 @@ class Segment:
                 self.rows, metas, min(mm.n, fm.BN), MATMUL_ROWS_BLOCK,
                 self.smem_budget, mm.batch)
             col_tiles = fm.column_tiles(mm.n)
-        lhs_n, rhs_n = fm.operand_streams(lhs_b, row_blocks, col_tiles,
-                                          l2_bytes=self.l2_bytes,
-                                          sms=self.sms)
-        total += lhs_b * lhs_n + rhs_b * rhs_n
-        if mm.form != "drhs":
-            total += 2 * fm.workspace_bytes(
+            workspace = fm.workspace_bytes(
                 self.rows, metas, mm.k, mm.n, rows_block=MATMUL_ROWS_BLOCK,
                 vmem_bytes=self.smem_budget, sms=self.sms,
                 elt=_dtype(mm.rhs_specs[0].var).itemsize,
                 elementwise=self.elementwise, out_cols=self.out_cols,
                 batch=mm.batch)
-        return total
+        lhs_n, rhs_n = fm.operand_streams(lhs_b, row_blocks, col_tiles,
+                                          l2_bytes=self.l2_bytes,
+                                          sms=self.sms)
+        return total + lhs_b * lhs_n + rhs_b * rhs_n + 2 * workspace
 
 
 @dataclass

@@ -1,10 +1,17 @@
 // Matmul-anchored fused segments for Hopper (sm_90a): the GEMM template
-// of all three contraction forms.
+// of all three contraction forms, and the helpers every anchored
+// segment's generated code uses.
 //
 // Replaces the TPU kernels repro/kernels/fused_matmul.py:240
 // (fused_matmul_segment, B3) and repro/kernels/fused_matmul_bwd.py:178
 // and :343 (fused_matmul_dlhs_segment, B4; fused_matmul_drhs_segment,
-// B6).  Every form is C[row, col] = sum_k A(row, k) B(k, col) with an f32
+// B6) — for B4 and B6 only where an operand of the product is not bf16
+// (f32, f16): a bf16 x bf16 dlhs or drhs segment runs on the wgmma
+// mainloop of fused_matmul_sm90.cuh, which reaches the tensor cores' full
+// rate.  B3 stays here: its main-path use is the decode step at 8 rows, a
+// stream of the weight bound by bytes and below wgmma's 64-row minimum;
+// its training forward could take the sm90 mainloop (ROADMAP, queue A).
+// Every form is C[row, col] = sum_k A(row, k) B(k, col) with an f32
 // accumulator; the generated struct ``S`` of a segment says where A and
 // B come from:
 //   fwd   x[rows, K] @ w[K, N]: A is the lhs (its prologue applied as each
@@ -12,8 +19,6 @@
 //         likewise, so the cast weight is never stored);
 //   dlhs  dx[rows, N] = g[rows, K] @ w[N, K]^T: B(k, n) = w[n, k] is read
 //         in place from the forward weight's rows (no transposed copy);
-//         the tile is staged column-major and fed to the tensor cores as
-//         ``wmma::col_major`` fragments;
 //   drhs  dw[rows, N] = x[K, rows]^T @ g[K, N]: A(r, k) = x[k, r] is read
 //         in place through the activation's strides, and the contraction
 //         runs over the token axis K inside one block, in a fixed order,
@@ -43,10 +48,11 @@
 // Inside a block: 128 threads; the contraction is walked in 32-deep
 // tiles staged global -> registers (prologue applied, next tile loaded
 // while the current one is multiplied) -> shared memory, each operand
-// loaded along its contiguous axis.  bf16 x bf16 products run on the
-// tensor cores (WMMA m8n32k16, f32 accumulate: one warp owns 32 columns
-// and every 8-row fragment of the tile); anything else runs an f32 FMA
-// path (one thread owns a column of the tile).
+// loaded along its contiguous axis.  bf16 x bf16 products of the forward
+// form run on the tensor cores (WMMA m8n32k16, f32 accumulate: one warp
+// owns 32 columns and every 8-row fragment of the tile); anything else
+// here (f32, f16, and their dlhs / drhs) runs an f32 FMA path (one
+// thread owns a column of the tile).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,7 +61,6 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 // FM_BN (output columns of a block) and FM_BK (K depth of one staged
 // tile) are declared by the generated translation unit ahead of this
@@ -97,15 +102,6 @@ __device__ __forceinline__ float fm_block_max(float v, float* red) {
   float t = (l < nw) ? red[l] : __int_as_float(0xff800000);
   for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
   return t;
-}
-
-// Element (k, n) of the staged B tile in shared memory: row-major
-// [FM_BK][FM_BN], or column-major [FM_BN][FM_BK] when B is read along k
-// (dlhs) for the tensor cores.
-template <class S>
-__device__ __forceinline__ int fm_bidx(int k, int n) {
-  if constexpr (S::B_K_FAST && S::WMMA) return n * FM_BK + k;
-  else return k * FM_BN + n;
 }
 
 // One staged tile of the contraction [k0, k0 + FM_BK): A [MT, BK] (rows
@@ -159,11 +155,12 @@ __device__ __forceinline__ int fm_aidx(int i) {
   else return e;
 }
 
+// (the staged B tile is row-major [FM_BK][FM_BN])
 template <class S>
 __device__ __forceinline__ int fm_bsidx(int i) {
   if constexpr (S::B_K_FAST) {
     const int e = threadIdx.x + i * FM_THREADS;
-    return fm_bidx<S>(e % FM_BK, e / FM_BK);
+    return (e % FM_BK) * FM_BN + e / FM_BK;
   } else {
     return i * FM_BN + threadIdx.x;
   }
@@ -183,10 +180,12 @@ __device__ __forceinline__ void fm_emit(const typename S::Args& a, float* __rest
   }
 }
 
+// bf16 products of the forward form: a bf16 dlhs or drhs runs on the
+// sm90 mainloop (fused_matmul_sm90.cuh) and never reaches this path.
 template <class S>
 __device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* __restrict__ ws) {
   using namespace nvcuda;
-  using BLayout = std::conditional_t<S::B_K_FAST, wmma::col_major, wmma::row_major>;
+  static_assert(!S::B_K_FAST && !S::A_ROW_FAST, "WMMA takes the forward form only");
   __shared__ __align__(32) __nv_bfloat16 As[S::MT * FM_BK];
   __shared__ __align__(32) __nv_bfloat16 Bs[FM_BK * FM_BN];
   __shared__ __align__(32) float Cs[S::MT * FM_BN];
@@ -212,12 +211,8 @@ __device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* _
     if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, b, ra, rb);
 #pragma unroll
     for (int ks = 0; ks < FM_BK; ks += 16) {
-      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, BLayout> bf;
-      if constexpr (S::B_K_FAST) {
-        wmma::load_matrix_sync(bf, Bs + warp * 32 * FM_BK + ks, FM_BK);
-      } else {
-        wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
-      }
+      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
+      wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
 #pragma unroll
       for (int f = 0; f < S::MT / 8; ++f) {
         wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;

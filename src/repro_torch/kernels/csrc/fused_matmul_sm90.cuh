@@ -1,0 +1,529 @@
+// The Hopper mainloop of the backward contraction forms of matmul-anchored
+// segments (sm_90a): B4 dlhs and B6 drhs on bf16 x bf16 operands.
+//
+// Replaces the TPU kernels repro/kernels/fused_matmul_bwd.py:178
+// (fused_matmul_dlhs_segment, B4) and :343 (fused_matmul_drhs_segment,
+// B6) wherever both operands of the product are bf16 after the lhs
+// prologue; f32 and f16 segments, and the forward form (B3), stay on the
+// template of fused_matmul.cuh.  The forms, as there:
+//   dlhs  dx[rows, N] = pro(g)[rows, K] @ w[N, K]^T: A and B(k, n) =
+//         w[n, k] are both K-major, the layout wgmma reads natively;
+//   drhs  dw[rows, N] = x[K, rows]^T @ g[K, N]: A(r, k) = x[k, r] and
+//         B(k, n) = g[k, n] are both MN-major, consumed with wgmma's
+//         transpose bits; the contraction over the token axis K runs in
+//         one block in a fixed order with no atomics (bit-equal runs).
+//
+// What bounds it: at training shapes (2,048 tokens, widths 1,024-151,936)
+// every form is bound by operations, 295 bf16 operations a byte of the
+// card's balance.  Only wgmma reaches the tensor cores' full rate, and it
+// needs its operands in shared memory at the rate it consumes them.  So
+// a CTA of three warpgroups owns a [128, TN] output tile (TN 128 or
+// 256, from fused_matmul_bwd.sm90_tiles): warpgroup 0 loads, warpgroups
+// 1 and 2 each multiply 64 rows with wgmma m64nTNk16 (f32 accumulators
+// in registers; 154 registers a thread at TN 256, no spills, so no
+// setmaxnreg rebalancing is needed).  K is walked in 64-deep stages (128
+// bytes of bf16: the 128-byte swizzle's row) through a ring of 192 KB of
+// shared memory, each stage with a full and an empty mbarrier; a consumer
+// keeps one stage's products in flight and releases a stage once they
+// have read it.
+//
+// Operands come by TMA (cp.async.bulk.tensor, 3-D maps [batch, per, .]
+// so that no tile straddles a batch slice and the rows and columns past a
+// slice's edge arrive as zeros), in the layout each form has in memory:
+// dlhs boxes are [rows, 64 k], drhs boxes [64 k, 64 rows or columns].  An
+// operand that TMA refuses (an lhs prologue to evaluate, a base not 16-byte
+// aligned, a row stride no multiple of 16 bytes) is register-staged: the
+// loading warpgroup evaluates the generated accessor (prologue included)
+// in f32, rounds to bf16 and writes 16-byte chunks into the same swizzled
+// stage layout TMA would, then arrives on the stage's barrier.  The tensor
+// maps are encoded on the host by the generated launcher through
+// cudaGetDriverEntryPoint (the library does not link libcuda) and passed
+// as __grid_constant__ parameters, so a captured CUDA graph holds them.
+//
+// The epilogue: where it runs in the tile (fused_matmul.in_tile), the
+// generated S::epi is called on each accumulator element with its global
+// (row, col); otherwise the f32 tile goes to the split's workspace and
+// the generated epilogue kernel reads it as on the WMMA template.  A dlhs
+// K split exists only where the grid would fill less than half the card.
+//
+// The generated struct S gives: Args, PER / BATCH (rows of a slice,
+// slices), K, N, TN, KS (splits), KCH (stages a split), DRHS, IN_TILE,
+// and the scalar accessors lhs / rhs / epi of fused_matmul.py.  This
+// header follows fused_matmul.cuh in the translation unit (fm_f and the
+// conversion helpers come from there); it includes no CuTe or CUTLASS.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int FM90_TM = 128;          // output rows of a CTA: 2 x 64
+constexpr int FM90_BK = 64;           // K depth of one stage
+constexpr int FM90_THREADS = 384;     // warpgroup 0 loads, 1 and 2 multiply
+constexpr int FM90_RING = 192 * 1024; // shared memory of the stage ring
+
+template <int TN>
+struct Fm90Geom {
+  static constexpr int A_BYTES = FM90_TM * FM90_BK * 2;
+  static constexpr int B_BYTES = TN * FM90_BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = FM90_RING / STAGE;
+  // the ring, its barriers, and slack to align the ring to 1024 bytes
+  // (the 128-byte swizzle repeats every 1024)
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+// ---------------------------------------------------------------- PTX
+
+__device__ __forceinline__ uint32_t fm90_saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void fm90_bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fm90_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fm90_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void fm90_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of ``bar`` with this parity has completed.  A
+// phase that never completes (a lost arrival) traps after 2^34 clocks,
+// about 9 s, rather than hold the card.
+__device__ __forceinline__ void fm90_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long first = 0;  // the clock at the first poll that failed
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (first == 0) first = now;
+    else if (now - first > (1ll << 34)) __trap();
+  }
+}
+
+// One 3-D box of a tensor map into shared memory, completing on ``bar``.
+__device__ __forceinline__ void fm90_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Generic-proxy stores to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fm90_fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fm90_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fm90_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fm90_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator accesses across the
+// asynchronous products.
+template <int R>
+__device__ __forceinline__ void fm90_fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units).  K-major
+// operands: 8-row groups 1024 bytes apart (stride), the leading offset
+// unused.  MN-major: 8-k-row groups 1024 bytes apart (stride), 64-wide
+// MN blocks (one TMA box each) ``lead`` bytes apart.
+__device__ __forceinline__ uint64_t fm90_desc(uint32_t saddr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma m64nNk16, f32 += bf16 x bf16, both operands from shared memory;
+// TA / TB are the transpose bits (1: the operand is MN-major).
+template <int TA, int TB>
+__device__ __forceinline__ void fm90_mma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void fm90_mma_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TN, int T>
+__device__ __forceinline__ void fm90_mma(float (&d)[TN / 2], uint64_t da, uint64_t db) {
+  if constexpr (TN == 128) {
+    fm90_mma_n128<T, T>(d, da, db);
+  } else {
+    static_assert(TN == 256, "wgmma widths of the template: 128, 256");
+    fm90_mma_n256<T, T>(d, da, db);
+  }
+}
+
+// ------------------------------------------------- loading warpgroup
+
+// A's stage: dlhs one [128 rows][64 k] box, drhs two [64 k][64 rows].
+template <class S>
+__device__ __forceinline__ void fm90_load_a(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                            int b, int r0, int k0) {
+  if constexpr (S::DRHS) {
+    fm90_tma(dst, map, bar, r0, k0, b);
+    fm90_tma(dst + 8192, map, bar, r0 + 64, k0, b);
+  } else {
+    fm90_tma(dst, map, bar, k0, r0, b);
+  }
+}
+
+// B's stage: dlhs one [TN cols][64 k] box, drhs TN / 64 of [64 k][64 cols].
+template <class S>
+__device__ __forceinline__ void fm90_load_b(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                            int b, int n0, int k0) {
+  if constexpr (S::DRHS) {
+#pragma unroll
+    for (int g = 0; g < S::TN / 64; ++g) fm90_tma(dst + g * 8192, map, bar, n0 + 64 * g, k0, b);
+  } else {
+    fm90_tma(dst, map, bar, k0, n0, b);
+  }
+}
+
+// One 16-byte chunk (8 bf16) at (row o, chunk c) of a box whose rows are
+// 128 bytes, laid out as TMA writes it with the 128-byte swizzle.
+__device__ __forceinline__ void fm90_put(uint8_t* box, int o, int c, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(box + o * 128 + ((c ^ (o & 7)) << 4)) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A's stage register-staged by the 128 loading threads: the generated
+// accessor (lhs prologue included) per element, zero past the slice's
+// rows and past K.  Neighbouring threads take neighbouring chunks of one
+// row of the box, so a warp reads 4 rows x 128 bytes (dlhs) or 4 k rows
+// x 128 bytes (drhs) of the operand at a time.
+template <class S>
+__device__ __forceinline__ void fm90_stage_a(const typename S::Args& a, uint8_t* box, int b,
+                                             int r0, int k0, int tl) {
+#pragma unroll 1
+  for (int q = tl; q < FM90_TM * FM90_BK / 8; q += 128) {
+    float v[8];
+    if constexpr (S::DRHS) {
+      const int g = q >> 9, o = (q & 511) >> 3, c = q & 7;
+      const int k = k0 + o, r = r0 + 64 * g + 8 * c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (k < S::K && r + e < S::PER) ? S::lhs(a, b * S::PER + r + e, k, b) : 0.f;
+      fm90_put(box + g * 8192, o, c, v);
+    } else {
+      const int o = q >> 3, c = q & 7;
+      const int r = r0 + o, k = k0 + 8 * c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (r < S::PER && k + e < S::K) ? S::lhs(a, b * S::PER + r, k + e, b) : 0.f;
+      fm90_put(box, o, c, v);
+    }
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void fm90_stage_b(const typename S::Args& a, uint8_t* box, int b,
+                                             int n0, int k0, int tl) {
+#pragma unroll 1
+  for (int q = tl; q < S::TN * FM90_BK / 8; q += 128) {
+    float v[8];
+    if constexpr (S::DRHS) {
+      const int g = q >> 9, o = (q & 511) >> 3, c = q & 7;
+      const int k = k0 + o, n = n0 + 64 * g + 8 * c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (k < S::K && n + e < S::N) ? S::rhs(a, k, n + e, b) : 0.f;
+      fm90_put(box + g * 8192, o, c, v);
+    } else {
+      const int o = q >> 3, c = q & 7;
+      const int n = n0 + o, k = k0 + 8 * c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (n < S::N && k + e < S::K) ? S::rhs(a, k + e, n, b) : 0.f;
+      fm90_put(box, o, c, v);
+    }
+  }
+}
+
+// ------------------------------------------------------------- kernel
+
+// Grid (BATCH x row tiles of a slice, ceil(N / TN), KS): the [128, TN]
+// tile of one slice over one K split.  Row tiles are the fastest grid
+// axis, so the CTAs that read one column tile of B run side by side and
+// share it in L2.  AT / BT: A / B come by TMA (else register-staged).
+template <class S, bool AT, bool BT>
+__global__ void __launch_bounds__(FM90_THREADS, 1)
+    fm90_gemm(typename S::Args a, float* __restrict__ ws, const __grid_constant__ CUtensorMap ta,
+              const __grid_constant__ CUtensorMap tb) {
+  using G = Fm90Geom<S::TN>;
+  constexpr int MT = (S::PER + FM90_TM - 1) / FM90_TM;
+  constexpr int KST = (S::K + FM90_BK - 1) / FM90_BK;
+  extern __shared__ uint8_t fm90_raw[];
+  const uint32_t raw = fm90_saddr(fm90_raw);
+  uint8_t* ring = fm90_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t ring_s = fm90_saddr(ring);
+  const uint32_t full0 = ring_s + G::STAGES * G::STAGE;  // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * G::STAGES;
+  const int t = threadIdx.x, wg = t >> 7, tl = t & 127;
+  const int b = blockIdx.x / MT;
+  const int r0 = (blockIdx.x % MT) * FM90_TM;
+  const int n0 = blockIdx.y * S::TN;
+  const int kbeg = blockIdx.z * S::KCH;
+  const int ns = min(KST - kbeg, S::KCH);
+  if (t == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      fm90_bar_init(full0 + 8 * s, (AT && BT) ? 1 : 128);
+      fm90_bar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if (AT && BT && tl != 0) return;
+    for (int i = 0; i < ns; ++i) {
+      const int s = i % G::STAGES;
+      const uint32_t full = full0 + 8 * s;
+      uint8_t* sa = ring + s * G::STAGE;
+      uint8_t* sb = sa + G::A_BYTES;
+      const int k0 = (kbeg + i) * FM90_BK;
+      fm90_wait(empty0 + 8 * s, ((i / G::STAGES) & 1) ^ 1);
+      if constexpr (AT && BT) {
+        fm90_arrive_tx(full, G::STAGE);
+        fm90_load_a<S>(&ta, fm90_saddr(sa), full, b, r0, k0);
+        fm90_load_b<S>(&tb, fm90_saddr(sb), full, b, n0, k0);
+      } else {
+        if (AT || BT) {
+          if (tl == 0) {
+            fm90_expect_tx(full, (AT ? G::A_BYTES : 0) + (BT ? G::B_BYTES : 0));
+            if constexpr (AT) fm90_load_a<S>(&ta, fm90_saddr(sa), full, b, r0, k0);
+            if constexpr (BT) fm90_load_b<S>(&tb, fm90_saddr(sb), full, b, n0, k0);
+          }
+        }
+        if constexpr (!AT) fm90_stage_a<S>(a, sa, b, r0, k0, tl);
+        if constexpr (!BT) fm90_stage_b<S>(a, sb, b, n0, k0, tl);
+        fm90_fence_async_smem();
+        fm90_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns rows [64 cw, 64 cw + 64) of the tile
+  const int cw = wg - 1, warp = tl >> 5, lane = tl & 31;
+  float acc[S::TN / 2];
+#pragma unroll
+  for (int i = 0; i < S::TN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ns; ++i) {
+    const int s = i % G::STAGES;
+    fm90_wait(full0 + 8 * s, (i / G::STAGES) & 1);
+    __syncwarp();  // the warpgroup's products below are .aligned
+    const uint32_t sa = ring_s + s * G::STAGE, sb = sa + G::A_BYTES;
+    fm90_fence_acc(acc);
+    fm90_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FM90_BK / 16; ++kk) {
+      if constexpr (S::DRHS) {
+        // 16 k rows of 128 bytes a step; 64-wide blocks one box apart
+        fm90_mma<S::TN, 1>(acc, fm90_desc(sa + cw * 8192 + kk * 2048, 8192, 1024),
+                           fm90_desc(sb + kk * 2048, 8192, 1024));
+      } else {
+        // 16 k = 32 bytes a step inside the swizzled 128-byte rows
+        fm90_mma<S::TN, 0>(acc, fm90_desc(sa + cw * 8192 + kk * 32, 16, 1024),
+                           fm90_desc(sb + kk * 32, 16, 1024));
+      }
+    }
+    fm90_wgmma_commit();
+    fm90_fence_acc(acc);
+    // the previous stage's products are done: release its buffers
+    fm90_wgmma_wait<1>();
+    fm90_fence_acc(acc);
+    if (i > 0 && lane == 0) fm90_arrive(empty0 + 8 * ((i - 1) % G::STAGES));
+  }
+  fm90_wgmma_wait<0>();
+  fm90_fence_acc(acc);
+
+  // accumulator element (j, h, e): row 16 warp + lane / 4 + 8 h of the
+  // warpgroup's 64, column 8 j + 2 (lane % 4) + e
+  const int rl = r0 + cw * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < S::TN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + 2 * (lane & 3) + e;
+        if (r < S::PER && col < S::N)
+          fm_emit<S>(a, ws, b * S::PER + r, col, acc[4 * j + 2 * h + e]);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------- host
+
+typedef CUresult (*fm90_encode_t)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded.
+static fm90_encode_t fm90_encoder() {
+  static fm90_encode_t fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (fm90_encode_t)p;
+  }
+  return fn;
+}
+
+// A bf16 tensor [d2][d1][d0] (d0 contiguous, rows dense) read in boxes
+// of [1][b1][b0] with the 128-byte swizzle; zeros past every edge.
+static bool fm90_map(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint32_t b0, uint32_t b1) {
+  const fm90_encode_t enc = fm90_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Encode the TMA operands' maps and launch the GEMM of segment S.
+template <class S, bool AT, bool BT>
+int fm90_run(const typename S::Args& a, float* ws, cudaStream_t s) {
+  using G = Fm90Geom<S::TN>;
+  CUtensorMap ta{}, tb{};
+  if constexpr (AT) {
+    const bool ok = S::DRHS ? fm90_map(&ta, a.l0, S::PER, S::K, S::BATCH, 64, 64)
+                            : fm90_map(&ta, a.l0, S::K, S::PER, S::BATCH, 64, FM90_TM);
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  if constexpr (BT) {
+    const bool ok = S::DRHS ? fm90_map(&tb, a.w0, S::N, S::K, S::BATCH, 64, 64)
+                            : fm90_map(&tb, a.w0, S::K, S::N, S::BATCH, 64, S::TN);
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  auto kern = fm90_gemm<S, AT, BT>;
+  // once, at the first (eager) launch: never inside a graph capture
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(S::BATCH * ((S::PER + FM90_TM - 1) / FM90_TM), (S::N + S::TN - 1) / S::TN,
+                  S::KS);
+  kern<<<grid, FM90_THREADS, G::SMEM, s>>>(a, ws, ta, tb);
+  return (int)cudaGetLastError();
+}

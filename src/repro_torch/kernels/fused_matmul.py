@@ -15,7 +15,11 @@ card); the prologues and the epilogue are CUDA code generated from the
 segment's block programs (``codegen.py``).  The same template and
 generator serve the two backward forms of ``fused_matmul_bwd.py`` (B4
 dlhs, B6 drhs): ``segment_source(form=...)`` emits each form's operand
-accessors, and ``launch_segment`` is the one launcher of all three.  All anchored segments of a
+accessors, and ``launch_segment`` is the one launcher of all three; a
+bf16 dlhs / drhs segment is generated onto the wgmma mainloop of
+``csrc/fused_matmul_sm90.cuh`` instead, with a TMA and a
+register-staged launcher, of which ``launch_segment`` picks one by the
+operands' bases (``sm90_variant``).  All anchored segments of a
 plan go into ONE translation unit (``prepare_library``), so a plan costs
 one ``nvcc``, keyed by source hash into ``build/``; segments that are
 the same (28 layers of one model) share one function.
@@ -475,11 +479,12 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
             (pro is not None and form == "drhs"):
         raise ValueError(f"a {form} anchor with batch {batch} takes no "
                          "prologue on that operand")
+    from repro_torch.kernels import fused_matmul_bwd as fmb
+
     per = rows // batch
     if form == "drhs":
-        from repro_torch.kernels.fused_matmul_bwd import drhs_blocks
-
-        rb, _ = drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes, batch=batch)
+        rb, _ = fmb.drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes,
+                                batch=batch)
         ks, kch = 1, -(-k_dim // BK) * BK
     else:
         rb = row_block(rows, epi_specs, n_dim, rows_block, vmem_bytes, batch)
@@ -492,6 +497,13 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
     if form != "drhs":
         elt = 2 if rhs_dtypes[0] in ("bfloat16", "float16") else 4
         ks, kch = k_splits(rows, rb, k_dim, n_dim, sms, elt)
+    # a bf16 dlhs / drhs runs on the Hopper mainloop: its own tile and K
+    # split (KCH counts its 64-deep stages); rb stays the reference's row
+    # block, which the epilogue's pid / lr read
+    sm90 = fmb.sm90_eligible(form, lhs_ct, rhs_ct)
+    if sm90:
+        _, tn, ks = fmb.sm90_tiles(form, rows, k_dim, n_dim, batch, sms)
+        kch = -(-(-(-k_dim // fmb.SM90_BK)) // ks)
     reduce = bool(epi.reductions)
     elementwise = not reduce and not any(op.kind in ("slice", "cat")
                                          for op in epi.ops)
@@ -508,6 +520,9 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                       epi_specs, lhs_dtypes, rhs_dtypes, epi_dtypes,
                       out_dtypes, rows, k_dim, n_dim, acc_dtype, rb, ks,
                       kch))
+    if sm90:
+        tma = _sm90_tma(form, pro, lhs_specs, k_dim, n_dim, per)
+        shape_key += repr(("sm90", tn, tma))
     name = "fm_" + hashlib.sha1(shape_key.encode()).hexdigest()[:16]
 
     members = ([f"const {_CT[d]}* __restrict__ l{i};"
@@ -544,15 +559,25 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         return accessor(fn, row_var, lane_var,
                         em.lines + [f"    return {x};"])
 
-    src += [f"struct {name}_S {{",
+    if sm90:
+        src = ['#include "fused_matmul_sm90.cuh"'] + src + [
+            f"struct {name}_S {{",
             f"  using Args = {name}_Args;",
             f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
-            f"N = {n_dim}, RB = {rb}, MT = {mt}, NSUB = {nsub}, KS = {ks}, "
-            f"KCH = {kch}, PER = {per};",
-            f"  static constexpr bool WMMA = {_cbool(wmma)}, "
-            f"A_ROW_FAST = {_cbool(form == 'drhs')}, "
-            f"B_K_FAST = {_cbool(form == 'dlhs')}, "
+            f"N = {n_dim}, PER = {per}, BATCH = {batch}, TN = {tn}, "
+            f"KS = {ks}, KCH = {kch};",
+            f"  static constexpr bool DRHS = {_cbool(form == 'drhs')}, "
             f"IN_TILE = {_cbool(tile_epi)};"]
+    else:
+        src += [f"struct {name}_S {{",
+                f"  using Args = {name}_Args;",
+                f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
+                f"N = {n_dim}, RB = {rb}, MT = {mt}, NSUB = {nsub}, "
+                f"KS = {ks}, KCH = {kch}, PER = {per};",
+                f"  static constexpr bool WMMA = {_cbool(wmma)}, "
+                f"A_ROW_FAST = {_cbool(form == 'drhs')}, "
+                f"B_K_FAST = {_cbool(form == 'dlhs')}, "
+                f"IN_TILE = {_cbool(tile_epi)};"]
     lhs_ptrs = [f"l{i}" for i in range(len(lhs_dtypes))]
     if form == "drhs":
         # A(r, k) = x[b][k][r - b * PER]: the activation read in place
@@ -600,16 +625,37 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
             assign.append(f"  a.{pre}{i} = ({q}{_CT[d]}*)p[{k}];")
             k += 1
     n_tiles = -(-n_dim // BN)
-    head = [f'extern "C" int {name}_launch(void* const* p, void* stream) {{',
-            f"  {name}_Args a;"] + assign
+
+    def head(suffix=""):
+        return [f'extern "C" int {name}_launch{suffix}(void* const* p, '
+                'void* stream) {', f"  {name}_Args a;"] + assign
+    gen = {"name": name, "rb": rb, "ks": 0 if tile_epi else ks, "kch": kch,
+           "n_ptrs": k if tile_epi else k + 1,
+           "path": "sm90" if sm90 else "wmma" if wmma else "fma"}
+    if sm90:
+        # one launcher a variant: each operand by TMA where its layout
+        # allows, and (if any is) every operand register-staged, for a
+        # base that TMA refuses; ``launch_segment`` picks by the pointers
+        variants = [("", tma)] + [("_staged", (False, False))] * any(tma)
+        gen.update(tn=tn, tma=tma, tma_ops=[i for i, ok in zip(
+            (0, len(lhs_dtypes)), tma) if ok])
+
+        def run(ab, ws):
+            return (f"fm90_run<{name}_S, {_cbool(ab[0])}, {_cbool(ab[1])}>"
+                    f"(a, {ws}, s)")
     if tile_epi:
-        src += head + [
-            "  cudaStream_t s = (cudaStream_t)stream;",
-            f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, 1), "
-            "FM_THREADS, 0, s>>>(a, nullptr);",
-            "  return (int)cudaGetLastError();", "}"]
-        return {"name": name, "source": "\n".join(src) + "\n", "rb": rb,
-                "ks": 0, "kch": kch, "wmma": wmma, "n_ptrs": k}
+        if sm90:
+            for suffix, ab in variants:
+                src += head(suffix) + [
+                    "  cudaStream_t s = (cudaStream_t)stream;",
+                    f"  return {run(ab, 'nullptr')};", "}"]
+        else:
+            src += head() + [
+                "  cudaStream_t s = (cudaStream_t)stream;",
+                f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, 1), "
+                "FM_THREADS, 0, s>>>(a, nullptr);",
+                "  return (int)cudaGetLastError();", "}"]
+        return {**gen, "source": "\n".join(src) + "\n"}
 
     # the epilogue kernel reading the workspace
     if reduce:
@@ -646,21 +692,36 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                      "  __syncthreads();"]
     src += epi_head + em.lines + ["}"]
 
-    src += head + [
-        f"  float* ws = (float*)p[{k}];",
-        "  cudaStream_t s = (cudaStream_t)stream;",
-        f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, {ks}), "
-        "FM_THREADS, 0, s>>>(a, ws);",
-        "  cudaError_t e = cudaGetLastError();",
-        "  if (e != cudaSuccess) return (int)e;"]
-    if smem > 48 * 1024:
-        src += [f"  e = cudaFuncSetAttribute({name}_epi, "
-                f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
-                "  if (e != cudaSuccess) return (int)e;"]
-    src += [f"  {name}_epi<<<{grid}, FM_EPI_THREADS, {smem}, s>>>(a, ws);",
-            "  return (int)cudaGetLastError();", "}"]
-    return {"name": name, "source": "\n".join(src) + "\n", "rb": rb,
-            "ks": ks, "kch": kch, "wmma": wmma, "n_ptrs": k + 1}
+    for suffix, ab in variants if sm90 else [("", None)]:
+        src += head(suffix) + [
+            f"  float* ws = (float*)p[{k}];",
+            "  cudaStream_t s = (cudaStream_t)stream;"]
+        if sm90:
+            src += [f"  cudaError_t e = (cudaError_t){run(ab, 'ws')};"]
+        else:
+            src += [f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, "
+                    f"{ks}), FM_THREADS, 0, s>>>(a, ws);",
+                    "  cudaError_t e = cudaGetLastError();"]
+        src += ["  if (e != cudaSuccess) return (int)e;"]
+        if smem > 48 * 1024:
+            src += [f"  e = cudaFuncSetAttribute({name}_epi, "
+                    f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+                    "  if (e != cudaSuccess) return (int)e;"]
+        src += [f"  {name}_epi<<<{grid}, FM_EPI_THREADS, {smem}, s>>>(a, ws);",
+                "  return (int)cudaGetLastError();", "}"]
+    return {**gen, "source": "\n".join(src) + "\n"}
+
+
+def _sm90_tma(form: str, pro, lhs_specs, k_dim: int, n_dim: int,
+              per: int) -> tuple[bool, bool]:
+    """Which operands of an sm90 segment TMA can load, from the shapes:
+    rows of a multiple of 16 bytes (8 bf16), and for dlhs an lhs that is
+    the bare [rows, K] cotangent (a prologue is evaluated by the loading
+    threads).  The bases are checked at launch."""
+    if form == "drhs":
+        return per % 8 == 0, n_dim % 8 == 0
+    return (pro is None and lhs_specs[0][0] == "bulk_k" and k_dim % 8 == 0,
+            k_dim % 8 == 0)
 
 
 def _cbool(x: bool) -> str:
@@ -727,8 +788,8 @@ def _symbol_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launcher(lib: ctypes.CDLL, name: str):
-    fn = getattr(lib, f"{name}_launch")
+def _launcher(lib: ctypes.CDLL, symbol: str):
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -738,6 +799,22 @@ def _launcher(lib: ctypes.CDLL, name: str):
 
 
 _GEN: dict[tuple, dict] = {}
+
+#: the variants of the sm90 mainloop, as ``kernel_guard().variants``
+#: counts them: every operand by TMA, or one or more register-staged (an
+#: lhs prologue, a layout or a base that TMA refuses)
+SM90_TMA, SM90_STAGED = "sm90 TMA", "sm90 register-staged"
+
+
+def sm90_variant(gen: dict, operands: Sequence[torch.Tensor]
+                 ) -> tuple[str, str]:
+    """``(launcher suffix, variant)`` an sm90 segment launches on these
+    operands: the TMA launcher when every operand it loads by TMA has a
+    16-byte aligned base, else the one that stages every operand."""
+    aligned = all(operands[i].data_ptr() % 16 == 0 for i in gen["tma_ops"])
+    if gen["tma_ops"] and not aligned:
+        return "_staged", SM90_STAGED
+    return "", SM90_TMA if all(gen["tma"]) else SM90_STAGED
 
 
 def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
@@ -788,14 +865,19 @@ def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
         bufs.append(torch.empty((gen["ks"] * rows * n_dim,),
                                 dtype=torch.float32, device=dev))
     ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    suffix, variant = "", None
+    if gen.get("path") == "sm90":
+        suffix, variant = sm90_variant(gen, operands)
     lib = _symbol_lib(gen["name"])
-    launch = _launcher(lib, gen["name"])
+    launch = _launcher(lib, f"{gen['name']}_launch{suffix}")
     with torch.cuda.device(dev):
         code = launch(ptrs, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.fm_error(code).decode()}")
     kernel_guard().count_launch(kernel)
+    if variant is not None:
+        kernel_guard().count_variant(kernel, gen["name"], variant)
     return tuple(outs)
 
 

@@ -19,15 +19,21 @@ a fixed order, both operands read along their contiguous axis, and a
 pure elementwise epilogue (the f32 cast of a cast weight's cotangent,
 ``+ wd * w``-style adds) on the finished tile before its one store.
 
-Both run on the hand-written template of ``csrc/fused_matmul.cuh``
-through the generator of ``fused_matmul.py`` (``form="dlhs"`` /
-``"drhs"``): see the note in the header for the tiling and what bounds
-each form.  The dlhs form shares B3's row block, K split and workspace
-helpers; the drhs form's tile is ``drhs_blocks`` and its grid
-``drhs_grid_blocks``, which the offload planner's ``Segment.io_bytes``
-reads too.  ``batch`` > 1 contracts each batch slice against its own
-slice of the weight (dlhs) or of both operands (drhs); no row block
-straddles a slice.
+Both are generated per segment by ``fused_matmul.py``
+(``form="dlhs"`` / ``"drhs"``).  At training shapes both are bound by
+operations, so a segment whose product is bf16 x bf16 (``sm90_eligible``)
+runs on the Hopper mainloop of ``csrc/fused_matmul_sm90.cuh``: wgmma
+m64nTNk16 from a ring of shared-memory stages that TMA fills (both
+operands K-major for dlhs, MN-major for drhs, read in place), a [128,
+TN] tile a CTA (``sm90_tiles``; a dlhs K split only where the grid
+would fill less than half the card), operands that TMA refuses (an lhs
+prologue, a base or row stride not a multiple of 16 bytes)
+register-staged into the same layout.  f32 and f16 segments stay on the
+template of ``csrc/fused_matmul.cuh`` (B3's row block, K split and
+workspace for dlhs; ``drhs_blocks`` / ``drhs_grid_blocks`` for drhs).
+The offload planner's ``Segment.io_bytes`` reads the same helpers.
+``batch`` > 1 contracts each batch slice against its own slice of the
+weight (dlhs) or of both operands (drhs); no tile straddles a slice.
 
 The plain versions beside the wrappers take the same row blocks,
 contract in f32, round the product to its dtype and run the same
@@ -75,6 +81,49 @@ def drhs_grid_blocks(rows: int, n_dim: int, *, vmem_bytes: int,
     row block."""
     pb, nb = drhs_blocks(rows, n_dim, vmem_bytes=vmem_bytes, batch=batch)
     return (rows // batch) // pb, -(-n_dim // nb)
+
+
+#: rows of an sm90 CTA tile (two consumer warpgroups of 64) and the K
+#: depth of one stage of its ring (``csrc/fused_matmul_sm90.cuh``)
+SM90_TM, SM90_BK = 128, 64
+#: the fewest stages a dlhs K split walks: a split doubles the f32
+#: workspace traffic, so a short contraction is never cut
+SM90_MIN_SPLIT_STAGES = 8
+
+
+def sm90_eligible(form: str, lhs_dtype: str, rhs_dtype: str) -> bool:
+    """Whether a segment runs on the Hopper mainloop: a backward form
+    (dlhs, drhs) with bf16 operands on both sides of the product
+    (``lhs_dtype`` after the lhs prologue).  Every other segment (fwd,
+    f32, f16) stays on the WMMA / FMA template."""
+    return form in ("dlhs", "drhs") and lhs_dtype == rhs_dtype == "bfloat16"
+
+
+def sm90_tiles(form: str, rows: int, k_dim: int, n_dim: int,
+               batch: int = 1, sms: int = 0) -> tuple[int, int, int]:
+    """``(tm, tn, splits)`` of an sm90 segment: a [128, tn] output tile
+    per CTA (tn 256 where the output is that wide: wgmma m64n256 reads
+    half the shared memory per product of m64n128), and, for dlhs only,
+    a K split where the grid would fill less than half of the ``sms``
+    SMs — never below ``SM90_MIN_SPLIT_STAGES`` stages a split.  drhs
+    never splits K (its runs stay bit-equal)."""
+    tn = 256 if n_dim >= 256 else 128
+    tiles = batch * -(-(rows // batch) // SM90_TM) * -(-n_dim // tn)
+    splits = 1
+    if form == "dlhs" and 2 * tiles <= sms:
+        k_stages = -(-k_dim // SM90_BK)
+        want = min(-(-sms // tiles), k_stages // SM90_MIN_SPLIT_STAGES)
+        if want > 1:
+            splits = -(-k_stages // -(-k_stages // want))
+    return SM90_TM, tn, splits
+
+
+def sm90_grid_blocks(rows: int, n_dim: int, tm: int, tn: int,
+                     batch: int = 1) -> tuple[int, int]:
+    """``(row_blocks, col_tiles)`` of the sm90 grid, per batch slice:
+    the row tiles that share a column tile of B in L2, and the column
+    tiles that each re-read A."""
+    return -(-(rows // batch) // tm), -(-n_dim // tn)
 
 
 def dlhs_rhs_spec(n_dim: int, k_dim: int, batch: int = 1) -> tuple:

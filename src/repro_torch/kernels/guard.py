@@ -43,12 +43,22 @@ class KernelGuard:
 
     epoch: int = 0
     launches: dict[str, int] = field(default_factory=dict)
+    #: launches of a kernel with several variants (B4 / B6's sm90
+    #: mainloop: by TMA or register-staged) by (kernel, variant), and the
+    #: variant each generated symbol's last launch took
+    variants: dict[tuple[str, str], int] = field(default_factory=dict)
+    last_variant: dict[str, str] = field(default_factory=dict)
 
     def stats(self) -> dict[str, int]:
         return {"guard_epoch": self.epoch}
 
     def count_launch(self, kernel: str) -> None:
         self.launches[kernel] = self.launches.get(kernel, 0) + 1
+
+    def count_variant(self, kernel: str, symbol: str, variant: str) -> None:
+        self.variants[kernel, variant] = \
+            self.variants.get((kernel, variant), 0) + 1
+        self.last_variant[symbol] = variant
 
 
 _GUARD = KernelGuard()

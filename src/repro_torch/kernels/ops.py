@@ -301,3 +301,4 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     kernel_guard().launches.clear()
+    kernel_guard().variants.clear()
