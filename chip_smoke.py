@@ -30,7 +30,9 @@ and holds every hand-written kernel against its plain PyTorch version:
    step, build the plans' kernels (one ``nvcc`` per plan, started
    together, and the Triton kernels), hold every distinct segment's
    kernel — ``fused_segment_grid`` (Triton) and ``fused_matmul_segment``
-   (CUDA) — against its plain version on seeded inputs, time the bf16
+   (CUDA; each bf16 one must take the weight stream, no instantiation of
+   it may spill, and each is relaunched, bit-equal) — against its plain
+   version on seeded inputs, time the bf16
    ones (CUDA-graph replay) beside the bound, the plain version and a
    library yardstick; serve the same 12 requests through
    ``Engine(offload=True)`` (launch counts = decode steps x layers for
@@ -49,14 +51,18 @@ and holds every hand-written kernel against its plain PyTorch version:
    against ``use_kernel=False`` and B8 against its plain version; every
    distinct fused segment of the training plans — grid (B2), fwd (B3),
    dlhs (B4), drhs (B6), each anchored one with the GEMM path it takes
-   (``sm90 TMA`` / ``sm90 register-staged`` / WMMA / FMA; every bf16
-   dlhs / drhs must take the sm90 mainloop, no instantiation of it may
-   spill, and each bf16 drhs is launched twice, bit-equal) — at its own
+   (``sm90 TMA`` / ``sm90 register-staged`` / ``stream cp.async`` /
+   ``stream register-staged`` / FMA; every bf16 fwd of 64 rows a slice
+   or more and every bf16 dlhs / drhs must take the sm90 mainloop, no
+   instantiation of it or of the weight stream may spill, and each bf16
+   drhs is launched twice, bit-equal) — at its own
    shapes and strides against its plain version, the bf16 anchored ones
    and the most launched grid ones timed beside the bound, the plain
    version and a library yardstick; B3 / B4 / B6's device time a step
-   by form; every sm90 variant at the CPU tests' shapes, on misaligned
-   operands and with a K split; the forward plan unchanged by batched
+   by form; every variant of the sm90 mainloop (B3, B4, B6) and of the
+   weight stream (B3) at the CPU tests' shapes and at full width, on
+   misaligned operands, with K splits, an lhs prologue, an f32 weight
+   cast and batch slices; the forward plan unchanged by batched
    anchors, its attention ``bmm`` declined;
 8. flash and batched anchors at the attention width of qwen3-1.7b (16
    query / 8 kv heads, head_dim 128, 2 x 2048 tokens, bf16):
@@ -775,8 +781,11 @@ def yardstick(call: dict, vals):
 
 
 def phase_offload_kernels(plans: dict, card: str) -> dict:
-    """Build and check every distinct segment kernel of the plans; time
-    the bf16 ones.  Returns the timing rows by symbol."""
+    """Build and check every distinct segment kernel of the plans (an
+    anchored one also relaunched, bit-equal; every bf16 one on the weight
+    stream); time the bf16 ones.  Returns the timing rows by symbol."""
+    from repro_torch.core.offload import _matmul_gen
+
     t0 = time.perf_counter()
     started = [(label, fm.start_library(plan.library, verbose=True))
                for label, plan in plans.items() if plan.library]
@@ -814,9 +823,12 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
                        for ln in log.splitlines() if "registers" in ln})
         spills = sum("spill" in ln and "0 bytes spill stores" not in ln
                      for ln in log.splitlines())
+        _, gemm_spilling = sm90_resources([log])
         print(f"[6] {label} plan's CUDA translation unit: "
               f"{len(plans[label].library)} segments, registers per thread "
               f"{regs}, {spills} with spills")
+        check(not gemm_spilling, f"weight-stream instantiations spill: "
+              f"{gemm_spilling}")
     for label, plan in plans.items():
         dtype = torch.bfloat16 if label == "bf16" else torch.float32
         for sym, (call, count) in distinct_segments(plan).items():
@@ -827,10 +839,19 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
             torch.cuda.synchronize()
             want = run_seg(call, vals, "ref")
             ok, err = seg_close(got, want, dtype)
+            again = run_seg(call, vals, "cuda")
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            path = gemm_path(_matmul_gen(call))
             print(f"[6]   anchored {sym} [{call['rows']}x{call['k']}]@"
                   f"[{call['k']}x{call['n']}] outs {call['out_cols']} "
-                  f"x{count}/step: max_abs_err {err:.3e}")
+                  f"x{count}/step, {path}: max_abs_err {err:.3e}, "
+                  f"relaunch bit-equal {same}")
             check(ok, f"{label} anchored segment {sym} vs plain")
+            check(same, f"{label} anchored segment {sym}: a relaunch differs")
+            if label == "bf16":
+                check(path.startswith("stream"), f"bf16 decode segment {sym} "
+                      f"off the weight stream: {path}")
             rows[(label, sym)] = (call, count, vals)
     print(f"[6] kernels built and checked in {time.perf_counter() - t0:.1f} s")
 
@@ -1115,17 +1136,23 @@ def seg_operands(seg, seed: int) -> list:
     return out
 
 
+#: the mangled names of the sm90 mainloop's and the weight stream's
+#: instantiations
+GEMM_ENTRIES = ("fm90_gemm", "fms_gemm")
+
+
 def sm90_resources(logs) -> tuple[list, list]:
-    """The registers per thread of every sm90 mainloop instantiation in
-    ``-Xptxas -v`` output, and the instantiations that spill."""
+    """The registers per thread of every sm90 mainloop and weight-stream
+    instantiation in ``-Xptxas -v`` output, and the instantiations that
+    spill."""
     regs, spilling, entry = [], [], ""
     for ln in (ln for log in logs for ln in log.splitlines()):
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-        elif "fm90_gemm" in entry and "spill" in ln and \
+        elif any(e in entry for e in GEMM_ENTRIES) and "spill" in ln and \
                 "0 bytes spill stores, 0 bytes spill loads" not in ln:
             spilling.append(entry)
-        elif "fm90_gemm" in entry and "Used " in ln:
+        elif any(e in entry for e in GEMM_ENTRIES) and "Used " in ln:
             regs.append(int(ln.split("Used ")[1].split()[0]))
     return sorted(set(regs)), spilling
 
@@ -1145,9 +1172,10 @@ def build_units(plans) -> tuple[list, float, list, int]:
                  for log in logs for ln in log.splitlines())
     sm90_regs, sm90_spilling = sm90_resources(logs)
     if sm90_regs or sm90_spilling:
-        print(f"[7] sm90 mainloop instantiations: registers per thread "
-              f"{sm90_regs}, {len(sm90_spilling)} spilling")
-    check(not sm90_spilling, f"sm90 instantiations spill: {sm90_spilling}")
+        print(f"[7] sm90 mainloop / weight-stream instantiations: registers "
+              f"per thread {sm90_regs}, {len(sm90_spilling)} spilling")
+    check(not sm90_spilling, f"sm90 / stream instantiations spill: "
+          f"{sm90_spilling}")
     return units, time.perf_counter() - t0, regs, spills
 
 
@@ -1408,11 +1436,12 @@ def close_f32(got, want) -> tuple[bool, float]:
 
 def gemm_path(gen: dict) -> str:
     """The GEMM path of a generated anchored segment: the variant of the
-    sm90 mainloop its last launch took (``sm90 TMA`` / ``sm90
-    register-staged``), else ``WMMA`` (bf16 tiles) or ``FMA``."""
-    if gen["path"] == "sm90":
-        return kernel_guard().last_variant.get(gen["name"],
-                                               "sm90 (not launched)")
+    sm90 mainloop or of the weight stream its last launch took (``sm90
+    TMA`` / ``sm90 register-staged`` / ``stream cp.async`` / ``stream
+    register-staged``), else ``FMA``."""
+    if gen["path"] in ("sm90", "stream"):
+        return kernel_guard().last_variant.get(
+            gen["name"], f"{gen['path']} (not launched)")
     return gen["path"].upper()
 
 
@@ -1440,8 +1469,9 @@ def describe_segment(eqns, seg, count: int) -> str:
                                    ("weight", mm.rhs_pro_eqns)) if on)
     where = "in the tile" if gen["ks"] == 0 else \
         f"in a second kernel over {gen['ks']} K split(s)"
-    tile = f"tile [128x{gen['tn']}]" if gen["path"] == "sm90" else \
-        f"row block {gen['rb']}"
+    tile = {"sm90": f"tile [128x{gen.get('tn')}]",
+            "stream": f"tile [8x{gen.get('tn')}]"}.get(
+        gen["path"], f"row block {gen['rb']}")
     return (f"{mm.form} {shape} weight-side {w} prologue {pro or 'none'} "
             f"{gemm_path(gen)} {tile}, epilogue {where} x{count}")
 
@@ -1484,10 +1514,15 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
         summary[form] = (n + 1, n_launch + count, max(worst, err))
         bits = all(torch.equal(g, w) for g, w in zip(got, want))
         repeat = ""
-        if form in ("dlhs", "drhs") and dtype == torch.bfloat16:
+        if mm is not None and dtype == torch.bfloat16:
+            # bf16 dlhs / drhs and fwd of 64 rows a slice or more on the
+            # sm90 mainloop, a shorter fwd on the weight stream
             gen = _matmul_gen(segment_call(eqns, seg))
-            if gen["path"] != "sm90" or "sm90" not in gemm_path(gen):
-                off_sm90.append(f"{form} {sym}")
+            want = "stream" if form == "fwd" and \
+                seg.rows // mm.batch < 64 else "sm90"
+            if gen["path"] != want or not gemm_path(gen).startswith(want):
+                off_sm90.append(f"{form} {sym} [{seg.rows}x{mm.k}]: "
+                                f"{gemm_path(gen)}")
             if form == "drhs":
                 # no K split, no atomics: a second launch is bit-equal
                 again = call(*vals)
@@ -1555,38 +1590,83 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
           f"{time.perf_counter() - t0:.1f} s; sm90 launches by variant "
           f"since the last count reset {variants}")
     check(not failed, f"segments differ from their plain versions: {failed}")
-    check(not off_sm90, f"bf16 B4 / B6 segments off the sm90 mainloop: "
-          f"{off_sm90}")
+    check(not off_sm90, f"bf16 B3 / B4 / B6 segments off the sm90 mainloop "
+          f"(fwd below 64 rows: the weight stream): {off_sm90}")
     return rows
 
 
 def sm90_chains():
-    """(label, fn, shapes) of bf16 backward chains that reach every
-    variant of the sm90 mainloop: the CPU tests' shapes
-    (tests/test_torch_sm90_gemm.py; an lhs prologue is register-staged),
-    rows and a width TMA refuses (no multiple of 16 bytes), and a long
-    contraction on one tile (a K split)."""
+    """(label, fn, shapes, f32 args) of bf16 chains that reach every
+    variant of the sm90 mainloop (B3 fwd, B4 dlhs, B6 drhs) and of the
+    weight stream (B3 fwd below 64 rows): the CPU tests' shapes
+    (tests/test_torch_sm90_gemm.py, tests/test_torch_sm90_fwd.py; an lhs
+    prologue or an f32 weight cast is register-staged), rows and a width
+    TMA refuses (no multiple of 16 bytes), a long contraction on one tile
+    (a K split), batch slices, and the full-width shapes of qwen3-1.7b's
+    training forward and decode step.  ``f32`` names the arguments that
+    are f32 (a master weight the chain casts)."""
     B, S, K, N = 2, 12, 40, 24
     yield ("dlhs param/rep/tile",
            lambda g, w, p, r, q: (torch.tanh(g @ w.t()) * p + r) * q,
-           [(B, S, K), (N, K), (N,), (B, 1, N), (1, S, N)])
+           [(B, S, K), (N, K), (N,), (B, 1, N), (1, S, N)], ())
     yield ("dlhs lhs prologue, lane reduce",
            lambda g, s, w: (lambda h: h * torch.rsqrt(torch.mean(
                h * h, -1, keepdim=True) + 1e-5))((g * s) @ w.t()),
-           [(B * S, K), (K,), (N, K)])
+           [(B * S, K), (K,), (N, K)], ())
     yield ("dlhs batch 2",
            lambda g, w, y: torch.tanh(torch.bmm(g, w.transpose(1, 2))) + y,
-           [(B, S, K), (B, N, K), (B, S, N)])
+           [(B, S, K), (B, N, K), (B, S, N)], ())
     yield ("drhs bulk/param",
            lambda x, g, w, b: ((x.t() @ g) * 0.5 + 0.01 * w) * b,
-           [(B * S, K), (B * S, N), (K, N), (N,)])
+           [(B * S, K), (B * S, N), (K, N), (N,)], ())
     yield ("drhs batch 2",
            lambda x, g, w: torch.bmm(x.transpose(1, 2), g) + 0.01 * w,
-           [(B, S, K), (B, S, N), (B, K, N)])
+           [(B, S, K), (B, S, N), (B, K, N)], ())
     yield ("drhs rows 70, width 36", lambda x, g: (x.t() @ g) * 2.0,
-           [(100, 70), (100, 36)])
+           [(100, 70), (100, 36)], ())
     yield ("dlhs K split", lambda g, w, y: g @ w.t() + y,
-           [(128, 8192), (128, 8192), (128, 128)])
+           [(128, 8192), (128, 8192), (128, 128)], ())
+    # B3: the stream below 64 rows a slice, the sm90 mainloop from 64
+    for rows in (B * S, 128):
+        yield (f"fwd gelu, {rows} rows",
+               lambda x, w: F.gelu(x @ w, approximate="tanh"),
+               [(rows, K), (K, N)], ())
+        yield (f"fwd lane reduce, {rows} rows",
+               lambda x, w, y: (lambda h: h * torch.rsqrt(torch.mean(
+                   h * h, -1, keepdim=True) + 1e-5))(x @ w + y),
+               [(rows, K), (K, N), (rows, N)], ())
+        yield (f"fwd lhs prologue, {rows} rows",
+               lambda x, s, w: torch.tanh((x * s) @ w),
+               [(rows, K), (K,), (K, N)], ())
+        yield (f"fwd f32 weight cast, {rows} rows",
+               lambda x, w: torch.tanh(x @ w.to(torch.bfloat16)),
+               [(rows, K), (K, N)], (1,))
+        yield (f"fwd width 36, {rows} rows", lambda x, w: (x @ w) * 2.0,
+               [(rows, 100), (100, 36)], ())
+        yield (f"fwd K split, {rows} rows", lambda x, w, y: x @ w + y,
+               [(rows, 8192), (8192, 128), (rows, 128)], ())
+    for per in (S, 64):
+        yield (f"fwd batch 2 x {per} rows",
+               lambda x, w, y: torch.tanh(torch.bmm(x, w)) + y,
+               [(B, per, K), (B, K, N), (B, per, N)], ())
+    # the full-width shapes: MLP up, a K split (k / v projection), the
+    # f32 master weight cast, an lhs prologue; decode's gate
+    D, FF = 2048, 6144
+    yield ("fwd full width MLP up", lambda x, w: F.silu(x @ w),
+           [(2048, D), (D, FF)], ())
+    yield ("fwd full width K split", lambda x, w: (x @ w) * 0.5,
+           [(2048, D), (D, 1024)], ())
+    yield ("fwd full width f32 weight cast",
+           lambda x, w: F.silu(x @ w.to(torch.bfloat16)),
+           [(2048, FF), (FF, D)], (1,))
+    yield ("fwd full width lhs prologue",
+           lambda x, s, w: torch.tanh((x * s) @ w), [(2048, D), (D,),
+                                                     (D, D)], ())
+    yield ("fwd decode gate", lambda x, w: F.silu(x @ w),
+           [(8, D), (D, FF)], ())
+    yield ("fwd decode f32 weight cast",
+           lambda x, w: F.silu(x @ w.to(torch.bfloat16)),
+           [(8, D), (D, FF)], (1,))
 
 
 def misaligned(v: torch.Tensor) -> torch.Tensor:
@@ -1596,16 +1676,28 @@ def misaligned(v: torch.Tensor) -> torch.Tensor:
     return base.as_strided(v.shape, v.stride(), storage_offset=1).copy_(v)
 
 
+#: every variant of the sm90 mainloop and the weight stream, by kernel
+GEMM_VARIANTS = {
+    "fused_matmul_segment": (fm.SM90_TMA, fm.SM90_STAGED, fm.STREAM_ASYNC,
+                             fm.STREAM_STAGED),
+    "fused_matmul_dlhs_segment": (fm.SM90_TMA, fm.SM90_STAGED),
+    "fused_matmul_drhs_segment": (fm.SM90_TMA, fm.SM90_STAGED),
+}
+
+
 def sm90_variants() -> None:
     """Every variant of the sm90 mainloop (``sm90 TMA``, ``sm90
-    register-staged``) of B4 and B6 against its plain version: the
-    chains of ``sm90_chains`` planned on the card, each anchored segment
-    on its seeded operands as given and on misaligned copies of them;
-    every output bit-equal or within phase 6's rule, and both variants
-    of both kernels launched."""
+    register-staged``) of B3, B4 and B6 and of B3's weight stream
+    (``stream cp.async``, ``stream register-staged``) against its plain
+    version: the chains of ``sm90_chains`` planned on the card, each
+    anchored segment on its seeded exact-sum operands as given and on
+    misaligned copies of them; every output bit-equal or within phase 6's
+    rule, every kernel's every variant launched, every anchored segment
+    of the chains planned."""
     from repro_torch.core import OffloadPolicy
     from repro_torch.core.offload import (
         _matmul_gen,
+        _register_library,
         _segment_kernel,
         offload_report,
         segment_call,
@@ -1614,14 +1706,23 @@ def sm90_variants() -> None:
 
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     before = dict(kernel_guard().variants)
-    failed, lines = [], []
-    for label, fn, shapes in sm90_chains():
-        args = [seeded(gen, sh, torch.bfloat16) for sh in shapes]
+    failed, lines, plans = [], [], []
+    for label, fn, shapes, f32 in sm90_chains():
+        args = [seeded(gen, sh, torch.float32 if i in f32 else
+                       torch.bfloat16) for i, sh in enumerate(shapes)]
         plan = offload_report(fn, *args,
                               policy=OffloadPolicy(bulk_threshold=16))
-        for seg in plan.segments:
-            if seg.matmul is None:
-                continue
+        plan.library = _register_library(plan.eqns, plan)
+        plans.append((label, plan))
+        del args
+    _, build_s, _, _ = build_units([plan for _, plan in plans])
+    print(f"[7] the chains' {len(plans)} translation units built together "
+          f"in {build_s:.1f} s")
+    for label, plan in plans:
+        anchored = [seg for seg in plan.segments if seg.matmul is not None]
+        if not anchored:
+            failed.append(f"{label}: no anchored segment")
+        for seg in anchored:
             progs = segment_programs(plan.eqns, seg)
             call = _segment_kernel(seg, progs, impl="cuda")
             ref = _segment_kernel(seg, progs, impl="ref")
@@ -1640,16 +1741,17 @@ def sm90_variants() -> None:
                              f"{' bit-equal' if bits else ''}")
                 if not ok:
                     failed.append(f"{label} {how}")
+                del got, want
+            del vals
     ran = {k: n - before.get(k, 0)
            for k, n in kernel_guard().variants.items()}
-    print(f"[7] sm90 variants at the CPU tests' shapes, rows TMA refuses and"
-          f" a K split: {'; '.join(lines)}; launches {ran}")
-    check(not failed, f"sm90 variants differ from the plain versions: "
-          f"{failed}")
-    check(all(ran.get((k, v), 0) > 0 for k in
-              ("fused_matmul_dlhs_segment", "fused_matmul_drhs_segment")
-              for v in (fm.SM90_TMA, fm.SM90_STAGED)),
-          f"an sm90 variant was not launched: {ran}")
+    print(f"[7] sm90 / stream variants at the CPU tests' shapes, rows TMA "
+          f"refuses, K splits, batch slices and full width: "
+          f"{'; '.join(lines)}; launches {ran}")
+    check(not failed, f"sm90 / stream variants differ from the plain "
+          f"versions: {failed}")
+    check(all(ran.get((k, v), 0) > 0 for k, vs in GEMM_VARIANTS.items()
+              for v in vs), f"a GEMM variant was not launched: {ran}")
 
 
 def phase_adamw(state, grads, tcfg, card: str) -> dict:
@@ -3210,10 +3312,15 @@ def main() -> int:
         "launches": counts["fused_segment_grid"],
         **kernel_entry(timed, "grid")}, {
         "name": "fused_matmul_segment", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_matmul.cuh",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul_stream.cuh",
         "replaces": "src/repro/kernels/fused_matmul.py:240",
         "launches": counts["fused_matmul_segment"],
         **kernel_entry(timed, "matmul")}, {
+        "name": "fused_matmul_segment (training forward)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_matmul_sm90.cuh",
+        "replaces": "src/repro/kernels/fused_matmul.py:240",
+        "launches": train_counts["fused_matmul_segment"],
+        **kernel_entry(train_rows, "fwd")}, {
         "name": "fused_matmul_dlhs_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_matmul_sm90.cuh",
         "replaces": "src/repro/kernels/fused_matmul_bwd.py:178",

@@ -284,9 +284,11 @@ class Segment:
         """Fused HBM bytes this segment moves: one read per operand, one
         write per output and the contraction's re-reads, from the
         kernels' own grid helpers (``fused_matmul.matmul_row_blocks`` /
-        ``column_tiles`` for fwd and dlhs, ``drhs_grid_blocks`` for
-        drhs, ``sm90_tiles`` / ``sm90_grid_blocks`` for a bf16 dlhs or
-        drhs on the Hopper mainloop) through ``operand_streams`` (the
+        ``column_tiles`` for f32 / f16 fwd and dlhs, ``drhs_grid_blocks``
+        for f32 / f16 drhs, ``sm90_tiles`` / ``sm90_grid_blocks`` for a
+        bf16 segment on the Hopper mainloop, ``stream_blocks`` /
+        ``stream_grid_blocks`` for a bf16 fwd segment of fewer than 64
+        rows a slice on the weight stream) through ``operand_streams`` (the
         H100's L2 serves the re-reads of blocks that run side by side);
         a batched weight re-streams once per per-batch row block.  fwd /
         dlhs add the f32 workspace, written and read once per K split,
@@ -309,14 +311,19 @@ class Segment:
             return total + lhs_b + rhs_b * q_blocks(self.rows // mm.batch)
         metas = [sp.meta for sp in self.operand_specs]
         workspace = 0
-        if fmb.sm90_eligible(mm.form, dtype_name(_dtype(mm.lhs_var)),
-                             dtype_name(_dtype(mm.rhs))):
+        ks = 0
+        cts = (mm.form, dtype_name(_dtype(mm.lhs_var)),
+               dtype_name(_dtype(mm.rhs)), self.rows // mm.batch)
+        if fmb.sm90_eligible(*cts):
             tm, tn, ks = fmb.sm90_tiles(mm.form, self.rows, mm.k, mm.n,
                                         mm.batch, self.sms)
             row_blocks, col_tiles = fmb.sm90_grid_blocks(
                 self.rows, mm.n, tm, tn, mm.batch)
-            if not fm.in_tile(ks, self.elementwise, self.out_cols, mm.n):
-                workspace = 4 * self.rows * mm.n * ks
+        elif fmb.stream_eligible(*cts):
+            _, ks = fmb.stream_blocks(self.rows, mm.k, mm.n, self.sms,
+                                      mm.batch)
+            row_blocks, col_tiles = fmb.stream_grid_blocks(
+                self.rows, mm.n, mm.batch)
         elif mm.form == "drhs":
             row_blocks, col_tiles = fmb.drhs_grid_blocks(
                 self.rows, mm.n, vmem_bytes=self.smem_budget,
@@ -332,6 +339,8 @@ class Segment:
                 elt=_dtype(mm.rhs_specs[0].var).itemsize,
                 elementwise=self.elementwise, out_cols=self.out_cols,
                 batch=mm.batch)
+        if ks and not fm.in_tile(ks, self.elementwise, self.out_cols, mm.n):
+            workspace = 4 * self.rows * mm.n * ks
         lhs_n, rhs_n = fm.operand_streams(lhs_b, row_blocks, col_tiles,
                                           l2_bytes=self.l2_bytes,
                                           sms=self.sms)

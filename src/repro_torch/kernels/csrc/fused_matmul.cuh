@@ -1,16 +1,17 @@
-// Matmul-anchored fused segments for Hopper (sm_90a): the GEMM template
-// of all three contraction forms, and the helpers every anchored
-// segment's generated code uses.
+// Matmul-anchored fused segments for Hopper (sm_90a): the FMA template
+// of f32 and f16 products in all three contraction forms, and the
+// helpers every anchored segment's generated code uses.
 //
 // Replaces the TPU kernels repro/kernels/fused_matmul.py:240
 // (fused_matmul_segment, B3) and repro/kernels/fused_matmul_bwd.py:178
 // and :343 (fused_matmul_dlhs_segment, B4; fused_matmul_drhs_segment,
-// B6) — for B4 and B6 only where an operand of the product is not bf16
-// (f32, f16): a bf16 x bf16 dlhs or drhs segment runs on the wgmma
-// mainloop of fused_matmul_sm90.cuh, which reaches the tensor cores' full
-// rate.  B3 stays here: its main-path use is the decode step at 8 rows, a
-// stream of the weight bound by bytes and below wgmma's 64-row minimum;
-// its training forward could take the sm90 mainloop (ROADMAP, queue A).
+// B6) where an operand of the product is not bf16 (f32, f16).  A bf16 x
+// bf16 product never comes here: dlhs, drhs and a fwd segment of at
+// least 64 rows a batch slice run on the wgmma mainloop of
+// fused_matmul_sm90.cuh (bound by operations: only wgmma reaches the
+// tensor cores' full rate), a fwd segment of fewer rows (decode's 8) on
+// the weight stream of fused_matmul_stream.cuh (bound by bytes: the
+// design keeps the card's HBM busy).
 // Every form is C[row, col] = sum_k A(row, k) B(k, col) with an f32
 // accumulator; the generated struct ``S`` of a segment says where A and
 // B come from:
@@ -28,44 +29,39 @@
 // (src/repro_torch/kernels/fused_matmul.py) into one translation unit
 // per plan.
 //
-// What bounds it: at decode (rows = 8) the product is a stream of the
-// weight — 2 operations per weight element against 295 bf16 operations
-// per byte of the card's balance — so it is bound by bytes; at training
-// (rows = 2048 tokens) every form is bound by operations.  The TPU's
-// grid (row blocks x a sequential K axis) would give one thread block
-// streaming the whole weight on one of 132 SMs.  Here a block owns a
-// [RB, 128] output tile and, for fwd and dlhs, one slice of K (grid = N
-// tiles x row blocks x K splits, the split count chosen from shapes so
-// that the card holds about two blocks per SM); each block writes its
-// f32 partial tile to a workspace, and a second kernel of the same
-// wrapper call sums the splits in a fixed order, rounds the sum to the
-// product's dtype and runs the epilogue — over a whole row when the
-// epilogue reduces over the lanes (the row held in shared memory), per
-// lane chunk otherwise.  A drhs block owns its whole contraction, so its
-// (pure elementwise) epilogue runs on the finished tile before the one
-// store, with no workspace.
+// What bounds it: an f32 product is bound by the card's 67 TFLOP/s of
+// f32 FMA at training shapes and by bytes at decode.  The TPU's grid (row
+// blocks x a sequential K axis) would give one thread block streaming
+// the whole weight on one of 132 SMs.  Here a block owns a [RB, 128]
+// output tile and, for fwd and dlhs, one slice of K (grid = N tiles x
+// row blocks x K splits, the split count chosen from shapes so that the
+// card holds about two blocks per SM); each block writes its f32
+// partial tile to a workspace, and a second kernel of the same wrapper
+// call sums the splits in a fixed order, rounds the sum to the product's
+// dtype and runs the epilogue — over a whole row when the epilogue
+// reduces over the lanes (the row held in shared memory), per lane chunk
+// otherwise.  The sm90 mainloop and the weight stream use the same
+// workspace and epilogue kernel.  A drhs block owns its whole
+// contraction, so its (pure elementwise) epilogue runs on the finished
+// tile before the one store, with no workspace.
 //
 // Inside a block: 128 threads; the contraction is walked in 32-deep
 // tiles staged global -> registers (prologue applied, next tile loaded
 // while the current one is multiplied) -> shared memory, each operand
-// loaded along its contiguous axis.  bf16 x bf16 products of the forward
-// form run on the tensor cores (WMMA m8n32k16, f32 accumulate: one warp
-// owns 32 columns and every 8-row fragment of the tile); anything else
-// here (f32, f16, and their dlhs / drhs) runs an f32 FMA path (one
+// loaded along its contiguous axis, and multiplied by f32 FMA (one
 // thread owns a column of the tile).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 
 // FM_BN (output columns of a block) and FM_BK (K depth of one staged
 // tile) are declared by the generated translation unit ahead of this
 // header, from fused_matmul.py's BN and BK, which the planner's
-// geometry reads too.  The WMMA path takes FM_BN == 4 warps x 32 columns.
+// geometry reads too.
 static_assert(FM_BN == 128 && FM_BK % 16 == 0, "tile shape of the template");
 constexpr int FM_THREADS = FM_BN;  // thread t loads column t
 constexpr int FM_EPI_THREADS = 256;
@@ -79,6 +75,77 @@ __device__ __forceinline__ float fm_rh(float x) { return __half2float(__float2ha
 template <class T> __device__ __forceinline__ T fm_to(float x) { return (T)x; }
 template <> __device__ __forceinline__ __nv_bfloat16 fm_to<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 template <> __device__ __forceinline__ __half fm_to<__half>(float x) { return __float2half(x); }
+
+// Eight consecutive elements p[0..8) as floats, zero past ``lim`` of
+// them: one or two 16-byte loads where all eight exist and p is 16-byte
+// aligned, else one load an element.  The generated 8-lane accessors of
+// the sm90 and stream paths read their operands through these.
+__device__ __forceinline__ void fm_ld8(const float* p, int lim, float (&v)[8]) {
+  if (lim >= 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 y = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < lim ? p[e] : 0.f;
+  }
+}
+
+// eight bf16 / f16 packed in 16 bytes, as floats
+__device__ __forceinline__ void fm_unpack8(uint4 u, const __nv_bfloat16*, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void fm_unpack8(uint4 u, const __half*, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// 16 bytes global -> shared by cp.async (zeros where bytes is 0), and
+// its commit / wait: the weight stream's ring is filled so.
+__device__ __forceinline__ void fm_cp16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void fm_cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void fm_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ask L2 for n elements from p (every 128-byte line they touch): the
+// sm90 mainloop's loading threads warm a tile's epilogue operands while
+// the products run, so the epilogue's loads do not wait on the HBM.
+template <class T>
+__device__ __forceinline__ void fm_prefetch(const T* p, int n) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (int o = 0; o < n * (int)sizeof(T); o += 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + o));
+}
+
+template <class T>
+__device__ __forceinline__ void fm_ld8(const T* p, int lim, float (&v)[8]) {
+  if (lim >= 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    fm_unpack8(__ldg(reinterpret_cast<const uint4*>(p)), p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < lim ? fm_f(p[e]) : 0.f;
+  }
+}
 
 // block-wide sum / max of one value per thread; every thread gets the
 // result.  ``red`` holds one float per warp.
@@ -180,60 +247,6 @@ __device__ __forceinline__ void fm_emit(const typename S::Args& a, float* __rest
   }
 }
 
-// bf16 products of the forward form: a bf16 dlhs or drhs runs on the
-// sm90 mainloop (fused_matmul_sm90.cuh) and never reaches this path.
-template <class S>
-__device__ __forceinline__ void fm_gemm_wmma(const typename S::Args& a, float* __restrict__ ws) {
-  using namespace nvcuda;
-  static_assert(!S::B_K_FAST && !S::A_ROW_FAST, "WMMA takes the forward form only");
-  __shared__ __align__(32) __nv_bfloat16 As[S::MT * FM_BK];
-  __shared__ __align__(32) __nv_bfloat16 Bs[FM_BK * FM_BN];
-  __shared__ __align__(32) float Cs[S::MT * FM_BN];
-  const int t = threadIdx.x, warp = t >> 5;
-  const int n0 = blockIdx.y * FM_BN;
-  const int kbeg = blockIdx.z * S::KCH;
-  const int kend = min(S::K, kbeg + S::KCH);
-  for (int sub = 0; sub < S::NSUB; ++sub) {
-  const int m0 = blockIdx.x * S::RB + sub * S::MT;
-  const int mrows = min(S::MT, S::RB - sub * S::MT);
-  const int b = m0 / S::PER;
-  wmma::fragment<wmma::accumulator, 8, 32, 16, float> acc[S::MT / 8];
-#pragma unroll
-  for (int f = 0; f < S::MT / 8; ++f) wmma::fill_fragment(acc[f], 0.f);
-  float ra[S::MT * FM_BK / FM_THREADS], rb[FM_BK * FM_BN / FM_THREADS];
-  fm_load_tile<S>(a, m0, mrows, n0, kbeg, kend, b, ra, rb);
-  for (int k0 = kbeg; k0 < kend; k0 += FM_BK) {
-#pragma unroll
-    for (int i = 0; i < S::MT * FM_BK / FM_THREADS; ++i) As[fm_aidx<S>(i)] = __float2bfloat16(ra[i]);
-#pragma unroll
-    for (int i = 0; i < FM_BK * FM_BN / FM_THREADS; ++i) Bs[fm_bsidx<S>(i)] = __float2bfloat16(rb[i]);
-    __syncthreads();
-    if (k0 + FM_BK < kend) fm_load_tile<S>(a, m0, mrows, n0, k0 + FM_BK, kend, b, ra, rb);
-#pragma unroll
-    for (int ks = 0; ks < FM_BK; ks += 16) {
-      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, Bs + ks * FM_BN + warp * 32, FM_BN);
-#pragma unroll
-      for (int f = 0; f < S::MT / 8; ++f) {
-        wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, As + f * 8 * FM_BK + ks, FM_BK);
-        wmma::mma_sync(acc[f], af, bf, acc[f]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int f = 0; f < S::MT / 8; ++f)
-    wmma::store_matrix_sync(Cs + f * 8 * FM_BN + warp * 32, acc[f], FM_BN, wmma::mem_row_major);
-  __syncthreads();
-  const int gn = n0 + t;
-  if (gn < S::N) {
-    for (int r = 0; r < mrows; ++r) fm_emit<S>(a, ws, m0 + r, gn, Cs[r * FM_BN + t]);
-  }
-  __syncthreads();
-  }
-}
-
 template <class S>
 __device__ __forceinline__ void fm_gemm_fma(const typename S::Args& a, float* __restrict__ ws) {
   __shared__ float As[S::MT * FM_BK];
@@ -284,11 +297,8 @@ __device__ __forceinline__ void fm_gemm_fma(const typename S::Args& a, float* __
 // never straddle a batch slice (PER rows each).
 template <class S>
 __global__ void __launch_bounds__(FM_THREADS) fm_gemm(typename S::Args a, float* __restrict__ ws) {
-  if constexpr (S::WMMA) {
-    fm_gemm_wmma<S>(a, ws);
-  } else {
-    fm_gemm_fma<S>(a, ws);
-  }
+  static_assert(!S::WMMA, "a bf16 x bf16 product runs on the sm90 mainloop or the weight stream");
+  fm_gemm_fma<S>(a, ws);
 }
 
 // The accumulator of (row, col): the K splits summed in a fixed order.

@@ -1,5 +1,5 @@
-"""Matmul-anchored fused segments: the CUDA kernel, its wrapper and its
-plain version (B3).
+"""Matmul-anchored fused segments: the CUDA kernels, their wrapper and
+their plain version (B3).
 
 ``fused_matmul_segment`` replaces the TPU kernel of the same name in
 ``repro/kernels/fused_matmul.py`` (``pl.pallas_call`` at :240): the
@@ -9,20 +9,38 @@ prologue (bf16 -> f32 dequant cast, scales) per weight element so the
 cast weight is never stored, and the epilogue (elementwise ops, lane
 splits, lane reductions) on the accumulator before one store.
 
-The GEMM is the hand-written template in ``csrc/fused_matmul.cuh`` (see
-the note there for what bounds it and how it splits N and K over the
-card); the prologues and the epilogue are CUDA code generated from the
-segment's block programs (``codegen.py``).  The same template and
-generator serve the two backward forms of ``fused_matmul_bwd.py`` (B4
+Which GEMM a segment is generated onto (``gemm_path``) follows from
+what bounds it on the H100:
+
+- a bf16 x bf16 product (after both prologues) of at least 64 rows a
+  batch slice — the training forward, 2,048 tokens — is bound by
+  operations, so it runs on the wgmma mainloop of
+  ``csrc/fused_matmul_sm90.cuh`` (shared with B4 / B6): x read K-major
+  and w[K, N] MN-major by TMA, an f32 master weight cast by the loading
+  warpgroup through 16-byte loads;
+- a bf16 product of fewer rows — the decode step's 8 — makes 16
+  operations a weight element, below wgmma's 64-row minimum and bound by
+  bytes, so it runs on the weight stream of
+  ``csrc/fused_matmul_stream.cuh``: x staged once, the weight through a
+  cp.async ring, a grid of column tiles x K splits that holds two CTAs on
+  every SM;
+- f32 and f16 products run on the FMA template of
+  ``csrc/fused_matmul.cuh`` (see the note there for how it splits N and
+  K over the card).
+
+The prologues and the epilogue are CUDA code generated from the
+segment's block programs (``codegen.py``): scalar accessors for the FMA
+template, 8-lane ones (``_chunk_accessors``) that read each fwd operand
+along its contiguous axis for the sm90 and stream paths.  The same
+generator serves the two backward forms of ``fused_matmul_bwd.py`` (B4
 dlhs, B6 drhs): ``segment_source(form=...)`` emits each form's operand
-accessors, and ``launch_segment`` is the one launcher of all three; a
-bf16 dlhs / drhs segment is generated onto the wgmma mainloop of
-``csrc/fused_matmul_sm90.cuh`` instead, with a TMA and a
-register-staged launcher, of which ``launch_segment`` picks one by the
-operands' bases (``sm90_variant``).  All anchored segments of a
-plan go into ONE translation unit (``prepare_library``), so a plan costs
-one ``nvcc``, keyed by source hash into ``build/``; segments that are
-the same (28 layers of one model) share one function.
+accessors, and ``launch_segment`` is the one launcher of all three; an
+sm90 or stream segment has a TMA / cp.async launcher and a
+register-staged one, of which ``launch_segment`` picks one by the
+operands' bases (``sm90_variant``).  All anchored segments of a plan go
+into ONE translation unit (``prepare_library``), so a plan costs one
+``nvcc``, keyed by source hash into ``build/``; segments that are the
+same (28 layers of one model) share one function.
 
 The accumulator budget is shared memory: an epilogue that reduces over
 the lanes holds the row of f32 sums in one block's shared memory
@@ -438,7 +456,14 @@ def _rows_of(specs: Sequence[tuple], rows: int, rb: int) -> list:
     return out
 
 
+#: lanes of one block of the workspace epilogue kernel: 2,048 on the FMA
+#: template; one a thread (256) after the sm90 mainloop and the weight
+#: stream, whose few rows (decode's 8) and many K splits would otherwise
+#: leave the kernel a handful of blocks
 _EPI_CHUNK = 2048
+_EPI_CHUNK_NARROW = 256
+#: threads of a lane-reduce epilogue block (a row) after those paths
+_EPI_ROW_THREADS = 1024
 
 
 class _ElemEmitter(CudaEmitter):
@@ -454,8 +479,141 @@ class _ElemEmitter(CudaEmitter):
                   f"{self._to(x, op.dtype, _CT[op.dtype])};")
 
 
+class _Slots:
+    """Emission in which the inputs ``slots`` names, read at lane ``L``,
+    come from values loaded beforehand: ``fmt`` of the input's slot (the
+    loads are issued together, ahead of their first use); any other read
+    goes to memory."""
+
+    def __init__(self, *a, slots: dict, fmt: str, **kw):
+        super().__init__(*a, **kw)
+        self.slots, self.fmt = slots, fmt
+
+    def load(self, k, lane):
+        if lane == "L" and k in self.slots:
+            return self.fmt.format(self.slots[k])
+        return super().load(k, lane)
+
+
+class _SlotElemEmitter(_Slots, _ElemEmitter):
+    """An in-tile epilogue whose float operands at lane ``L`` are
+    ``v[slot]``, loaded by the segment's ``epi_ld``."""
+
+
+class _VecEmitter(_Slots, CudaEmitter):
+    """A prologue evaluated at lane ``L`` = ``L0 + e`` of an 8-lane
+    chunk: its float bulk inputs at ``L`` are element ``e`` of the
+    chunk's loaded values, ``v[slot][e]``."""
+
+
+def _split_epilogue(epi, rows_of, ptrs, round_acc: str, rb: int,
+                    n_dim: int) -> list[str]:
+    """An in-tile epilogue of the sm90 mainloop in two steps, so that the
+    caller issues several elements' operand loads before it uses any:
+    ``epi_ld`` loads the float operands element (row, L) reads at its own
+    lane, ``epi_at`` computes from them and the accumulator and stores.
+    ``epi_prefetch`` asks L2 for a row's full-width operands."""
+    slots = {k: j for j, k in enumerate(
+        k for k, inp in enumerate(epi.inputs)
+        if inp.role != "acc" and inp.cols > 1 and ctype(inp.dtype) == "f")}
+    nb = max(len(slots), 1)
+    ld = CudaEmitter(epi, rows_of, ptrs)
+    ld.lane_bound = n_dim
+    em = _SlotElemEmitter(epi, rows_of, ptrs, lambda lane: f"{round_acc}(acc)",
+                          slots=slots, fmt="v[{}]")
+    em.indent = 2
+    em.body()
+    head = [f"    const int pid = row / {rb}, lr = row % {rb};",
+            "    (void)pid; (void)lr; (void)a; (void)v;"]
+    bulk = [i for i, inp in enumerate(epi.inputs[1:])
+            if inp.role == "bulk" and inp.cols == n_dim]
+    return [f"  static constexpr int EPI_NB = {nb};",
+            "  static __device__ __forceinline__ void epi_ld("
+            f"const Args& a, int row, int L, float (&v)[{nb}]) {{"] + head + [
+        f"    v[{j}] = {ld.load(k, 'L')};" for k, j in slots.items()] + [
+        "  }",
+        "  static __device__ __forceinline__ void epi_at("
+        f"const Args& a, int row, int L, float acc, const float (&v)[{nb}]) {{"
+    ] + head + em.lines + [
+        "  }",
+        "  static __device__ __forceinline__ void epi_prefetch("
+        "const Args& a, int row, int col, int n) {",
+        "    (void)a; (void)row; (void)col; (void)n;"] + [
+        f"    fm_prefetch(a.e{i} + (size_t)row * {n_dim} + col, n);"
+        for i in bulk] + ["  }"]
+
+
 def _pad8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def _chunk_slots(prog, width: int, dtypes) -> dict:
+    """input -> slot of the float bulk inputs an 8-lane accessor loads:
+    the bare operand, or each full-width float row input of a prologue."""
+    if prog is None:
+        return {0: 0}
+    slots = {}
+    for i, inp in enumerate(prog.inputs):
+        if inp.role in ("bulk_k", "bulk_w") and inp.cols == width and \
+                dtypes[i] in ("float32", "bfloat16", "float16"):
+            slots[i] = len(slots)
+    return slots
+
+
+def _chunk_accessors(prog, fn: str, row_var: str, width: int, ptrs,
+                     dtypes, base=None) -> list[str]:
+    """The 8-lane accessors of a fwd operand, read along its contiguous
+    (lane) axis: ``{fn}_ld`` loads each float bulk input's 8 lanes from
+    ``L0`` (16-byte loads where the chunk is whole and aligned, zeros
+    past ``lim`` lanes) and ``{fn}_at`` applies the prologue to element
+    ``e`` of them.  ``base`` overrides the address of a bare operand."""
+    slots = _chunk_slots(prog, width, dtypes)
+    inputs = [(ptrs[i], width) for i in slots]
+    if prog is None:
+        body = ["    return v[0][e];"]
+    else:
+        rows_of = [row_var if inp.role in ("bulk_k", "bulk_w") else None
+                   for inp in prog.inputs]
+        em = _VecEmitter(prog, rows_of, [f"a.{p}" for p in ptrs],
+                         slots=slots, fmt="v[{}][e]")
+        em.indent = 2
+        em.lane_memo = {}
+        out = prog.outputs[0]
+        em.ensure_row_deps(out)
+        em.lane_bound = width
+        x = em.lane_values(out, "L")
+        x = x if ctype(prog.ops[out].dtype) == "f" else f"(float)({x})"
+        body = em.lines + [f"    return {x};"]
+    nb = max(len(inputs), 1)
+    ld = []
+    for j, (ptr, cols) in enumerate(inputs):
+        addr = base or f"a.{ptr} + (size_t){row_var} * {cols} + L0"
+        ld.append(f"    fm_ld8({addr}, lim, v[{j}]);")
+    sig = f"const Args& a, int {row_var}, int L0, int b"
+    return [f"  static constexpr int {fn.upper()}_NB = {nb};",
+            f"  static __device__ __forceinline__ void {fn}_ld({sig}, "
+            f"int lim, float (&v)[{nb}][8]) {{",
+            f"    (void)a; (void){row_var}; (void)L0; (void)b; (void)lim; "
+            "(void)v;"] + ld + ["  }",
+            f"  static __device__ __forceinline__ float {fn}_at({sig}, "
+            f"const float (&v)[{nb}][8], int e) {{",
+            "    (void)a; (void)b; (void)v;", "    const int L = L0 + e;",
+            "    (void)L;"] + \
+        body + ["  }"]
+
+
+def gemm_path(form: str, lhs_ct: str, rhs_ct: str, per_rows: int) -> str:
+    """The GEMM a segment is generated onto: ``sm90`` (the wgmma
+    mainloop), ``stream`` (the weight stream of a bf16 fwd segment below
+    64 rows a slice) or ``fma`` (the template's f32 FMA path: f32 and
+    f16 products)."""
+    from repro_torch.kernels import fused_matmul_bwd as fmb
+
+    if fmb.sm90_eligible(form, lhs_ct, rhs_ct, per_rows):
+        return "sm90"
+    if fmb.stream_eligible(form, lhs_ct, rhs_ct, per_rows):
+        return "stream"
+    return "fma"
 
 
 def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
@@ -472,7 +630,7 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
     [N, K] rows) or ``drhs`` (x[K, rows]^T @ g[K, N], K the contracted
     token axis).  ``batch`` > 1 contracts each of ``batch`` row slices
     against its own slice of the weight (fwd, dlhs) or of both operands
-    (drhs)."""
+    (drhs).  The GEMM is the one ``gemm_path`` names."""
     if form not in ("fwd", "dlhs", "drhs"):
         raise ValueError(f"contraction form {form!r}")
     if (rhs_pro is not None and (form != "fwd" or batch > 1)) or \
@@ -493,17 +651,20 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
     lhs_ct = pro.ops[pro.outputs[0]].dtype if pro else lhs_dtypes[0]
     rhs_ct = rhs_pro.ops[rhs_pro.outputs[0]].dtype if rhs_pro else \
         rhs_dtypes[0]
-    wmma = lhs_ct == "bfloat16" and rhs_ct == "bfloat16"
     if form != "drhs":
         elt = 2 if rhs_dtypes[0] in ("bfloat16", "float16") else 4
         ks, kch = k_splits(rows, rb, k_dim, n_dim, sms, elt)
-    # a bf16 dlhs / drhs runs on the Hopper mainloop: its own tile and K
-    # split (KCH counts its 64-deep stages); rb stays the reference's row
-    # block, which the epilogue's pid / lr read
-    sm90 = fmb.sm90_eligible(form, lhs_ct, rhs_ct)
-    if sm90:
+    # a bf16 segment runs on the Hopper mainloop or (fwd below 64 rows a
+    # slice) the weight stream: each its own tile and K split (KCH counts
+    # its 64-deep stages); rb stays the reference's row block, which the
+    # epilogue's pid / lr read
+    path = gemm_path(form, lhs_ct, rhs_ct, per)
+    if path == "sm90":
         _, tn, ks = fmb.sm90_tiles(form, rows, k_dim, n_dim, batch, sms)
         kch = -(-(-(-k_dim // fmb.SM90_BK)) // ks)
+    elif path == "stream":
+        tn, ks = fmb.stream_blocks(rows, k_dim, n_dim, sms, batch)
+        kch = -(-(-(-k_dim // fmb.STREAM_BK)) // ks)
     reduce = bool(epi.reductions)
     elementwise = not reduce and not any(op.kind in ("slice", "cat")
                                          for op in epi.ops)
@@ -520,9 +681,14 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                       epi_specs, lhs_dtypes, rhs_dtypes, epi_dtypes,
                       out_dtypes, rows, k_dim, n_dim, acc_dtype, rb, ks,
                       kch))
-    if sm90:
-        tma = _sm90_tma(form, pro, lhs_specs, k_dim, n_dim, per)
+    if path == "sm90":
+        tma = _sm90_tma(form, pro, rhs_pro, lhs_specs, k_dim, n_dim, per)
         shape_key += repr(("sm90", tn, tma))
+    elif path == "stream":
+        # the weight by cp.async where its rows are whole 16-byte chunks
+        # and no prologue is evaluated; x is always register-staged
+        tma = (rhs_pro is None and n_dim % 8 == 0,)
+        shape_key += repr(("stream", tn, tma))
     name = "fm_" + hashlib.sha1(shape_key.encode()).hexdigest()[:16]
 
     members = ([f"const {_CT[d]}* __restrict__ l{i};"
@@ -559,26 +725,32 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         return accessor(fn, row_var, lane_var,
                         em.lines + [f"    return {x};"])
 
-    if sm90:
+    head_fields = (f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
+                   f"N = {n_dim}, PER = {per}, BATCH = {batch}, TN = {tn}, "
+                   f"KS = {ks}, KCH = {kch};") if path != "fma" else ""
+    if path == "sm90":
         src = ['#include "fused_matmul_sm90.cuh"'] + src + [
             f"struct {name}_S {{",
-            f"  using Args = {name}_Args;",
-            f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
-            f"N = {n_dim}, PER = {per}, BATCH = {batch}, TN = {tn}, "
-            f"KS = {ks}, KCH = {kch};",
+            f"  using Args = {name}_Args;", head_fields,
             f"  static constexpr bool DRHS = {_cbool(form == 'drhs')}, "
-            f"IN_TILE = {_cbool(tile_epi)};"]
+            f"FWD = {_cbool(form == 'fwd')}, IN_TILE = {_cbool(tile_epi)};"]
+    elif path == "stream":
+        src = ['#include "fused_matmul_stream.cuh"'] + src + [
+            f"struct {name}_S {{",
+            f"  using Args = {name}_Args;", head_fields,
+            f"  static constexpr bool IN_TILE = {_cbool(tile_epi)};"]
     else:
         src += [f"struct {name}_S {{",
                 f"  using Args = {name}_Args;",
                 f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
                 f"N = {n_dim}, RB = {rb}, MT = {mt}, NSUB = {nsub}, "
                 f"KS = {ks}, KCH = {kch}, PER = {per};",
-                f"  static constexpr bool WMMA = {_cbool(wmma)}, "
+                "  static constexpr bool WMMA = false, "
                 f"A_ROW_FAST = {_cbool(form == 'drhs')}, "
                 f"B_K_FAST = {_cbool(form == 'dlhs')}, "
                 f"IN_TILE = {_cbool(tile_epi)};"]
     lhs_ptrs = [f"l{i}" for i in range(len(lhs_dtypes))]
+    rhs_ptrs = [f"w{i}" for i in range(len(rhs_dtypes))]
     if form == "drhs":
         # A(r, k) = x[b][k][r - b * PER]: the activation read in place
         src += accessor("lhs", "r", "k", [
@@ -587,6 +759,15 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         src += accessor("rhs", "k", "n", [
             f"    return fm_f(a.w0[((size_t)b * {k_dim} + k) * {n_dim} + "
             "n]);"])
+    elif form == "fwd" and path != "fma":
+        # 8 lanes at a time along each operand's contiguous axis: x's k,
+        # the weight's n (w[b][k][n] read in place)
+        src += _chunk_accessors(pro, "lhs", "r", k_dim, lhs_ptrs,
+                                lhs_dtypes)
+        src += _chunk_accessors(
+            rhs_pro, "rhs", "k", n_dim, rhs_ptrs, rhs_dtypes,
+            base=None if batch == 1 else
+            f"a.w0 + ((size_t)b * {k_dim} + k) * {n_dim} + L0")
     else:
         src += prologue(pro, "lhs", "r", "L", lhs_ptrs, k_dim)
         if form == "dlhs":
@@ -599,14 +780,15 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                 f"    return fm_f(a.w0[(size_t)b * {k_dim * n_dim} + "
                 f"(size_t)k * {n_dim} + L]);"])
         else:
-            src += prologue(rhs_pro, "rhs", "k", "L",
-                            [f"w{i}" for i in range(len(rhs_dtypes))], n_dim)
+            src += prologue(rhs_pro, "rhs", "k", "L", rhs_ptrs, n_dim)
 
     all_specs = [("acc", rows, n_dim)] + list(epi_specs)
     rows_of = _rows_of(all_specs, rows, rb)
     ptrs = [None] + [f"a.e{i}" for i in range(len(epi_dtypes))]
     round_acc = {"bfloat16": "fm_rbf", "float16": "fm_rh"}.get(acc_dtype, "")
-    if tile_epi:
+    if tile_epi and path == "sm90":
+        src += _split_epilogue(epi, rows_of, ptrs, round_acc, rb, n_dim)
+    elif tile_epi:
         em = _ElemEmitter(epi, rows_of, ptrs, lambda lane: f"{round_acc}(acc)")
         em.indent = 2
         em.body()
@@ -630,21 +812,25 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         return [f'extern "C" int {name}_launch{suffix}(void* const* p, '
                 'void* stream) {', f"  {name}_Args a;"] + assign
     gen = {"name": name, "rb": rb, "ks": 0 if tile_epi else ks, "kch": kch,
-           "n_ptrs": k if tile_epi else k + 1,
-           "path": "sm90" if sm90 else "wmma" if wmma else "fma"}
-    if sm90:
-        # one launcher a variant: each operand by TMA where its layout
-        # allows, and (if any is) every operand register-staged, for a
-        # base that TMA refuses; ``launch_segment`` picks by the pointers
-        variants = [("", tma)] + [("_staged", (False, False))] * any(tma)
+           "n_ptrs": k if tile_epi else k + 1, "path": path}
+    if path != "fma":
+        # one launcher a variant: each operand by TMA (sm90) or cp.async
+        # (the stream's weight) where its layout allows, and (if any is)
+        # every operand register-staged, for a base that those refuse;
+        # ``launch_segment`` picks by the pointers
+        staged = (False,) * len(tma)
+        variants = [("", tma)] + [("_staged", staged)] * any(tma)
         gen.update(tn=tn, tma=tma, tma_ops=[i for i, ok in zip(
-            (0, len(lhs_dtypes)), tma) if ok])
+            (0, len(lhs_dtypes)) if path == "sm90" else (len(lhs_dtypes),),
+            tma) if ok])
 
         def run(ab, ws):
+            if path == "stream":
+                return f"fms_run<{name}_S, {_cbool(ab[0])}>(a, {ws}, s)"
             return (f"fm90_run<{name}_S, {_cbool(ab[0])}, {_cbool(ab[1])}>"
                     f"(a, {ws}, s)")
     if tile_epi:
-        if sm90:
+        if path != "fma":
             for suffix, ab in variants:
                 src += head(suffix) + [
                     "  cudaStream_t s = (cudaStream_t)stream;",
@@ -670,11 +856,17 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
             return val if lane == "L" else \
                 f"((({lane}) >= 0 && ({lane}) < {n_dim}) ? {val} : 0.f)"
         width = max(epi.ops[o].cols for o in epi.outputs)
-        em = _ChunkEmitter(epi, rows_of, ptrs, acc_expr, chunk=_EPI_CHUNK)
-        grid = f"dim3({-(-width // _EPI_CHUNK)}, {rows})"
+        chunk = _EPI_CHUNK if path == "fma" else _EPI_CHUNK_NARROW
+        em = _ChunkEmitter(epi, rows_of, ptrs, acc_expr, chunk=chunk)
+        grid = f"dim3({-(-width // chunk)}, {rows})"
     em.indent = 1
     em.body()
-    epi_head = [f"__global__ void __launch_bounds__(FM_EPI_THREADS) {name}_epi("
+    # a lane-reduce epilogue walks its row in a few passes, a load latency
+    # a lane each: after the sm90 mainloop and the weight stream (decode's
+    # 8 rows: 8 blocks) a block of 1,024 threads takes a row
+    threads = "FM_EPI_THREADS" if path == "fma" or not reduce else \
+        str(_EPI_ROW_THREADS)
+    epi_head = [f"__global__ void __launch_bounds__({threads}) {name}_epi("
                 f"{name}_Args a, const float* __restrict__ ws) {{"]
     if reduce:
         epi_head += ["  extern __shared__ float fm_row[];",
@@ -686,17 +878,21 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                  f"  const int lr = row % {rb};",
                  "  (void)pid; (void)lr;"]
     if reduce:
+        if path != "fma":
+            # few rows (decode's 8) over many K splits: several lanes'
+            # split sums in flight a thread
+            epi_head += ["#pragma unroll 4"]
         epi_head += [f"  for (int c = threadIdx.x; c < {n_dim}; c += blockDim.x)",
                      f"    fm_row[c] = {round_acc}(fm_acc_sum<{ks}, {rows}, "
                      f"{n_dim}>(ws, row, c));",
                      "  __syncthreads();"]
     src += epi_head + em.lines + ["}"]
 
-    for suffix, ab in variants if sm90 else [("", None)]:
+    for suffix, ab in variants if path != "fma" else [("", None)]:
         src += head(suffix) + [
             f"  float* ws = (float*)p[{k}];",
             "  cudaStream_t s = (cudaStream_t)stream;"]
-        if sm90:
+        if path != "fma":
             src += [f"  cudaError_t e = (cudaError_t){run(ab, 'ws')};"]
         else:
             src += [f"  fm_gemm<{name}_S><<<dim3({rows // rb}, {n_tiles}, "
@@ -707,21 +903,24 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
             src += [f"  e = cudaFuncSetAttribute({name}_epi, "
                     f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
                     "  if (e != cudaSuccess) return (int)e;"]
-        src += [f"  {name}_epi<<<{grid}, FM_EPI_THREADS, {smem}, s>>>(a, ws);",
+        src += [f"  {name}_epi<<<{grid}, {threads}, {smem}, s>>>(a, ws);",
                 "  return (int)cudaGetLastError();", "}"]
     return {**gen, "source": "\n".join(src) + "\n"}
 
 
-def _sm90_tma(form: str, pro, lhs_specs, k_dim: int, n_dim: int,
+def _sm90_tma(form: str, pro, rhs_pro, lhs_specs, k_dim: int, n_dim: int,
               per: int) -> tuple[bool, bool]:
     """Which operands of an sm90 segment TMA can load, from the shapes:
-    rows of a multiple of 16 bytes (8 bf16), and for dlhs an lhs that is
-    the bare [rows, K] cotangent (a prologue is evaluated by the loading
-    threads).  The bases are checked at launch."""
+    rows of a multiple of 16 bytes (8 bf16), an lhs that is the bare
+    [rows, K] activation or cotangent for dlhs and fwd, and a bare bf16
+    weight for fwd (a prologue is evaluated by the loading threads).
+    The bases are checked at launch."""
     if form == "drhs":
         return per % 8 == 0, n_dim % 8 == 0
-    return (pro is None and lhs_specs[0][0] == "bulk_k" and k_dim % 8 == 0,
-            k_dim % 8 == 0)
+    a = pro is None and lhs_specs[0][0] == "bulk_k" and k_dim % 8 == 0
+    if form == "fwd":
+        return a, rhs_pro is None and n_dim % 8 == 0
+    return a, k_dim % 8 == 0
 
 
 def _cbool(x: bool) -> str:
@@ -800,21 +999,26 @@ def _launcher(lib: ctypes.CDLL, symbol: str):
 
 _GEN: dict[tuple, dict] = {}
 
-#: the variants of the sm90 mainloop, as ``kernel_guard().variants``
-#: counts them: every operand by TMA, or one or more register-staged (an
-#: lhs prologue, a layout or a base that TMA refuses)
+#: the variants of the sm90 mainloop and of the weight stream, as
+#: ``kernel_guard().variants`` counts them: every operand by TMA (the
+#: stream's weight by cp.async), or one or more register-staged (a
+#: prologue, a layout or a base that TMA / cp.async refuse)
 SM90_TMA, SM90_STAGED = "sm90 TMA", "sm90 register-staged"
+STREAM_ASYNC, STREAM_STAGED = "stream cp.async", "stream register-staged"
 
 
 def sm90_variant(gen: dict, operands: Sequence[torch.Tensor]
                  ) -> tuple[str, str]:
-    """``(launcher suffix, variant)`` an sm90 segment launches on these
-    operands: the TMA launcher when every operand it loads by TMA has a
-    16-byte aligned base, else the one that stages every operand."""
+    """``(launcher suffix, variant)`` an sm90 or weight-stream segment
+    launches on these operands: the TMA / cp.async launcher when every
+    operand it loads that way has a 16-byte aligned base, else the one
+    that stages every operand through registers."""
+    fast, staged = (STREAM_ASYNC, STREAM_STAGED) \
+        if gen.get("path") == "stream" else (SM90_TMA, SM90_STAGED)
     aligned = all(operands[i].data_ptr() % 16 == 0 for i in gen["tma_ops"])
     if gen["tma_ops"] and not aligned:
-        return "_staged", SM90_STAGED
-    return "", SM90_TMA if all(gen["tma"]) else SM90_STAGED
+        return "_staged", staged
+    return "", fast if all(gen["tma"]) else staged
 
 
 def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
@@ -866,7 +1070,7 @@ def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
                                 dtype=torch.float32, device=dev))
     ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
     suffix, variant = "", None
-    if gen.get("path") == "sm90":
+    if gen.get("path") in ("sm90", "stream"):
         suffix, variant = sm90_variant(gen, operands)
     lib = _symbol_lib(gen["name"])
     launch = _launcher(lib, f"{gen['name']}_launch{suffix}")

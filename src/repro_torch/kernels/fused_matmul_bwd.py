@@ -59,7 +59,9 @@ DRHS_ROWS = fm.MT_MAX
 
 
 # ---------------------------------------------------------------------------
-# Geometry shared by the planner and the kernel
+# Geometry shared by the planner and the kernels: the backward forms', and
+# B3's on the sm90 mainloop (64 rows a slice or more) and on the weight
+# stream (fewer)
 # ---------------------------------------------------------------------------
 
 def drhs_blocks(rows: int, n_dim: int, *, vmem_bytes: int,
@@ -86,31 +88,53 @@ def drhs_grid_blocks(rows: int, n_dim: int, *, vmem_bytes: int,
 #: rows of an sm90 CTA tile (two consumer warpgroups of 64) and the K
 #: depth of one stage of its ring (``csrc/fused_matmul_sm90.cuh``)
 SM90_TM, SM90_BK = 128, 64
-#: the fewest stages a dlhs K split walks: a split doubles the f32
+#: the fewest stages a dlhs / fwd K split walks: a split doubles the f32
 #: workspace traffic, so a short contraction is never cut
 SM90_MIN_SPLIT_STAGES = 8
+#: rows of a batch slice below which a bf16 fwd segment leaves the sm90
+#: mainloop for the weight stream: wgmma's 64-row minimum
+SM90_MIN_ROWS = 64
+#: the weight stream (``csrc/fused_matmul_stream.cuh``): output columns
+#: and rows of a CTA, K depth of one stage of its ring, and the shared
+#: memory that holds the rows of x over one K split ([chunk, 8] bf16)
+STREAM_TN, STREAM_ROWS, STREAM_BK = 128, 8, 64
+STREAM_X_BYTES = 32 * 1024
 
 
-def sm90_eligible(form: str, lhs_dtype: str, rhs_dtype: str) -> bool:
-    """Whether a segment runs on the Hopper mainloop: a backward form
-    (dlhs, drhs) with bf16 operands on both sides of the product
-    (``lhs_dtype`` after the lhs prologue).  Every other segment (fwd,
-    f32, f16) stays on the WMMA / FMA template."""
-    return form in ("dlhs", "drhs") and lhs_dtype == rhs_dtype == "bfloat16"
+def sm90_eligible(form: str, lhs_dtype: str, rhs_dtype: str,
+                  per_rows: int) -> bool:
+    """Whether a segment runs on the Hopper mainloop: bf16 operands on
+    both sides of the product (``lhs_dtype`` after the lhs prologue,
+    ``rhs_dtype`` after the weight-side cast prologue), in a backward
+    form (dlhs, drhs) or in the forward form with at least
+    ``SM90_MIN_ROWS`` rows a batch slice (``per_rows``).  Every f32 and
+    f16 segment stays on the FMA template."""
+    if lhs_dtype != "bfloat16" or rhs_dtype != "bfloat16":
+        return False
+    return form in ("dlhs", "drhs") or (form == "fwd" and
+                                        per_rows >= SM90_MIN_ROWS)
+
+
+def stream_eligible(form: str, lhs_dtype: str, rhs_dtype: str,
+                    per_rows: int) -> bool:
+    """Whether a segment runs on the weight stream: a bf16 x bf16 fwd
+    segment with fewer rows a batch slice than wgmma takes (decode's 8)."""
+    return form == "fwd" and lhs_dtype == rhs_dtype == "bfloat16" and \
+        per_rows < SM90_MIN_ROWS
 
 
 def sm90_tiles(form: str, rows: int, k_dim: int, n_dim: int,
                batch: int = 1, sms: int = 0) -> tuple[int, int, int]:
     """``(tm, tn, splits)`` of an sm90 segment: a [128, tn] output tile
     per CTA (tn 256 where the output is that wide: wgmma m64n256 reads
-    half the shared memory per product of m64n128), and, for dlhs only,
-    a K split where the grid would fill less than half of the ``sms``
-    SMs — never below ``SM90_MIN_SPLIT_STAGES`` stages a split.  drhs
-    never splits K (its runs stay bit-equal)."""
+    half the shared memory per product of m64n128), and, for dlhs and
+    fwd, a K split where the grid would fill less than half of the
+    ``sms`` SMs — never below ``SM90_MIN_SPLIT_STAGES`` stages a split.
+    drhs never splits K (its runs stay bit-equal)."""
     tn = 256 if n_dim >= 256 else 128
     tiles = batch * -(-(rows // batch) // SM90_TM) * -(-n_dim // tn)
     splits = 1
-    if form == "dlhs" and 2 * tiles <= sms:
+    if form in ("dlhs", "fwd") and 2 * tiles <= sms:
         k_stages = -(-k_dim // SM90_BK)
         want = min(-(-sms // tiles), k_stages // SM90_MIN_SPLIT_STAGES)
         if want > 1:
@@ -124,6 +148,32 @@ def sm90_grid_blocks(rows: int, n_dim: int, tm: int, tn: int,
     the row tiles that share a column tile of B in L2, and the column
     tiles that each re-read A."""
     return -(-(rows // batch) // tm), -(-n_dim // tn)
+
+
+def stream_blocks(rows: int, k_dim: int, n_dim: int, sms: int,
+                  batch: int = 1) -> tuple[int, int]:
+    """``(tn, splits)`` of a weight-stream segment: a CTA owns
+    ``STREAM_TN`` output columns of ``STREAM_ROWS`` rows of one batch
+    slice and one K split.  K is split until the grid holds up to two
+    CTAs on each of the ``sms`` SMs (a stream of bytes needs every SM's
+    loads in flight; a partial second round of CTAs would leave most SMs
+    idle while it runs), and far enough that one split's rows of x fit
+    ``STREAM_X_BYTES`` of shared memory."""
+    tiles = batch * -(-(rows // batch) // STREAM_ROWS) * \
+        -(-n_dim // STREAM_TN)
+    k_stages = -(-k_dim // STREAM_BK)
+    max_chunk = STREAM_X_BYTES // (2 * STREAM_ROWS * STREAM_BK)
+    want = max(2 * sms // tiles, -(-k_stages // max_chunk))
+    splits = max(1, min(k_stages, want))
+    return STREAM_TN, -(-k_stages // -(-k_stages // splits))
+
+
+def stream_grid_blocks(rows: int, n_dim: int, batch: int = 1
+                       ) -> tuple[int, int]:
+    """``(row_blocks, col_tiles)`` of the weight stream's grid, per batch
+    slice: the row groups of ``STREAM_ROWS`` that share a column tile of
+    the weight in L2, and the column tiles that each re-read x."""
+    return -(-(rows // batch) // STREAM_ROWS), -(-n_dim // STREAM_TN)
 
 
 def dlhs_rhs_spec(n_dim: int, k_dim: int, batch: int = 1) -> tuple:

@@ -409,7 +409,11 @@ def test_code_generators_emit_every_planned_segment_deterministically():
                 gen = _gen(call)
                 assert gen["name"] == sym
                 assert f'extern "C" int {sym}_launch' in gen["source"]
-                assert f"fm_gemm<{sym}_S>" in gen["source"]
+                # the FMA template, the sm90 mainloop or the weight stream
+                assert {"fma": f"fm_gemm<{sym}_S>",
+                        "sm90": f"fm90_run<{sym}_S,",
+                        "stream": f"fms_run<{sym}_S,"}[gen["path"]] in \
+                    gen["source"]
                 n_mm += 1
                 del src
             assert kernel_symbol(call) == kernel_symbol(

@@ -68,8 +68,12 @@ def test_every_module_of_the_slice_is_there():
     csrc = ROOT / "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
     text = csrc.read_text()
     assert "__global__" in text and 'extern "C"' in text
-    gemm = (ROOT / "src/repro_torch/kernels/csrc/fused_matmul.cuh").read_text()
-    assert "__global__" in gemm and "wmma::mma_sync" in gemm
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    gemm = (csrc / "fused_matmul.cuh").read_text()
+    assert "__global__" in gemm and "fm_gemm_fma" in gemm
+    assert "wgmma.mma_async" in (csrc / "fused_matmul_sm90.cuh").read_text()
+    assert "fm_cp16(" in (csrc / "fused_matmul_stream.cuh").read_text()
+    assert "cp.async.cg" in gemm
 
 
 def test_sources_name_no_jax_import_and_no_library_attention():

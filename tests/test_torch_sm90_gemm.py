@@ -9,9 +9,9 @@ against the plain versions there.  Here:
 - ``segment_source`` emitting the sm90 mainloop for bf16 dlhs / drhs
   segments (with and without an lhs prologue, with ``batch`` > 1), and
   the TMA / register-staged variants each can take;
-- byte-identical source and symbol names for every fwd, f32 and f16
+- byte-identical source and symbol names for every f32 and f16
   segment, against digests of what the generator emitted before the
-  mainloop existed;
+  mainloop existed (bf16 fwd segments: ``tests/test_torch_sm90_fwd.py``);
 - ``Segment.io_bytes`` of a bf16 dlhs / drhs segment equal to what the
   helper's grid gives through ``operand_streams``;
 - the backward plans of the tiny training step keeping their decisions.
@@ -173,13 +173,17 @@ def test_sm90_tiles(form, rows, k, n, batch, want):
 
 
 def test_sm90_eligible_and_grid_blocks():
-    assert fmb.sm90_eligible("dlhs", "bfloat16", "bfloat16")
-    assert fmb.sm90_eligible("drhs", "bfloat16", "bfloat16")
-    assert not fmb.sm90_eligible("fwd", "bfloat16", "bfloat16")
+    for per in (8, 24, 2048):
+        assert fmb.sm90_eligible("dlhs", "bfloat16", "bfloat16", per)
+        assert fmb.sm90_eligible("drhs", "bfloat16", "bfloat16", per)
+    # fwd from 64 rows a batch slice; below, the weight stream
+    assert not fmb.sm90_eligible("fwd", "bfloat16", "bfloat16", 8)
+    assert not fmb.sm90_eligible("fwd", "bfloat16", "bfloat16", 63)
+    assert fmb.sm90_eligible("fwd", "bfloat16", "bfloat16", 64)
     for lhs, rhs in (("float32", "float32"), ("float16", "float16"),
                      ("float32", "bfloat16"), ("bfloat16", "float32")):
-        assert not fmb.sm90_eligible("dlhs", lhs, rhs)
-        assert not fmb.sm90_eligible("drhs", lhs, rhs)
+        for form in ("fwd", "dlhs", "drhs"):
+            assert not fmb.sm90_eligible(form, lhs, rhs, 2048)
     assert fmb.sm90_grid_blocks(2048, 6144, 128, 256) == (16, 24)
     assert fmb.sm90_grid_blocks(65536, 2048, 128, 256, 32) == (16, 8)
     assert fmb.sm90_grid_blocks(80, 24, 128, 128, 2) == (1, 1)
@@ -189,12 +193,13 @@ def test_sm90_eligible_and_grid_blocks():
 def test_bf16_backward_segments_emit_the_sm90_mainloop():
     """Every bf16 dlhs / drhs segment of the chains generates the Hopper
     mainloop, with the TMA operands its layout allows: none for A under
-    an lhs prologue; the staged launcher beside a TMA one."""
+    an lhs prologue; the staged launcher beside a TMA one.  The chains'
+    bf16 fwd segments (24 rows) take the weight stream."""
     seen = set()
     for label, dt, form, gen in _emitted((torch.bfloat16,)):
         src = gen["source"]
         if form == "fwd":
-            assert gen["path"] == "wmma" and "fm90" not in src, label
+            assert gen["path"] == "stream" and "fm90" not in src, label
             continue
         seen.add(label)
         assert gen["path"] == "sm90", label
@@ -230,7 +235,8 @@ def test_sm90_variant_from_the_operand_bases():
 
 
 #: (label, dtype) -> (symbol, sha1 of the source) the generator emitted
-#: for the chains' fwd, f32 and f16 segments before the sm90 mainloop
+#: for the chains' f32 and f16 segments before the sm90 mainloop (the
+#: bf16 fwd ones left the WMMA template for the weight stream)
 GOLDEN_CHAINS = {
     ("fwd gelu", "float32"): ("fm_7d4b5c84c3477747", "0d65516c910545e0"),
     ("fwd lane reduce", "float32"): ("fm_fd7e1bdf69c1bcdd",
@@ -254,29 +260,14 @@ GOLDEN_CHAINS = {
     ("drhs bulk/param", "float16"): ("fm_34580c37d2d185ea",
                                      "9ebe121b9cb41e56"),
     ("drhs batch 2", "float16"): ("fm_da81755a40ca66c3", "339b8d31b2da77b2"),
-    ("fwd gelu", "bfloat16"): ("fm_b1f82ea4cf1ea820", "eaeceb7e56e25731"),
-    ("fwd lane reduce", "bfloat16"): ("fm_36a021c49ab8c125",
-                                      "f86b053acfcb5527"),
 }
 
 #: symbol -> sha1 of the source of the tiny training plans' anchored
-#: segments that stay on the WMMA / FMA template (bf16 fwd; f32 fwd), as
-#: emitted before the sm90 mainloop
+#: segments that stay on the FMA template (f32 fwd), as emitted before
+#: the sm90 mainloop; the bf16 plans keep none (their fwd segments, 128
+#: rows, left the WMMA template for the sm90 mainloop)
 GOLDEN_TRAINING = {
-    "bfloat16": {
-        "fm_021129efe32bd38c": "f5bbf5516fcdb603",
-        "fm_0500eab68d3dd5b6": "e8c8cddb3d5e4691",
-        "fm_37b2ef0b71276649": "71c4dfa5d947972c",
-        "fm_4bfa144efd328a76": "caab0980117da475",
-        "fm_5820471fc9186ca0": "dcd6ec6525672271",
-        "fm_5e96fa9844d3809f": "1cfe7fc71268b596",
-        "fm_75b4cbc03351304f": "46929925ff85f67f",
-        "fm_c0f9ee87f4c36ef1": "c597757224076d09",
-        "fm_d729b3744ddc8afa": "71448f56771a2bfb",
-        "fm_dc456a893d2e9ab2": "fc9cffe2a7c6d0d9",
-        "fm_f24279ff160d4694": "3dd56d4fa5e0b40e",
-        "fm_f61a61002a225616": "92a901201eb71515",
-    },
+    "bfloat16": {},
     "float32": {
         "fm_07a475fe8cf2277c": "c9789c00c0951eee",
         "fm_08dbfa2fbf40d475": "c4c8f73060fcfdce",
@@ -304,23 +295,25 @@ GOLDEN_DECISIONS = {
 def test_fwd_f32_f16_chain_segments_are_byte_identical():
     got = {(label, dt): (gen["name"], _digest(gen))
            for label, dt, form, gen in _emitted()
-           if gen["path"] != "sm90"}
+           if gen["path"] == "fma"}
     assert got == GOLDEN_CHAINS
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_tiny_training_plans_keep_their_segments_and_decisions(dtype):
     """The tiny training step's forward and backward plans: the same
-    decisions as before the sm90 cost model, every fwd / f32 segment
-    byte-identical, and (bf16) every dlhs / drhs on the sm90 mainloop."""
+    decisions as before the sm90 cost model, every f32 segment
+    byte-identical, and (bf16) every fwd / dlhs / drhs on the sm90
+    mainloop."""
     plans = _training_plans(dtype)
     assert _plan_summary(plans) == GOLDEN_DECISIONS[dtype]
     gens = _plan_gens(plans)
     kept = {name: _digest(gen) for name, (form, gen) in gens.items()
-            if gen["path"] != "sm90"}
+            if gen["path"] == "fma"}
     assert kept == GOLDEN_TRAINING[dtype]
     sm90 = {form for form, gen in gens.values() if gen["path"] == "sm90"}
-    assert sm90 == ({"dlhs", "drhs"} if dtype == "bfloat16" else set())
+    assert sm90 == ({"fwd", "dlhs", "drhs"} if dtype == "bfloat16"
+                    else set())
 
 
 # ------------------------------------------------------------ planner
