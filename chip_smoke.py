@@ -11,7 +11,7 @@ and holds every hand-written kernel against its plain PyTorch version:
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together), naming each
-   instantiation whose registers spill;
+   instantiation whose registers spill (none of B5's or B7's may);
 3. ``paged_decode_attention`` vs its plain version on the card: small
    shapes in f32 (2e-5) and bf16 (2e-2, and within one bf16 rounding of
    the plain version run in f32) with permuted tables, ragged lengths
@@ -70,18 +70,23 @@ and holds every hand-written kernel against its plain PyTorch version:
    over batch axes (2, 16), launches ``flash_attention`` (B5) and agrees
    with the unwrapped chain, and its gradients through the planned
    backward (batched dlhs / drhs / fwd segments) with autograd of the
-   chain; B5 on the segment's operands against its plain version;
-   ``ops.flash_attention`` causal, windowed, unmasked and with the
-   log-sum-exp, and ``flash_attention_diff`` forward and backward (B7:
-   ``dkv``, ``dq``) against the plain versions, and both at the CPU
-   tests' shapes in f32 and bf16; every distinct segment of the
+   chain; B5 on the segment's operands against its plain version and
+   relaunched, bit-equal; ``ops.flash_attention`` causal, windowed,
+   unmasked and with the log-sum-exp (bf16, f16, f32), and
+   ``flash_attention_diff`` forward and backward (B7: ``dkv``, ``dq``;
+   bf16, f16) against the plain versions, and both at the CPU tests'
+   shapes in f32, bf16 and f16 and at head dims 24 / 96 / 256 in bf16
+   and f16, each launch made twice, bit-equal, every bf16 / f16 launch
+   on the sm90 kernels and every f32 one on the FMA kernels (launches by
+   path printed); every distinct segment of the
    ``BATCHED_GEMM_BWD`` chain (f32, bf16) and of the backward plans
    against its plain version (the batched B4 / B6 timed beside
-   ``torch.bmm``); B5 and each B7 kernel timed beside the
-   bound, the plain version and ``scaled_dot_product_attention``; and a
-   chain whose flash pair B5 refuses (head_dim 96, f32: queue C1)
-   declined with B5's reason and run on the card against the unwrapped
-   chain;
+   ``torch.bmm``); B5 (on the flash segment, unmasked, and causal at
+   the GQA width) and each B7 kernel (unmasked and causal) timed beside
+   the bound over the pairs the mask keeps, the plain version and
+   ``scaled_dot_product_attention`` (its backward); and a chain whose
+   flash pair B5 refuses (head_dim 96, f32: queue C1) declined with
+   B5's reason and run on the card against the unwrapped chain;
 9. the kernel library's rmsnorm (B9, forward and backward), rotary (B10)
    and dense decode attention (B11, token-major and head-major) through
    ``ops``: each against its plain version at the CPU tests' shapes in f32
@@ -98,8 +103,11 @@ and holds every hand-written kernel against its plain PyTorch version:
    (CUDA-graph replay, inputs rotated past the L2) beside the bound, the
    plain version and ``F.rms_norm`` / its fused backward / SDPA; and
    B9 at d_model 16,384, the backward on its wide kernel, checked and
-   timed beside the same; and the inputs B1, B5, B7 and B11 refuse
-   (queue C2), each raising before anything launches;
+   timed beside the same; B5 / B7 in bf16 and f16 at head dim 96 (taken
+   since queue C2's lift) against their plain versions; and the inputs
+   B1, B5, B7 and B11 refuse (queue C2: B5 / B7 at head dims 12 and 264,
+   G = 128, f32 head dim 96, B7's f32 head dim 128), each raising before
+   anything launches;
 10. the kernel library's ssd_scan (B12) and wkv6 (B13) through ``ops``:
     each against its plain version at the CPU tests' shapes, at S = 999
     and odd widths, f32 and bf16, B13 at strong decay (w in [0.05, 0.2],
@@ -316,9 +324,15 @@ def spilling_entries(log: str) -> list[str]:
             for n in names]
 
 
+#: sources none of whose instantiations may spill (B5 / B7: their f32
+#: FMA kernels and their bf16 / f16 wgmma kernels)
+NO_SPILL = ("flash_attention", "flash_attention_bwd")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
+    spilling = []
     for name, log in logs.items():
         usage = [ln for ln in log.splitlines() if "registers" in ln]
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in usage})
@@ -327,8 +341,11 @@ def phase_build() -> None:
               f"(registers per thread by instantiation: {regs}; "
               f"{len(spills)} with spills{': ' if spills else ''}"
               f"{', '.join(spills)})")
+        if name in NO_SPILL:
+            spilling += spills
     print(f"[2] build total {time.perf_counter() - t0:.1f} s -> "
           f"{_build.build_dir()}")
+    check(not spilling, f"B5 / B7 instantiations spill: {spilling}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -1897,15 +1914,24 @@ FLASH_SHAPE = (2, 2048, 16, 8, 128)
 FLASH_SMALL = [(1, 64, 4, 4, 16, True, 0), (2, 128, 8, 2, 32, True, 0),
                (1, 96, 4, 1, 64, False, 0), (2, 160, 4, 2, 16, True, 24),
                (1, 70, 2, 2, 16, True, 0)]
+#: head dims the 16-bit kernels take since queue C2's lift, each on the
+#: instantiation of the next width (64 / 128 / 256): B, S, NQ, NK, H,
+#: causal, window
+FLASH_WIDE = [(2, 130, 4, 2, 24, True, 0), (1, 200, 6, 2, 96, False, 0),
+              (2, 100, 4, 4, 256, True, 0), (1, 150, 6, 3, 96, True, 40)]
 #: B5 / B7 against their plain versions: f32 2e-5 (tests/test_kernels.py);
 #: bf16 forward 2e-2 (P is rounded to bf16 for the tensor cores, the plain
 #: version keeps it f32); bf16 gradients 5e-2 (tests/test_offload_
-#: attention.py), and besides within 5e-2 of the gradient's max-abs;
-#: the log-sum-exp (f32 statistics from products summed in another
-#: order) 1e-4
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+#: attention.py), and besides within 5e-2 of the gradient's max-abs; f16
+#: forward 4e-3 and gradients 1e-2 (and 1e-2 of the max-abs): P and dS
+#: are rounded to f16, 2^-11 relative, eight times finer than bf16, and an
+#: O(1) output's own f16 ulp is up to 2^-9 — no looser than bf16's; the
+#: log-sum-exp (f32 statistics from products summed in another order) 1e-4
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2, torch.float16: 1e-2}
 LSE_TOL = 1e-4
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
 #: a backward segment on the path's operands, where phase 6's bf16 rule
 #: fails: at most twice the spread of the eager ops around the plain
 #: version (``check_path_segments``; chosen after a run in which 2 of the
@@ -1950,9 +1976,37 @@ def seeded(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+def flash_paths() -> dict:
+    """Launches of B5 / B7 since the last count reset by the path each
+    took: ``sm90`` (the bf16 / f16 wgmma kernels) or ``fma`` (f32)."""
+    return {f"{name} / {path}": n
+            for (name, path), n in sorted(kernel_guard().variants.items())
+            if name in FLASH_KERNELS}
+
+
+def check_paths(dtype, what: str) -> dict:
+    """Every B5 / B7 launch since the last count reset took the path of
+    ``dtype``: sm90 for bf16 and f16, the FMA kernels for f32."""
+    paths = flash_paths()
+    want = "fma" if dtype == torch.float32 else "sm90"
+    check(paths and all(key.endswith(want) for key in paths),
+          f"{what}: B5 / B7 launches off the {want} path: {paths}")
+    return paths
+
+
+def flash_case(gen, shape, dtype):
+    b, s, nq, nk, h, causal, window = shape
+    q, k, v, do = (seeded(gen, sh, dtype) for sh in (
+        (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
+    return q, k, v, do, dict(causal=causal, window=window)
+
+
 def flash_small_shapes() -> None:
     """B5 (with lse) and both B7 kernels against their plain versions at
-    the CPU tests' shapes, f32 and bf16."""
+    the CPU tests' shapes in f32, bf16 and f16, and the 16-bit kernels at
+    head dims 24 / 96 / 256 (``FLASH_WIDE``); every launch made twice,
+    bit-equal; every 16-bit launch on the sm90 kernels, every f32 one on
+    the FMA kernels."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd,
@@ -1960,16 +2014,22 @@ def flash_small_shapes() -> None:
     )
 
     worst: dict = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, (b, s, nq, nk, h, causal, window) in enumerate(FLASH_SMALL):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        shapes = FLASH_SMALL + ([] if dtype == torch.float32 else FLASH_WIDE)
+        ops.reset_launch_counts()
+        for i, shape in enumerate(shapes):
             gen = torch.Generator(device=DEVICE).manual_seed(100 + i)
-            q, k, v, do = (seeded(gen, shape, dtype) for shape in (
-                (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
-            kw = dict(causal=causal, window=window)
-            o, lse = ops.flash_attention(q, k, v, return_lse=True,
-                                         impl="cuda", **kw)
-            grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            q, k, v, do, kw = flash_case(gen, shape, dtype)
+            runs = []
+            for _ in range(2):
+                o, lse = ops.flash_attention(q, k, v, return_lse=True,
+                                             impl="cuda", **kw)
+                runs.append((o, lse, *flash_attention_bwd(q, k, v, o, lse,
+                                                          do, **kw)))
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"B5 / B7 relaunch at {shape} {dtype} not bit-equal")
+            o, lse, *grads = runs[0]
             wo, wl = flash_attention_plain(q, k, v, return_lse=True, **kw)
             wgrads = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
             res = [("fwd", *within(o, wo, FLASH_TOL[dtype])),
@@ -1979,19 +2039,25 @@ def flash_small_shapes() -> None:
             for name, ok, err in res:
                 key = (str(dtype)[6:], name)
                 worst[key] = max(worst.get(key, 0.0), err)
-                check(ok, f"B5/B7 {name} at {FLASH_SMALL[i]} {dtype}: "
+                check(ok, f"B5/B7 {name} at {shape} {dtype}: "
                       f"max_abs_err {err:.3e}")
-    print(f"[8] B5 / B7 at the CPU tests' {len(FLASH_SMALL)} shapes, f32 "
-          f"and bf16, against the plain versions: worst max_abs_err "
+        paths = check_paths(dtype, f"{dtype} small shapes")
+        print(f"[8] B5 / B7 at {len(shapes)} shapes {str(dtype)[6:]} "
+              f"(the CPU tests' {len(FLASH_SMALL)}"
+              f"{'' if dtype == torch.float32 else ', head dims 24 / 96 / 256'}"
+              f"), each launched twice: bit-equal; launches by path {paths}")
+    print(f"[8] B5 / B7 against the plain versions: worst max_abs_err "
           f"{ {f'{d} {n}': f'{e:.2e}' for (d, n), e in worst.items()} }")
 
 
 def flash_library(card: str) -> tuple[dict, dict]:
     """The kernel library at full width: ``ops.flash_attention`` causal,
-    windowed, unmasked and with the log-sum-exp, and
-    ``flash_attention_diff`` forward and backward against autograd of
-    the plain version; B7's kernels timed.  Returns the B7 rows of the
-    kernels line and the launches of the diff call."""
+    windowed, unmasked and with the log-sum-exp in bf16, f16 and f32,
+    ``flash_attention_diff`` forward and backward against autograd of the
+    plain version and B7 windowed and unmasked in bf16 and f16; B5 causal
+    and B7's kernels unmasked and causal timed (bf16).  Returns the
+    unmasked B7 rows of the kernels line and the launches of the bf16
+    diff call."""
     from repro_torch.kernels import flash_attention_diff
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_attention_bwd import (
@@ -2002,108 +2068,154 @@ def flash_library(card: str) -> tuple[dict, dict]:
     )
 
     b, s, nq, nk, h = FLASH_SHAPE
+    diff_counts = None
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        name = str(dt)[6:]
+        gen = torch.Generator(device=DEVICE).manual_seed(8)
+        q, k, v, do = (seeded(gen, shape, dt) for shape in (
+            (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
+        ops.reset_launch_counts()
+        for causal, window in ((True, 0), (True, 512), (False, 0)):
+            o, lse = ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True,
+                                         impl="cuda")
+            torch.cuda.synchronize()
+            wo, wl = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+            ok_o, err_o = within(o, wo, FLASH_TOL[dt])
+            ok_l, err_l = within(lse, wl, LSE_TOL)
+            print(f"[8] ops.flash_attention {tuple(q.shape)} x "
+                  f"{tuple(k.shape)} {name} causal={causal} window={window}"
+                  f": out max_abs_err {err_o:.3e}, lse {err_l:.3e}")
+            check(ok_o and ok_l, f"B5 full width {name} causal={causal} "
+                  f"window={window} vs plain")
+        del o, lse, wo, wl
+        if dt == torch.float32:    # B7 takes f32 only up to head dim 64
+            check_paths(dt, "f32 full width")
+            continue
+
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        out = flash_attention_diff(*leaves, True, 0)
+        got = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        diff_counts = diff_counts or counts
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        pout = flash_attention_plain(*plain, causal=True)
+        want = torch.autograd.grad(pout, plain, do)
+        ok, err = within(out, pout, FLASH_TOL[dt])
+        msgs = [f"out {err:.3e}"]
+        for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+            ok_g, err_g = within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])
+            ok = ok and ok_g
+            msgs.append(f"{gname} {err_g:.3e} (max-abs "
+                        f"{float(w.abs().max()):.3f})")
+        print(f"[8] flash_attention_diff {name} causal, forward and "
+              f"backward against autograd of the plain version: "
+              f"max_abs_err {', '.join(msgs)}; launches "
+              f"{({k_: n for k_, n in counts.items() if n})}")
+        check(ok, f"flash_attention_diff {name} vs autograd of the plain "
+              f"version")
+        check(counts["flash_attention"] == 1 and
+              counts["flash_attention_bwd_dkv"] == 1 and
+              counts["flash_attention_bwd_dq"] == 1,
+              f"flash_attention_diff launches {counts}")
+        del leaves, out, got, plain, pout, want
+
+        # B7 alone at the full width, windowed and unmasked
+        for causal, window in ((True, 512), (False, 0)):
+            o, lse = ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True,
+                                         impl="cuda")
+            dvec = row_dot(do, o)
+            kw = dict(causal=causal, window=window)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
+            torch.cuda.synchronize()
+            wq, wk, wv = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            errs = {"dkv": max(within(dk, wk, GRAD_TOL[dt])[1],
+                               within(dv, wv, GRAD_TOL[dt])[1]),
+                    "dq": within(dq, wq, GRAD_TOL[dt])[1]}
+            print(f"[8] B7 {name} causal={causal} window={window} against "
+                  f"its plain version: max_abs_err dkv {errs['dkv']:.3e}, "
+                  f"dq {errs['dq']:.3e}")
+            check(all(within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])[0]
+                      for a, w in ((dk, wk), (dv, wv), (dq, wq))),
+                  f"B7 {name} causal={causal} window={window} full width "
+                  f"vs plain")
+            del wq, wk, wv
+        print(f"[8] full width {name}: launches by path "
+              f"{check_paths(dt, f'{name} full width')}")
+        if dt == torch.bfloat16:
+            timed = (q, k, v, do, o, lse, dvec, errs)
+    q, k, v, do, o, lse, dvec, errs = timed
     dt = torch.bfloat16
-    gen = torch.Generator(device=DEVICE).manual_seed(8)
-    q, k, v, do = (seeded(gen, shape, dt) for shape in (
-        (b, s, nq, h), (b, s, nk, h), (b, s, nk, h), (b, s, nq, h)))
-    for causal, window in ((True, 0), (True, 512), (False, 0)):
-        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     return_lse=True, impl="cuda")
-        torch.cuda.synchronize()
-        wo, wl = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
-        ok_o, err_o = within(o, wo, FLASH_TOL[dt])
-        ok_l, err_l = within(lse, wl, LSE_TOL)
-        print(f"[8] ops.flash_attention {tuple(q.shape)} x "
-              f"{tuple(k.shape)} bf16 causal={causal} window={window}: "
-              f"out max_abs_err {err_o:.3e}, lse {err_l:.3e}")
-        check(ok_o and ok_l, f"B5 full width causal={causal} "
-              f"window={window} vs plain")
-    del o, lse, wo, wl
-
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    ops.reset_launch_counts()
-    out = flash_attention_diff(*leaves, True, 0)
-    got = torch.autograd.grad(out, leaves, do)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    pout = flash_attention_plain(*plain, causal=True)
-    want = torch.autograd.grad(pout, plain, do)
-    ok, err = within(out, pout, FLASH_TOL[dt])
-    msgs = [f"out {err:.3e}"]
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        ok_g, err_g = within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])
-        ok = ok and ok_g
-        msgs.append(f"{name} {err_g:.3e} (max-abs {float(w.abs().max()):.3f})")
-    print(f"[8] flash_attention_diff causal, forward and backward against "
-          f"autograd of the plain version: max_abs_err {', '.join(msgs)}; "
-          f"launches {({k_: n for k_, n in counts.items() if n})}")
-    check(ok, "flash_attention_diff vs autograd of the plain version")
-    check(counts["flash_attention"] == 1 and
-          counts["flash_attention_bwd_dkv"] == 1 and
-          counts["flash_attention_bwd_dq"] == 1,
-          f"flash_attention_diff launches {counts}")
-    del leaves, out, got, plain, pout, want
-
-    # B7 alone at the full width, windowed and unmasked; each kernel is
-    # timed on the unmasked shape
-    for causal, window in ((True, 512), (False, 0)):
-        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     return_lse=True, impl="cuda")
-        dvec = row_dot(do, o)
-        kw = dict(causal=causal, window=window)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
-        torch.cuda.synchronize()
-        wq, wk, wv = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        errs = {"dkv": max(within(dk, wk, GRAD_TOL[dt])[1],
-                           within(dv, wv, GRAD_TOL[dt])[1]),
-                "dq": within(dq, wq, GRAD_TOL[dt])[1]}
-        print(f"[8] B7 causal={causal} window={window} against its plain "
-              f"version: max_abs_err dkv {errs['dkv']:.3e}, dq "
-              f"{errs['dq']:.3e}")
-        check(all(within(a, w, GRAD_TOL[dt], rel_max=GRAD_TOL[dt])[0]
-                  for a, w in ((dk, wk), (dv, wv), (dq, wq))),
-              f"B7 causal={causal} window={window} full width vs plain")
-        del wq, wk, wv
-    plain_ms = time_ms(lambda i: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, **kw), 2, warmup=1)
-    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    lout = F.scaled_dot_product_attention(lq, lk, lv, enable_gqa=True)
-    ldo = do.transpose(1, 2)
-    library_ms = time_ms(lambda i: torch.autograd.grad(
-        lout, (lq, lk, lv), ldo, retain_graph=True), 4)
-    # products of the reference's backward (2 * S * T * H each, per batch
-    # and query head): dkv recomputes S and dP and forms dV and dK (4),
-    # dq recomputes S and dP and forms dQ (3) — 7 in all, unmasked
-    unit = 2 * b * nq * s * s * h
-    io = {"dkv": [q, k, v, do, lse, dvec, dk, dv],
-          "dq": [q, k, v, do, lse, dvec, dq]}
     rows = {}
-    for name, fn, n_prod in (
-            ("dkv", lambda i: flash_attention_bwd_dkv(
-                q, k, v, do, lse, dvec, **kw), 4),
-            ("dq", lambda i: flash_attention_bwd_dq(
-                q, k, v, do, lse, dvec, **kw), 3)):
-        ms = graph_ms(fn, 2, replays=5)
-        n_bytes = sum(t.numel() * t.element_size() for t in io[name])
-        t_ops = n_prod * unit / PEAK_FLOPS[dt] * 1e3
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(t_ops, t_bytes),
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes", library_ms=library_ms)
-        print(f"[8] B7 {name} unmasked {tuple(q.shape)} x {tuple(k.shape)} "
-              f"bf16: {ms:.4f} ms on the card (CUDA-graph replay), plain "
-              f"(all three gradients) {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms (scaled_dot_product_attention's "
-              f"backward, enable_gqa, all three gradients), bound "
-              f"{rows[name]['bound_ms']:.4f} ms by {rows[name]['bound_by']} "
-              f"({n_prod} products, {n_prod * unit} flops; {n_bytes} bytes; "
-              f"bound / kernel = {rows[name]['bound_ms'] / ms:.1%}) on {card}")
-    return rows, counts
+    for causal in (False, True):
+        if causal:
+            o, lse = ops.flash_attention(q, k, v, causal=True,
+                                         return_lse=True, impl="cuda")
+            dvec = row_dot(do, o)
+        kw = dict(causal=causal, window=0)
+        plain_ms = time_ms(lambda i: flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 2, warmup=1)
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                              enable_gqa=True)
+        ldo = do.transpose(1, 2)
+        library_ms = time_ms(lambda i: torch.autograd.grad(
+            lout, (lq, lk, lv), ldo, retain_graph=True), 4)
+        # products of the reference's backward (2 * S * T * H each, per
+        # batch and query head, over the pairs the mask keeps): dkv
+        # recomputes S and dP and forms dV and dK (4), dq recomputes S and
+        # dP and forms dQ (3) — 7 in all
+        pairs = s * (s + 1) // 2 if causal else s * s
+        unit = 2 * b * nq * pairs * h
+        mask = "causal" if causal else "unmasked"
+        if causal:
+            fwd_ms = graph_ms(lambda i: ops.flash_attention(
+                q, k, v, causal=True, impl="cuda"), 4)
+            fwd_lib = graph_ms(lambda i: F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True, enable_gqa=True), 4)
+            fwd_bound = 2 * unit / PEAK_FLOPS[dt] * 1e3
+            print(f"[8] B5 causal {tuple(q.shape)} x {tuple(k.shape)} bf16: "
+                  f"{fwd_ms:.4f} ms on the card (CUDA-graph replay), library "
+                  f"{fwd_lib:.4f} ms (scaled_dot_product_attention, "
+                  f"is_causal, enable_gqa), bound {fwd_bound:.4f} ms by "
+                  f"operations (2 products over {pairs} pairs a head, "
+                  f"{2 * unit} flops; bound / kernel = "
+                  f"{fwd_bound / fwd_ms:.1%}) on {card}")
+        io = {"dkv": [q, k, v, do, lse, dvec, k, v],
+              "dq": [q, k, v, do, lse, dvec, q]}
+        for name, fn, n_prod in (
+                ("dkv", lambda i: flash_attention_bwd_dkv(
+                    q, k, v, do, lse, dvec, **kw), 4),
+                ("dq", lambda i: flash_attention_bwd_dq(
+                    q, k, v, do, lse, dvec, **kw), 3)):
+            ms = graph_ms(fn, 2, replays=5)
+            n_bytes = sum(t.numel() * t.element_size() for t in io[name])
+            t_ops = n_prod * unit / PEAK_FLOPS[dt] * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            row = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes
+                       else "bytes", library_ms=library_ms)
+            if not causal:
+                rows[name] = row
+            print(f"[8] B7 {name} {mask} {tuple(q.shape)} x "
+                  f"{tuple(k.shape)} bf16: {ms:.4f} ms on the card "
+                  f"(CUDA-graph replay), plain (all three gradients) "
+                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+                  f"(scaled_dot_product_attention's backward"
+                  f"{', is_causal' if causal else ''}, enable_gqa, all three "
+                  f"gradients), bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({n_prod} products, {n_prod * unit} "
+                  f"flops; {n_bytes} bytes; bound / kernel = "
+                  f"{row['bound_ms'] / ms:.1%}) on {card}")
+        del lq, lk, lv, lout
+    return rows, diff_counts
 
 
 def flash_path(card: str) -> tuple[dict, dict]:
@@ -2165,11 +2277,18 @@ def flash_path(card: str) -> tuple[dict, dict]:
     v3 = torch.repeat_interleave(v, g, dim=1).reshape(b * nq * s, h)
     kw = dict(batch=b * nq, rows=b * nq * s, head_dim=h, t_dim=s, n_dim=h,
               scale=scale, out_dtype=dt)
+    ops.reset_launch_counts()
     (got,) = ops.fused_flash_segment(q3, k3, v3, impl="cuda", **kw)
+    (again,) = ops.fused_flash_segment(q3, k3, v3, impl="cuda", **kw)
     torch.cuda.synchronize()
+    paths = check_paths(dt, "the flash segment")
     (ref,) = ops.fused_flash_segment(q3, k3, v3, impl="ref", **kw)
     ok, b5_err = within(got, ref, FLASH_TOL[dt])
     check(ok, f"B5 on the flash segment vs plain: {b5_err:.3e}")
+    check(torch.equal(got, again), "B5 on the flash segment: a relaunch "
+          "is not bit-equal")
+    print(f"[8] B5 on the flash segment launched twice: bit-equal; launches "
+          f"by path {paths}")
     ms = graph_ms(lambda i: ops.fused_flash_segment(q3, k3, v3, impl="cuda",
                                                     **kw), 4)
     plain_ms = time_ms(lambda i: ops.fused_flash_segment(
@@ -2192,7 +2311,7 @@ def flash_path(card: str) -> tuple[dict, dict]:
           f"(scaled_dot_product_attention), bound {b5['bound_ms']:.4f} ms "
           f"by {b5['bound_by']} (2 products, {flops} flops; {n_bytes} bytes;"
           f" bound / kernel = {b5['bound_ms'] / ms:.1%}) on {card}")
-    del got, ref, q3, k3, v3, sq, sk, sv
+    del got, again, ref, q3, k3, v3, sq, sk, sv
 
     # the planned backward of the flash segment
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2839,8 +2958,13 @@ def library_wide_rows(card: str) -> None:
 def refused_inputs() -> None:
     """Queue C2: inputs the reference takes and a port kernel refuses, as
     the ``ops`` docstrings state them.  Each wrapper raises a clear error
-    on the card before anything launches."""
-    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    on the card before anything launches.  B5 / B7 take bf16 and f16 at
+    head dim 96 since C2's lift: held against their plain versions."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
 
     gen = torch.Generator(device=DEVICE).manual_seed(17)
 
@@ -2859,11 +2983,32 @@ def refused_inputs() -> None:
                 seeded(gen, (b, s, nk, h), dtype),
                 seeded(gen, (b, s, nk, h), dtype))
 
+    for dt in (torch.bfloat16, torch.float16):
+        q, k, v = qkv(1, 64, 2, 2, 96, dt)
+        do = seeded(gen, q.shape, dt)
+        ops.reset_launch_counts()
+        o, lse = ops.flash_attention(q, k, v, return_lse=True, impl="cuda")
+        grads = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        paths = check_paths(dt, f"{dt} head dim 96")
+        wo = flash_attention_plain(q, k, v)
+        wgrads = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        errs = [within(o, wo, FLASH_TOL[dt])] + [
+            within(a, w, GRAD_TOL[dt]) for a, w in zip(grads, wgrads)]
+        print(f"[9] C2 lifted: B5 / B7 {str(dt)[6:]} head_dim 96 against "
+              f"the plain versions: max_abs_err out, dq, dk, dv "
+              f"{[f'{e:.2e}' for _, e in errs]}; launches by path {paths}")
+        check(all(ok for ok, _ in errs), f"B5 / B7 {dt} head_dim 96")
+
     ops.reset_launch_counts()
-    expect("B5 head_dim 96", ValueError, "head_dim 96",
+    expect("B5 bf16 head_dim 12", ValueError, "head_dim 12",
+           lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 12,
+                                            torch.bfloat16)))
+    expect("B5 f16 head_dim 264", ValueError, "head_dim 264",
+           lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 264,
+                                            torch.float16)))
+    expect("B5 f32 head_dim 96", ValueError, "head_dim 96",
            lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 96, torch.float32)))
-    expect("B5 float16", TypeError, "float16",
-           lambda: ops.flash_attention(*qkv(1, 64, 2, 2, 64, torch.float16)))
     expect("B5 G = 128", ValueError, "G=128",
            lambda: ops.flash_attention(*qkv(1, 16, 128, 1, 32,
                                             torch.bfloat16)))
@@ -3336,15 +3481,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/adamw_update.py:55",
         **b8}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cuh",
         "replaces": "src/repro/kernels/flash_attention.py:145",
         **b5}, {
         "name": "flash_attention_bwd_dkv", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cuh",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:196",
         **b7["dkv"]}, {
         "name": "flash_attention_bwd_dq", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cuh",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:218",
         **b7["dq"]}, {
         "name": "rmsnorm", "route": "cuda",

@@ -293,8 +293,9 @@ class Segment:
         a batched weight re-streams once per per-batch row block.  fwd /
         dlhs add the f32 workspace, written and read once per K split,
         unless the epilogue runs in the tile.  A flash segment reads q
-        once and k and v once per q tile (``flash_attention.q_blocks``),
-        and its [S, T] scores contribute zero bytes.  Planner and kernels
+        once and k and v once per q tile (``flash_attention.q_blocks`` of
+        its head dim and dtype, from B5's ``tile_rows``), and its [S, T]
+        scores contribute zero bytes.  Planner and kernels
         share the helpers."""
         from repro_torch.kernels import fused_matmul as fm
         from repro_torch.kernels import fused_matmul_bwd as fmb
@@ -308,7 +309,8 @@ class Segment:
         lhs_b = sum(_nbytes(sp.var) for sp in mm.lhs_specs)
         rhs_b = sum(_nbytes(sp.var) for sp in mm.rhs_specs)
         if mm.flash is not None:
-            return total + lhs_b + rhs_b * q_blocks(self.rows // mm.batch)
+            return total + lhs_b + rhs_b * q_blocks(
+                self.rows // mm.batch, 1, mm.k, _dtype(mm.lhs_var))
         metas = [sp.meta for sp in self.operand_specs]
         workspace = 0
         ks = 0
@@ -1147,8 +1149,10 @@ def plan_offload(gm: fx.GraphModule, *,
         else (a mask, other value lanes, a chain value read outside)
         falls back to flush-then-readmit: two ordinary segments.  So
         does a pair whose operands B5 refuses (``flash_attention.refusal``:
-        its head dims, f32 / bf16), with that reason in ``explain()`` —
-        where the reference's Pallas kernel takes any head dim."""
+        f32 outside head dims 16 / 32 / 64 / 128, 16-bit head dims that
+        are not multiples of 8 up to 256, other dtypes), with that reason
+        in ``explain()`` — where the reference's Pallas kernel takes any
+        head dim."""
         nonlocal mm, cur_rows, current, specs, produced
         if (mm["form"] != "dlhs" or mm["flash"] is not None or
                 mm["pro_eqns"] or mm["rhs_pro_eqns"] or

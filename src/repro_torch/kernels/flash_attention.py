@@ -1,20 +1,29 @@
-"""Flash attention, forward: the CUDA kernel's wrapper (B5), its plain
-version, and the q-tile helper the offload planner shares with it.
+"""Flash attention, forward: the CUDA kernels' wrapper (B5), its plain
+version, and the tile helper the offload planner shares with them.
 
 ``flash_attention`` replaces the TPU kernel of the same name in
 ``repro/kernels/flash_attention.py`` (``pl.pallas_call`` at :145):
 softmax(q k^T * scale) v over q ``[B, S, NQ, H]`` and k, v
 ``[B, T, NK, H]`` (GQA), causal and sliding-window masks, an optional
-log-sum-exp ``[B, S, NQ]`` (f32).  The kernel is
-``csrc/flash_attention.cu`` (bound by operations at the main path's
-shapes, see the note there); ``flash_attention_plain`` beside it repeats
-the same arithmetic as full-matrix PyTorch for CPU tensors and for
-comparison on the card.
+log-sum-exp ``[B, S, NQ]`` (f32).  Bound by operations at the main path's
+shapes, it runs as one of two kernels by dtype:
 
-A q tile folds the G query heads of one kv head into ``Q_ROWS`` rows, so
-it spans ``q_block(G)`` query positions; k and v stream once per q tile.
-``Segment.io_bytes`` counts a flash segment's k / v traffic with the same
-helper.
+* bf16 and f16 (head dims that are multiples of 8 up to 256): the wgmma
+  / TMA kernel of ``csrc/flash_attention_sm90.cuh`` — a loading
+  warpgroup feeds two computing warpgroups through an mbarrier ring,
+  both products run on the tensor cores' full-rate instruction with the
+  accumulators in registers, and P goes from the first product to the
+  second in registers;
+* f32 (head dims 16 / 32 / 64 / 128): the FMA kernel of
+  ``csrc/flash_attention.cu``, so that f32 keeps full f32 precision.
+
+``flash_attention_plain`` beside them repeats the same arithmetic as
+full-matrix PyTorch for CPU tensors and for comparison on the card.
+
+A q tile folds the G query heads of one kv head into its rows
+(``tile_rows``), so it spans ``q_block(G)`` query positions; k and v
+stream once per q tile.  ``Segment.io_bytes`` counts a flash segment's
+k / v traffic with the same helper.
 """
 from __future__ import annotations
 
@@ -28,25 +37,60 @@ from repro_torch.kernels.guard import kernel_guard
 
 NEG_INF = -1e30
 KERNEL = "flash_attention"
-#: rows of the forward kernel's q tile (G heads x q_block(G) positions)
-#: and the most query heads a q tile folds
-Q_ROWS = 128
+#: the most query heads a q tile folds
 G_MAX = 64
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the f32 kernels: B5's; B7's are those up to 64
+HEAD_DIMS_F32 = (16, 32, 64, 128)
+#: 16-bit head dims: multiples of 8 from 8 to 256, each run on the
+#: instantiation of the next width of ``SM90_WIDTHS`` (the columns past
+#: H arrive as zeros)
+HEAD_DIM_STEP, HEAD_DIM_MAX = 8, 256
+SM90_WIDTHS = (64, 128, 256)
+#: the C interface's dtype codes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the path a launch took, as the C interface reports it
+PATHS = ("fma", "sm90")
 
-_DTYPES = (torch.float32, torch.bfloat16)
+
+def sm90_width(head_dim: int) -> int:
+    """The head-dim width the 16-bit kernels compute for ``head_dim``."""
+    return next(w for w in SM90_WIDTHS if head_dim <= w)
 
 
-def q_block(group: int) -> int:
-    """Query positions of one q tile when it folds ``group`` heads."""
+def tile_rows(kernel: str, head_dim: int, dtype: torch.dtype
+              ) -> tuple[int, int]:
+    """``(q rows, kv rows)`` of one CTA's tile of ``kernel`` ("fwd",
+    "dkv", "dq") for ``head_dim`` and ``dtype``, as the CUDA sources set
+    them.  16-bit (``csrc/flash_attention_sm90.cuh`` /
+    ``flash_attention_bwd_sm90.cuh``): two computing warpgroups of 64
+    rows — fwd 128 q rows against kv tiles of 128 rows at width 64 and of
+    64 wider (so that S, O and P fit 168 registers a thread), dkv 128 kv
+    rows against q tiles of 64, dq 128 q rows against kv tiles of 64.
+    f32 (the FMA kernels): fwd 128 q rows against 64 kv rows, dkv / dq 64
+    against 64."""
+    if kernel not in ("fwd", "dkv", "dq"):
+        raise ValueError(f"kernel is fwd, dkv or dq, got {kernel!r}")
+    if dtype == torch.float32:
+        return (128, 64) if kernel == "fwd" else (64, 64)
+    width = sm90_width(head_dim)
+    return {"fwd": (128, 128 if width <= 64 else 64), "dkv": (64, 128),
+            "dq": (128, 64)}[kernel]
+
+
+def q_block(group: int, head_dim: int = 128,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Query positions of one forward q tile when it folds ``group``
+    heads (``tile_rows("fwd", ...)``'s q rows over ``group``)."""
     if not 1 <= group <= G_MAX:
         raise ValueError(f"a q tile folds 1..{G_MAX} heads, got {group}")
-    return Q_ROWS // group
+    return tile_rows("fwd", head_dim, dtype)[0] // group
 
 
-def q_blocks(s_len: int, group: int = 1) -> int:
-    """q tiles over ``s_len`` positions: how often k and v stream."""
-    return -(-s_len // q_block(group))
+def q_blocks(s_len: int, group: int = 1, head_dim: int = 128,
+             dtype: torch.dtype = torch.bfloat16) -> int:
+    """Forward q tiles over ``s_len`` positions: how often k and v
+    stream."""
+    return -(-s_len // q_block(group, head_dim, dtype))
 
 
 def default_scale(h: int) -> float:
@@ -99,7 +143,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, vp]
+                       ci, ctypes.c_float, ctypes.POINTER(ci), vp]
         fn.restype = ci
         lib.flash_attention_error.argtypes = [ci]
         lib.flash_attention_error.restype = ctypes.c_char_p
@@ -107,15 +151,21 @@ def _lib() -> ctypes.CDLL:
 
 
 def refusal(head_dim: int, dtype: torch.dtype, group: int = 1) -> str | None:
-    """Why B5 refuses operands of this head dim, dtype and GQA group (G
-    query heads per kv head), or None when it takes them: H in
-    ``HEAD_DIMS``, f32 or bf16, G at most ``G_MAX``.  ``check_operands``
-    raises with this reason; the offload planner declines a flash pair
-    with it."""
-    if head_dim not in HEAD_DIMS:
-        return f"head_dim {head_dim} is not one of {HEAD_DIMS}"
-    if dtype not in _DTYPES:
-        return f"dtype {dtype} is not float32 or bfloat16"
+    """Why B5 (and B7) refuse operands of this head dim, dtype and GQA
+    group (G query heads per kv head), or None when they take them: bf16
+    or f16 with H a multiple of 8 from 8 to 256, f32 with H in
+    ``HEAD_DIMS_F32``, and G at most ``G_MAX``.  (B7 besides takes f32
+    only up to H = 64.)  ``check_operands`` raises with this reason; the
+    offload planner declines a flash pair with it."""
+    if dtype not in DTYPE_CODES:
+        return f"dtype {dtype} is not float32, bfloat16 or float16"
+    if dtype == torch.float32:
+        if head_dim not in HEAD_DIMS_F32:
+            return (f"head_dim {head_dim} is not one of {HEAD_DIMS_F32} "
+                    "(float32)")
+    elif head_dim % HEAD_DIM_STEP or not 0 < head_dim <= HEAD_DIM_MAX:
+        return (f"head_dim {head_dim} is not a multiple of {HEAD_DIM_STEP} "
+                f"from {HEAD_DIM_STEP} to {HEAD_DIM_MAX} ({dtype})")
     if not 1 <= group <= G_MAX:
         return f"G={group} query heads per kv head is not in 1..{G_MAX}"
     return None
@@ -124,9 +174,9 @@ def refusal(head_dim: int, dtype: torch.dtype, group: int = 1) -> str | None:
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    *more: torch.Tensor) -> None:
     """What the flash kernels take: q (and ``more``, shaped as q) ``[B, S,
-    NQ, H]``, k / v ``[B, T, NK, H]``, one dtype (f32 or bf16), one
-    device, contiguous and 16-byte aligned, H in ``HEAD_DIMS`` and
-    NQ = G * NK with G at most ``G_MAX``.  Raises otherwise."""
+    NQ, H]``, k / v ``[B, T, NK, H]``, one dtype, one device, contiguous
+    and 16-byte aligned, what ``refusal`` allows, and NQ = G * NK.
+    Raises otherwise."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError("expected q [B,S,NQ,H] and k, v [B,T,NK,H]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -144,8 +194,8 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v),
                     *((f"operand {i}", t) for i, t in enumerate(more))):
         if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}: q, k, v share float32 "
-                            f"or bfloat16 (q is {q.dtype})")
+            raise TypeError(f"{name} is {t.dtype}: q, k, v share one dtype "
+                            f"(q is {q.dtype})")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -164,7 +214,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch B5 on CUDA tensors.  Returns ``out`` (``[B, S, NQ, H]`` in
     q's dtype) or ``(out, lse)``.  Runs on PyTorch's current stream,
     never synchronises, raises on anything the kernel does not take or
-    on a refused launch: there is no fallback to the plain version."""
+    on a refused launch: there is no fallback to the plain version.
+    Counts the launch, and the path it took (``kernel_guard().variants``:
+    "sm90" or "fma")."""
     if not q.is_cuda:
         raise RuntimeError(
             f"flash_attention launches a CUDA kernel; q is on {q.device} "
@@ -176,15 +228,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((b, s, nq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     lib = _lib()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         code = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, s, t, nq, nk, h,
-            int(q.dtype == torch.bfloat16), int(causal), int(window),
+            DTYPE_CODES[q.dtype], int(causal), int(window),
             default_scale(h) if scale is None else float(scale),
-            torch.cuda.current_stream().cuda_stream)
+            ctypes.byref(path), torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = lib.flash_attention_error(code).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg}")
     kernel_guard().count_launch(KERNEL)
+    kernel_guard().count_variant(KERNEL, KERNEL, PATHS[path.value])
     return (out, lse) if return_lse else out

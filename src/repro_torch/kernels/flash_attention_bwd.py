@@ -4,15 +4,20 @@ log-sum-exp, B7 backward) as a ``torch.autograd.Function``.
 
 ``flash_attention_bwd`` replaces the two TPU kernels of
 ``repro/kernels/flash_attention_bwd.py`` — ``_dkv_kernel``
-(``pl.pallas_call`` at :196) and ``_dq_kernel`` (:218) — with
-``csrc/flash_attention_bwd.cu``: both recompute ``P = exp(q k^T * scale
-- lse)`` from the forward's log-sum-exp, ``dkv`` accumulates
-``dV = P^T dO`` and ``dK = dS^T q`` over the q tiles of all G heads of a
-kv head, ``dq`` accumulates ``dQ = dS k`` over the kv tiles, with
-``dS = P * (dO v^T - D) * scale``.  ``D = rowsum(dO * o)`` is computed
-here, outside the kernels, as the reference does (:172).
-``flash_attention_bwd_plain`` repeats the same arithmetic as
-full-matrix PyTorch.
+(``pl.pallas_call`` at :196) and ``_dq_kernel`` (:218): both recompute
+``P = exp(q k^T * scale - lse)`` from the forward's log-sum-exp, ``dkv``
+accumulates ``dV = P^T dO`` and ``dK = dS^T q`` over the q tiles of all
+G heads of a kv head, ``dq`` accumulates ``dQ = dS k`` over the kv
+tiles, with ``dS = P * (dO v^T - D) * scale``.  ``D = rowsum(dO * o)``
+is computed here, outside the kernels, as the reference does (:172).
+Bound by operations, they run as one of two pairs of kernels by dtype:
+bf16 / f16 on the wgmma / TMA kernels of
+``csrc/flash_attention_bwd_sm90.cuh`` (every product on the tensor cores
+with its accumulator in registers, dK and dV included, P and dS fed to
+the next products from registers), f32 on the FMA kernels of
+``csrc/flash_attention_bwd.cu`` (head dims up to 64).  No atomics: two
+launches are bit-equal.  ``flash_attention_bwd_plain`` repeats the same
+arithmetic as full-matrix PyTorch.
 """
 from __future__ import annotations
 
@@ -22,11 +27,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
+    DTYPE_CODES,
+    PATHS,
     allowed_keys,
     check_operands,
     default_scale,
     flash_attention as _flash_cuda,
     flash_attention_plain,
+    refusal,
 )
 from repro_torch.kernels.guard import kernel_guard, resolve_impl
 
@@ -69,7 +77,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if lib.flash_attention_bwd_dq_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        tail = [ci] * 9 + [ctypes.c_float, vp]
+        tail = [ci] * 9 + [ctypes.c_float, ctypes.POINTER(ci), vp]
         lib.flash_attention_bwd_dkv_launch.argtypes = [vp] * 8 + tail
         lib.flash_attention_bwd_dq_launch.argtypes = [vp] * 7 + tail
         lib.flash_attention_bwd_dkv_launch.restype = ci
@@ -77,6 +85,18 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_error.argtypes = [ci]
         lib.flash_attention_bwd_error.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_refusal(head_dim: int, dtype: torch.dtype,
+                group: int = 1) -> str | None:
+    """Why B7 refuses operands of this head dim, dtype and GQA group, or
+    None when it takes them: what B5 refuses (``refusal``), and f32 with
+    head_dim above 64 (the FMA kernels' f32 tiles of 128 do not fit a
+    block's shared memory)."""
+    why = refusal(head_dim, dtype, group)
+    if why is None and dtype == torch.float32 and head_dim > 64:
+        why = f"flash_attention_bwd takes f32 head_dim <= 64, got {head_dim}"
+    return why
 
 
 def _check_bwd(q, k, v, do, lse, dvec) -> None:
@@ -92,9 +112,9 @@ def _check_bwd(q, k, v, do, lse, dvec) -> None:
             raise ValueError(f"{name} must be a contiguous f32 [B,S,NQ] "
                              f"tensor on {q.device}; got {tuple(t.shape)} "
                              f"{t.dtype}")
-    if q.dtype == torch.float32 and h > 64:
-        raise ValueError(f"flash_attention_bwd takes f32 head_dim <= 64, "
-                         f"got {h}")
+    why = bwd_refusal(h, q.dtype, nq // k.shape[2])
+    if why is not None:
+        raise ValueError(why)
 
 
 def _launch(name: str, q, k, v, do, lse, dvec, outs, causal, window,
@@ -105,17 +125,19 @@ def _launch(name: str, q, k, v, do, lse, dvec, outs, causal, window,
     lib = _lib()
     fn = lib.flash_attention_bwd_dkv_launch if name == KERNEL_DKV else \
         lib.flash_attention_bwd_dq_launch
+    path = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(),
                   *(x.data_ptr() for x in outs), b, s, t, nq, nk, h,
-                  int(q.dtype == torch.bfloat16), int(causal), int(window),
+                  DTYPE_CODES[q.dtype], int(causal), int(window),
                   default_scale(h) if scale is None else float(scale),
-                  torch.cuda.current_stream().cuda_stream)
+                  ctypes.byref(path), torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = lib.flash_attention_bwd_error(code).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")
     kernel_guard().count_launch(name)
+    kernel_guard().count_variant(name, name, PATHS[path.value])
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, *, causal: bool = True,
@@ -139,11 +161,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, *, causal: bool = True,
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, scale: float | None = None):
     """Launch B7 on CUDA tensors: ``D = rowsum(dO * o)``, then ``dkv``
-    and ``dq`` (each counts as one launch of its kernel).  ``lse`` is the
-    forward's ``[B, S, NQ]`` f32 log-sum-exp.  Raises on anything the
-    kernels do not take — what B5 refuses (``flash_attention.refusal``),
-    and f32 with head_dim above 64 — or on a refused launch.  Returns
-    ``(dq, dk, dv)``."""
+    and ``dq`` (each counts as one launch of its kernel, and the path it
+    took).  ``lse`` is the forward's ``[B, S, NQ]`` f32 log-sum-exp.
+    Raises on anything the kernels do not take — what B5 refuses
+    (``flash_attention.refusal``), and f32 with head_dim above 64 — or on
+    a refused launch.  Returns ``(dq, dk, dv)``."""
     check_operands(q, k, v, o)
     dvec = row_dot(do, o)
     kw = dict(causal=causal, window=window, scale=scale)
@@ -187,6 +209,7 @@ def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``interpret`` arguments shape TPU blocks only and are not carried
     over.  On CUDA tensors it takes what B5 takes (``ops.flash_attention``)
     and its backward B7 besides refuses f32 with head_dim above 64 (the
-    f32 tiles of 128 do not fit 227 KB of shared memory): such inputs
-    raise ``ValueError``, where the reference's Pallas kernels take them."""
+    f32 FMA kernels' tiles of 128 do not fit 227 KB of shared memory):
+    such inputs raise ``ValueError``, where the reference's Pallas kernels
+    take them."""
     return _FlashAttentionFn.apply(q, k, v, causal, window, impl)

@@ -142,12 +142,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     1/sqrt(H)); returns ``out`` or ``(out, lse)``.  The reference's
     ``q_block`` / ``kv_block`` / ``interpret`` arguments shape TPU blocks
     only and are not carried over (B5 picks its tiles from the shapes).
-    On CUDA tensors B5 refuses, with ``ValueError`` / ``TypeError``,
-    where the reference's Pallas kernel takes them: head_dim outside
-    {16, 32, 64, 128}, more than 64 query heads per kv head, and a dtype
-    other than f32 or bf16 (f16 included); ``flash_attention.refusal``
-    names the reason, and the offload planner declines a flash pair by
-    it."""
+    On CUDA tensors B5 takes bf16 and f16 at head dims that are multiples
+    of 8 from 8 to 256 (the wgmma kernel) and f32 at head dims 16 / 32 /
+    64 / 128 (the FMA kernel), and refuses, with ``ValueError`` /
+    ``TypeError``, where the reference's Pallas kernel takes them: other
+    head dims, more than 64 query heads per kv head, other dtypes;
+    ``flash_attention.refusal`` names the reason, and the offload planner
+    declines a flash pair by it."""
     kw = dict(causal=causal, window=window, scale=scale,
               return_lse=return_lse)
     if resolve_impl(impl, q) == "ref":

@@ -59,6 +59,20 @@ def _jattn(q, k, v):
     return jnp.einsum("bhst,bhtd->bhsd", p, v)
 
 
+def _jattn_working(q, k, v):
+    """``_jattn`` with the row softmax written out in the working dtype:
+    ``jax.nn.softmax`` sums a 16-bit row in f32 (a convert before the
+    ``reduce_sum``), which the JAX planner's flash pattern does not take;
+    the port's capture of ``torch.softmax`` keeps the dtype, as this
+    does."""
+    scale = jnp.sqrt(q.shape[-1]).astype(q.dtype)
+    s = jnp.einsum("bhsd,bhtd->bhst", q, k) / scale
+    e = jnp.exp(s - jax.lax.reduce_max(s, (3,))[..., None])
+    p = e / jax.lax.reduce(e, np.array(0, e.dtype), jax.lax.add,
+                           (3,))[..., None]
+    return jnp.einsum("bhst,bhtd->bhsd", p, v)
+
+
 def _tattn(q, k, v):
     scale = torch.tensor(math.sqrt(q.shape[-1])).to(q.dtype)
     s = torch.einsum("bhsd,bhtd->bhst", q, k) / scale
@@ -226,16 +240,21 @@ def test_mismatched_value_lanes_do_not_flash_but_match():
 
 @pytest.mark.parametrize("d,dtype,admitted", [
     (24, torch.float32, False), (96, torch.float32, False),
-    (256, torch.float32, False), (32, torch.float16, False),
-    (64, torch.bfloat16, True), (128, torch.bfloat16, True)])
+    (256, torch.float32, False), (32, torch.float16, True),
+    (64, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (96, torch.bfloat16, True), (256, torch.bfloat16, True),
+    (24, torch.float16, True)])
 def test_flash_pair_only_where_b5_takes_the_operands(d, dtype, admitted):
     """The planner admits the flash pair only where B5 takes what the
-    flash segment would pass it (``flash_attention.refusal``: head dims
-    16 / 32 / 64 / 128, f32 or bf16).  Otherwise it declines the pair
-    with B5's reason in ``explain()`` and the chain runs as ordinary
-    segments, matching the unwrapped chain (f32 1e-5; f16 2e-3, two ulps
-    of an O(1) value; bf16 2e-2).  The JAX planner admits every f32 one:
-    its Pallas kernel takes any head dim — a plan difference by design."""
+    flash segment would pass it (``flash_attention.refusal``: bf16 / f16
+    at head dims that are multiples of 8 up to 256, f32 at 16 / 32 / 64 /
+    128).  Otherwise it declines the pair with B5's reason in
+    ``explain()`` and the chain runs as ordinary segments.  Either way the
+    chain matches the unwrapped chain (f32 1e-5; f16 2e-3, two ulps of an
+    O(1) value; bf16 2e-2).  The JAX planner flashes every one of them
+    (its Pallas kernel takes any head dim; the 16-bit twin writes its
+    softmax in the working dtype, ``_jattn_working``) — a plan difference
+    by design for f32 only."""
     arrays = _qkv(d=d)
     q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
     plan = offload_report(_tattn, q, k, v, policy=POLICY)
@@ -248,13 +267,14 @@ def test_flash_pair_only_where_b5_takes_the_operands(d, dtype, admitted):
     else:
         assert not flash and len(declined) == 1
         assert "flash pair declined" in declined[0]
-        assert ("head_dim" if dtype != torch.float16 else "float16") in \
-            declined[0]
+        assert f"head_dim {d}" in declined[0]
         assert declined[0] in report
-    if dtype == torch.float32:
-        jplan = joffload_report(_jattn, *map(jnp.asarray, arrays),
-                                bulk_threshold=64)
-        assert sum(_flash(s) for s in jplan.segments) == 1
+    jdtype = {torch.float32: jnp.float32, torch.float16: jnp.float16,
+              torch.bfloat16: jnp.bfloat16}[dtype]
+    jfn = _jattn if dtype == torch.float32 else _jattn_working
+    jplan = joffload_report(jfn, *(jnp.asarray(a).astype(jdtype)
+                                   for a in arrays), bulk_threshold=64)
+    assert sum(_flash(s) for s in jplan.segments) == 1
     tol = {torch.float32: 1e-5, torch.float16: 2e-3,
            torch.bfloat16: 2e-2}[dtype]
     got = mpu_offload(_tattn, policy=POLICY)(q, k, v)

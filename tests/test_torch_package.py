@@ -71,7 +71,14 @@ def test_every_module_of_the_slice_is_there():
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     gemm = (csrc / "fused_matmul.cuh").read_text()
     assert "__global__" in gemm and "fm_gemm_fma" in gemm
-    assert "wgmma.mma_async" in (csrc / "fused_matmul_sm90.cuh").read_text()
+    # the wgmma forms live in the Hopper primitives' one copy, which the
+    # B3 / B4 / B6 mainloop and the flash kernels include and call
+    assert "wgmma.mma_async" in (csrc / "sm90_common.cuh").read_text()
+    for header in ("fused_matmul_sm90.cuh", "flash_attention_sm90.cuh",
+                   "flash_attention_bwd_sm90.cuh"):
+        assert "sm90_mma" in (csrc / header).read_text(), header
+    for header in ("fused_matmul_sm90.cuh", "flash_attention_sm90.cuh"):
+        assert '#include "sm90_common.cuh"' in (csrc / header).read_text()
     assert "fm_cp16(" in (csrc / "fused_matmul_stream.cuh").read_text()
     assert "cp.async.cg" in gemm
 
