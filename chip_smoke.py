@@ -11,7 +11,7 @@ and holds every hand-written kernel against its plain PyTorch version:
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together), naming each
-   instantiation whose registers spill (none of B5's or B7's may);
+   instantiation whose registers spill (none of B5's, B7's or B8's may);
 3. ``paged_decode_attention`` vs its plain version on the card: small
    shapes in f32 (2e-5) and bf16 (2e-2, and within one bf16 rounding of
    the plain version run in f32) with permuted tables, ragged lengths
@@ -32,23 +32,31 @@ and holds every hand-written kernel against its plain PyTorch version:
    kernel — ``fused_segment_grid`` (Triton) and ``fused_matmul_segment``
    (CUDA; each bf16 one must take the weight stream, no instantiation of
    it may spill, and each is relaunched, bit-equal) — against its plain
-   version on seeded inputs, time the bf16
+   version on seeded inputs (each grid kernel with its registers,
+   spills and global loads by vector width), the plans' counts pinned,
+   time the bf16
    ones (CUDA-graph replay) beside the bound, the plain version and a
    library yardstick; serve the same 12 requests through
    ``Engine(offload=True)`` (launch counts = decode steps x layers for
    the attention and x segments of the plan for the fused kernels,
-   ``plan_misses == 1``); profile an offloaded decode step; and take one
+   ``plan_misses == 1``); profile an offloaded decode step (B2's device
+   time a step, summed over its ``seg_`` kernels); and take one
    decode step on the same state offloaded and eager, in bf16 and in
    f32 — logits agree;
 7. training full-width qwen3-1.7b (f32 master parameters, bf16 compute,
    2 x 1024 tokens a step) through ``make_train_step(offload=True)``:
-   plan the loss, every fused segment's backward and the update, build
+   plan the loss, every fused segment's backward and the update (their
+   plan counts pinned), build
    all their translation units together, take three steps (launch counts
-   a step, the host clock, the device-busy time under the profiler, peak
+   a step, the operands B2 copies a step, the host clock, the device-busy
+   time under the profiler, B2's device time a step by ``seg_`` symbol, peak
    memory, then one more step split into forward, backward and update
    peaks); the offloaded step against the plain eager step in bf16 and,
    at two layers, in f32; AdamW through ``apply_updates(use_kernel=True)``
-   against ``use_kernel=False`` and B8 against its plain version; every
+   against ``use_kernel=False`` and B8 against its plain version, bit for
+   bit, timed beside
+   ``torch._fused_adamw_`` and beside the update's B2 segment on the same
+   [152,064 x 2,048] leaf; every
    distinct fused segment of the training plans — grid (B2), fwd (B3),
    dlhs (B4), drhs (B6), each anchored one with the GEMM path it takes
    (``sm90 TMA`` / ``sm90 register-staged`` / ``stream cp.async`` /
@@ -56,9 +64,15 @@ and holds every hand-written kernel against its plain PyTorch version:
    or more and every bf16 dlhs / drhs must take the sm90 mainloop, no
    instantiation of it or of the weight stream may spill, and each bf16
    drhs is launched twice, bit-equal) — at its own
-   shapes and strides against its plain version, the bf16 anchored ones
-   and the most launched grid ones timed beside the bound, the plain
-   version and a library yardstick; B3 / B4 / B6's device time a step
+   shapes and strides against its plain version, the bf16 anchored ones,
+   the most launched grid ones and those with the most device time a
+   step timed beside the bound, the plain version and a library
+   yardstick (``F.rms_norm``, ``torch.softmax``, ``torch.log_softmax``,
+   the softmax backward: matched by the op sequence and taken only where
+   its output agrees with the plain version; else "none" with the
+   reason), the grid ones tabled with their shape,
+   roles, bytes, share of the bound, copies and geometry; B3 / B4 / B6's
+   device time a step
    by form; every variant of the sm90 mainloop (B3, B4, B6) and of the
    weight stream (B3) at the CPU tests' shapes and at full width, on
    misaligned operands, with K splits, an lhs prologue, an f32 weight
@@ -126,6 +140,12 @@ and holds every hand-written kernel against its plain PyTorch version:
     12 / 4 layers);
 12. a ``kernels`` JSON line, then the card line, then the result line.
 
+    python3 chip_smoke.py --decode-segments [--src DIR]
+
+takes phase 1 and phase 6's decode segment timings alone, on the package
+under ``DIR`` where given (another checkout's ``src``), and prints no
+result line: two checkouts' kernels timed by one script.
+
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
 matrix products run in full float32 (TF32 off).
@@ -145,8 +165,17 @@ import sys
 import time
 import zlib
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+
+
+def _src_root() -> str:
+    """The package root: ``src`` beside this script, or ``--src DIR`` (to
+    take this script's readings on another checkout's package)."""
+    if "--src" in sys.argv:
+        return os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+
+sys.path.insert(0, _src_root())
 
 import numpy as np
 import torch
@@ -325,8 +354,8 @@ def spilling_entries(log: str) -> list[str]:
 
 
 #: sources none of whose instantiations may spill (B5 / B7: their f32
-#: FMA kernels and their bf16 / f16 wgmma kernels)
-NO_SPILL = ("flash_attention", "flash_attention_bwd")
+#: FMA kernels and their bf16 / f16 wgmma kernels; B8)
+NO_SPILL = ("flash_attention", "flash_attention_bwd", "adamw_update")
 
 
 def phase_build() -> None:
@@ -342,10 +371,11 @@ def phase_build() -> None:
               f"{len(spills)} with spills{': ' if spills else ''}"
               f"{', '.join(spills)})")
         if name in NO_SPILL:
+            check(bool(regs), f"no ptxas report for {name}.cu")
             spilling += spills
     print(f"[2] build total {time.perf_counter() - t0:.1f} s -> "
           f"{_build.build_dir()}")
-    check(not spilling, f"B5 / B7 instantiations spill: {spilling}")
+    check(not spilling, f"B5 / B7 / B8 instantiations spill: {spilling}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -609,6 +639,30 @@ def profile_decode(engine, steps: int = 5, tag: str = "[5]") -> None:
     for e in sorted(rows, key=dev_us, reverse=True)[:6]:
         print(f"{tag}   {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
               f"{e.count / steps:6.0f} calls/step  {e.key[:90]}")
+    grid = grid_device_ms(rows, dev_us, steps)
+    if grid:
+        print(f"{tag} B2 (fused_segment_grid, {len(grid)} seg_ kernels): "
+              f"{sum(ms for ms, _ in grid.values()):.4f} ms of device time "
+              f"a step over {sum(n for _, n in grid.values()):.0f} launches: "
+              + ", ".join(f"{sym} {ms * 1e3 / n:.2f} us x{n:.0f}"
+                          for sym, (ms, n) in sorted(grid.items())))
+
+
+#: the generated B2 kernel's name: ``seg_<program hash>_<rows>_<block>``
+SEG_SYMBOL = re.compile(r"seg_[0-9a-f]{16}_\d+_\d+")
+
+
+def grid_device_ms(rows, dev_us, steps: int) -> dict:
+    """symbol -> (device ms a step, launches a step) of every B2 kernel
+    among the profiler's device rows (``steps`` steps profiled)."""
+    out: dict = {}
+    for e in rows:
+        m = SEG_SYMBOL.search(e.key)
+        if m:
+            ms, n = out.get(m.group(0), (0.0, 0.0))
+            out[m.group(0)] = (ms + dev_us(e) / 1e3 / steps,
+                               n + e.count / steps)
+    return out
 
 
 def phase_full_width_check(engine, tag: str = "[5]") -> None:
@@ -781,20 +835,77 @@ def seg_bound(call: dict, vals, outs) -> tuple[float, str, int, int]:
                                  else "operations"), n_bytes, flops
 
 
-def yardstick(call: dict, vals):
-    """One PyTorch call computing the segment's function, or None."""
+#: the grid programs a library call computes: input roles and ops in
+#: program order (casts, copies and broadcasts left out) -> the call
+YARDSTICK_OPS = {
+    (("bulk", "param"), ("mul", "sum", "div", "add", "rsqrt", "mul",
+                         "mul")): "F.rms_norm",
+    (("bulk",), ("max", "sub", "exp", "sum", "div")): "torch.softmax",
+    (("bulk",), ("max", "sub", "exp", "sum", "log", "sub")):
+        "torch.log_softmax",
+    (("bulk", "bulk"), ("mul", "sum", "mul", "sub")):
+        "torch._softmax_backward_data",
+}
+#: a yardstick is taken only where its output is the plain version's
+#: within this share of the output's max-abs: rounding moves a value by
+#: bf16 ulps (2^-8), another function by the order of the values
+YARDSTICK_AGREE = 2.0 ** -6
+
+
+def yardstick(call: dict, vals, want) -> tuple:
+    """``(fn, name)``: one PyTorch call computing the segment's function,
+    or ``(None, reason)`` where none does.  A grid segment is matched by
+    its input roles and op sequence (``YARDSTICK_OPS``), has one output,
+    and the call's output agrees with the plain version's ``want``
+    (``YARDSTICK_AGREE``); the softmax backward's two operands are tried
+    in both orders."""
     if call["kind"] == "matmul":
         nl = call["n_lhs"]
         lhs, rhs = vals[0], vals[nl]
         if call["progs"].lhs is not None or call["progs"].rhs is not None:
-            return None
-        return lambda: torch.matmul(lhs, rhs)
+            return None, "none: a prologue (no one call)"
+        return (lambda: torch.matmul(lhs, rhs)), "torch.matmul"
     prog = call["progs"].body
-    if len(prog.inputs) == 2 and [i.role for i in prog.inputs] == \
-            ["bulk", "param"] and len(prog.reductions) == 1:
-        x, w = vals[0], vals[1].to(vals[0].dtype).reshape(-1)
-        return lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-6)
-    return None
+    roles = tuple(i.role for i in prog.inputs)
+    seq = tuple(op.code for op in prog.ops if op.kind in ("ew", "reduce")
+                and op.code not in ("cast", "copy"))
+    name = YARDSTICK_OPS.get((roles, seq))
+    if name is None or len(prog.outputs) != 1:
+        red = [prog.ops[r].code for r in prog.reductions]
+        return None, (f"none: {len(seq) - len(red)} elementwise ops"
+                      f"{', lane ' + '/'.join(red) if red else ''} over "
+                      f"roles {'/'.join(sorted(set(roles)))}, "
+                      f"{len(prog.outputs)} output(s) (no one call)")
+    out_dt = call["out_dtypes"][0]
+    x = vals[0]
+    if name == "F.rms_norm":
+        add = next(op for op in prog.ops if op.code == "add")
+        eps = next((a[1] for a in add.args if a[0] == "c"), 1e-6)
+        w = vals[1].to(x.dtype).reshape(-1)
+        fns = [lambda: F.rms_norm(x, (x.shape[-1],), w, eps)]
+    elif name == "torch.softmax":
+        fns = [lambda: torch.softmax(x, -1, dtype=out_dt)]
+    elif name == "torch.log_softmax":
+        fns = [lambda: torch.log_softmax(x, -1, dtype=out_dt)]
+    else:
+        a, b = vals
+        fns = [lambda: torch._softmax_backward_data(a, b, -1, out_dt),
+               lambda: torch._softmax_backward_data(b, a, -1, out_dt)]
+    w0 = want[0].float()
+    err = math.inf
+    for fn in fns:
+        got = fn().float()
+        if got.numel() == w0.numel():
+            err = min(err, float((got.reshape(w0.shape) - w0).abs().max()))
+            if err <= YARDSTICK_AGREE * float(w0.abs().max()):
+                return fn, name
+    return None, (f"none: {name}'s op sequence, but its output is "
+                  f"{err:.2e} from the plain version's")
+
+
+#: the full-width decode plans (fused segments, of them grid, declined):
+#: B2's geometry must not move the planner
+DECODE_PLAN = {"bf16": (198, 113, 112), "f32": (197, 113, 113)}
 
 
 def phase_offload_kernels(plans: dict, card: str) -> dict:
@@ -811,11 +922,14 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
         dtype = torch.bfloat16 if label == "bf16" else torch.float32
         segs = distinct_segments(plan)
         n_grid = sum(c for call, c in segs.values() if call["kind"] == "grid")
+        n_declined = sum(not d.fused for d in plan.decisions)
         print(f"[6] {label} plan: {len(plan.segments)} fused segments a "
               f"decode step ({n_grid} grid, {len(plan.segments) - n_grid} "
               f"anchored), {len(segs)} distinct kernels, "
-              f"{sum(not d.fused for d in plan.decisions)} declined; "
+              f"{n_declined} declined; "
               f"traffic {plan.traffic_reduction:.2f}x")
+        check((len(plan.segments), n_grid, n_declined) == DECODE_PLAN[label],
+              f"{label} decode plan moved from {DECODE_PLAN[label]}")
         for sym, (call, count) in segs.items():
             if call["kind"] != "grid":
                 continue
@@ -826,12 +940,12 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
             compile_s = time.perf_counter() - tc
             want = run_seg(call, vals, "ref")
             ok, err = seg_close(got, want, dtype)
-            regs, spills = fe.COMPILED.get(sym, (None, None))
             print(f"[6]   grid {sym} rows {call['rows']} cols "
                   f"{call['out_cols']} roles "
                   f"{[s[0] for s in call['specs']]} x{count}/step: "
                   f"max_abs_err {err:.3e}; first launch (Triton build) "
-                  f"{compile_s:.2f} s, {regs} registers, {spills} spills")
+                  f"{compile_s:.2f} s; registers, spills, global loads by "
+                  f"width: {compiled_variants(sym)}")
             check(ok, f"{label} grid segment {sym} vs plain")
             rows[(label, sym)] = (call, count, vals)
     for label, handle in started:
@@ -871,29 +985,73 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
                       f"off the weight stream: {path}")
             rows[(label, sym)] = (call, count, vals)
     print(f"[6] kernels built and checked in {time.perf_counter() - t0:.1f} s")
+    return time_decode_segments(
+        {sym: r for (label, sym), r in rows.items() if label == "bf16"},
+        card)
 
+
+#: launches a CUDA graph holds where a decode segment, or its library
+#: yardstick, is timed: a decode segment runs for microseconds, and with
+#: fewer the replay's own launch shows in the time
+DECODE_GRAPH_CALLS = 16
+
+
+def time_decode_segments(rows: dict, card: str, tag: str = "[6]") -> dict:
+    """Time each decode segment (``rows``: symbol -> (call, launches a
+    step, operands)) and its library yardstick with ``DECODE_GRAPH_CALLS``
+    launches a graph each, beside the bound and the plain version.
+    Returns the timing rows by symbol."""
     timed = {}
-    for (label, sym), (call, count, vals) in rows.items():
-        if label != "bf16":
-            continue
+    for sym, (call, count, vals) in rows.items():
         copies = [vals] + [[v.clone() for v in vals] for _ in range(3)]
         outs = run_seg(call, vals, "cuda")
-        ms = graph_ms(lambda i: run_seg(call, copies[i % 4], "cuda"), 4)
+        want = run_seg(call, vals, "ref")
+        ms = graph_ms(lambda i: run_seg(call, copies[i % 4], "cuda"),
+                      DECODE_GRAPH_CALLS)
         plain_ms = time_ms(lambda i: run_seg(call, copies[i % 4], "ref"), 4)
-        lib = yardstick(call, vals)
-        library_ms = graph_ms(lambda i: lib(), 4) if lib else None
+        lib, lib_name = yardstick(call, vals, want)
+        library_ms = graph_ms(lambda i: lib(), DECODE_GRAPH_CALLS) \
+            if lib else None
         bound_ms, bound_by, n_bytes, flops = seg_bound(call, vals, outs)
         timed[sym] = dict(kind=call["kind"], count=count, ms=ms,
                           plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=seg_close(outs, run_seg(call, vals, "ref"),
+                          max_abs_err=seg_close(outs, want,
                                                 torch.bfloat16)[1])
-        print(f"[6]   {call['kind']} {sym} x{count}/step: {ms:.4f} ms on "
-              f"the card (CUDA-graph replay), plain {plain_ms:.4f} ms, "
-              f"library {'-' if library_ms is None else f'{library_ms:.4f}'} "
-              f"ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, "
-              f"{flops} flops; bound / kernel = {bound_ms / ms:.1%}) on {card}")
+        print(f"{tag}   {call['kind']} {sym} x{count}/step: {ms:.5f} ms on "
+              f"the card (CUDA-graph replay, {DECODE_GRAPH_CALLS} launches "
+              f"a graph), plain {plain_ms:.4f} ms, "
+              f"{lib_name if lib else 'library'} "
+              f"{'-' if library_ms is None else f'{library_ms:.5f}'} ms"
+              f"{'' if lib else f' ({lib_name})'}, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({n_bytes} bytes, {flops} flops; bound / "
+              f"kernel = {bound_ms / ms:.1%}) on {card}")
     return timed
+
+
+def phase_decode_segments(card: str) -> None:
+    """Phase 6's decode segment timings alone (``--decode-segments``):
+    every segment of the full-width bf16 decode plan built, held against
+    its plain version and timed as phase 6 times it.  With ``--src`` it
+    runs on another checkout's package, so that two checkouts' kernels
+    are timed by one script in one run."""
+    import repro_torch
+
+    cfg = get_config("qwen3-1.7b")
+    params = build_model(cfg, device="cuda").init(0)
+    plan = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                  page_size=64, offload=True).prepare_decode()
+    print(f"[6] decode segments of {os.path.dirname(repro_torch.__file__)}")
+    if plan.library:
+        fm.finish_library(fm.start_library(plan.library))
+    rows = {}
+    for sym, (call, count) in distinct_segments(plan).items():
+        vals = seg_inputs(call, seed=zlib.crc32(sym.encode()) % 1000)
+        ok, _ = seg_close(run_seg(call, vals, "cuda"),
+                          run_seg(call, vals, "ref"), torch.bfloat16)
+        check(ok, f"decode segment {sym} vs plain")
+        rows[sym] = (call, count, vals)
+    time_decode_segments(rows, card)
 
 
 def _roles_chain(x, p, r, t):
@@ -1088,10 +1246,18 @@ TRAIN_F32_TOL = 1e-4
 #: the grid segments of the training plans that are timed: the most
 #: launched ones
 TIMED_GRID = 3
+#: and the grid segments with the most device time a step
+TOP_GRID = 5
 #: the full-width bf16 training forward plan (fused, fused by form,
 #: declined) as measured before batched contractions were planned; they
 #: must not move it (the attention bmm stay declined)
 TRAIN_FORWARD_PLAN = (719, {"grid": 557, "fwd": 162}, 1019)
+#: the full-width bf16 backward plans (plans, fused by form, declined by
+#: form) and update plan (fused, declined), as planned before B2's
+#: redesign; its geometry must not move them
+TRAIN_BACKWARD_PLAN = (719, {"grid": 889, "drhs": 162, "dlhs": 162,
+                             "fwd": 84}, {"grid": 448})
+TRAIN_UPDATE_PLAN = (85, 284)
 #: B4 / B6 launches a bf16 step as planned before the sm90 cost model: a
 #: difference is a backward decision the new modeled bytes flip
 EARLIER_BWD_LAUNCHES = (162, 162)
@@ -1239,6 +1405,13 @@ def plan_training(step, state, batch, label: str):
                sum(not d.fused for d in fplan.decisions)) ==
               TRAIN_FORWARD_PLAN, f"{label}: the forward plan moved from "
               f"{TRAIN_FORWARD_PLAN}")
+        check((len(bplans), forms(bplans, True), forms(bplans, False)) ==
+              TRAIN_BACKWARD_PLAN, f"{label}: the backward plans moved from "
+              f"{TRAIN_BACKWARD_PLAN}")
+        check((len(uplan.segments),
+               sum(not d.fused for d in uplan.decisions)) ==
+              TRAIN_UPDATE_PLAN, f"{label}: the update plan moved from "
+              f"{TRAIN_UPDATE_PLAN}")
     why: dict = {}
     for p in [fplan, *bplans]:
         for d in p.decisions:
@@ -1301,6 +1474,7 @@ def train_steps(step, held: list, data, tokens: int, plans):
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     for i in range(3):
         before = ops.launch_counts()
+        copies = sum(fe.COPIES.values())
         if i == 1:
             prof.__enter__()
         torch.cuda.synchronize()
@@ -1313,6 +1487,7 @@ def train_steps(step, held: list, data, tokens: int, plans):
         after = ops.launch_counts()
         per_step.append({k: after[k] - before[k] for k in after
                          if after[k] - before[k]})
+        per_step[-1]["grid operand copies"] = sum(fe.COPIES.values()) - copies
         losses.append(float(metrics["loss"]))
         check(np.isfinite(losses[-1]) and
               np.isfinite(float(metrics["grad_norm"])), "non-finite step")
@@ -1344,13 +1519,23 @@ def train_steps(step, held: list, data, tokens: int, plans):
     print(f"[7] device time a step of the anchored GEMMs by form (their "
           f"epilogue kernels included): "
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in by_form.items())}")
+    grid = grid_device_ms(rows, dev_us, 2)
+    b2_ms = sum(ms for ms, _ in grid.values())
+    print(f"[7] B2 (fused_segment_grid): {b2_ms:.2f} ms of device time a "
+          f"step over {sum(n for _, n in grid.values()):.0f} launches of "
+          f"{len(grid)} seg_ kernels; {per_step[2]['grid operand copies']} "
+          f"operands copied to a contiguous block a step (step 3) by "
+          f"{sorted(k for k, n in fe.COPIES.items() if n)}; the most "
+          f"device time a step: " + ", ".join(
+              f"{sym[:20]} {ms:.3f} ms x{n:.0f}" for sym, (ms, n) in
+              sorted(grid.items(), key=lambda x: -x[1][0])[:15]))
     print(f"[7] launches a step (step 3): {per_step[2]}; B4 / B6 "
           f"{per_step[2].get('fused_matmul_dlhs_segment', 0)} / "
           f"{per_step[2].get('fused_matmul_drhs_segment', 0)} (before the "
           f"sm90 cost model: {EARLIER_BWD_LAUNCHES[0]} / "
           f"{EARLIER_BWD_LAUNCHES[1]})")
     return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak,
-                               **by_form)
+                               B2=b2_ms, grid=grid, **by_form)
 
 
 def memory_split(step, state, batch, plans) -> dict:
@@ -1493,14 +1678,53 @@ def describe_segment(eqns, seg, count: int) -> str:
             f"{gemm_path(gen)} {tile}, epilogue {where} x{count}")
 
 
+def compiled_variants(sym: str) -> dict:
+    """Layout digest ("contiguous" where no operand is strided) ->
+    (registers, spills, global loads by vector width) of every compiled
+    kernel of the planner's grid symbol ``sym``."""
+    return {name[len(sym) + 1:] or "contiguous": v
+            for name, v in fe.COMPILED.items()
+            if name == sym or name.startswith(sym + "_s")}
+
+
+def grid_row(seg, progs, vals, outs) -> dict:
+    """What a B2 training row shows besides its time: shape, roles,
+    whether it reduces lanes, bytes (each operand's storage read once,
+    each output written once), the operands the wrapper copies to a
+    contiguous block, and the kernel's geometry."""
+    from repro_torch.core.offload import GRID_ROWS_BLOCK
+
+    specs = [sp.meta for sp in seg.operand_specs]
+    roles: dict = {}
+    for sp in specs:
+        roles[sp[0]] = roles.get(sp[0], 0) + 1
+    n_bytes = sum(_span(v) * v.element_size() for v in vals) + \
+        sum(o.numel() * o.element_size() for o in outs)
+    layouts = [fe.operand_layout(v, sp[1], sp[2])
+               for v, sp in zip(vals, specs)]
+    copies = sum(lay is False for lay in layouts)
+    strided = {k: (str(v.dtype)[6:], lay) for k, (v, lay) in
+               enumerate(zip(vals, layouts)) if lay}
+    geo = fe.grid_geometry(progs.body, seg.rows, specs, GRID_ROWS_BLOCK)
+    sym = fe.triton_source(progs.body, rows=seg.rows, specs=specs,
+                           rows_block=GRID_ROWS_BLOCK)[0]
+    geo = dict(geo, compiled=compiled_variants(sym))
+    return dict(shape=f"[{seg.rows}x{max(seg.out_cols)}]", roles=roles,
+                reduce=bool(progs.body.reductions), bytes=n_bytes,
+                copies=copies, strided=strided, geometry=geo)
+
+
 def check_train_segments(plans, dtype, card: str, *, timed: bool,
-                         tag: str = "[7]") -> dict:
+                         tag: str = "[7]", grid_ms: dict | None = None
+                         ) -> dict:
     """Every distinct fused segment of the training plans — grid (B2),
     fwd (B3), dlhs (B4), drhs (B6) — against its plain version at its own
-    shapes and strides.  With ``timed``, every anchored one and the
-    ``TIMED_GRID`` most launched grid ones are timed beside the bound,
-    the plain version and a library yardstick.  Returns the timing rows
-    by symbol."""
+    shapes and strides.  With ``timed``, every anchored one, the
+    ``TIMED_GRID`` most launched grid ones and the ``TOP_GRID`` grid ones
+    with the most device time a step (``grid_ms``: symbol -> (ms,
+    launches) a step, from the profiler) are timed beside the bound, the
+    plain version and a library yardstick, and the grid ones tabled by
+    device time.  Returns the timing rows by symbol."""
     from repro_torch.core.offload import (
         _matmul_gen,
         _segment_kernel,
@@ -1512,6 +1736,9 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
     segs = train_segments(plans)
     grids = sorted((sym for sym, (_, s, _) in segs.items()
                     if s.matmul is None), key=lambda sym: -segs[sym][2])
+    grid_ms = grid_ms or {}
+    timed_grid = set(grids[:TIMED_GRID]) | set(sorted(
+        grid_ms, key=lambda sym: -grid_ms[sym][0])[:TOP_GRID])
     rows, summary, failed, off_sm90 = {}, {}, [], []
     for sym, (eqns, seg, count) in segs.items():
         mm = seg.matmul
@@ -1558,7 +1785,7 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
                   f"{[w.numel() for w in want]}")
             failed.append(f"{form} {sym}")
             continue
-        if not timed or (mm is None and sym not in grids[:TIMED_GRID]):
+        if not timed or (mm is None and sym not in timed_grid):
             continue
         lib, lib_name = None, None
         if mm is not None:
@@ -1576,9 +1803,7 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
                 def lib():
                     return torch.matmul(a, b)
         else:
-            fn = yardstick(segment_call(eqns, seg), vals)
-            if fn is not None:
-                lib, lib_name = (lambda: fn()), "F.rms_norm"
+            lib, lib_name = yardstick(segment_call(eqns, seg), vals, want)
         ms = graph_ms(lambda i: call(*vals), 2, replays=5)
         plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
         library_ms = graph_ms(lambda i: lib(), 2, replays=5) if lib else None
@@ -1592,12 +1817,17 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
                          library_ms=library_ms, bound_ms=bound_ms,
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", max_abs_err=err)
+        if mm is None:
+            rows[sym].update(grid_row(seg, progs, vals, got),
+                             library=lib_name)
         print(f"{tag}     {ms:.4f} ms on the card (CUDA-graph replay), plain "
               f"{plain_ms:.4f} ms, {lib_name or 'library'} "
               f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms, "
               f"bound {bound_ms:.4f} ms by {rows[sym]['bound_by']} "
               f"({n_bytes} bytes, {flops} flops; bound / kernel = "
               f"{bound_ms / ms:.1%}) on {card}")
+    if timed:
+        print_grid_table(rows, grid_ms, tag)
     for form, (n, n_launch, worst) in summary.items():
         print(f"{tag} {str(dtype)[6:]} {form}: {n} distinct segments checked "
               f"({n_launch} in the plans), worst max_abs_err {worst:.3e}")
@@ -1610,6 +1840,29 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
     check(not off_sm90, f"bf16 B3 / B4 / B6 segments off the sm90 mainloop "
           f"(fwd below 64 rows: the weight stream): {off_sm90}")
     return rows
+
+
+def print_grid_table(rows: dict, grid_ms: dict, tag: str) -> None:
+    """The timed B2 training segments, most device time a step first:
+    the profiler's ms and launches a step, the segment's shape, roles,
+    lane reduction, bytes, bound, CUDA-graph ms, share of the bound,
+    operand copies, yardstick and geometry."""
+    grid = sorted(((sym, r) for sym, r in rows.items() if r["kind"] == "grid"),
+                  key=lambda x: -grid_ms.get(x[0], (0.0, 0))[0])
+    if not grid:
+        return
+    print(f"{tag} B2 training segments timed (most device time a step "
+          f"first; the {TOP_GRID} most time-consuming and the {TIMED_GRID} "
+          f"most launched):")
+    for sym, r in grid:
+        step_ms, n = grid_ms.get(sym, (0.0, 0))
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"{tag}   {sym[:24]} {step_ms:8.3f} ms/step {n:4.0f}x/step "
+              f"{r['shape']} roles {r['roles']} reduce {r['reduce']} "
+              f"{r['bytes']} B bound {r['bound_ms']:.4f} ms kernel "
+              f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}) copies "
+              f"{r['copies']} strided in place {r['strided']} yardstick "
+              f"{r['library']} {lib} ms geometry {r['geometry']}")
 
 
 def sm90_chains():
@@ -1820,6 +2073,22 @@ def phase_adamw(state, grads, tcfg, card: str) -> dict:
           f"largest leaf {tuple(leaves[big].shape)}: bit-equal {equal}")
     check(worst <= ADAMW_PATH_TOL, "apply_updates with and without B8 differ")
     check(equal, "B8 differs from its plain version")
+    # every dtype of p and g the kernel takes, at a ragged size (packs and
+    # a scalar tail) and one element off 16 bytes (every element scalar)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for off in (0, 1):
+            def t(dtype):
+                x = torch.randn(3007 + off, generator=gen, device=DEVICE)
+                return x.to(dtype)[off:]
+            small = (t(dt), t(dt), t(torch.float32), t(torch.float32).abs(),
+                     hyper)
+            check(all(torch.equal(a, b) for a, b in zip(
+                ops.adamw_update(*small, impl="cuda"),
+                adamw_update_plain(*small))),
+                f"B8 differs from its plain version: p {dt}, offset {off}")
+    print("[7] B8 bit-equal to its plain version for p / g in f32, bf16 and "
+          "f16 at 3,007 elements, aligned and one element off 16 bytes")
     del got, want
     ms = graph_ms(lambda i: ops.adamw_update(*args, impl="cuda"), 2,
                   replays=5)
@@ -1853,6 +2122,29 @@ def phase_adamw(state, grads, tcfg, card: str) -> dict:
                 library_ms=library_ms)
 
 
+def update_leaf_segment(uplan, b8: dict, card: str) -> None:
+    """The offloaded update's B2 segment on the largest leaf (the
+    [152,064 x 2,048] embedding), timed beside B8 on the same leaf: both
+    compute AdamW over it (the segment also scales the gradient by the
+    clip factor)."""
+    from repro_torch.core.offload import _segment_kernel, segment_programs
+
+    seg = max(uplan.segments, key=lambda sg: sg.rows)
+    progs = segment_programs(uplan.eqns, seg)
+    call = _segment_kernel(seg, progs, impl="cuda")
+    vals = seg_operands(seg, 7)
+    outs = call(*vals)
+    ms = graph_ms(lambda i: call(*vals), 2, replays=5)
+    r = grid_row(seg, progs, vals, outs)
+    bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"[7] the update's B2 segment on the largest leaf {r['shape']}: "
+          f"roles {r['roles']}, {len(outs)} outputs, {r['bytes']} bytes, "
+          f"{ms:.4f} ms on the card (CUDA-graph replay), bound {bound:.4f} "
+          f"ms by bytes ({bound / ms:.1%}), copies {r['copies']}, geometry "
+          f"{r['geometry']}; B8 on the same leaf {b8['ms']:.4f} ms "
+          f"({b8['bound_ms'] / b8['ms']:.1%} of its bound) on {card}")
+
+
 def phase_train(card: str):
     from repro_torch.configs import ShapeConfig, TrainConfig
     from repro_torch.data import SyntheticLM, make_data_config
@@ -1882,7 +2174,9 @@ def phase_train(card: str):
                            "bf16 offloaded vs plain step", f32=False)
     b8 = phase_adamw(state, grads, tcfg, card)
     del grads
-    rows = check_train_segments(plans, torch.bfloat16, card, timed=True)
+    rows = check_train_segments(plans, torch.bfloat16, card, timed=True,
+                                grid_ms=reading["grid"])
+    update_leaf_segment(plans[-1], b8, card)
     sm90_variants()
     del state, step, plans
     torch.cuda.empty_cache()
@@ -3427,6 +3721,9 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     card = phase_environment()
+    if "--decode-segments" in sys.argv:
+        phase_decode_segments(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
     engine, launches = phase_engine()
@@ -3476,8 +3773,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_matmul_bwd.py:343",
         "launches": train_counts["fused_matmul_drhs_segment"],
         **kernel_entry(train_rows, "drhs")}, {
-        "name": "adamw_update", "route": "triton",
-        "source": "src/repro_torch/kernels/adamw_update.py",
+        "name": "adamw_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw_update.cu",
         "replaces": "src/repro/kernels/adamw_update.py:55",
         **b8}, {
         "name": "flash_attention", "route": "cuda",

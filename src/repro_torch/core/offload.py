@@ -1660,17 +1660,29 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
 
     out_dtypes = [_dtype(v) for v in seg.outputs]
     shapes = [_shape(v) for v in seg.outputs]
+    # an output the graph holds in a permuted dense layout (an einsum's)
+    # gets that layout back, so the views that follow it see the strides
+    # they were traced with (a broadcast layout stays contiguous: any view
+    # of a contiguous tensor is valid)
+    strides = [node_val(v).stride() if not node_val(v).is_contiguous()
+               and _dense(node_val(v)) else None
+               for v in seg.outputs]
     epi_meta = tuple(s.meta for s in seg.operand_specs)
     mm = seg.matmul
     common = dict(acc_dtype=mm.out_dtype if mm else None,
                   out_cols=seg.out_cols, out_dtypes=out_dtypes,
                   vmem_bytes=seg.smem_budget, impl=impl)
     if mm is None:
+        # the grid kernel writes such an output in its layout itself
+        out_strides = [(shp, st) if st is not None else None
+                       for shp, st in zip(shapes, strides)]
+
         def run(vals):
             return kops.fused_segment_grid(
                 progs.body, vals, epi_meta, rows=seg.rows,
                 out_cols=seg.out_cols, out_dtypes=out_dtypes,
-                rows_block=GRID_ROWS_BLOCK, impl=impl)
+                rows_block=GRID_ROWS_BLOCK, out_strides=out_strides,
+                impl=impl)
     elif mm.flash is not None:
         def run(vals):
             # q, the transposed view of k, v; the chain's scalar
@@ -1708,14 +1720,6 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                     lhs_meta, vals[n_lhs:n_lhs + n_rhs], rhs_meta,
                     vals[n_lhs + n_rhs:], epi_meta, **kw)
 
-    # an output the graph holds in a permuted dense layout (an einsum's)
-    # gets that layout back, so the views that follow it see the strides
-    # they were traced with (a broadcast layout stays contiguous: any view
-    # of a contiguous tensor is valid)
-    strides = [node_val(v).stride() if not node_val(v).is_contiguous()
-               and _dense(node_val(v)) else None
-               for v in seg.outputs]
-
     def call(*vals):
         # a 0-dim CPU tensor (a constant such as ``torch.tensor(2.0)``)
         # joins CUDA operands, as it may in an eager op
@@ -1725,6 +1729,10 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                     for v in vals]
         outs = []
         for o, shp, st in zip(run(list(vals)), shapes, strides):
+            if st is not None and o.stride() == tuple(st) and \
+                    tuple(o.shape) == tuple(shp):
+                outs.append(o)          # written in its layout
+                continue
             o = o.view(shp)
             if st is not None:
                 o = torch.empty_strided(shp, st, dtype=o.dtype,

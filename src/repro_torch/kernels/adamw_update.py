@@ -1,4 +1,4 @@
-"""The fused AdamW update: the Triton kernel, its wrapper and its plain
+"""The fused AdamW update: the CUDA kernel's wrapper and its plain
 version (B8).
 
 ``adamw_update`` replaces the TPU kernel of the same name in
@@ -10,23 +10,22 @@ writes ``p'``, ``m'`` and ``v'`` once,
   p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p)
 
 with ``hyper`` = [lr, b1, b2, eps, wd, bc1, bc2] (f32, on the device),
-``m`` / ``v`` f32 and ``p`` / ``g`` any float dtype (math in f32, ``p'``
-rounded to ``p``'s dtype).
+``m`` / ``v`` f32 and ``p`` / ``g`` f32, bf16 or f16 (math in f32,
+``p'`` rounded to ``p``'s dtype).
 
-On Hopper it is bound by bytes: ~15 operations per element against
-16-28 bytes moved (4 reads, 3 writes), far below the card's balance, and
-no value is reused, so the kernel is one elementwise Triton pass.  Each
-leaf is viewed as ``[rows, c]`` (c = its last dim), as the TPU kernel
-views it; a program covers a ``[RB, BC]`` tile of that view with masks
-on both edges, so no row is padded.  It is compiled without multiply-add
-contraction and divides and takes the square root with the correctly
-rounded ``div_rn`` / ``sqrt_rn``, so it rounds every operation as the
-plain version's eager PyTorch ops do.  ``triton`` is imported only when
-the kernel is launched.
+On Hopper it is bound by bytes (~15 operations per element against
+16-28 bytes moved).  The kernel is ``csrc/adamw_update.cu``: one flat
+pass over the contiguous leaf in packs of 8 elements moved as 16-byte
+vectors, a grid that covers the leaf in one pass (``launch_grid``), a
+scalar head and tail inside the kernel (``vector_plan``), streaming
+cache hints, and
+every operation rounded on its own in the plain version's order, so the
+two are bit-equal (see the note there).  Functional, as the reference:
+new output tensors.
 """
 from __future__ import annotations
 
-import os
+import ctypes
 
 import torch
 
@@ -34,16 +33,35 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.guard import kernel_guard
 
 KERNEL = "adamw_update"
-#: tile of one program: rows x lanes of the [rows, c] view
-_RB, _BC = 4, 1024
-_NUM_WARPS = 4
+#: elements of a pack (one 16-byte vector of a 16-bit operand) and
+#: threads of a block
+PACK, THREADS = 8, 256
+#: packs a thread loads before it computes (the kernel's U)
+UNROLL = 2
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _view(t: torch.Tensor) -> tuple[int, int]:
-    """(rows, c) of a leaf's 2-D view (a rank-1 leaf is one row)."""
-    n = t.numel()
-    c = t.shape[-1] if t.dim() > 1 else n
-    return n // max(c, 1), c
+def vector_plan(ptrs, sizes, n: int) -> tuple[int, int, int]:
+    """``(head, packs, tail)`` of a leaf of ``n`` elements whose operands
+    start at the byte addresses ``ptrs`` with element sizes ``sizes``:
+    ``head`` scalar elements until every operand is 16-byte aligned, then
+    ``packs`` packs of ``PACK`` elements, then ``tail`` scalar elements.
+    Where no head below ``PACK`` aligns every operand, all ``n`` elements
+    are the head."""
+    for head in range(min(PACK, n + 1)):
+        if all((a + head * s) % 16 == 0 for a, s in zip(ptrs, sizes)):
+            packs = (n - head) // PACK
+            return head, packs, n - head - packs * PACK
+    return n, 0, 0
+
+
+def launch_grid(head: int, packs: int, tail: int) -> int:
+    """Blocks of ``THREADS`` threads that cover the leaf in one pass: a
+    thread takes ``UNROLL`` packs and one head and one tail element (on
+    the H100 one pass ran faster than a grid of a few blocks an SM
+    walking the leaf)."""
+    work = max(-(-packs // UNROLL), head, tail, 1)
+    return -(-work // THREADS)
 
 
 def adamw_update_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -58,77 +76,60 @@ def adamw_update_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return (pf - lr * upd).to(p.dtype), m_new, v_new
 
 
-_KERNEL = None
-
-
-def _kernel():
-    """The ``@triton.jit`` kernel, defined at first launch."""
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(_build.build_dir() / "triton_cache"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def adamw_kernel(p_ptr, g_ptr, m_ptr, v_ptr, hp_ptr, po_ptr, mo_ptr,
-                     vo_ptr, rows, cols, RB: tl.constexpr,
-                     BC: tl.constexpr):
-        r = tl.program_id(0) * RB + tl.arange(0, RB)[:, None]
-        c = tl.program_id(1) * BC + tl.arange(0, BC)[None, :]
-        mask = (r < rows) & (c < cols)
-        off = r.to(tl.int64) * cols + c
-        lr = tl.load(hp_ptr + 0)
-        b1 = tl.load(hp_ptr + 1)
-        b2 = tl.load(hp_ptr + 2)
-        eps = tl.load(hp_ptr + 3)
-        wd = tl.load(hp_ptr + 4)
-        bc1 = tl.load(hp_ptr + 5)
-        bc2 = tl.load(hp_ptr + 6)
-        p = tl.load(p_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        g = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        m = tl.load(m_ptr + off, mask=mask, other=0.0)
-        v = tl.load(v_ptr + off, mask=mask, other=0.0)
-        m_new = b1 * m + (1.0 - b1) * g
-        v_new = b2 * v + (1.0 - b2) * g * g
-        denom = tl.math.sqrt_rn(tl.math.div_rn(v_new, bc2)) + eps
-        upd = tl.math.div_rn(tl.math.div_rn(m_new, bc1), denom) + wd * p
-        p_new = p - lr * upd
-        tl.store(po_ptr + off, p_new.to(po_ptr.dtype.element_ty), mask=mask)
-        tl.store(mo_ptr + off, m_new, mask=mask)
-        tl.store(vo_ptr + off, v_new, mask=mask)
-
-    _KERNEL = adamw_kernel
-    return _KERNEL
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    if lib.adamw_update_launch.argtypes is None:
+        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.adamw_update_launch.argtypes = [vp] * 8 + [i64] * 3 + \
+            [ci] * 3 + [vp]
+        lib.adamw_update_launch.restype = ci
+        lib.adamw_update_error.argtypes = [ci]
+        lib.adamw_update_error.restype = ctypes.c_char_p
+    return lib
 
 
 def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, hyper: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch B8 on CUDA tensors; returns ``(p', m', v')`` as new
-    tensors.  Raises on anything the kernel does not take; never falls
-    back to the plain version."""
+    tensors.  Runs on PyTorch's current stream, never synchronises;
+    raises on anything the kernel does not take or on a refused launch,
+    never falls back to the plain version."""
+    if not (p.shape == g.shape == m.shape == v.shape) or \
+            hyper.numel() != 7:
+        raise ValueError("p, g, m and v must have one shape, hyper 7 "
+                         "elements")
+    if m.dtype != torch.float32 or v.dtype != torch.float32 or \
+            hyper.dtype != torch.float32:
+        raise TypeError("m, v and hyper must be float32")
+    if p.dtype not in _DTYPES or g.dtype not in _DTYPES:
+        raise TypeError(f"p and g must be float32, bfloat16 or float16; got "
+                        f"{p.dtype}, {g.dtype}")
     if not all(t.is_cuda for t in (p, g, m, v, hyper)):
         raise RuntimeError(
-            "adamw_update launches a Triton kernel: every operand must be "
+            "adamw_update launches a CUDA kernel: every operand must be "
             "a CUDA tensor (CPU tensors take the plain version)")
-    if not (p.shape == g.shape == m.shape == v.shape):
-        raise ValueError("p, g, m and v must have one shape")
-    if m.dtype != torch.float32 or v.dtype != torch.float32 or \
-            hyper.dtype != torch.float32 or hyper.numel() != 7:
-        raise TypeError("m, v and hyper[7] must be float32")
-    if not (p.is_floating_point() and g.is_floating_point()):
-        raise TypeError("p and g must be floating point")
-    p, g, m, v = (t.contiguous() for t in (p, g, m, v))
-    rows, cols = _view(p)
+    p, g, m, v, hyper = (t.contiguous() for t in (p, g, m, v, hyper))
     po = torch.empty_like(p)
     mo = torch.empty_like(m)
     vo = torch.empty_like(v)
-    grid = (-(-rows // _RB), -(-cols // _BC))
+    n = p.numel()
+    if n == 0:
+        return po, mo, vo
+    ts = (p, g, m, v, po, mo, vo)
+    head, packs, tail = vector_plan([t.data_ptr() for t in ts],
+                                    [t.element_size() for t in ts], n)
+    lib = _lib()
     with torch.cuda.device(p.device):
-        _kernel()[grid](p, g, m, v, hyper.contiguous(), po, mo, vo, rows,
-                        cols, RB=_RB, BC=_BC, num_warps=_NUM_WARPS,
-                        enable_fp_fusion=False)
+        code = lib.adamw_update_launch(
+            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            hyper.data_ptr(), po.data_ptr(), mo.data_ptr(), vo.data_ptr(),
+            n, head, packs, _DTYPES[p.dtype], _DTYPES[g.dtype],
+            launch_grid(head, packs, tail),
+            torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        msg = lib.adamw_update_error(code).decode()
+        raise RuntimeError(f"adamw_update launch failed at "
+                           f"{tuple(p.shape)}: {msg}")
     kernel_guard().count_launch(KERNEL)
     return po, mo, vo

@@ -50,6 +50,28 @@ def bcast_row_expr(op_lead: tuple, out_lead: tuple, rb: int,
     return (1 if op_lead[-1] == 1 else rb), f"({expr})"
 
 
+def bcast_row_of(op_lead: tuple, out_lead: tuple, row: str) -> str:
+    """Source text of an interior-broadcast ("bcast") operand's row read
+    by output row ``row`` (an expression): the row decomposes over the
+    output's leading dims and only the operand's non-broadcast dims
+    contribute — ``_bcast_row_index``'s arithmetic, free of any row
+    block.  Unrolled over the static dims."""
+    inner = out_lead[-1]
+    j = f"(({row}) // {inner})"
+    terms: list[str] = []
+    stride = 1
+    if op_lead[-1] != 1:
+        terms.append(f"(({row}) % {inner})")
+        stride = inner
+    for od, pd in zip(reversed(out_lead[:-1]), reversed(op_lead[:-1])):
+        d = f"({j} % {od})"
+        if pd != 1:
+            terms.append(f"{d} * {stride}")
+            stride *= pd
+        j = f"({j} // {od})"
+    return f"({' + '.join(terms) if terms else '0'})"
+
+
 class Emitter:
     """Language-neutral emission; subclasses give the syntax."""
 

@@ -4,32 +4,55 @@ plain version (B2).
 ``fused_segment_grid`` replaces the TPU kernel of the same name in
 ``repro/kernels/fused_elementwise.py`` (``pl.pallas_call`` at :278, and
 the legacy ``fused_elementwise`` / ``fused_segment`` at :77): one pass
-over a row grid that evaluates a segment's block program — elementwise
-ops, lane reductions, lane slices and concats — on every operand's own
-2-D view and writes each output once.  Operand roles are integer
-arithmetic on the program id: ``bulk`` row ``i``, ``param`` row 0,
-``rep`` ``i // q``, ``tile`` ``i % p``, ``bcast`` the
-``_bcast_row_index`` arithmetic, emitted as code.
+over a segment's output rows that evaluates its block program —
+elementwise ops, lane reductions, lane slices and concats — on every
+operand's own 2-D view and writes each output once.  Each operand's row
+is integer arithmetic on the output row ``grow`` (``role_rows``):
+``bulk`` ``grow``, ``param`` row 0, ``rep`` ``grow // q``, ``tile``
+``grow % p``, ``bcast`` the ``_bcast_row_index`` decomposition; no row
+block of the TPU's ``BlockSpec`` enters the kernel, which masks its
+ragged edge instead of padding.
 
 On Hopper the pass is bound by bytes (a few operations per element
-against 295 bf16 operations per byte of the card's balance).  The
-kernel is generated per segment from its block program
-(``codegen.py``): a program holds ``segment_row_block`` rows, walks them
-in register-sized row chunks and each lane extent in power-of-two lane
-chunks with masks (the decode step's lanes are 128, 2048 and 6144 wide);
-a lane reduction is one loop over the row's lanes before the loop that
-reads it, so nothing but the outputs is ever stored.  Each generated
-kernel is written to ``build/triton_src/<hash>.py`` and imported from
-there (``@triton.jit`` reads real source); Triton's cache lives in
+against 295 bf16 operations per byte of the card's balance), so the
+design keeps many bytes in flight on all 132 SMs and reads each byte
+once (``grid_geometry``):
+
+* ``tile`` (no lane reduction): 2-D tiles of rows x lanes, 4 warps and
+  4-16 elements a thread per value (fewer where a program loads many
+  operands, as the offloaded AdamW update over several leaves does), so
+  a training segment launches thousands of programs;
+* ``row`` (lane reductions over at most 8,192 lanes): whole rows a
+  program, held in registers, so each operand element is loaded once for
+  the reductions and the outputs;
+* ``wide`` (wider reduced rows, the vocabulary's): one row a program,
+  each pass a loop over lane chunks, the first pass kept in L2
+  (``evict_last``) for the next.
+
+In the ``tile`` and ``row`` modes every value lives in one scope, so an
+operand is loaded once however many outputs read it.  Streamed operands
+load ``evict_first``; rows many programs read (``param``, ``rep``,
+``tile``, ``bcast``) ``evict_last``.  Lanes are contiguous in a program
+and their counts are literals of the generated source, so Triton moves
+them as 16-byte vectors where the lane count allows.  A strided operand
+(a head-major view of the attention's activations) is addressed in
+place through its own strides (``operand_layout``), not copied.  Each
+row's reduction runs in a fixed order, so relaunches are bit-equal; the
+order of a lane sum follows the tile (a whole row reduced as a tree in
+the ``row`` mode, chunk-wise partial sums in the ``wide`` mode), so it
+may differ from the plain version's by rounding.  Each generated kernel
+is written to ``build/triton_src/<name>.py`` and imported from there
+(``@triton.jit`` reads real source); Triton's cache lives in
 ``build/triton_cache``.  ``triton`` is imported only when a kernel is
 launched.
 
-``fused_segment_grid_plain`` beside it walks the same row-block grid
-over the same role views and evaluates the same block program op by op
-in PyTorch.
+``fused_segment_grid_plain`` beside it walks the reference's row-block
+grid (``segment_row_block``, padding included) over the same role views
+and evaluates the same block program op by op in PyTorch.
 """
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import math
 import os
@@ -39,20 +62,16 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.blockprog import (
+    DTYPES,
     BlockProgram,
     Input,
     dtype_name,
     run_program,
 )
-from repro_torch.kernels.codegen import Emitter, bcast_row_expr, ctype
+from repro_torch.kernels.codegen import Emitter, bcast_row_of, ctype
 from repro_torch.kernels.guard import kernel_guard
 
 KERNEL = "fused_segment_grid"
-#: elements of one row-chunk x lane-chunk tile a program holds per value
-_TILE_ELEMS = 4096
-_MAX_LANES = 1024
-#: warps of one program (a 4096-element tile is 32 values a thread)
-_NUM_WARPS = 4
 
 _TL_DTYPE = {"float32": "tl.float32", "bfloat16": "tl.bfloat16",
              "float16": "tl.float16", "int32": "tl.int32",
@@ -208,14 +227,95 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _pow2_floor(n: int) -> int:
+    return 1 << max(n, 1).bit_length() - 1
+
+
+def role_rows(specs: Sequence[tuple], rows: int) -> list[str | None]:
+    """Per operand, the source text of the row it reads for output row
+    ``grow`` (None: a ``param``, row 0 of every program): ``bulk`` the
+    row itself, ``rep`` ``grow // q``, ``tile`` ``grow % op_rows``,
+    ``bcast`` ``_bcast_row_index``'s decomposition.  No row block enters,
+    so a program's tile is free of the planner's ``segment_row_block``."""
+    out: list[str | None] = []
+    for spec in specs:
+        role, op_rows = spec[0], spec[1]
+        if role in ("bulk", "acc"):
+            out.append("grow")
+        elif role == "param":
+            out.append(None)
+        elif role == "rep":
+            out.append(f"(grow // {rows // op_rows})")
+        elif role == "tile":
+            out.append(f"(grow % {op_rows})")
+        elif role == "bcast":
+            out.append(bcast_row_of(spec[3], spec[4], "grow"))
+        else:
+            raise ValueError(f"role {role!r} in a grid segment")
+    return out
+
+
+def operand_layout(v: torch.Tensor, op_rows: int, cols: int):
+    """How the kernel addresses an operand's ``[op_rows, cols]`` view in
+    place: None where it is contiguous, ``(dims, strides, lane_stride)``
+    where its rows decompose over ``dims`` (the leading dims, merged
+    where their strides allow) with those element strides, or False
+    where it cannot (the wrapper then copies it)."""
+    if v.is_contiguous():
+        return None
+    try:
+        w = v.view(op_rows, cols)
+        return (op_rows,), (w.stride(0),), w.stride(1)
+    except RuntimeError:
+        pass
+    if v.dim() < 2 or v.shape[-1] != cols or \
+            math.prod(v.shape[:-1]) != op_rows:
+        return False
+    dims: list[int] = []
+    strides: list[int] = []
+    for d, st in zip(v.shape[:-1], v.stride()[:-1]):
+        if d == 1:
+            continue
+        if dims and strides[-1] == st * d:
+            dims[-1] *= d
+            strides[-1] = st
+        else:
+            dims.append(d)
+            strides.append(st)
+    return tuple(dims) or (1,), tuple(strides) or (0,), v.stride(-1)
+
+
+def _row_offset(row: str, cols: int, layout) -> str:
+    """Element offset of operand row ``row`` (an expression)."""
+    if layout is None:
+        return f"({row}) * {cols}"
+    dims, strides, _ = layout
+    terms, inner = [], 1
+    for k in range(len(dims) - 1, -1, -1):
+        idx = f"(({row}) // {inner})" if inner > 1 else f"({row})"
+        if k:
+            idx = f"({idx} % {dims[k]})"
+        terms.append(f"{idx} * {strides[k]}")
+        inner *= dims[k]
+    return f"({' + '.join(terms)})"
+
+
 class TritonEmitter(Emitter):
     """Block-program emission in Triton: a row value is ``[RS, 1]``, a
-    lane value ``[RS, BC]`` or ``[1, BC]`` (row-independent roles)."""
+    lane value ``[RS, BC]`` or ``[1, BC]`` (a ``param`` operand).  In the
+    ``tile`` and ``row`` modes every value lives in one scope over the
+    program's lanes ``L``, so an operand element is loaded once however
+    many reductions and outputs read it; in the ``wide`` mode each pass
+    is a loop over lane chunks."""
 
-    def __init__(self, prog, rows_of, rs: int, bc: int):
-        super().__init__(prog, [r[0] for r in rows_of])
-        self.varying = [r[1] for r in rows_of]
-        self.rs, self.bc = rs, bc
+    def __init__(self, prog, rows_of, roles, geo: dict, layouts,
+                 out_layouts):
+        super().__init__(prog, rows_of)
+        self.roles = roles
+        self.geo = geo
+        self.layouts = layouts
+        self.out_layouts = out_layouts
+        self.first_pass = False
 
     def assign(self, name, expr, ct):
         self.line(f"{name} = {expr}")
@@ -282,106 +382,208 @@ class TritonEmitter(Emitter):
 
     def load(self, k, lane):
         inp: Input = self.prog.inputs[k]
-        row, varying = self.rows_of[k], self.varying[k]
-        masks = ["rmask"] if varying else []
-        if lane is None:
-            off = row if row is not None else "0"
-            if inp.cols > 1:
-                off = f"({off}) * {inp.cols}"
-        else:
-            off = f"({lane})" if row is None else \
-                f"({row}) * {inp.cols} + ({lane})"
-            masks += [f"(({lane}) >= 0)", f"(({lane}) < {inp.cols})"]
-        mask = " & ".join(masks)
-        load = (f"tl.load(in{k} + {off}, mask={mask}, other=0)" if mask
-                else f"tl.load(in{k} + {off})")
+        row, layout = self.rows_of[k], self.layouts[k]
+        masks = ["rmask"] if row is not None else []
+        off = _row_offset(row if row is not None else "0", inp.cols, layout)
+        if lane is not None:
+            ls = 1 if layout is None else layout[2]
+            off = f"{off} + ({lane})" + (f" * {ls}" if ls != 1 else "")
+            masks.append(f"(({lane}) < {inp.cols})")
+            if lane != "L":
+                masks.append(f"(({lane}) >= 0)")
+        # a row read by one program only streams; a row many programs
+        # read (param, rep, tile, bcast) and a first pass that a second
+        # reads again stay in L2
+        policy = "evict_first" if self.roles[k] in ("bulk", "acc") and \
+            not self.first_pass else "evict_last"
+        mask = f", mask={' & '.join(masks)}, other=0" if masks else ""
+        load = f"tl.load(in{k} + {off}{mask}, eviction_policy='{policy}')"
         if ctype(inp.dtype) == "f":
             return f"{load}.to(tl.float32)"
         return load
 
+    def lane_values(self, vid: int, lane: str) -> str:
+        if self.geo["mode"] == "wide":
+            return super().lane_values(vid, lane)
+        return self.value(vid, lane)       # one scope: the memo is kept
+
     def reduction(self, r, op, src, cols_in):
-        rs, bc = self.rs, self.bc
         acc = self.fresh()
-        if op.code == "sum":
-            self.line(f"{acc} = tl.zeros([{rs}, {bc}], dtype=tl.float32)")
-        else:
-            self.line(f"{acc} = tl.full([{rs}, {bc}], float('-inf'), "
-                      "dtype=tl.float32)")
-        self.line(f"for c0 in range(0, {cols_in}, {bc}):")
-        self.indent += 1
-        self.line(f"L = c0 + tl.arange(0, {bc})[None, :]")
-        x = self.lane_values(src, "L")
-        m = f"rmask & (L < {cols_in})"
-        if op.code == "sum":
-            self.line(f"{acc} = {acc} + tl.where({m}, {x}, 0.0)")
-        else:
-            self.line(f"{acc} = tl.maximum({acc}, tl.where({m}, {x}, "
-                      "float('-inf')))")
-        self.indent -= 1
-        res = self.fresh()
+        fill = "0.0" if op.code == "sum" else "float('-inf')"
         fn = "tl.sum" if op.code == "sum" else "tl.max"
+        if self.geo["mode"] == "row":
+            x = self.lane_values(src, "L")
+            self.line(f"{acc} = tl.where(rmask & (L < {cols_in}), {x}, "
+                      f"{fill})")
+        else:
+            rs, bc = self.geo["rs"], self.geo["bc"]
+            self.line(f"{acc} = tl.full([{rs}, {bc}], {fill}, "
+                      "dtype=tl.float32)")
+            self.line(f"for c0 in range(0, {cols_in}, {bc}):")
+            self.indent += 1
+            self.line(f"L = c0 + tl.arange(0, {bc})[None, :]")
+            self.first_pass = True
+            x = self.lane_values(src, "L")
+            self.first_pass = False
+            m = f"rmask & (L < {cols_in})"
+            if op.code == "sum":
+                self.line(f"{acc} = {acc} + tl.where({m}, {x}, 0.0)")
+            else:
+                self.line(f"{acc} = tl.maximum({acc}, tl.where({m}, {x}, "
+                          "float('-inf')))")
+            self.indent -= 1
+        res = self.fresh()
         self.line(f"{res} = {self.round(f'{fn}({acc}, axis=1)[:, None]', op.dtype)}")
         self.row_memo[r] = res
 
-    def store(self, j, vid, op):
-        dt = _TL_DTYPE[op.dtype]
-        zero = "0" if ctype(op.dtype) != "f" else "0.0"
-        if op.cols == 1 and not self.lanedep[vid]:
-            x = self.row_memo[vid]
-            self.line(f"tl.store(out{j} + grow, tl.where(rmask, {x}, {zero})"
-                      f".to({dt}), mask=rmask)")
+    def body(self) -> None:
+        """Reductions in order, then the row outputs, then every lane
+        output in one pass over the lanes."""
+        prog = self.prog
+        self.lane_memo = {}
+        for r in prog.reductions:
+            op = prog.ops[r]
+            src = op.args[0][1]
+            self.ensure_row_deps(src)
+            self.reduction(r, op, src, prog.ops[src].cols)
+        lane_outs = []
+        for j, vid in enumerate(prog.outputs):
+            self.ensure_row_deps(vid)
+            op = prog.ops[vid]
+            if op.cols == 1 and not self.lanedep[vid]:
+                # a row statistic: stored once a row (by lane tile 0)
+                m = "rmask & (pc == 0)" if self.geo["mode"] == "tile" \
+                    else "rmask"
+                off = _row_offset("grow", 1, self.out_layouts[j])
+                self.line(f"tl.store(out{j} + {off}, "
+                          f"({self.row_memo[vid]}).to({_TL_DTYPE[op.dtype]}), "
+                          f"mask={m})")
+            else:
+                lane_outs.append((j, vid, op))
+        if not lane_outs:
             return
-        bc = self.bc
-        self.line(f"for c0 in range(0, {op.cols}, {bc}):")
-        self.indent += 1
-        self.line(f"L = c0 + tl.arange(0, {bc})[None, :]")
-        x = self.lane_values(vid, "L")
-        m = f"rmask & (L < {op.cols})"
-        self.line(f"tl.store(out{j} + grow * {op.cols} + L, tl.where({m}, "
-                  f"{x}, {zero}).to({dt}), mask={m})")
-        self.indent -= 1
+        if self.geo["mode"] == "wide":
+            width = max(op.cols for _, _, op in lane_outs)
+            self.line(f"for c0 in range(0, {width}, {self.geo['bc']}):")
+            self.indent += 1
+            self.line(f"L = c0 + tl.arange(0, {self.geo['bc']})[None, :]")
+            self.lane_memo = {}
+        for j, vid, op in lane_outs:
+            x = self.value(vid, "L")
+            layout = self.out_layouts[j]
+            ls = 1 if layout is None else layout[2]
+            off = _row_offset("grow", op.cols, layout) + " + L" + \
+                (f" * {ls}" if ls != 1 else "")
+            self.line(f"tl.store(out{j} + {off}, "
+                      f"({x}).to({_TL_DTYPE[op.dtype]}), "
+                      f"mask=rmask & (L < {op.cols}))")
+
+
+#: warps of a ``tile`` program; elements a thread holds per loaded value
+#: (fewer where a program loads many operands, so that its loads fit the
+#: registers: about ``THREAD_VALUES`` a thread in all)
+TILE_WARPS = 4
+THREAD_ELEMS = (4, 16)
+THREAD_VALUES = 256
+#: lanes a ``row`` program holds in registers (a reduced row read once);
+#: wider rows take the ``wide`` mode: passes over lane chunks
+ROW_LANES = 8192
+WIDE_LANES = 2048
+#: SMs of the card the geometry fills (H100 SXM), the programs per SM a
+#: training-size segment should reach, and the least elements a ``row``
+#: program keeps while it splits for them (decode's few rows stay in a
+#: few programs)
+MIN_ROW_TILE = 2048
+SMS = 132
+PROGRAMS_PER_SM = 4
 
 
 def grid_geometry(prog: BlockProgram, rows: int, specs: Sequence[tuple],
                   rows_block: int) -> dict:
-    """Static launch geometry of the Triton kernel for ``prog``."""
+    """Static launch geometry of the Triton kernel for ``prog``.
+
+    ``rb`` / ``pad`` are the planner's row block (``segment_row_block``;
+    the plain version walks it, the kernel does not).  ``mode``:
+    ``tile`` (no lane reduction: 2-D tiles of ``rs`` rows x ``bc`` lanes,
+    ``col_tiles`` lane tiles a row tile; fewer rows a tile where the grid
+    is short of ``PROGRAMS_PER_SM`` programs an SM), ``row`` (lane reductions over at
+    most ``ROW_LANES`` lanes: ``rs`` whole rows a program, each operand
+    element read once), ``wide`` (wider reduced rows: one row a program,
+    each pass a loop over ``bc``-lane chunks, the first pass kept in L2
+    for the next).  ``elems``: elements a thread holds per value;
+    ``vec``: lanes of one 16-byte vector of the narrowest lane operand (1
+    where the lane counts do not keep vectors aligned); ``i64``: element
+    offsets that overflow int32."""
     rb, pad, _ = segment_row_block(rows, specs, rows_block)
+    outs = [prog.ops[o] for o in prog.outputs]
     widest = max([op.cols for op in prog.ops] + [1])
-    bc = min(_pow2(widest), _MAX_LANES)
-    rs = max(1, min(_pow2(rb), _TILE_ELEMS // bc))
-    return {"rb": rb, "pad": pad, "grid": (rows + pad) // rb, "rs": rs,
-            "bc": bc}
+    out_w = max([op.cols for op in outs] + [1])
+    lanes = [(i.cols, i.dtype) for i in prog.inputs if i.cols > 1] + \
+        [(op.cols, op.dtype) for op in outs if op.cols > 1]
+    vec = 16 // min([DTYPES[dt].itemsize for _, dt in lanes] + [4])
+    if any(c % vec for c, _ in lanes):
+        vec = 1
+    n_in = max(sum(i.cols > 1 for i in prog.inputs), 1)
+    elems = max(min(THREAD_ELEMS[1], _pow2_floor(THREAD_VALUES // n_in)),
+                THREAD_ELEMS[0], vec)
+    if not prog.reductions:
+        mode, warps = "tile", TILE_WARPS
+        tile = 32 * warps * elems
+        bc = min(_pow2(out_w), tile)
+        rs = max(1, min(tile // bc, _pow2(rows)))
+        col_tiles = -(-out_w // bc)
+        # a small segment (decode's) spreads over more programs, down to
+        # one 16-byte vector a thread, where the grid is short of the card
+        while rs > 1 and elems > vec and \
+                -(-rows // rs) * col_tiles < SMS * PROGRAMS_PER_SM:
+            rs, elems = rs // 2, elems // 2
+    elif widest <= ROW_LANES:
+        mode, bc, col_tiles = "row", _pow2(widest), 1
+        rs = max(1, min(_pow2(rows), 32 * 8 * elems // bc))
+        while rs > 1 and rs * bc > MIN_ROW_TILE and \
+                -(-rows // rs) < SMS * PROGRAMS_PER_SM:
+            rs //= 2
+        warps = max(1, min(16, rs * bc // (32 * elems)))
+    else:
+        mode, bc, rs, col_tiles, warps = "wide", WIDE_LANES, 1, 1, 8
+    programs = -(-rows // rs) * col_tiles
+    return {"rb": rb, "pad": pad, "mode": mode, "rs": rs, "bc": bc,
+            "col_tiles": col_tiles, "grid": programs, "num_warps": warps,
+            "elems": elems, "vec": vec, "i64": rows * widest >= 2 ** 31}
 
 
 def triton_source(prog: BlockProgram, *, rows: int, specs: Sequence[tuple],
-                  rows_block: int) -> tuple[str, str, dict]:
+                  rows_block: int, layouts: Sequence | None = None,
+                  out_layouts: Sequence | None = None
+                  ) -> tuple[str, str, dict]:
     """``(kernel name, module source, geometry)`` of the Triton kernel
-    evaluating ``prog`` over a ``rows``-row grid."""
+    evaluating ``prog`` over ``rows`` output rows.  ``layouts`` (per
+    operand) and ``out_layouts`` (per output), ``operand_layout``'s
+    answers (None: all contiguous), address strided operands and outputs
+    in place; their kernel's name carries a digest of them after the
+    planner's symbol ``seg_<program>_<rows>_<rb>``."""
     geo = grid_geometry(prog, rows, specs, rows_block)
-    rb = geo["rb"]
-    rows_of = []
-    for spec in specs:
-        role, op_rows = spec[0], spec[1]
-        if role in ("bulk", "acc"):
-            rows_of.append(("grow", True))
-        elif role == "param":
-            rows_of.append((None, False))
-        elif role == "rep":
-            rows_of.append((f"(pid // {(rows // op_rows) // rb})", False))
-        elif role == "tile":
-            rows_of.append((f"((pid % {op_rows // rb}) * {rb} + lr)", True))
-        elif role == "bcast":
-            brows, e = bcast_row_expr(spec[3], spec[4], rb, "pid")
-            rows_of.append((e, False) if brows == 1 else
-                           (f"({e} * {rb} + lr)", True))
-        else:
-            raise ValueError(f"role {role!r} in a grid segment")
-    em = TritonEmitter(prog, rows_of, geo["rs"], geo["bc"])
-    em.indent = 2
+    layouts = tuple(layouts or (None,) * len(specs))
+    out_layouts = tuple(out_layouts or (None,) * len(prog.outputs))
+    cols = [spec[2] for spec in specs] + \
+        [prog.ops[o].cols for o in prog.outputs]
+    span = max([sum((d - 1) * st for d, st in zip(*lay[:2]))
+                + (c - 1) * lay[2]
+                for lay, c in zip(layouts + out_layouts, cols) if lay] + [0])
+    geo["i64"] = geo["i64"] or span >= 2 ** 31
+    em = TritonEmitter(prog, role_rows(specs, rows),
+                       [spec[0] for spec in specs], geo, layouts,
+                       out_layouts)
+    em.indent = 1
     em.body()
     ins = [f"in{k}" for k in range(len(prog.inputs))]
     outs = [f"out{j}" for j in range(len(prog.outputs))]
-    name = f"seg_{prog.key}_{rows}_{rb}"
+    name = f"seg_{prog.key}_{rows}_{geo['rb']}"
+    if any(layouts + out_layouts):
+        name += "_s" + hashlib.sha1(
+            repr((layouts, out_layouts)).encode()).hexdigest()[:8]
+    rs, bc, ct = geo["rs"], geo["bc"], geo["col_tiles"]
+    pid = "tl.program_id(0)" + (".to(tl.int64)" if geo["i64"] else "")
     head = [
         "import triton",
         "import triton.language as tl",
@@ -393,20 +595,32 @@ def triton_source(prog: BlockProgram, *, rows: int, specs: Sequence[tuple],
         "",
         "@triton.jit",
         f"def {name}({', '.join(ins + outs)}):",
-        "    pid = tl.program_id(0)",
-        f"    for r0 in range(0, {rb}, {geo['rs']}):",
-        f"        lr = r0 + tl.arange(0, {geo['rs']})[:, None]",
-        f"        grow = pid * {rb} + lr",
-        f"        rmask = (lr < {rb}) & (grow < {rows})",
+        f"    pid = {pid}",
     ]
+    if geo["mode"] == "tile":
+        head += [f"    pr = pid // {ct}",
+                 f"    pc = pid % {ct}",
+                 f"    L = pc * {bc} + tl.arange(0, {bc})[None, :]"]
+    else:
+        head += ["    pr = pid"]
+        if geo["mode"] == "row":
+            head += [f"    L = tl.arange(0, {bc})[None, :]"]
+    head += [f"    grow = pr * {rs} + tl.arange(0, {rs})[:, None]",
+             f"    rmask = grow < {rows}"]
     return name, "\n".join(head + em.lines) + "\n", geo
 
 
 _KERNELS: dict[str, Callable] = {}
-#: (program key, rows, specs, rows_block) -> (name, kernel, geometry)
+#: (program key, rows, specs, rows_block, layouts, out_layouts) ->
+#: (name, kernel, geometry)
 _BY_KEY: dict[tuple, tuple] = {}
-#: registers and spills per thread of each compiled kernel, by name
-COMPILED: dict[str, tuple[int | None, int | None]] = {}
+#: registers and spills per thread of each compiled kernel and its
+#: global loads by vector width, by kernel name (the planner's symbol,
+#: and a layout digest where operands are strided)
+COMPILED: dict[str, tuple] = {}
+#: operands copied to a contiguous block before a launch (those no
+#: layout addresses in place), by the planner's symbol
+COPIES: dict[str, int] = {}
 
 
 def _triton_kernel(name: str, source: str) -> Callable:
@@ -431,42 +645,79 @@ def _triton_kernel(name: str, source: str) -> Callable:
     return fn
 
 
+def _load_widths(compiled) -> dict[str, int]:
+    """Global loads of the compiled kernel by vector width (``v4``,
+    ``v2``, ``scalar``), counted in its PTX."""
+    ptx = getattr(compiled, "asm", {}).get("ptx", "")
+    out: dict[str, int] = {}
+    for ln in ptx.splitlines():
+        if "ld.global" in ln:
+            w = next((v for v in (".v8.", ".v4.", ".v2.") if v in ln),
+                     "scalar")
+            out[w.strip(".")] = out.get(w.strip("."), 0) + 1
+    return out
+
+
 def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
                        specs: Sequence[tuple], *, rows: int,
                        out_cols: Sequence[int],
                        out_dtypes: Sequence[torch.dtype],
-                       rows_block: int = 512) -> tuple:
+                       rows_block: int = 512,
+                       out_strides: Sequence | None = None) -> tuple:
     """Launch the Triton kernel of ``prog`` on CUDA tensors; one
-    ``[rows, out_cols[j]]`` tensor per output.  Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+    ``[rows, out_cols[j]]`` tensor per output, or, where ``out_strides[j]``
+    is ``(shape, strides)``, a tensor of that shape and layout written in
+    place.  Raises on anything the kernel does not take; never falls
+    back to the plain version."""
     if not operands or not all(torch.as_tensor(v).is_cuda for v in operands):
         raise RuntimeError(
             "fused_segment_grid launches a Triton kernel: every operand "
             "must be a CUDA tensor (CPU tensors take the plain version)")
     if len(specs) != len(prog.inputs) or len(out_cols) != len(prog.outputs):
         raise ValueError("operands / outputs do not match the program")
-    views = []
+    views, layouts, copied = [], [], 0
     for spec, inp, v in zip(specs, prog.inputs, operands):
         if dtype_name(v.dtype) != inp.dtype:
             raise TypeError(f"operand dtype {v.dtype} != program {inp.dtype}")
-        views.append(v.reshape(spec[1], spec[2]).contiguous())
-    key = (prog.key, rows, tuple(map(tuple, specs)), rows_block)
+        layout = operand_layout(v, spec[1], spec[2])
+        if layout is False:
+            v, layout = v.reshape(spec[1], spec[2]).contiguous(), None
+            copied += 1
+        views.append(v)
+        layouts.append(layout)
+    dev = views[0].device
+    outs, out_layouts = [], []
+    for j, (c, dt) in enumerate(zip(out_cols, out_dtypes)):
+        layout = None
+        if out_strides and out_strides[j] is not None:
+            o = torch.empty_strided(*out_strides[j], dtype=dt, device=dev)
+            layout = operand_layout(o, rows, c) or None
+        if layout is None:
+            o = torch.empty((rows, c), dtype=dt, device=dev)
+        outs.append(o)
+        out_layouts.append(layout)
+    key = (prog.key, rows, tuple(map(tuple, specs)), rows_block,
+           tuple(layouts), tuple(out_layouts))
     hit = _BY_KEY.get(key)
     if hit is None:
         name, source, geo = triton_source(prog, rows=rows, specs=specs,
-                                          rows_block=rows_block)
+                                          rows_block=rows_block,
+                                          layouts=layouts,
+                                          out_layouts=out_layouts)
         hit = _BY_KEY[key] = (name, _triton_kernel(name, source), geo)
     name, kernel, geo = hit
-    dev = views[0].device
-    outs = [torch.empty((rows, c), dtype=dt, device=dev)
-            for c, dt in zip(out_cols, out_dtypes)]
+    if copied:
+        symbol = name.partition("_s")[0]
+        COPIES[symbol] = COPIES.get(symbol, 0) + copied
     # no multiply-add contraction: eager PyTorch rounds every op's result,
     # and a bf16 `a * b + c` contracted into one fma skips a rounding
     with torch.cuda.device(dev):
-        compiled = kernel[(geo["grid"],)](*views, *outs, num_warps=_NUM_WARPS,
+        compiled = kernel[(geo["grid"],)](*views, *outs,
+                                          num_warps=geo["num_warps"],
                                           enable_fp_fusion=False)
     if name not in COMPILED:
         COMPILED[name] = (getattr(compiled, "n_regs", None),
-                          getattr(compiled, "n_spills", None))
+                            getattr(compiled, "n_spills", None),
+                            _load_widths(compiled))
     kernel_guard().count_launch(KERNEL)
     return tuple(outs)

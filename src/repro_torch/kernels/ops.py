@@ -179,15 +179,21 @@ def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
                        specs: Sequence[tuple], *, rows: int,
                        out_cols: Sequence[int],
                        out_dtypes: Sequence[torch.dtype],
-                       rows_block: int = 16, impl: str = "auto") -> tuple:
+                       rows_block: int = 16,
+                       out_strides: Sequence | None = None,
+                       impl: str = "auto") -> tuple:
     """Cross-shape elementwise / lane-reduce segment over per-operand
-    block views (what the offload runner emits for grid segments)."""
+    block views (what the offload runner emits for grid segments).
+    ``out_strides`` (per output, ``(shape, strides)`` or None) asks the
+    kernel to write an output in that layout and return it so; the plain
+    version returns every output as ``[rows, cols]``."""
     if resolve_impl(impl, operands[0]) == "ref":
         return fused_segment_grid_plain(
             prog, operands, specs, rows=rows, out_cols=out_cols,
             out_dtypes=out_dtypes, rows_block=rows_block)
     return _grid_cuda(prog, operands, specs, rows=rows, out_cols=out_cols,
-                      out_dtypes=out_dtypes, rows_block=rows_block)
+                      out_dtypes=out_dtypes, rows_block=rows_block,
+                      out_strides=out_strides)
 
 
 def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,

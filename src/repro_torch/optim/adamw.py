@@ -2,7 +2,7 @@
 
 The update is a pure value chain: ``apply_updates(use_kernel=True)``
 runs it as one pass of ``kernels.ops.adamw_update`` per leaf (the
-Triton kernel on the GPU, its plain version on the CPU); without the
+CUDA kernel on the GPU, its plain version on the CPU); without the
 kernel it is the same math as PyTorch ops, which the offload compiler
 fuses when the update is offloaded.  The int8 gradient compression of
 the JAX package belongs to the sharding slice.
