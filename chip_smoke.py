@@ -104,8 +104,9 @@ and holds every hand-written kernel against its plain PyTorch version:
 9. the kernel library's rmsnorm (B9, forward and backward), rotary (B10)
    and dense decode attention (B11, token-major and head-major) through
    ``ops``: each against its plain version at the CPU tests' shapes in f32
-   (2e-5) and bf16 (2e-2), plus rows too wide for B9's registers (the
-   wide kernels, any D) and a misaligned x, and decode with ragged, full
+   (2e-5) and bf16 (2e-2), B9 / B10 also in f16 (4e-3), plus rows for
+   every path of B9 (registers, staged, direct; any D) and a
+   misaligned x, and decode with ragged, full
    and empty rows in one split and in several (by T); at the width of qwen3-1.7b (hidden states
    [2, 1024, 2048], the q-norm [2, 1024, 16, 128], q / k [2048, 16 | 8,
    128] at theta 1e6, phase 3's cache gathered into dense caches), bf16
@@ -115,20 +116,24 @@ and holds every hand-written kernel against its plain PyTorch version:
    bit-equal ``ds`` over three launches, B10 at positions to 32,767, B11
    against B1 on the same cache and bit-equal across layouts; each timed
    (CUDA-graph replay, inputs rotated past the L2) beside the bound, the
-   plain version and ``F.rms_norm`` / its fused backward / SDPA; and
-   B9 at d_model 16,384, the backward on its wide kernel, checked and
+   plain version and ``F.rms_norm`` / its fused backward / SDPA, and the
+   device kernels of B9 and B9-bwd calls under the profiler, in a fresh
+   process (one a call each); B9 and B10 in f16 at that width (one counted run, ds bit-equal
+   over three launches, an f32 scale too), timed; B9 at d_model 16,384
+   in f32, bf16 and f16 (staged rows, ds bit-equal), bf16 and f16
    timed beside the same; B5 / B7 in bf16 and f16 at head dim 96 (taken
    since queue C2's lift) against their plain versions; and the inputs
    B1, B5, B7 and B11 refuse (queue C2: B5 / B7 at head dims 12 and 264,
-   G = 128, f32 head dim 96, B7's f32 head dim 128), each raising before
-   anything launches;
+   G = 128, f32 head dim 96, B7's f32 head dim 128; queue C3: B1 / B11
+   in f16), each raising before anything launches;
 10. the kernel library's ssd_scan (B12) and wkv6 (B13) through ``ops``:
     each against its plain version at the CPU tests' shapes, at S = 999
     and odd widths, f32 and bf16, B13 at strong decay (w in [0.05, 0.2],
     finite); at full width (B = 2, S = 2,048; B12 at zamba2-1.2b's H = 64,
     P = N = 64, B13 at rwkv6-1.6b's H = 32, K = V = 64; bf16 and f32), one
     counted run of the path, each timed (CUDA-graph replay) beside the
-    bound and the plain version;
+    bound and the plain version; their f16 refusals (queue C3) raising
+    before anything launches;
 11. zamba2-1.2b and rwkv6-1.6b at full width and depth (random bf16
     weights from seed 0) through ``Engine(slots=8, max_len=2048,
     page_size=64)``: 12 greedy requests x 64 tokens (every request
@@ -145,6 +150,14 @@ and holds every hand-written kernel against its plain PyTorch version:
 takes phase 1 and phase 6's decode segment timings alone, on the package
 under ``DIR`` where given (another checkout's ``src``), and prints no
 result line: two checkouts' kernels timed by one script.
+
+    python3 chip_smoke.py --norm [--src DIR]
+
+does the same for phase 9's bf16 readings of B9 / B9-bwd (the hidden
+states and d_model 16,384, each against its plain version, timed beside
+the bound and the library calls, the device kernels a call);
+``--kernels-a-call`` prints those device kernels alone, as a JSON line
+(phase 9 runs it in a fresh process).
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -199,7 +212,8 @@ fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
 # datasheet figures of one H100 SXM (NVIDIA): the bound is computed
 # against these whatever the card's power limit, which is printed beside
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 SMALL_SHAPES = [   # (B, NP, page, NQ, NK, H)
     (2, 4, 64, 8, 2, 32),
@@ -213,7 +227,11 @@ EDGE_SHAPES = [    # head tiles of 1 (G=3) and 8, a full-warp row, H=256
     (1, 2, 8, 8, 1, 256),
 ]
 MAIN_SHAPE = (8, 32, 64, 16, 8, 128)      # qwen3-1.7b, 8 slots, max_len 2048
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: kernel against plain version: f32 2e-5 (summation order), bf16 2e-2
+#: (one bf16 rounding on either side); f16 4e-3 (one f16 rounding, 2^-11
+#: of the value, on either side; FLASH_TOL's f16 bound), which B9 / B10
+#: take since queue C3's lift
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 #: a bf16 output is also held to what rounding explains: against the plain
 #: version run in f32 on the same bf16 values, one rounding of the result
 #: to bf16 (half an ulp, at most 2^-8 of the value) plus the f32 slack
@@ -354,8 +372,30 @@ def spilling_entries(log: str) -> list[str]:
 
 
 #: sources none of whose instantiations may spill (B5 / B7: their f32
-#: FMA kernels and their bf16 / f16 wgmma kernels; B8)
-NO_SPILL = ("flash_attention", "flash_attention_bwd", "adamw_update")
+#: FMA kernels and their bf16 / f16 wgmma kernels; B8; B9)
+NO_SPILL = ("flash_attention", "flash_attention_bwd", "adamw_update",
+            "rmsnorm")
+#: sources whose every instantiation's registers and spills are printed
+PER_INSTANTIATION = ("rmsnorm",)
+
+
+def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry function in a
+    ``ptxas -v`` report, demangled where ``c++filt`` is at hand."""
+    out, entry, spill = [], "", 0
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used " in ln and " registers" in ln and entry:
+            out.append((entry, int(ln.split("Used ")[1].split()[0]), spill))
+            entry, spill = "", 0
+    if out and shutil.which("c++filt"):
+        names = run(["c++filt", *[e for e, _, _ in out]]).splitlines()
+        out = [(n, r, sp) for n, (_, r, sp) in zip(names, out)]
+    return [(n.replace("(anonymous namespace)::", "").replace("void ", "")
+             .split("(")[0], r, sp) for n, r, sp in out]
 
 
 def phase_build() -> None:
@@ -373,9 +413,13 @@ def phase_build() -> None:
         if name in NO_SPILL:
             check(bool(regs), f"no ptxas report for {name}.cu")
             spilling += spills
+        if name in PER_INSTANTIATION:
+            for entry, r, sp in ptxas_entries(log):
+                print(f"[2]   {entry}: {r} registers, {sp} bytes spilled")
     print(f"[2] build total {time.perf_counter() - t0:.1f} s -> "
           f"{_build.build_dir()}")
-    check(not spilling, f"B5 / B7 / B8 instantiations spill: {spilling}")
+    check(not spilling, f"B5 / B7 / B8 / B9 instantiations spill: "
+          f"{spilling}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -2820,14 +2864,13 @@ def phase_flash(card: str) -> tuple[dict, dict]:
 # --- phase 9: the kernel library's rmsnorm (B9), rotary (B10) and dense
 # decode attention (B11) ---------------------------------------------------
 
-#: the CPU tests' shapes (tests/test_torch_library_kernels.py), plus a D
-#: that takes the scalar path in both dtypes, one wide enough that a
-#: thread holds several vectors, and rows too wide for the registers (the
-#: wide kernels, csrc/rmsnorm.cu): a scalar D of 2,050 (bf16 forward; the
-#: backward still in registers), 4,099 (scalar, both directions, both
-#: dtypes), 8,200 over 300 rows (f32 both directions, bf16 backward; more
-#: rows than backward blocks), 16,392 (vectors, both) and 40,968 over 140
-#: rows (the wide backward's partial row too large for shared memory)
+#: the CPU tests' shapes (tests/test_torch_library_kernels.py), plus rows
+#: for every path of csrc/rmsnorm.cu (launch_geometry): narrow rows in
+#: registers (D = 128, 96, 64), rows no multiple of 16 bytes (the direct
+#: kernels: D = 99, 2,050, 4,099), staged wide rows (8,192; 8,200 over 300
+#: rows, more rows than blocks), and rows too wide for the staged kernels
+#: (the direct kernels in 16-byte vectors: 16,392, and 40,968 over 140
+#: rows, whose backward partial row is too large for shared memory)
 NORM_SMALL = [(64, 128), (33, 96), (257, 64), (31, 99), (5, 8192),
               (7, 2050), (3, 4099), (300, 8200), (5, 16392), (140, 40968)]
 ROPE_SMALL = [(100, 4, 32, 1e4), (64, 1, 64, 1e6), (16, 3, 20, 1e4)]
@@ -2872,6 +2915,18 @@ def norm_case(gen, rows_shape, d, dtype, scale_dtype):
     return x, s, g
 
 
+def ds_f32_close(ds, want, x, g, eps) -> tuple[bool, float]:
+    """An f32 ds against the plain version's: 2e-5 of |ds| plus
+    DS_ULPS_F32 of the column's sum of |g * xhat|."""
+    d = x.shape[-1]
+    xf, gf = x.float().reshape(-1, d), g.float().reshape(-1, d)
+    xhat = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    mass = (gf * xhat).abs().sum(0)
+    diff = (ds.float() - want.float()).abs()
+    ok = bool((diff <= 2e-5 * want.float().abs() + DS_ULPS_F32 * mass).all())
+    return ok, float(diff.max())
+
+
 def norm_grads(x, s, g, eps, impl):
     """dx, ds of ``ops.rmsnorm`` under the cotangent g (autograd)."""
     xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
@@ -2899,7 +2954,8 @@ def decode_case(shape, dtype, seed):
 
 def library_small_shapes() -> None:
     """B9 (forward, backward), B10 and B11 against their plain versions
-    on the card at the CPU tests' shapes, f32 (2e-5) and bf16 (2e-2)."""
+    on the card at the CPU tests' shapes, f32 (2e-5) and bf16 (2e-2), and
+    B9 / B10 in f16 (4e-3; B11 refuses f16, ``refused_inputs``)."""
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
 
     worst: dict = {}
@@ -2908,7 +2964,7 @@ def library_small_shapes() -> None:
         worst[key] = max(worst.get(key, 0.0), err)
         check(ok, f"{what}: max_abs_err {err:.3e}")
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype)[6:]
         for i, (rows, d) in enumerate(NORM_SMALL):
             gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
@@ -2953,6 +3009,8 @@ def library_small_shapes() -> None:
             check(torch.equal(got, ops.rotary(x, pos.long(), theta=theta,
                                               impl="cuda")),
                   "B10 with int64 positions differs from int32")
+        if dtype == torch.float16:
+            continue
         for i, shape in enumerate(DECODE_SMALL):
             q, kc, vc, kh, vh, lengths = decode_case(shape, dtype, 220 + i)
             want = ops.decode_attention(q, kc, vc, lengths, impl="ref")
@@ -2967,10 +3025,10 @@ def library_small_shapes() -> None:
                 check(bool((tm[1] == 0).all()),
                       "B11: a row with length 0 must come out as zeros")
     errs = {f"{d} {n}": f"{e:.2e}" for (d, n), e in worst.items()}
-    print(f"[9] B9 / B10 / B11 at the CPU tests' shapes (and scalar-path, "
+    print(f"[9] B9 / B10 / B11 at the CPU tests' shapes (and direct-path, "
           f"wide and misaligned rows for B9; one and several splits for "
-          f"B11), f32 and bf16, against the plain versions: worst "
-          f"max_abs_err {errs}")
+          f"B11), f32 and bf16 (B9 / B10 also f16), against the plain "
+          f"versions: worst max_abs_err {errs}")
 
 
 def lib_row(ms, plain_ms, library_ms, n_bytes, n_flops, dtype, err) -> dict:
@@ -2986,6 +3044,120 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def b9_readings(x, sc, g, eps, n_fwd: int, n_bwd: int, errs: dict
+                ) -> dict:
+    """B9 and B9-bwd on x / g ``[..., d]`` timed by CUDA-graph replay over
+    ``n_fwd`` copies of x and ``n_bwd`` of (x, g), rotated so that each
+    call finds its inputs out of the L2, beside their plain versions
+    (eager) and ``F.rms_norm`` / its fused backward
+    (``_fused_rms_norm_backward``, what its autograd runs; each checked
+    against the plain version first).  Returns the kernels line's rows,
+    ``errs`` giving each one's max_abs_err."""
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_bwd,
+        rmsnorm_bwd_plain,
+        rmsnorm_plain,
+    )
+
+    d, dtype = x.shape[-1], x.dtype
+    wy = rmsnorm_plain(x, sc, eps)
+    wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
+    # every yardstick runs once eagerly, against the plain version,
+    # before a graph captures it (cuDNN allocates on its first call)
+    check(within(F.rms_norm(x, (d,), sc, eps), wy, TOL[dtype])[0],
+          f"F.rms_norm disagrees with the plain version ({dtype})")
+    rstd = torch.ops.aten._fused_rms_norm(x, [d], sc, eps)[1]
+    lib_dx, lib_ds = torch.ops.aten._fused_rms_norm_backward(
+        g, x, [d], rstd, sc, [True, True])
+    check(within(lib_dx, wdx, TOL[dtype])[0]
+          and within(lib_ds, wds, TOL[dtype])[0],
+          f"_fused_rms_norm_backward disagrees with the plain version "
+          f"({dtype})")
+    rows = {}
+    xs = [x] + [x.clone() for _ in range(n_fwd - 1)]
+    ms = graph_ms(lambda i: ops.rmsnorm(xs[i % n_fwd], sc, eps=eps), n_fwd)
+    plain_ms = time_ms(lambda i: rmsnorm_plain(xs[i % n_fwd], sc, eps),
+                       n_fwd)
+    lib_ms = graph_ms(lambda i: F.rms_norm(xs[i % n_fwd], (d,), sc, eps),
+                      n_fwd)
+    rows["rmsnorm"] = lib_row(ms, plain_ms, lib_ms, nbytes(x, wy, sc), 0,
+                              dtype, errs["rmsnorm"])
+    del xs
+    sets = [(x, g)] + [(x.clone(), g.clone()) for _ in range(n_bwd - 1)]
+    rstds = [torch.ops.aten._fused_rms_norm(a, [d], sc, eps)[1]
+             for a, _ in sets]
+    ms = graph_ms(lambda i: rmsnorm_bwd(sets[i % n_bwd][0], sc,
+                                        sets[i % n_bwd][1], eps=eps), n_bwd)
+    plain_ms = time_ms(lambda i: rmsnorm_bwd_plain(
+        sets[i % n_bwd][0], sc, sets[i % n_bwd][1], eps), n_bwd)
+    lib_ms = graph_ms(lambda i: torch.ops.aten._fused_rms_norm_backward(
+        sets[i % n_bwd][1], sets[i % n_bwd][0], [d], rstds[i % n_bwd], sc,
+        [True, True]), n_bwd)
+    rows["rmsnorm_bwd"] = lib_row(ms, plain_ms, lib_ms,
+                                  nbytes(x, g, sc, wdx, wds), 0, dtype,
+                                  errs["rmsnorm_bwd"])
+    return rows
+
+
+#: calls of each direction a profiler session holds, and the sessions
+#: tried while one sees no device kernel at all (a session can miss them)
+KERNEL_CALLS, KERNEL_SESSIONS = 4, 3
+
+
+def kernels_a_call() -> dict:
+    """The device kernels of KERNEL_CALLS calls of B9 and of B9-bwd at
+    phase 9's bf16 hidden states, by ``torch.profiler`` (a throwaway
+    session first, each call made once before, outside it; a session that
+    sees no device kernel is tried again): {name: [kernel names]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    cfg = get_config("qwen3-1.7b")
+    eps = cfg.norm_eps
+    gen = torch.Generator(device=DEVICE).manual_seed(230)
+    x, sc, g = norm_case(gen, LIB_TOKENS, cfg.d_model, torch.bfloat16,
+                         torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    out = {}
+    for name, fn in (("rmsnorm", lambda: ops.rmsnorm(x, sc, eps=eps)),
+                     ("rmsnorm_bwd", lambda: rmsnorm_bwd(x, sc, g,
+                                                         eps=eps))):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(KERNEL_SESSIONS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(KERNEL_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+            out[name] = [e.key for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "Memcpy" not in e.key for _ in range(e.count)]
+            if out[name]:
+                break
+    return out
+
+
+def one_call_kernels(tag: str) -> dict:
+    """``kernels_a_call`` in a fresh process of this script (a profiler
+    session late in a long run of it saw no device kernels at all, while a
+    fresh one sees them), printed; the caller requires one kernel a
+    call."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--kernels-a-call"]
+    if "--src" in sys.argv:
+        cmd += ["--src", _src_root()]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"--kernels-a-call failed: {proc.stderr}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, kernels in out.items():
+        print(f"{tag} {KERNEL_CALLS} {name} calls at {LIB_TOKENS + (2048,)} "
+              f"bfloat16 under the profiler: {len(kernels)} device "
+              f"kernel(s) {sorted(set(kernels))}")
+    return out
+
+
 def library_full_width(card: str) -> tuple[dict, dict]:
     """The kernel library at the width of qwen3-1.7b: one counted run of
     the path (``ops.rmsnorm`` forward and backward on the hidden states,
@@ -2994,11 +3166,7 @@ def library_full_width(card: str) -> tuple[dict, dict]:
     B11 against B1 on the same cache, then each kernel timed.  Returns the
     kernels line's rows and the path run's launches."""
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.rmsnorm import (
-        rmsnorm_bwd,
-        rmsnorm_bwd_plain,
-        rmsnorm_plain,
-    )
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_plain
     from repro_torch.kernels.rotary import rotary, rotary_plain
 
     cfg = get_config("qwen3-1.7b")
@@ -3062,13 +3230,7 @@ def library_full_width(card: str) -> tuple[dict, dict]:
                "rotary q": within(rq, wrq, TOL[dtype]),
                "rotary k": within(rk, wrk, TOL[dtype])}
         if dtype == torch.float32:
-            xhat = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-            mass = (g * xhat).abs().reshape(-1, d).sum(0)
-            diff = (ds - sl.grad).abs()
-            res["rmsnorm_bwd ds"] = (bool((diff <= 2e-5 * sl.grad.abs()
-                                           + DS_ULPS_F32 * mass).all()),
-                                     float(diff.max()))
-            del xhat, mass
+            res["rmsnorm_bwd ds"] = ds_f32_close(ds, sl.grad, x, g, eps)
         ok_d = close_to_plain(o_tm, w_tm, (pq, pk, pv, tables, lengths))
         res["decode_attention"] = (ok_d, max_err(o_tm, w_tm))
         del xl, sl
@@ -3114,44 +3276,16 @@ def library_full_width(card: str) -> tuple[dict, dict]:
             continue
 
         # timing, bf16, CUDA-graph replay, inputs rotated past the L2
-        xs = [x] + [x.clone() for _ in range(LIB_ROTATE["rmsnorm"] - 1)]
-        ms = graph_ms(lambda i: ops.rmsnorm(xs[i % len(xs)], sc, eps=eps),
-                      len(xs))
-        plain_ms = time_ms(lambda i: rmsnorm_plain(xs[i % len(xs)], sc, eps),
-                           len(xs))
-        # every yardstick runs once eagerly, against the plain version,
-        # before a graph captures it (cuDNN allocates on its first call)
-        check(within(F.rms_norm(x, (d,), sc, eps), wy, TOL[dtype])[0],
-              "F.rms_norm disagrees with the plain version")
-        lib_ms = graph_ms(lambda i: F.rms_norm(xs[i % len(xs)], (d,), sc,
-                                               eps), len(xs))
-        rows["rmsnorm"] = lib_row(ms, plain_ms, lib_ms, nbytes(x, y, sc), 0,
-                                  dtype, res["rmsnorm"][1])
-        del xs
-        sets = [(x, g)] + [(x.clone(), g.clone())
-                           for _ in range(LIB_ROTATE["rmsnorm_bwd"] - 1)]
-        n_sets = len(sets)
-        ms = graph_ms(lambda i: rmsnorm_bwd(sets[i % n_sets][0], sc,
-                                            sets[i % n_sets][1], eps=eps),
-                      n_sets)
-        plain_ms = time_ms(lambda i: rmsnorm_bwd_plain(
-            sets[i % n_sets][0], sc, sets[i % n_sets][1], eps), n_sets)
-        # F.rms_norm's autograd backward (FusedRmsNormBackward0) is this
-        # one op; called directly it replays in a graph (autograd does not)
-        _, rstd = torch.ops.aten._fused_rms_norm(x, [d], sc, eps)
-        lib_dx, lib_ds = torch.ops.aten._fused_rms_norm_backward(
-            g, x, [d], rstd, sc, [True, True])
-        check(within(lib_dx, dx, TOL[dtype])[0]
-              and within(lib_ds, ds, TOL[dtype])[0],
-              "_fused_rms_norm_backward disagrees with B9-bwd")
-        lib_ms = graph_ms(lambda i: torch.ops.aten._fused_rms_norm_backward(
-            sets[i % n_sets][1], sets[i % n_sets][0], [d], rstd, sc,
-            [True, True]), n_sets)
-        rows["rmsnorm_bwd"] = lib_row(ms, plain_ms, lib_ms,
-                                      nbytes(x, g, sc, dx, ds), 0, dtype,
-                                      max(res["rmsnorm_bwd dx"][1],
-                                          res["rmsnorm_bwd ds"][1]))
-        del sets, rstd
+        rows.update(b9_readings(x, sc, g, eps, LIB_ROTATE["rmsnorm"],
+                                LIB_ROTATE["rmsnorm_bwd"], {
+                                    "rmsnorm": res["rmsnorm"][1],
+                                    "rmsnorm_bwd": max(
+                                        res["rmsnorm_bwd dx"][1],
+                                        res["rmsnorm_bwd ds"][1])}))
+        kernels = one_call_kernels("[9]")
+        check(all(len(k) == KERNEL_CALLS for k in kernels.values()),
+              f"B9 / B9-bwd launch {kernels} over {KERNEL_CALLS} calls, "
+              f"not one kernel a call each")
         for name, t in (("rotary", q), ("rotary k", k)):
             ts = [t] + [t.clone() for _ in range(LIB_ROTATE["rotary"] - 1)]
             ms = graph_ms(lambda i: rotary(ts[i % len(ts)], pos, theta=theta),
@@ -3205,48 +3339,191 @@ def library_full_width(card: str) -> tuple[dict, dict]:
     return rows, counts
 
 
+def print_b9(rows: dict, what: str, card: str, tag: str = "[9]") -> None:
+    for name, r in rows.items():
+        print(f"{tag}   {name} {what}: {r['ms']:.4f} ms on the card "
+              f"(CUDA-graph replay), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"bytes ({r['n_bytes']} bytes; bound / kernel = "
+              f"{r['bound_ms'] / r['ms']:.1%}; library / kernel = "
+              f"{r['library_ms'] / r['ms']:.2f}), on {card}")
+
+
 def library_wide_rows(card: str) -> None:
-    """B9 on rows too wide for the backward's registers: d_model 16,384
-    (the widest dense decoders), 2,048 rows, bf16.  The forward stays on
-    its register path, the backward takes the wide kernel (each row read
-    twice).  Held against the plain versions, then timed beside the bound
-    and the library calls; not an entry of the kernels line."""
+    """B9 on the widest dense decoders' rows: d_model 16,384, 2,048 rows,
+    on the staged path (a row of x, and of x and g backward, in shared
+    memory: read from device memory once), in f32, bf16 and f16:
+    against the plain versions, ds bit-equal over three launches; bf16
+    and f16 timed beside the bound and the library calls (two input sets
+    of 67 MB each: every call finds its inputs out of the L2).  Not an
+    entry of the kernels line."""
+    from repro_torch.kernels.rmsnorm import (
+        launch_geometry,
+        rmsnorm_bwd,
+        rmsnorm_bwd_plain,
+    )
+
+    d, n_rows, eps = 16384, 2048, 1e-5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        dn = str(dtype)[6:]
+        gen = torch.Generator(device=DEVICE).manual_seed(232)
+        x, sc, g = norm_case(gen, (n_rows,), d, dtype, dtype)
+        y = ops.rmsnorm(x, sc, eps=eps, impl="cuda")
+        (dx, ds), ds2, ds3 = (rmsnorm_bwd(x, sc, g, eps=eps),
+                              rmsnorm_bwd(x, sc, g, eps=eps)[1],
+                              rmsnorm_bwd(x, sc, g, eps=eps)[1])
+        wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
+        res = {"y": within(y, ops.rmsnorm(x, sc, eps=eps, impl="ref"),
+                           TOL[dtype]),
+               "dx": within(dx, wdx, TOL[dtype]),
+               "ds": (ds_f32_close(ds, wds, x, g, eps)
+                      if dtype == torch.float32
+                      else within(ds, wds, TOL[dtype]))}
+        for what, (ok, err) in res.items():
+            check(ok, f"B9 {what} at ({n_rows}, {d}) {dn}: max_abs_err "
+                  f"{err:.3e}")
+        check(torch.equal(ds, ds2) and torch.equal(ds2, ds3),
+              f"B9-bwd ds differs between launches at d {d} ({dn})")
+        paths = [launch_geometry(n_rows, d, dtype, backward=bwd,
+                                 sms=sms).path for bwd in (False, True)]
+        print(f"[9] B9 at d_model 16,384 ({n_rows} rows, {dn}; forward "
+              f"{paths[0]}, backward {paths[1]}): max_abs_err "
+              f"{ {n: f'{e:.2e}' for n, (_, e) in res.items()} }, ds "
+              f"bit-equal over three launches")
+        if dtype == torch.float32:
+            continue
+        print_b9(b9_readings(x, sc, g, eps, 2, 2, {
+            "rmsnorm": res["y"][1],
+            "rmsnorm_bwd": max(res["dx"][1], res["ds"][1])}),
+            f"{dn} at d_model 16,384", card)
+        del x, g, y, dx, wdx
+
+
+def library_f16(card: str) -> None:
+    """Queue C3 lifted at full width: B9 (forward; backward through
+    ``RMSNormFn``; the q-norm) and B10 (q, k) in f16 at qwen3-1.7b's
+    width, one counted run, against their plain versions, ds bit-equal
+    over three launches, with an f16 and an f32 scale; B9 / B9-bwd timed
+    beside the bound and the library calls, B10 beside its bound."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    from repro_torch.kernels.rotary import rotary, rotary_plain
+
+    cfg = get_config("qwen3-1.7b")
+    d, nq, nk = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    h, theta, eps = cfg.resolved_head_dim, cfg.rope_theta, cfg.norm_eps
+    b, s = LIB_TOKENS
+    dtype = torch.float16
+    gen = torch.Generator(device=DEVICE).manual_seed(233)
+    x, sc, g = norm_case(gen, LIB_TOKENS, d, dtype, dtype)
+    xq, scq, _ = norm_case(gen, (*LIB_TOKENS, nq), h, dtype, dtype)
+    q, k = (seeded(gen, (b * s, n, h), dtype) for n in (nq, nk))
+    pos = torch.arange(s, device=DEVICE, dtype=torch.int32).repeat(b)
+    ops.reset_launch_counts()
+    y, dx, ds = norm_grads(x, sc, g, eps, "auto")
+    yq = ops.rmsnorm(xq, scq, eps=eps)
+    rq, rk = (ops.rotary(t, pos, theta=theta) for t in (q, k))
+    torch.cuda.synchronize()
+    run = ops.launch_counts()
+    want = {"rmsnorm": 2, "rmsnorm_bwd": 1, "rotary": 2}
+    check(run == {k_: want.get(k_, 0) for k_ in run},
+          f"phase 9 f16 path launches {run}, expected {want}")
+    wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
+    res = {"rmsnorm": within(y, ops.rmsnorm(x, sc, eps=eps, impl="ref"),
+                             TOL[dtype]),
+           "rmsnorm q-norm": within(yq, ops.rmsnorm(xq, scq, eps=eps,
+                                                    impl="ref"), TOL[dtype]),
+           "rmsnorm_bwd dx": within(dx, wdx, TOL[dtype]),
+           "rmsnorm_bwd ds": within(ds, wds, TOL[dtype]),
+           "rotary q": within(rq, rotary_plain(q, pos, theta), TOL[dtype]),
+           "rotary k": within(rk, rotary_plain(k, pos, theta), TOL[dtype])}
+    # an f32 scale with f16 x: ds comes back in f32
+    sc32 = sc.float()
+    dx32, ds32 = rmsnorm_bwd(x, sc32, g, eps=eps)
+    wdx32, wds32 = rmsnorm_bwd_plain(x, sc32, g, eps)
+    check(dx32.dtype == dtype and ds32.dtype == torch.float32,
+          f"B9-bwd f16 x, f32 scale gives {dx32.dtype}, {ds32.dtype}")
+    res["rmsnorm_bwd dx, f32 scale"] = within(dx32, wdx32, TOL[dtype])
+    res["rmsnorm_bwd ds, f32 scale"] = ds_f32_close(ds32, wds32, x, g, eps)
+    ds2 = rmsnorm_bwd(x, sc, g, eps=eps)[1]
+    ds3 = rmsnorm_bwd(x, sc, g, eps=eps)[1]
+    torch.cuda.synchronize()
+    for name, (ok, err) in res.items():
+        check(ok, f"{name} full width float16: max_abs_err {err:.3e}")
+    check(torch.equal(ds, ds2) and torch.equal(ds2, ds3)
+          and torch.equal(ds32, rmsnorm_bwd(x, sc32, g, eps=eps)[1]),
+          "B9-bwd ds differs between launches (float16)")
+    print(f"[9] full width float16 (B9 x {tuple(x.shape)}, q-norm "
+          f"{tuple(xq.shape)}, B10 q {tuple(q.shape)}, k {tuple(k.shape)}; "
+          f"tolerance {TOL[dtype]}): max_abs_err "
+          f"{ {n: f'{e:.2e}' for n, (_, e) in res.items()} }; ds bit-equal "
+          f"over three launches; launches {run}")
+    print_b9(b9_readings(x, sc, g, eps, LIB_ROTATE["rmsnorm"],
+                         LIB_ROTATE["rmsnorm_bwd"], {
+                             "rmsnorm": res["rmsnorm"][1],
+                             "rmsnorm_bwd": max(res["rmsnorm_bwd dx"][1],
+                                                res["rmsnorm_bwd ds"][1])}),
+             "float16 [2, 1024, 2048]", card)
+    for name, t in (("rotary q", q), ("rotary k", k)):
+        ts = [t] + [t.clone() for _ in range(LIB_ROTATE["rotary"] - 1)]
+        ms = graph_ms(lambda i: rotary(ts[i % len(ts)], pos, theta=theta),
+                      len(ts))
+        bound = (2 * nbytes(t) + nbytes(pos)) / HBM_BYTES_PER_S * 1e3
+        print(f"[9]   {name} float16: {ms:.4f} ms on the card (CUDA-graph "
+              f"replay), bound {bound:.4f} ms by bytes (bound / kernel = "
+              f"{bound / ms:.1%}), on {card}")
+        del ts
+
+
+def norm_readings(card: str) -> None:
+    """``--norm``: phase 9's bf16 readings of B9 / B9-bwd alone, on the
+    package this script was pointed at (``--src``): the hidden states [2,
+    1024, 2048] (8 / 4 rotated input sets) and d_model 16,384 (2,048
+    rows, 2 sets), each output against its plain version, timed beside
+    the bound and the library calls, and the device kernels a call
+    each.  Two checkouts' kernels compared by one script."""
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
 
-    d, n_rows, dtype, eps = 16384, 2048, torch.bfloat16, 1e-5
-    gen = torch.Generator(device=DEVICE).manual_seed(232)
-    # two input sets of 67 MB each: every call finds its inputs out of L2
-    sets = [norm_case(gen, (n_rows,), d, dtype, dtype) for _ in range(2)]
-    x, sc, g = sets[0]
-    y = ops.rmsnorm(x, sc, eps=eps, impl="cuda")
-    dx, ds = rmsnorm_bwd(x, sc, g, eps=eps)
-    wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
-    for what, got, want in (("y", y, ops.rmsnorm(x, sc, eps=eps, impl="ref")),
-                            ("dx", dx, wdx), ("ds", ds, wds)):
-        ok, err = within(got, want, TOL[dtype])
-        check(ok, f"B9 {what} at ({n_rows}, {d}) bf16: max_abs_err {err:.3e}")
-    rstd = [torch.ops.aten._fused_rms_norm(xs, [d], ss, eps)[1]
-            for xs, ss, _ in sets]
-    lib_dx = torch.ops.aten._fused_rms_norm_backward(
-        g, x, [d], rstd[0], sc, [True, True])[0]
-    check(within(F.rms_norm(x, (d,), sc, eps), y, TOL[dtype])[0]
-          and within(lib_dx, dx, TOL[dtype])[0],
-          "F.rms_norm or its fused backward disagrees with B9 at d 16,384")
-    fwd = graph_ms(lambda i: ops.rmsnorm(sets[i % 2][0], sets[i % 2][1],
-                                         eps=eps), 2)
-    bwd = graph_ms(lambda i: rmsnorm_bwd(*sets[i % 2], eps=eps), 2)
-    lib_fwd = graph_ms(lambda i: F.rms_norm(sets[i % 2][0], (d,),
-                                            sets[i % 2][1], eps), 2)
-    lib_bwd = graph_ms(lambda i: torch.ops.aten._fused_rms_norm_backward(
-        sets[i % 2][2], sets[i % 2][0], [d], rstd[i % 2], sets[i % 2][1],
-        [True, True]), 2)
-    b_fwd = nbytes(x, y, sc) / HBM_BYTES_PER_S * 1e3
-    b_bwd = nbytes(x, g, dx, sc, ds) / HBM_BYTES_PER_S * 1e3
-    print(f"[9] B9 at d_model 16,384 ({n_rows} rows, bf16; the backward on "
-          f"the wide kernel): forward {fwd:.4f} ms (bound {b_fwd:.4f}, "
-          f"{b_fwd / fwd:.1%}; F.rms_norm {lib_fwd:.4f}), backward "
-          f"{bwd:.4f} ms (bound {b_bwd:.4f}, {b_bwd / bwd:.1%}; fused "
-          f"library backward {lib_bwd:.4f}), on {card}")
+    cfg = get_config("qwen3-1.7b")
+    dtype = torch.bfloat16
+    for seed, lead, d, eps, n_fwd, n_bwd in (
+            (230, LIB_TOKENS, cfg.d_model, cfg.norm_eps,
+             LIB_ROTATE["rmsnorm"], LIB_ROTATE["rmsnorm_bwd"]),
+            (232, (2048,), 16384, 1e-5, 2, 2)):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x, sc, g = norm_case(gen, lead, d, dtype, dtype)
+        dx, ds = rmsnorm_bwd(x, sc, g, eps=eps)
+        wdx, wds = rmsnorm_bwd_plain(x, sc, g, eps)
+        res = {"y": within(ops.rmsnorm(x, sc, eps=eps),
+                           ops.rmsnorm(x, sc, eps=eps, impl="ref"),
+                           TOL[dtype]),
+               "dx": within(dx, wdx, TOL[dtype]),
+               "ds": within(ds, wds, TOL[dtype])}
+        for what, (ok, err) in res.items():
+            check(ok, f"B9 {what} at {tuple(x.shape)}: max_abs_err "
+                  f"{err:.3e}")
+        label = f"bf16 {list(x.shape)}"
+        print_b9(b9_readings(x, sc, g, eps, n_fwd, n_bwd, {
+            "rmsnorm": res["y"][1],
+            "rmsnorm_bwd": max(res["dx"][1], res["ds"][1])}), label, card,
+            "[norm]")
+        del x, g, dx, wdx
+    for name, kernels in kernels_a_call().items():
+        print(f"[norm] {KERNEL_CALLS} {name} calls at "
+              f"{LIB_TOKENS + (cfg.d_model,)} bfloat16 under the profiler: "
+              f"{len(kernels)} device kernel(s) {sorted(set(kernels))}")
+
+
+def expect_refusal(tag: str, what: str, exc, match: str, fn) -> None:
+    """``fn`` must raise ``exc`` naming ``match``."""
+    try:
+        fn()
+    except exc as e:
+        check(match in str(e), f"{what}: {type(e).__name__} {e!s} "
+              f"does not name {match!r}")
+        print(f"{tag}: {what} refused: {type(e).__name__}: {e}")
+        return
+    check(False, f"{what} was not refused")
 
 
 def refused_inputs() -> None:
@@ -3263,14 +3540,7 @@ def refused_inputs() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(17)
 
     def expect(what, exc, match, fn):
-        try:
-            fn()
-        except exc as e:
-            check(match in str(e), f"{what}: {type(e).__name__} {e!s} "
-                  f"does not name {match!r}")
-            print(f"[9] C2: {what} refused: {type(e).__name__}: {e}")
-            return
-        check(False, f"{what} was not refused")
+        expect_refusal("[9] C2", what, exc, match, fn)
 
     def qkv(b, s, nq, nk, h, dtype):
         return (seeded(gen, (b, s, nq, h), dtype),
@@ -3318,6 +3588,16 @@ def refused_inputs() -> None:
     dk, dv = (seeded(gen, (2, 32, 2, 24), torch.float32) for _ in range(2))
     expect("B11 f32 head_dim 24", ValueError, "head_dim 24",
            lambda: ops.decode_attention(dq, dk, dv, lengths))
+    # queue C3: f16, which the reference's kernels take; B9 / B10 take it
+    # since its lift, B1 / B11 refuse it as their ops docstrings say
+    pq, pk, pv, tables, lengths = make_case((2, 2, 16, 4, 2, 64),
+                                            torch.float16, seed=19)
+    expect_refusal("[9] C3", "B1 f16", TypeError, "torch.float16",
+                   lambda: ops.paged_decode_attention(pq, pk, pv, tables,
+                                                      lengths))
+    dk, dv = (seeded(gen, (2, 32, 2, 64), torch.float16) for _ in range(2))
+    expect_refusal("[9] C3", "B11 f16", TypeError, "torch.float16",
+                   lambda: ops.decode_attention(pq, dk, dv, lengths))
     torch.cuda.synchronize()
     check(not any(ops.launch_counts().values()),
           f"a refused input launched: {ops.launch_counts()}")
@@ -3331,6 +3611,7 @@ def phase_library(card: str) -> dict:
     refused_inputs()
     library_small_shapes()
     rows, counts = library_full_width(card)
+    library_f16(card)
     library_wide_rows(card)
     print(f"[9] path launches (bf16 run): "
           f"{ {k: n for k, n in counts.items() if n} }")
@@ -3479,6 +3760,17 @@ def phase_scan(card: str) -> dict:
 
     t0 = time.perf_counter()
     scan_small_shapes()
+    # queue C3: B12 / B13 refuse f16, as their ops docstrings say
+    ops.reset_launch_counts()
+    expect_refusal("[10] C3", "B12 f16", TypeError, "torch.float16",
+                   lambda: ops.ssd_scan(*ssd_case(SSD_SMALL[0],
+                                                  torch.float16, 340)))
+    expect_refusal("[10] C3", "B13 f16", TypeError, "torch.float16",
+                   lambda: ops.wkv6(*wkv_case(WKV_SMALL[0], torch.float16,
+                                              341)))
+    torch.cuda.synchronize()
+    check(not any(ops.launch_counts().values()),
+          f"a refused input launched: {ops.launch_counts()}")
     rows, counts = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -3719,10 +4011,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if "--kernels-a-call" in sys.argv:
+        print(json.dumps(kernels_a_call()))
+        return 0
     t0 = time.perf_counter()
     card = phase_environment()
     if "--decode-segments" in sys.argv:
         phase_decode_segments(card)
+        return 0
+    if "--norm" in sys.argv:
+        norm_readings(card)
         return 0
     phase_build()
     kernel = phase_kernel(card)

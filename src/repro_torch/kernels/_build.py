@@ -63,14 +63,16 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _start(name: str, extra_flags: tuple[str, ...] = ()):
-    """Start one ``nvcc`` for ``name`` unless its library exists."""
+def _start(name: str, extra_flags: tuple[str, ...] = (), force: bool = False):
+    """Start one ``nvcc`` for ``name`` unless its library exists (or
+    ``force``)."""
     src, out = _target(name)
-    return _spawn(src, out, extra_flags)
+    return _spawn(src, out, extra_flags, force)
 
 
-def _spawn(src: Path, out: Path, extra_flags: tuple[str, ...]):
-    if out.exists():
+def _spawn(src: Path, out: Path, extra_flags: tuple[str, ...],
+           force: bool = False):
+    if out.exists() and not force:
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -99,10 +101,11 @@ def _finish(name: str, started) -> str:
 
 def build_all(*, verbose: bool = False) -> dict[str, str]:
     """Build every source in ``csrc/``, one ``nvcc`` each, all started
-    together.  Returns the compiler output per source (``-Xptxas -v``
-    resource usage when ``verbose``)."""
+    together.  Returns the compiler output per source; with ``verbose``
+    each source is compiled anew, built or not, for its ``-Xptxas -v``
+    resource usage."""
     extra = ("-Xptxas", "-v") if verbose else ()
-    started = {n: _start(n, extra) for n in sources()}
+    started = {n: _start(n, extra, force=verbose) for n in sources()}
     return {n: _finish(n, s) for n, s in started.items()}
 
 

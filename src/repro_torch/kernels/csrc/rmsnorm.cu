@@ -4,83 +4,125 @@
 // (via `_call_fwd`), y = x * rsqrt(mean(x^2) + eps) * scale, and
 // `_bwd_kernel` (via `_rmsnorm_bwd`), dx = inv * (g*s - xhat * mean(g*s *
 // xhat)) with xhat = x * inv, and ds = sum over rows of g * xhat.  f32 math,
-// one rounding to the output's dtype; x / g / y / dx are [rows, D], scale
-// and ds are [D] in their own dtype (f32 or bf16).
+// one rounding to the output's dtype; x / g / y / dx are [rows, D] in f32,
+// bf16 or f16, scale and ds are [D] in their own dtype (any of the three).
 //
 // What bounds it: bytes.  A few operations per element against the ~295
 // FLOP/byte at which the card's arithmetic would be the limit, so the least
 // time is (x + y + scale) / memory rate forward and (x + g + dx + scale +
-// ds) / memory rate backward.  The design reads each row once where it
-// fits in registers:
+// ds) / memory rate backward.  The design keeps the memory system busy,
+// reads each row from device memory once and keeps every launch one
+// kernel:
 //
-//  * A row is held in registers by a group of `tpr` threads (a power of
-//    two), each holding NV vectors of V elements (16 bytes where D and the
-//    pointers allow it, else single elements: a D that is not a multiple of
-//    the vector width, as the reference's D = 96 rows in bf16 are not,
-//    takes scalar loads throughout).  Narrow rows (D = 128, the q/k norm)
-//    put several row groups, down to a warp or less a row, in one block;
-//    a row of 2,048 bf16 is one 16-byte load for each of 256 threads.  The
-//    row statistic is reduced by warp shuffles and, for a group wider than
-//    a warp, through shared memory; it never leaves the block.
-//  * A row too wide for that takes the wide kernels: one row a block at a
-//    time, read in a loop for its statistics and read again (from L2) for
-//    the output, so any D runs; the wide backward keeps its block's partial
-//    ds row in shared memory up to D = 40,960.  "Too wide" is what each
-//    direction holds without spilling (fwd_max_nv / bwd_max_nv below):
-//    forward, bf16 D > 16,384, f32 D > 8,192, a scalar-path D > 1,024;
-//    backward (four arrays under the 64-register cap of 1,024 threads),
-//    D > 8,192 or a scalar-path D > 4,096.
-//  * Rows are masked at the ragged edge in the kernel: the wrapper makes no
-//    padding copy (the TPU wrapper padded rows to a block multiple).
-//  * Backward: the TPU kernel accumulated ds across its sequential row-block
-//    axis.  Blocks here run in no order, so each of about one block per SM
-//    loops over many rows, keeps its columns' partial ds in registers, sums
-//    its row groups in shared memory in a fixed order and writes one f32
-//    partial row [D] to a workspace (132 x D x 4 bytes, about 1 MB at
-//    D = 2,048); a second launch sums the partials in block order and casts
-//    to scale's dtype.  No atomics: ds is the same bits on every run.
+//  * Rows are split evenly over a grid of the card's resident blocks (and
+//    over the warps of each block on the narrow path): no ragged last wave.
+//  * Narrow rows (at most 256 16-byte vectors: D <= 2,048 in 16-bit types,
+//    1,024 in f32, 512 in the f32 backward; aligned): a row is held in the
+//    registers of tpr <= 32 lanes of a warp, and each warp loads its next
+//    rows into a second set of registers before it reduces the current
+//    ones.  The statistic is a warp shuffle; no warp waits for another.
+//    The scale is staged once a block in shared memory as f32, its 16-byte
+//    loads issued before the rows' so that they do not queue behind them.
+//    (On the card, 1-D bulk copies of narrow rows measured slower than
+//    plain 16-byte loads: a narrow problem gives an SM too few bytes to
+//    keep in flight, so its rows go to registers.)
+//  * Wide rows (up to 32 f32 of the scale a thread of 512: D <= 16,384;
+//    backward, 4 vectors a thread: f32 D <= 8,192), staged: a block takes
+//    one row at a time from a ring of `stages` one-row slots in shared
+//    memory (of x, and of g after it backward), which its first thread
+//    fills with 1-D bulk copies (cp.async.bulk on the slot's mbarrier), so
+//    the next rows are in flight while the block reduces the current one;
+//    each row is read from its slot twice (statistic, output) and from
+//    device memory once.  The scale (16-byte loads; and, backward, the
+//    thread's share of ds) stays in registers across the block's rows; the
+//    statistic is a warp shuffle and one shared-memory step.
+//  * Backward in one launch: each block writes one f32 partial ds row [D]
+//    (its row groups summed in order) to a workspace.  The last `fin`
+//    blocks to arrive at an atomic ticket (`g_arrived`, counted from the
+//    launch's `g_base`) wait for the others and each sums a slice of the
+//    columns over the partials in block order, then moves `g_base` on for
+//    the next launch.  Atomics on the ticket only: ds is the same bits on
+//    every launch.  A finisher waits only for blocks that arrive after it,
+//    so it never waits for a block that cannot start.
+//  * Any other row takes the direct kernels: one row a block at a time,
+//    read from device memory for its statistic and again (from L2 where it
+//    stays) for the output, the scale from global memory, any D: a pointer
+//    off 16 bytes, a row that is no multiple of 16 bytes (D = 99), or a row
+//    too wide for the staged kernels.
+//
+// The launch geometry (path, threads, threads a row, stages, vectors a
+// thread, grid, finishers, shared memory) comes from the wrapper
+// (`launch_geometry` in kernels/rmsnorm.py); the launchers check it and
+// refuse what the kernels cannot run.  B9-bwd's tickets are one pair per
+// device, so its launches on one device must be ordered (one stream, as
+// PyTorch's autograd and a CUDA graph give them).
 //
 // Plain C interface, no PyTorch headers: built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and loaded with ctypes (src/repro_torch/kernels/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <initializer_list>
 
-#include <type_traits>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int FWD_THREADS = 256;
-constexpr int BWD_THREADS = 1024;
-// the wide backward keeps its partial ds row in shared memory up to this
-// size (D <= 40,960), else in place in the workspace
-constexpr size_t WIDE_ACC_SMEM = 160 * 1024;
+constexpr int MAX_THREADS = 512;
+constexpr int SMEM_BLOCK = 232448;   // a block's shared memory (227 KB)
 constexpr unsigned FULL = 0xffffffffu;
 
+// dtype codes shared with kernels/rmsnorm.py
+constexpr int F32 = 0, BF16 = 1, F16 = 2;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
+}
 
-// V elements at p: one 16-byte load when V * sizeof(T) == 16, else V = 1
+// V elements at p: one 16-byte load when V * sizeof(T) == 16, else V = 1.
+// Global memory through the read-only path; shared memory (lds) plainly.
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const uint4& r, float (&o)[V]) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = to_f(e[i]);
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, float (&o)[V]) {
   if constexpr (V * sizeof(T) == 16) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = to_f(e[i]);
+    unpack<T, V>(__ldg(reinterpret_cast<const uint4*>(p)), o);
   } else {
     static_assert(V == 1, "vectors are 16 bytes or single elements");
     o[0] = to_f(__ldg(p));
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void lds_vec(const T* p, float (&o)[V]) {
+  static_assert(V * sizeof(T) == 16, "staged rows are read in 16-byte vectors");
+  unpack<T, V>(*reinterpret_cast<const uint4*>(p), o);
+}
+
+// V f32 values of the staged scale
+template <int V>
+__device__ __forceinline__ void lds_f32(const float* p, float (&o)[V]) {
+  static_assert(V % 4 == 0, "the staged scale is read in float4s");
+#pragma unroll
+  for (int k = 0; k < V / 4; ++k) {
+    const float4 f = reinterpret_cast<const float4*>(p)[k];
+    o[4 * k] = f.x;
+    o[4 * k + 1] = f.y;
+    o[4 * k + 2] = f.z;
+    o[4 * k + 3] = f.w;
   }
 }
 
@@ -97,439 +139,872 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
   }
 }
 
-__device__ __forceinline__ float load_scale(const void* s, int s_bf16, int c) {
-  return s_bf16 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(s) + c))
-                : __ldg(static_cast<const float*>(s) + c);
+// Element c of a [D] vector of dtype `dt`, and its store
+__device__ __forceinline__ float load_scale(const void* s, int dt, int64_t c) {
+  if (dt == BF16) return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(s) + c));
+  if (dt == F16) return __half2float(__ldg(static_cast<const __half*>(s) + c));
+  return __ldg(static_cast<const float*>(s) + c);
 }
 
-// Sum `v` over the tpr threads of this thread's row group.  A group wider
-// than a warp goes through `buf` (one float per warp); every thread of the
-// block must call this (it synchronises when tpr > 32).
-__device__ __forceinline__ float row_sum(float v, int tpr, float* buf) {
-  for (int o = min(tpr, 32) >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(FULL, v, o);
-  if (tpr <= 32) return v;
-  const int warp = threadIdx.x >> 5, wpr = tpr >> 5;
-  if ((threadIdx.x & 31) == 0) buf[warp] = v;
+__device__ __forceinline__ void store_as(void* p, int dt, int64_t c, float v) {
+  if (dt == BF16) static_cast<__nv_bfloat16*>(p)[c] = __float2bfloat16(v);
+  else if (dt == F16) static_cast<__half*>(p)[c] = __float2half(v);
+  else static_cast<float*>(p)[c] = v;
+}
+
+// The scale [D] into shared memory as f32, by every thread of the block,
+// in two steps: `fetch` issues its 16-byte loads (at most two a thread:
+// D <= 2,048 f32 on the register path), `commit` converts and stores
+// them.  The loads are issued before the rows', so they do not queue
+// behind them; a scale off 16 bytes is read an element at a time in
+// `commit`.
+struct ScaleStage {
+  uint4 r[2];
+  int per, nvec;
+  bool vec;
+
+  __device__ void fetch(const void* s, int dt, int D) {
+    per = dt == F32 ? 4 : 8;
+    nvec = D / per;
+    vec = (reinterpret_cast<uintptr_t>(s) & 15) == 0 && D % per == 0 &&
+          nvec <= 2 * (int)blockDim.x;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int v = threadIdx.x + k * blockDim.x;
+      r[k] = vec && v < nvec ? __ldg(reinterpret_cast<const uint4*>(s) + v)
+                             : make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  __device__ void commit(const void* s, int dt, int D, float* sc) const {
+    if (!vec) {
+      for (int c = threadIdx.x; c < D; c += blockDim.x) sc[c] = load_scale(s, dt, c);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int v = threadIdx.x + k * blockDim.x;
+      if (v >= nvec) continue;
+      float* o = sc + v * per;
+      if (dt == F32) {
+        *reinterpret_cast<uint4*>(o) = r[k];
+      } else {
+        float f[8];
+        if (dt == BF16) unpack<__nv_bfloat16, 8>(r[k], f);
+        else unpack<__half, 8>(r[k], f);
+        reinterpret_cast<float4*>(o)[0] = make_float4(f[0], f[1], f[2], f[3]);
+        reinterpret_cast<float4*>(o)[1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
+    }
+  }
+};
+
+// Rows [r0, r1) of part i of `parts`: an even split (sizes differ by at
+// most one row), as launch_geometry's unit_rows.
+__device__ __forceinline__ void split_rows(int64_t rows, int64_t parts, int64_t i, int64_t& r0,
+                                           int64_t& r1) {
+  r0 = rows * i / parts;
+  r1 = rows * (i + 1) / parts;
+}
+
+// Sum a (and b) over the tpr threads of a row group.  A group of at most a
+// warp reduces by shuffles alone (all 32 lanes take part).  A wider group
+// is the whole block: one shared-memory step through red[par] (`par`
+// alternates row by row, so one __syncthreads a row suffices).
+__device__ __forceinline__ void group_sum2(float& a, float& b, int tpr, float* red, int par) {
+  for (int o = min(tpr, 32) >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(FULL, a, o);
+    b += __shfl_xor_sync(FULL, b, o);
+  }
+  if (tpr <= 32) return;
+  const int warp = threadIdx.x >> 5, nw = tpr >> 5;
+  float* r = red + par * 32;
+  if ((threadIdx.x & 31) == 0) {
+    r[warp] = a;
+    r[16 + warp] = b;
+  }
   __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < wpr; ++w) s += buf[(warp / wpr) * wpr + w];
+  a = b = 0.f;
+  for (int w = 0; w < nw; ++w) {
+    a += r[w];
+    b += r[16 + w];
+  }
+}
+
+__device__ __forceinline__ float group_sum(float a, int tpr, float* red, int par) {
+  float b = 0.f;
+  group_sum2(a, b, tpr, red, par);
+  return a;
+}
+
+// The staged layout of dynamic shared memory, as launch_geometry's
+// `staged_smem`: the ring's mbarriers, the block reduction's 2 x 32 floats,
+// then the ring (`stages` slots of one row of x, and of g after it
+// backward).  Backward, the ring's bytes are reused after the rows for the
+// block's partial ds [D] and the finishers' sums (a float4 a thread).
+struct Staged {
+  int D, elt, threads, stages, bwd;
+  __host__ __device__ static int64_t align128(int64_t b) { return (b + 127) / 128 * 128; }
+  __host__ __device__ int64_t red_off() const { return align128(8ll * stages); }
+  __host__ __device__ int64_t ring_off() const { return red_off() + 256; }
+  __host__ __device__ int64_t slot_elems() const { return (int64_t)D * (bwd ? 2 : 1); }
+  __host__ __device__ int64_t bytes() const {
+    int64_t ring = (int64_t)stages * slot_elems() * elt;
+    if (bwd) {
+      if (4ll * D > ring) ring = 4ll * D;
+      if (16ll * threads > ring) ring = 16ll * threads;
+    }
+    return ring_off() + ring;
+  }
+};
+
+// The backward's tickets, one pair per device, zero at module load:
+// `g_arrived` counts arriving blocks over all launches (it wraps, and only
+// differences are read), `g_base` is its value when this launch began.
+__device__ unsigned int g_arrived = 0, g_base = 0;
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// After each block has written its partial row part[blockIdx.x] (f32 [D]):
+// the last `fin` blocks to arrive each sum one slice of the columns (in
+// groups of 4 where D allows, read as float4) over all nblk partials, in
+// block order: a column's blocks cut into `segs` consecutive runs, each
+// summed in order, then the runs in order; cast to the scale's dtype.  The
+// finishers then move `g_base` on by nblk (each writes the same value),
+// ready for the next launch.  `tmp` is 4 * blockDim.x floats of shared
+// memory.
+__device__ void finish_ds(const float* part, int nblk, int D, void* ds, int dt, int fin,
+                          float* tmp) {
+  __shared__ int slice;
+  __shared__ unsigned base;
+  // every thread's partial written (the barrier), made visible device-wide
+  // by thread 0's fence before its ticket
   __syncthreads();
-  return s;
+  if (threadIdx.x == 0) {
+    const unsigned b = *static_cast<volatile unsigned*>(&g_base);
+    __threadfence();
+    slice = (int)(atomicAdd(&g_arrived, 1u) - b) - (nblk - fin);
+    base = b;
+    if (slice >= 0) {
+      // a block that never arrives (a lost launch) traps after 2^34 clocks
+      const long long first = clock64();
+      while (ld_acquire(&g_arrived) - b < (unsigned)nblk)
+        if (clock64() - first > (1ll << 34)) __trap();
+    }
+  }
+  __syncthreads();
+  const int f = slice;
+  if (f < 0) return;
+  const int W = D % 4 == 0 ? 4 : 1, ng = D / W;
+  const int g0 = (int)((int64_t)ng * f / fin), g1 = (int)((int64_t)ng * (f + 1) / fin);
+  const int cols = min(g1 - g0, (int)blockDim.x);
+  const int segs = blockDim.x / cols;
+  const int ci = threadIdx.x % cols, seg = threadIdx.x / cols;
+  const int b0 = nblk * seg / segs, b1 = nblk * (seg + 1) / segs;
+  float4* t4 = reinterpret_cast<float4*>(tmp);
+  for (int gb = g0; gb < g1; gb += cols) {
+    const int gc = gb + ci;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (seg < segs && gc < g1) {
+      if (W == 4) {
+#pragma unroll 4
+        for (int b = b0; b < b1; ++b) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(part + (int64_t)b * D) + gc);
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+      } else {
+#pragma unroll 4
+        for (int b = b0; b < b1; ++b) s.x += __ldcg(part + (int64_t)b * D + gc);
+      }
+    }
+    t4[threadIdx.x] = s;
+    __syncthreads();
+    if (seg == 0 && gc < g1) {
+      float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < segs; ++q) {
+        const float4 v = t4[q * cols + ci];
+        tot.x += v.x;
+        tot.y += v.y;
+        tot.z += v.z;
+        tot.w += v.w;
+      }
+      const float o[4] = {tot.x, tot.y, tot.z, tot.w};
+      for (int k = 0; k < W; ++k) store_as(ds, dt, (int64_t)gc * W + k, o[k]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) g_base = base + (unsigned)nblk;
 }
 
-template <typename T, int V, int NV>
-__global__ void __launch_bounds__(FWD_THREADS)
-rmsnorm_fwd_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                   int s_bf16, T* __restrict__ y, int64_t rows, int D, int tpr,
-                   float eps) {
-  __shared__ float buf[FWD_THREADS / 32];
-  const int rpb = FWD_THREADS / tpr;
-  const int t = threadIdx.x % tpr;
-  const int64_t row = (int64_t)blockIdx.x * rpb + threadIdx.x / tpr;
-  const bool live = row < rows;
-  const T* xr = x + row * D;
+// Narrow rows, held in registers: each warp of the grid takes an even
+// share of the rows, 32 / tpr of them at a time (a row in tpr lanes, NV
+// 16-byte vectors a lane).  A warp loads its next rows into a second set
+// of registers before it reduces the current ones (the backward, holding x
+// and g twice, fits one block of 8 warps an SM; the forward two).  The statistic is a warp shuffle; the scale is staged in
+// shared memory as f32 once a block (ScaleStage).
+template <typename T, int NV>
+struct Rows {
+  static constexpr int V = 16 / sizeof(T);
+  int tpr, t, subs, sub;
+  int64_t r0, r1;
 
-  float xf[NV][V];
-  float ss = 0.f;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * tpr + t) * V;
-    if (live && c < D) {
-      load_vec<T, V>(xr + c, xf[j]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) xf[j][i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) ss += xf[j][i] * xf[j][i];
+  __device__ Rows(int64_t rows, int tpr_) : tpr(tpr_) {
+    const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+    subs = 32 / tpr;
+    sub = lane / tpr;
+    t = lane % tpr;
+    split_rows(rows, (int64_t)gridDim.x * warps, (int64_t)blockIdx.x * warps + (threadIdx.x >> 5),
+               r0, r1);
   }
-  const float inv = 1.f / sqrtf(row_sum(ss, tpr, buf) / D + eps);
-  if (!live) return;
+  __device__ int col(int j) const { return (j * tpr + t) * V; }
+  // this lane's vectors of `row` of a (zeros past the rows or the row)
+  __device__ void load(const T* a, int64_t row, int D, uint4 (&buf)[NV]) const {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * tpr + t) * V;
-    if (c < D) {
-      float o[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        o[i] = xf[j][i] * inv * load_scale(scale, s_bf16, c + i);
-      store_vec<T, V>(y + row * D + c, o);
-    }
+    for (int j = 0; j < NV; ++j)
+      buf[j] = row < r1 && col(j) < D
+                   ? __ldg(reinterpret_cast<const uint4*>(a + row * D + col(j)))
+                   : make_uint4(0, 0, 0, 0);
   }
+};
+
+template <int NV>
+__device__ __forceinline__ void move(uint4 (&dst)[NV], const uint4 (&src)[NV]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) dst[j] = src[j];
 }
 
-// One block per SM (at most), each looping over rows; writes dx and this
-// block's partial ds [D] (f32) to part[blockIdx.x].
-template <typename T, int V, int NV>
-__global__ void __launch_bounds__(BWD_THREADS)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                   int s_bf16, const T* __restrict__ g, T* __restrict__ dx,
-                   float* __restrict__ part, int64_t rows, int D, int tpr,
-                   float eps) {
-  __shared__ float buf[BWD_THREADS / 32];
-  extern __shared__ float red[];   // [rpb, D] when rpb > 1
-  const int rpb = BWD_THREADS / tpr;
-  const int rg = threadIdx.x / tpr, t = threadIdx.x % tpr;
-
-  float sf[NV][V], acc[NV][V];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (j * tpr + t) * V;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      sf[j][i] = c < D ? load_scale(scale, s_bf16, c + i) : 0.f;
-      acc[j][i] = 0.f;
-    }
-  }
-
-  // `row0` is uniform over the block, so every thread reaches every sync
-  for (int64_t row0 = (int64_t)blockIdx.x * rpb; row0 < rows;
-       row0 += (int64_t)gridDim.x * rpb) {
-    const int64_t row = row0 + rg;
-    const bool live = row < rows;
-    float xf[NV][V], gf[NV][V];
+template <typename T, int NV>
+__global__ void __launch_bounds__(256, 2)
+rmsnorm_fwd_rows(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                 T* __restrict__ y, int64_t rows, int D, int tpr, float eps) {
+  using R = Rows<T, NV>;
+  constexpr int V = R::V;
+  extern __shared__ float4 rows_smem[];
+  float* sc = reinterpret_cast<float*>(rows_smem);   // [D]
+  const R W(rows, tpr);
+  ScaleStage stage;
+  stage.fetch(scale, sdt, D);
+  uint4 cur[NV];
+  W.load(x, W.r0 + W.sub, D, cur);
+  stage.commit(scale, sdt, D, sc);
+  __syncthreads();
+  for (int64_t base = W.r0; base < W.r1; base += W.subs) {
+    const int64_t row = base + W.sub;
+    const bool more = base + W.subs < W.r1;
+    uint4 nxt[NV];
+    if (more) W.load(x, row + W.subs, D, nxt);
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      const int c = (j * tpr + t) * V;
-      if (live && c < D) {
-        load_vec<T, V>(x + row * D + c, xf[j]);
-        load_vec<T, V>(g + row * D + c, gf[j]);
-      } else {
+      float f[V];
+      unpack<T, V>(cur[j], f);
 #pragma unroll
-        for (int i = 0; i < V; ++i) xf[j][i] = gf[j][i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) ss += xf[j][i] * xf[j][i];
+      for (int i = 0; i < V; ++i) ss += f[i] * f[i];
     }
-    const float inv = 1.f / sqrtf(row_sum(ss, tpr, buf) / D + eps);
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float xhat = xf[j][i] * inv;
-        xf[j][i] = xhat;
-        dot += gf[j][i] * sf[j][i] * xhat;
-        acc[j][i] += gf[j][i] * xhat;
-      }
-    }
-    dot = row_sum(dot, tpr, buf) / D;
-    if (live) {
+    const float inv = 1.f / sqrtf(group_sum(ss, tpr, nullptr, 0) / D + eps);
+    if (row < W.r1) {
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
-        const int c = (j * tpr + t) * V;
+        const int c = W.col(j);
         if (c < D) {
-          float o[V];
+          float f[V], s[V];
+          unpack<T, V>(cur[j], f);
+          lds_f32<V>(sc + c, s);
 #pragma unroll
-          for (int i = 0; i < V; ++i)
-            o[i] = inv * (gf[j][i] * sf[j][i] - xf[j][i] * dot);
+          for (int i = 0; i < V; ++i) f[i] = f[i] * inv * s[i];
+          store_vec<T, V>(y + row * D + c, f);
+        }
+      }
+    }
+    if (more) move(cur, nxt);
+  }
+}
+
+// The backward of narrow rows: x and g of the current rows and of the
+// next in registers; a row group's (tpr lanes') share of ds accumulates in
+// shared memory, each column always the same thread's, then the block's
+// groups are summed in order into its partial row and finish_ds.
+template <typename T, int NV>
+__global__ void __launch_bounds__(256, 1)
+rmsnorm_bwd_rows(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                 const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+                 void* __restrict__ ds, int64_t rows, int D, int tpr, int fin, float eps) {
+  using R = Rows<T, NV>;
+  constexpr int V = R::V;
+  extern __shared__ float4 rows_smem[];
+  float* sc = reinterpret_cast<float*>(rows_smem);   // [D]
+  float* acc = sc + (D + 3) / 4 * 4;                  // [groups, D]
+  const int groups = blockDim.x / tpr, gi = threadIdx.x / tpr;
+  const R W(rows, tpr);
+  ScaleStage stage;
+  stage.fetch(scale, sdt, D);
+  uint4 cx[NV], cg[NV];
+  W.load(x, W.r0 + W.sub, D, cx);
+  W.load(g, W.r0 + W.sub, D, cg);
+  stage.commit(scale, sdt, D, sc);
+  for (int c = threadIdx.x; c < groups * D; c += blockDim.x) acc[c] = 0.f;
+  __syncthreads();
+  float* mine = acc + (int64_t)gi * D;
+  for (int64_t base = W.r0; base < W.r1; base += W.subs) {
+    const int64_t row = base + W.sub;
+    const bool more = base + W.subs < W.r1;
+    uint4 nx[NV], ng[NV];
+    if (more) {
+      W.load(x, row + W.subs, D, nx);
+      W.load(g, row + W.subs, D, ng);
+    }
+    // one pass gives sum x^2 and sum g*s*x: mean(g*s*xhat) = inv * that / D
+    float ss = 0.f, gsx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = W.col(j);
+      if (c < D) {
+        float xf[V], gf[V], s[V];
+        unpack<T, V>(cx[j], xf);
+        unpack<T, V>(cg[j], gf);
+        lds_f32<V>(sc + c, s);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          ss += xf[i] * xf[i];
+          gsx += gf[i] * s[i] * xf[i];
+        }
+      }
+    }
+    group_sum2(ss, gsx, tpr, nullptr, 0);
+    const float inv = 1.f / sqrtf(ss / D + eps);
+    const float dot = inv * gsx / D;
+    if (row < W.r1) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = W.col(j);
+        if (c < D) {
+          float xf[V], gf[V], s[V], o[V], a[V];
+          unpack<T, V>(cx[j], xf);
+          unpack<T, V>(cg[j], gf);
+          lds_f32<V>(sc + c, s);
+          lds_f32<V>(mine + c, a);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float xhat = xf[i] * inv;
+            o[i] = inv * (gf[i] * s[i] - xhat * dot);
+            a[i] += gf[i] * xhat;
+          }
+#pragma unroll
+          for (int k = 0; k < V / 4; ++k)
+            reinterpret_cast<float4*>(mine + c)[k] =
+                make_float4(a[4 * k], a[4 * k + 1], a[4 * k + 2], a[4 * k + 3]);
           store_vec<T, V>(dx + row * D + c, o);
         }
       }
     }
-  }
-
-  // this block's partial ds: its row groups summed in order
-  float* out = part + (int64_t)blockIdx.x * D;
-  if (rpb == 1) {
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int c = (j * tpr + t) * V;
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        if (c + i < D) out[c + i] = acc[j][i];
+    if (more) {
+      move(cx, nx);
+      move(cg, ng);
     }
-    return;
   }
-  // rpb > 1 only when one vector a thread covers a row (NV == 1)
-  const int c = t * V;
-#pragma unroll
-  for (int i = 0; i < V; ++i)
-    if (c + i < D) red[rg * D + c + i] = acc[0][i];
+  // this block's partial ds: its row groups in order, 4 columns a thread
+  // (D is a multiple of 4 on this path)
   __syncthreads();
-  for (int col = threadIdx.x; col < D; col += BWD_THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < rpb; ++r) s += red[r * D + col];
-    out[col] = s;
+  float* out = part + (int64_t)blockIdx.x * D;
+  for (int col = 4 * threadIdx.x; col < D; col += 4 * blockDim.x) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int q = 0; q < groups; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(acc + (int64_t)q * D + col);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + col) = s;
+  }
+  finish_ds(part, gridDim.x, D, ds, sdt, fin, acc);
+}
+
+// Wide rows, staged: each block takes an even share of the rows, one row
+// at a time, from a ring of `stages` one-row slots that its first thread
+// fills by 1-D bulk copies; the block's threads hold the scale (and,
+// backward, their share of ds) for their NV vectors in registers across
+// its rows.  The statistic is a warp shuffle and one shared-memory step.
+template <typename T>
+struct Ring {
+  const Staged L;
+  unsigned char* smem;
+  int64_t r0, r1;
+  int n;
+  T* ring;
+  uint32_t bar0;
+
+  __device__ Ring(const Staged& L_, unsigned char* smem_, int64_t rows) : L(L_), smem(smem_) {
+    split_rows(rows, gridDim.x, blockIdx.x, r0, r1);
+    n = (int)(r1 - r0);
+    ring = reinterpret_cast<T*>(smem + L.ring_off());
+    bar0 = fm90_saddr(smem);
+  }
+  __device__ float* red() const { return reinterpret_cast<float*>(smem + L.red_off()); }
+  __device__ T* slot(int k) const { return ring + (int64_t)(k % L.stages) * L.slot_elems(); }
+
+  // row r0 + k of a (and of b, backward) into its slot; thread 0 only
+  __device__ void issue(int k, const T* a, const T* b) const {
+    const uint32_t bar = bar0 + 8 * (k % L.stages);
+    const uint32_t bytes = (uint32_t)L.D * sizeof(T);
+    const int64_t off = (r0 + k) * L.D;
+    fm90_arrive_tx(bar, b ? 2 * bytes : bytes);
+    sm90_bulk_load(fm90_saddr(slot(k)), a + off, bytes, bar);
+    if (b) sm90_bulk_load(fm90_saddr(slot(k) + L.D), b + off, bytes, bar);
+  }
+  // the barriers initialised and the first slots' copies issued
+  __device__ void start(const T* a, const T* b) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < L.stages; ++s) fm90_bar_init(bar0 + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int k = 0; k < n && k < L.stages; ++k) issue(k, a, b);
+    }
+    __syncthreads();
+  }
+  __device__ void wait(int k) const { fm90_wait(bar0 + 8 * (k % L.stages), (k / L.stages) & 1); }
+  // row k's slot read by every thread: refill it with row k + stages
+  __device__ void release(int k, const T* a, const T* b) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && k + L.stages < n) {
+      fm90_fence_async_smem();
+      issue(k + L.stages, a, b);
+    }
+  }
+};
+
+// This thread's NV vectors of the scale, as f32 (zeros past D): 16-byte
+// loads where the scale's pointer allows (its V elements are 16 or 32
+// bytes, or 8 for a 16-bit scale beside f32 x), else one element each
+template <typename T, int NV>
+__device__ __forceinline__ void scale_regs(const void* s, int dt, int D,
+                                           float (&sf)[NV][16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (j * blockDim.x + threadIdx.x) * V;
+    if (c >= D) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sf[j][i] = 0.f;
+    } else if (vec && dt == F32) {
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(s) + c) + k);
+        sf[j][4 * k] = f.x;
+        sf[j][4 * k + 1] = f.y;
+        sf[j][4 * k + 2] = f.z;
+        sf[j][4 * k + 3] = f.w;
+      }
+    } else if (vec && V == 8) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(s) + c));
+      if (dt == BF16) unpack<__nv_bfloat16, V>(r, sf[j]);
+      else unpack<__half, V>(r, sf[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sf[j][i] = load_scale(s, dt, c + i);
+    }
   }
 }
 
-// Wide rows, forward: one row a block at a time (rows strided by the
-// grid), its sum of squares read in a loop over the columns, then the row
-// read again for the output.  Any D.
+template <typename T, int NV>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rmsnorm_fwd_staged(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                   T* __restrict__ y, int64_t rows, Staged L, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring<T> Q(L, smem, rows);
+  float sf[NV][V];
+  scale_regs<T, NV>(scale, sdt, L.D, sf);
+  Q.start(x, nullptr);
+  const int D = L.D;
+  for (int k = 0; k < Q.n; ++k) {
+    Q.wait(k);
+    const T* xr = Q.slot(k);
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * blockDim.x + threadIdx.x) * V;
+      if (c < D) {
+        float v[V];
+        lds_vec<T, V>(xr + c, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) ss += v[i] * v[i];
+      }
+    }
+    const float inv = 1.f / sqrtf(group_sum(ss, blockDim.x, Q.red(), k & 1) / D + eps);
+    T* yr = y + (Q.r0 + k) * D;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * blockDim.x + threadIdx.x) * V;
+      if (c < D) {
+        float v[V];
+        lds_vec<T, V>(xr + c, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = v[i] * inv * sf[j][i];
+        store_vec<T, V>(yr + c, v);
+      }
+    }
+    Q.release(k, x, nullptr);
+  }
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rmsnorm_bwd_staged(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                   const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+                   void* __restrict__ ds, int64_t rows, Staged L, int fin, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring<T> Q(L, smem, rows);
+  float sf[NV][V], acc[NV][V];
+  scale_regs<T, NV>(scale, sdt, L.D, sf);
+  Q.start(x, g);
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
+  const int D = L.D;
+  for (int k = 0; k < Q.n; ++k) {
+    Q.wait(k);
+    const T* xr = Q.slot(k);
+    const T* gr = xr + D;
+    float ss = 0.f, gsx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * blockDim.x + threadIdx.x) * V;
+      if (c < D) {
+        float xv[V], gv[V];
+        lds_vec<T, V>(xr + c, xv);
+        lds_vec<T, V>(gr + c, gv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          ss += xv[i] * xv[i];
+          gsx += gv[i] * sf[j][i] * xv[i];
+        }
+      }
+    }
+    group_sum2(ss, gsx, blockDim.x, Q.red(), k & 1);
+    const float inv = 1.f / sqrtf(ss / D + eps);
+    const float dot = inv * gsx / D;
+    T* dr = dx + (Q.r0 + k) * D;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (j * blockDim.x + threadIdx.x) * V;
+      if (c < D) {
+        float xv[V], gv[V], o[V];
+        lds_vec<T, V>(xr + c, xv);
+        lds_vec<T, V>(gr + c, gv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float xhat = xv[i] * inv;
+          o[i] = inv * (gv[i] * sf[j][i] - xhat * dot);
+          acc[j][i] += gv[i] * xhat;
+        }
+        store_vec<T, V>(dr + c, o);
+      }
+    }
+    Q.release(k, x, g);
+  }
+  // this block's partial ds: one row group, written as it is
+  float* out = part + (int64_t)blockIdx.x * D;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (j * blockDim.x + threadIdx.x) * V;
+    if (c < D)
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[c + i] = acc[j][i];
+  }
+  finish_ds(part, gridDim.x, D, ds, sdt, fin, reinterpret_cast<float*>(smem + L.ring_off()));
+}
+
+// Rows that are not staged, forward: each block takes its rows (an even
+// split) one at a time, its sum of squares read in a loop over the columns,
+// then the row read again for the output.  Any D.
 template <typename T, int V>
-__global__ void __launch_bounds__(FWD_THREADS)
-rmsnorm_fwd_wide_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                        int s_bf16, T* __restrict__ y, int64_t rows, int D,
-                        float eps) {
-  __shared__ float buf[FWD_THREADS / 32];
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+rmsnorm_fwd_direct(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                   T* __restrict__ y, int64_t rows, int D, float eps) {
+  __shared__ float red[64];
+  int64_t r0, r1;
+  split_rows(rows, gridDim.x, blockIdx.x, r0, r1);
+  const int step = blockDim.x * V;
+  for (int64_t row = r0; row < r1; ++row) {
     const T* xr = x + row * D;
     float ss = 0.f;
-    for (int c = threadIdx.x * V; c < D; c += FWD_THREADS * V) {
+    for (int c = threadIdx.x * V; c < D; c += step) {
       float v[V];
       load_vec<T, V>(xr + c, v);
 #pragma unroll
       for (int i = 0; i < V; ++i) ss += v[i] * v[i];
     }
-    const float inv = 1.f / sqrtf(row_sum(ss, FWD_THREADS, buf) / D + eps);
-    for (int c = threadIdx.x * V; c < D; c += FWD_THREADS * V) {
+    const float inv = 1.f / sqrtf(group_sum(ss, blockDim.x, red, row & 1) / D + eps);
+    for (int c = threadIdx.x * V; c < D; c += step) {
       float v[V];
       load_vec<T, V>(xr + c, v);
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = v[i] * inv * load_scale(scale, s_bf16, c + i);
+      for (int i = 0; i < V; ++i) v[i] = v[i] * inv * load_scale(scale, sdt, c + i);
       store_vec<T, V>(y + row * D + c, v);
     }
   }
 }
 
-// acc[0:V] += v, as 16-byte accesses where V allows (conflict-light in
-// shared memory, one transaction in global)
-template <int V>
-__device__ __forceinline__ void add_vec(float* acc, const float (&v)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) {
-      float4 a = reinterpret_cast<float4*>(acc)[k];
-      a.x += v[4 * k];
-      a.y += v[4 * k + 1];
-      a.z += v[4 * k + 2];
-      a.w += v[4 * k + 3];
-      reinterpret_cast<float4*>(acc)[k] = a;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += v[i];
-  }
-}
-
-// Wide rows, backward: each block takes rows in turn (row = blockIdx.x,
-// + gridDim.x, ...).  The first read of a row gives sum x^2 and
-// sum g*s*x, so mean(g*s*xhat) = inv * sum(g*s*x) / D; the second writes
-// dx and adds g*xhat to this block's partial row, kept in shared memory
-// when `acc_in_smem` (D floats; the launcher decides) and else in place in
-// part[blockIdx.x].  Column c is always the same thread's: no race, a
-// fixed order.
+// Rows that are not staged, backward: as the forward, each row read twice
+// (the first read gives sum x^2 and sum g*s*x).  Column c is always the
+// same thread's, so its partial ds is added without a race, in a fixed
+// order: in shared memory when `acc_smem` (D floats), else in place in
+// part[blockIdx.x].  Then finish_ds.
 template <typename T, int V>
-__global__ void __launch_bounds__(BWD_THREADS)
-rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                        int s_bf16, const T* __restrict__ g,
-                        T* __restrict__ dx, float* __restrict__ part,
-                        int64_t rows, int D, float eps, int acc_in_smem) {
-  __shared__ float buf[BWD_THREADS / 32];
-  extern __shared__ float4 acc_smem[];
-  float* out = part + (int64_t)blockIdx.x * D;
-  float* acc = acc_in_smem ? reinterpret_cast<float*>(acc_smem) : out;
-  for (int c = threadIdx.x * V; c < D; c += BWD_THREADS * V)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rmsnorm_bwd_direct(const T* __restrict__ x, const void* __restrict__ scale, int sdt,
+                   const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+                   void* __restrict__ ds, int64_t rows, int D, int acc_smem, int fin,
+                   float eps) {
+  __shared__ float red[64];
+  extern __shared__ float4 dyn[];
+  float* mine = part + (int64_t)blockIdx.x * D;
+  float* acc = acc_smem ? reinterpret_cast<float*>(dyn) : mine;
+  const int step = blockDim.x * V;
+  for (int c = threadIdx.x * V; c < D; c += step)
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[c + i] = 0.f;
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+  int64_t r0, r1;
+  split_rows(rows, gridDim.x, blockIdx.x, r0, r1);
+  for (int64_t row = r0; row < r1; ++row) {
     const T* xr = x + row * D;
     const T* gr = g + row * D;
     float ss = 0.f, gsx = 0.f;
-#pragma unroll 4
-    for (int c = threadIdx.x * V; c < D; c += BWD_THREADS * V) {
+    for (int c = threadIdx.x * V; c < D; c += step) {
       float xv[V], gv[V];
       load_vec<T, V>(xr + c, xv);
       load_vec<T, V>(gr + c, gv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         ss += xv[i] * xv[i];
-        gsx += gv[i] * load_scale(scale, s_bf16, c + i) * xv[i];
+        gsx += gv[i] * load_scale(scale, sdt, c + i) * xv[i];
       }
     }
-    const float inv = 1.f / sqrtf(row_sum(ss, BWD_THREADS, buf) / D + eps);
-    const float dot = inv * row_sum(gsx, BWD_THREADS, buf) / D;
-#pragma unroll 4
-    for (int c = threadIdx.x * V; c < D; c += BWD_THREADS * V) {
+    group_sum2(ss, gsx, blockDim.x, red, row & 1);
+    const float inv = 1.f / sqrtf(ss / D + eps);
+    const float dot = inv * gsx / D;
+    for (int c = threadIdx.x * V; c < D; c += step) {
       float xv[V], gv[V], o[V];
       load_vec<T, V>(xr + c, xv);
       load_vec<T, V>(gr + c, gv);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const float xhat = xv[i] * inv;
-        o[i] = inv * (gv[i] * load_scale(scale, s_bf16, c + i) - xhat * dot);
-        gv[i] *= xhat;
+        o[i] = inv * (gv[i] * load_scale(scale, sdt, c + i) - xhat * dot);
+        acc[c + i] += gv[i] * xhat;
       }
-      add_vec<V>(acc + c, gv);
       store_vec<T, V>(dx + row * D + c, o);
     }
   }
-  if (acc_in_smem)
-    for (int c = threadIdx.x * V; c < D; c += BWD_THREADS * V)
+  if (acc_smem)
+    for (int c = threadIdx.x * V; c < D; c += step)
 #pragma unroll
-      for (int i = 0; i < V; ++i) out[c + i] = acc[c + i];
+      for (int i = 0; i < V; ++i) mine[c + i] = acc[c + i];
+  finish_ds(part, gridDim.x, D, ds, sdt, fin, reinterpret_cast<float*>(dyn));
 }
 
-// ds[c] = sum over blocks b of part[b, c], in block order: 32 columns x 32
-// slices a block, each slice summing every 32nd block, then the slices in
-// order.  Cast to scale's dtype.
-__global__ void __launch_bounds__(1024)
-rmsnorm_ds_kernel(const float* __restrict__ part, int nblk, int D,
-                  void* __restrict__ ds, int ds_bf16) {
-  __shared__ float sl[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < D)
-    for (int b = threadIdx.y; b < nblk; b += 32) s += part[(int64_t)b * D + c];
-  sl[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y != 0 || c >= D) return;
-  float tot = 0.f;
-  for (int k = 0; k < 32; ++k) tot += sl[k][threadIdx.x];
-  if (ds_bf16)
-    static_cast<__nv_bfloat16*>(ds)[c] = __float2bfloat16(tot);
-  else
-    static_cast<float*>(ds)[c] = tot;
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+inline cudaError_t allow_smem(const void* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The row layout for D elements of `elt` bytes: vector width V (16 bytes
-// when D and every pointer allow it, else 1), threads a row tpr (a power of
-// two, at most `threads`), vectors a thread NV (a power of two).
-struct Layout {
-  int V, tpr, NV;
+// The paths of a launch, as launch_geometry's `path`
+constexpr int DIRECT = 0, REGISTERS = 1, STAGED = 2;
+
+// What every launch is given (kernels/rmsnorm.py, `launch_geometry`)
+struct Geo {
+  int path, threads, tpr, stages, nv, vec, grid, fin, smem;
 };
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// The checks a geometry must pass: false for one the kernels cannot run
+inline bool geo_ok(const Geo& G, int64_t rows, int D, int elt, bool bwd,
+                   std::initializer_list<const void*> ptrs) {
+  if (rows <= 0 || D <= 0 || G.grid <= 0 || G.threads < 32 || G.threads > MAX_THREADS ||
+      G.threads % 32 || G.smem < 0 || G.smem > SMEM_BLOCK)
+    return false;
+  if (bwd && (G.fin < 1 || G.fin > G.grid || G.fin > D)) return false;
+  bool al = true;
+  for (const void* p : ptrs) al = al && aligned16(p);
+  const int V = 16 / elt;
+  if (G.path == DIRECT) {
+    if (G.vec != 1 && !(G.vec == V && al && D % V == 0)) return false;
+    // the finishers' sums: a float4 a thread
+    return !bwd || G.smem >= 16 * G.threads;
+  }
+  const bool nv_ok = G.nv == 1 || G.nv == 2 || G.nv == 4 || G.nv == 8;
+  if (!al || D % V || !nv_ok) return false;
+  if (G.path == REGISTERS) {
+    const bool pow2 = G.tpr > 0 && G.tpr <= 32 && (G.tpr & (G.tpr - 1)) == 0;
+    const int64_t sc = 4ll * ((D + 3) / 4), acc = 4ll * (G.threads / G.tpr) * D;
+    const int64_t need = sc + (bwd ? (acc > 16ll * G.threads ? acc : 16ll * G.threads) : 0);
+    return pow2 && G.threads <= 256 && (int64_t)G.tpr * G.nv * V >= D && G.smem >= need &&
+           !(bwd && elt == 4 && G.nv > 4);
+  }
+  // the scale (and, backward, ds) in registers: 32 f32 each, 4 vectors
+  // backward (f32 at 8 vectors spills)
+  if (G.path != STAGED || G.tpr != G.threads || G.stages < 1 ||
+      (int64_t)G.threads * G.nv * V < D || G.nv * V > 32 || (bwd && G.nv > 4))
+    return false;
+  const Staged L{D, elt, G.threads, G.stages, bwd};
+  return L.bytes() <= G.smem;
 }
 
-inline Layout layout_for(int D, int elt, bool vec_ok, int threads) {
-  Layout L;
-  L.V = (vec_ok && D % (16 / elt) == 0) ? 16 / elt : 1;
-  const int nvec = D / L.V;
-  int tpr = 1;
-  while (tpr < nvec && tpr < threads) tpr <<= 1;
-  int nv = 1;
-  while (nv * tpr < nvec) nv <<= 1;
-  L.tpr = tpr;
-  L.NV = nv;
-  return L;
+template <typename T, int NV>
+void fwd_nv(const Geo& G, const T* x, const void* scale, int sdt, T* y, int64_t rows, int D,
+            float eps, cudaStream_t st, cudaError_t& e) {
+  if (G.path == REGISTERS) {
+    e = allow_smem((const void*)rmsnorm_fwd_rows<T, NV>, G.smem);
+    if (e == cudaSuccess)
+      rmsnorm_fwd_rows<T, NV><<<G.grid, G.threads, G.smem, st>>>(x, scale, sdt, y, rows, D,
+                                                               G.tpr, eps);
+  } else if constexpr (NV * 16 / sizeof(T) <= 32) {   // geo_ok's staged limit
+    const Staged L{D, (int)sizeof(T), G.threads, G.stages, 0};
+    e = allow_smem((const void*)rmsnorm_fwd_staged<T, NV>, G.smem);
+    if (e == cudaSuccess)
+      rmsnorm_fwd_staged<T, NV><<<G.grid, G.threads, G.smem, st>>>(x, scale, sdt, y, rows, L,
+                                                                 eps);
+  }
 }
 
-// The most vectors a thread holds in registers before a row takes the wide
-// kernels: what each direction's instantiations hold without spilling.
-// The backward keeps four arrays of NV x V floats under a 64-register cap
-// (1,024 threads); a scalar row of 8 elements a thread spills either way.
-template <int V> constexpr int fwd_max_nv() { return V > 1 ? 8 : 4; }
-template <int V> constexpr int bwd_max_nv() { return V > 1 ? 8 / V : 4; }
+template <typename T, int NV>
+void bwd_nv(const Geo& G, const T* x, const void* scale, int sdt, const T* g, T* dx,
+            float* part, void* ds, int64_t rows, int D, float eps, cudaStream_t st,
+            cudaError_t& e) {
+  if (G.path == REGISTERS) {
+    if constexpr (sizeof(T) < 4 || NV <= 4) {   // f32 at 8 vectors spills: geo_ok refuses it
+      e = allow_smem((const void*)rmsnorm_bwd_rows<T, NV>, G.smem);
+      if (e == cudaSuccess)
+        rmsnorm_bwd_rows<T, NV><<<G.grid, G.threads, G.smem, st>>>(
+            x, scale, sdt, g, dx, part, ds, rows, D, G.tpr, G.fin, eps);
+    }
+  } else if constexpr (NV * 16 / sizeof(T) <= 32 && NV <= 4) {   // geo_ok's staged limit
+    const Staged L{D, (int)sizeof(T), G.threads, G.stages, 1};
+    e = allow_smem((const void*)rmsnorm_bwd_staged<T, NV>, G.smem);
+    if (e == cudaSuccess)
+      rmsnorm_bwd_staged<T, NV><<<G.grid, G.threads, G.smem, st>>>(x, scale, sdt, g, dx, part,
+                                                                 ds, rows, L, G.fin, eps);
+  }
+}
 
-// Call f with NV as a compile-time constant (1, 2, 4 or 8, at most MAX)
-template <int MAX, typename F>
+// Call f with NV (1, 2, 4 or 8) as a compile-time constant
+template <typename F>
 void by_nv(int nv, F f) {
-  if constexpr (MAX >= 8) if (nv == 8) return f(std::integral_constant<int, 8>{});
-  if constexpr (MAX >= 4) if (nv == 4) return f(std::integral_constant<int, 4>{});
-  if constexpr (MAX >= 2) if (nv == 2) return f(std::integral_constant<int, 2>{});
-  f(std::integral_constant<int, 1>{});
+  switch (nv) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    default: return f(std::integral_constant<int, 1>{});
+  }
+}
+
+template <typename T>
+int fwd_launch(const Geo& G, const void* x, const void* scale, int sdt, void* y, int64_t rows,
+               int D, float eps, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  cudaError_t e = cudaSuccess;
+  if (G.path != DIRECT) {
+    by_nv(G.nv, [&](auto nv) {
+      fwd_nv<T, decltype(nv)::value>(G, xt, scale, sdt, yt, rows, D, eps, st, e);
+    });
+  } else if (G.vec == 1) {
+    rmsnorm_fwd_direct<T, 1><<<G.grid, G.threads, 0, st>>>(xt, scale, sdt, yt, rows, D, eps);
+  } else {
+    rmsnorm_fwd_direct<T, 16 / sizeof(T)>
+        <<<G.grid, G.threads, 0, st>>>(xt, scale, sdt, yt, rows, D, eps);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
-void fwd_launch(const Layout& L, const void* x, const void* scale, int s_bf16,
-                void* y, int64_t rows, int D, float eps, cudaStream_t st) {
-  if (L.NV > fwd_max_nv<V>()) {
-    const unsigned grid = (unsigned)(rows < (1 << 20) ? rows : (1 << 20));
-    rmsnorm_fwd_wide_kernel<T, V><<<grid, FWD_THREADS, 0, st>>>(
-        static_cast<const T*>(x), scale, s_bf16, static_cast<T*>(y), rows, D,
-        eps);
-    return;
-  }
-  const int rpb = FWD_THREADS / L.tpr;
-  const unsigned grid = (unsigned)((rows + rpb - 1) / rpb);
-  by_nv<fwd_max_nv<V>()>(L.NV, [&](auto nv) {
-    rmsnorm_fwd_kernel<T, V, decltype(nv)::value>
-        <<<grid, FWD_THREADS, 0, st>>>(static_cast<const T*>(x), scale,
-                                       s_bf16, static_cast<T*>(y), rows, D,
-                                       L.tpr, eps);
-  });
+cudaError_t bwd_direct(const Geo& G, const T* x, const void* scale, int sdt, const T* g, T* dx,
+                       float* part, void* ds, int64_t rows, int D, float eps, cudaStream_t st) {
+  const cudaError_t e = allow_smem((const void*)rmsnorm_bwd_direct<T, V>, G.smem);
+  if (e != cudaSuccess) return e;
+  const int acc_smem = G.smem >= 4 * D;
+  rmsnorm_bwd_direct<T, V><<<G.grid, G.threads, G.smem, st>>>(x, scale, sdt, g, dx, part, ds,
+                                                             rows, D, acc_smem, G.fin, eps);
+  return cudaSuccess;
 }
 
-// Returns the number of partial rows written (the first launch's grid)
-template <typename T, int V>
-int bwd_launch(const Layout& L, int max_blocks, const void* x,
-               const void* scale, int s_bf16, const void* g, void* dx,
-               float* part, int64_t rows, int D, float eps, cudaStream_t st) {
-  const bool wide = L.NV > bwd_max_nv<V>();
-  const int rpb = wide ? 1 : BWD_THREADS / L.tpr;
-  const int64_t groups = (rows + rpb - 1) / rpb;
-  const int nblk = groups < max_blocks ? (int)groups : max_blocks;
-  if (wide) {
-    const size_t acc_bytes = sizeof(float) * (size_t)D;
-    const int in_smem = acc_bytes <= WIDE_ACC_SMEM;
-    if (in_smem)
-      cudaFuncSetAttribute(rmsnorm_bwd_wide_kernel<T, V>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)WIDE_ACC_SMEM);
-    rmsnorm_bwd_wide_kernel<T, V>
-        <<<nblk, BWD_THREADS, in_smem ? acc_bytes : 0, st>>>(
-            static_cast<const T*>(x), scale, s_bf16, static_cast<const T*>(g),
-            static_cast<T*>(dx), part, rows, D, eps, in_smem);
-    return nblk;
+template <typename T>
+int bwd_launch(const Geo& G, const void* x, const void* scale, int sdt, const void* g,
+               void* dx, float* part, void* ds, int64_t rows, int D, float eps,
+               cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dt = static_cast<T*>(dx);
+  cudaError_t e = cudaSuccess;
+  if (G.path != DIRECT) {
+    by_nv(G.nv, [&](auto nv) {
+      bwd_nv<T, decltype(nv)::value>(G, xt, scale, sdt, gt, dt, part, ds, rows, D, eps, st, e);
+    });
+  } else if (G.vec == 1) {
+    e = bwd_direct<T, 1>(G, xt, scale, sdt, gt, dt, part, ds, rows, D, eps, st);
+  } else {
+    e = bwd_direct<T, 16 / sizeof(T)>(G, xt, scale, sdt, gt, dt, part, ds, rows, D, eps, st);
   }
-  const size_t smem = rpb > 1 ? sizeof(float) * rpb * D : 0;
-  by_nv<bwd_max_nv<V>()>(L.NV, [&](auto nv) {
-    rmsnorm_bwd_kernel<T, V, decltype(nv)::value>
-        <<<nblk, BWD_THREADS, smem, st>>>(
-            static_cast<const T*>(x), scale, s_bf16, static_cast<const T*>(g),
-            static_cast<T*>(dx), part, rows, D, L.tpr, eps);
-  });
-  return nblk;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
+
+inline int elt_of(int dt) { return dt == F32 ? 4 : 2; }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
-// shape the kernel does not take.  Never synchronises, allocates nothing.
-//   x, y      [rows, D] contiguous, is_bf16 ? bfloat16 : float32
-//   scale     [D] contiguous, s_bf16 ? bfloat16 : float32
-extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
-                                  int64_t rows, int D, int is_bf16,
-                                  int s_bf16, float eps, void* stream) {
-  if (rows <= 0 || D <= 0) return -1;
-  const Layout L = layout_for(D, is_bf16 ? 2 : 4, aligned16(x) && aligned16(y),
-                              FWD_THREADS);
+// shape or geometry the kernels do not take.  Never synchronises,
+// allocates nothing.
+//   x, y      [rows, D] contiguous, dtype xdt (0 f32, 1 bf16, 2 f16)
+//   scale     [D] contiguous, dtype sdt
+//   path .. smem   launch_geometry(...) of kernels/rmsnorm.py
+extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y, int64_t rows, int D,
+                                  int xdt, int sdt, int path, int threads, int tpr, int stages,
+                                  int nv, int vec, int grid, int smem, float eps, void* stream) {
+  const Geo G{path, threads, tpr, stages, nv, vec, grid, 1, smem};
+  if (xdt < F32 || xdt > F16 || sdt < F32 || sdt > F16 ||
+      !geo_ok(G, rows, D, elt_of(xdt), false, {x, y}))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (L.V == 8) fwd_launch<__nv_bfloat16, 8>(L, x, scale, s_bf16, y, rows, D, eps, st);
-    else fwd_launch<__nv_bfloat16, 1>(L, x, scale, s_bf16, y, rows, D, eps, st);
-  } else {
-    if (L.V == 4) fwd_launch<float, 4>(L, x, scale, s_bf16, y, rows, D, eps, st);
-    else fwd_launch<float, 1>(L, x, scale, s_bf16, y, rows, D, eps, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (xdt == BF16) return fwd_launch<__nv_bfloat16>(G, x, scale, sdt, y, rows, D, eps, st);
+  if (xdt == F16) return fwd_launch<__half>(G, x, scale, sdt, y, rows, D, eps, st);
+  return fwd_launch<float>(G, x, scale, sdt, y, rows, D, eps, st);
 }
 
-// The backward: dx [rows, D] in x's dtype and ds [D] in scale's dtype.
+// The backward, one launch: dx [rows, D] in x's dtype and ds [D] in the
+// scale's dtype.
 //   g         [rows, D] contiguous, x's dtype
-//   part      [max_blocks, D] f32 scratch; max_blocks bounds the first
-//             launch's grid (one block an SM is the intent)
-extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
-                                  const void* g, void* dx, void* ds,
-                                  float* part, int64_t rows, int D,
-                                  int is_bf16, int s_bf16, int max_blocks,
-                                  float eps, void* stream) {
-  if (rows <= 0 || D <= 0 || max_blocks <= 0) return -1;
-  const Layout L = layout_for(D, is_bf16 ? 2 : 4,
-                              aligned16(x) && aligned16(g) && aligned16(dx),
-                              BWD_THREADS);
+//   part      [grid, D] f32 scratch: the blocks' partial ds rows
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* g, void* dx,
+                                  void* ds, float* part, int64_t rows, int D, int xdt, int sdt,
+                                  int path, int threads, int tpr, int stages, int nv, int vec,
+                                  int grid, int fin, int smem, float eps, void* stream) {
+  const Geo G{path, threads, tpr, stages, nv, vec, grid, fin, smem};
+  if (xdt < F32 || xdt > F16 || sdt < F32 || sdt > F16 ||
+      !geo_ok(G, rows, D, elt_of(xdt), true, {x, g, dx}))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int nblk;
-  if (is_bf16) {
-    if (L.V == 8) nblk = bwd_launch<__nv_bfloat16, 8>(L, max_blocks, x, scale, s_bf16, g, dx, part, rows, D, eps, st);
-    else nblk = bwd_launch<__nv_bfloat16, 1>(L, max_blocks, x, scale, s_bf16, g, dx, part, rows, D, eps, st);
-  } else {
-    if (L.V == 4) nblk = bwd_launch<float, 4>(L, max_blocks, x, scale, s_bf16, g, dx, part, rows, D, eps, st);
-    else nblk = bwd_launch<float, 1>(L, max_blocks, x, scale, s_bf16, g, dx, part, rows, D, eps, st);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_ds_kernel<<<(D + 31) / 32, dim3(32, 32), 0, st>>>(part, nblk, D, ds,
-                                                           s_bf16);
-  return static_cast<int>(cudaGetLastError());
+  if (xdt == BF16)
+    return bwd_launch<__nv_bfloat16>(G, x, scale, sdt, g, dx, part, ds, rows, D, eps, st);
+  if (xdt == F16) return bwd_launch<__half>(G, x, scale, sdt, g, dx, part, ds, rows, D, eps, st);
+  return bwd_launch<float>(G, x, scale, sdt, g, dx, part, ds, rows, D, eps, st);
 }
 
 extern "C" const char* rmsnorm_error(int code) {
-  return code < 0 ? "shape not supported by rmsnorm"
+  return code < 0 ? "shape or launch geometry not supported by rmsnorm"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -6,7 +6,7 @@
 //   out[..., i]       = x1 * cos(ang) - x2 * sin(ang)
 //   out[..., H/2 + i] = x1 * sin(ang) + x2 * cos(ang)
 // for x1 = x[..., i], x2 = x[..., H/2 + i], i < H/2; f32 math, one rounding
-// to x's dtype.  Positions are read as int32 or int64, as given.
+// to x's dtype (f32, bf16 or f16).  Positions are read as int32 or int64, as given.
 //
 // What bounds it: bytes (x read once, out written once, one position a
 // row); a handful of operations an element.  The design:
@@ -30,6 +30,7 @@
 // and loaded with ctypes (src/repro_torch/kernels/_build.py).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,10 +43,14 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 template <typename T, int V>
@@ -141,19 +146,24 @@ inline bool aligned16(const void* p) {
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
 // shape the kernel does not take.  Never synchronises, allocates nothing.
-//   x, out    [R, N, H] contiguous, is_bf16 ? bfloat16 : float32; H even,
-//             H/2 at most MAX_ANGLES
+//   x, out    [R, N, H] contiguous, dtype xdt (0 float32, 1 bfloat16,
+//             2 float16); H even, H/2 at most MAX_ANGLES
 //   pos       [R] contiguous, pos64 ? int64 : int32
 extern "C" int rotary_launch(const void* x, const void* pos, void* out,
-                             int64_t R, int N, int H, int is_bf16, int pos64,
+                             int64_t R, int N, int H, int xdt, int pos64,
                              float theta, void* stream) {
-  if (R <= 0 || N <= 0 || H <= 0 || H % 2 || H / 2 > MAX_ANGLES) return -1;
-  const int vec = is_bf16 ? 8 : 4;
+  if (R <= 0 || N <= 0 || H <= 0 || H % 2 || H / 2 > MAX_ANGLES || xdt < 0 ||
+      xdt > 2)
+    return -1;
+  const int vec = xdt ? 8 : 4;
   const bool v16 = (H / 2) % vec == 0 && aligned16(x) && aligned16(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (xdt == 1) {
     if (v16) launch<__nv_bfloat16, 8>(x, pos, pos64, out, R, N, H, theta, st);
     else launch<__nv_bfloat16, 1>(x, pos, pos64, out, R, N, H, theta, st);
+  } else if (xdt == 2) {
+    if (v16) launch<__half, 8>(x, pos, pos64, out, R, N, H, theta, st);
+    else launch<__half, 1>(x, pos, pos64, out, R, N, H, theta, st);
   } else {
     if (v16) launch<float, 4>(x, pos, pos64, out, R, N, H, theta, st);
     else launch<float, 1>(x, pos, pos64, out, R, N, H, theta, st);

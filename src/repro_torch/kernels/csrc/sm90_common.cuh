@@ -1,11 +1,12 @@
 // The Hopper (sm_90a) primitives of the port's hand-written kernels, in
-// one copy: mbarriers, TMA loads and the tensor maps they read, the
-// proxy and wgmma fences, shared-memory matrix descriptors, the wgmma
-// products (bf16 and f16 operands, f32 accumulators, N = 64 / 128 / 256,
-// A from shared memory or from registers) and named barriers.
+// one copy: mbarriers, TMA loads and the tensor maps they read, 1-D bulk
+// copies, the proxy and wgmma fences, shared-memory matrix descriptors,
+// the wgmma products (bf16 and f16 operands, f32 accumulators, N = 64 /
+// 128 / 256, A from shared memory or from registers) and named barriers.
 //
-// Included by fused_matmul_sm90.cuh (B3 / B4 / B6's mainloop) and by the
-// flash kernels (flash_attention_sm90.cuh, flash_attention_bwd_sm90.cuh).
+// Included by fused_matmul_sm90.cuh (B3 / B4 / B6's mainloop), by the
+// flash kernels (flash_attention_sm90.cuh, flash_attention_bwd_sm90.cuh)
+// and by rmsnorm.cu (B9's ring of row slots).
 // The fm90_ helpers came with the fused-matmul mainloop and keep its
 // names; what the flash kernels added is named sm90_.  Plain C++ and
 // inline PTX: no CuTe or CUTLASS.  The tensor maps are encoded through
@@ -76,6 +77,18 @@ __device__ __forceinline__ void fm90_tma(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes of global memory at ``src`` into shared
+// memory at ``dst`` by one bulk copy (no tensor map), completing on
+// ``bar``.  Both addresses 16-byte aligned, ``bytes`` a multiple of 16.
+__device__ __forceinline__ void sm90_bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

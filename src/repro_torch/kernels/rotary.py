@@ -20,7 +20,9 @@ from repro_torch.kernels.guard import kernel_guard
 
 KERNEL = "rotary"
 
-_DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes of x the kernel takes, by the code csrc/rotary.cu knows
+#: them by
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _POS_DTYPES = (torch.int32, torch.int64)
 
 
@@ -56,7 +58,7 @@ def _lib() -> ctypes.CDLL:
 
 def rotary(x: torch.Tensor, positions: torch.Tensor, *,
            theta: float = 10000.0) -> torch.Tensor:
-    """Launch B10.  x ``[R, N, H]`` f32 or bf16 (H even); positions
+    """Launch B10.  x ``[R, N, H]`` f32, bf16 or f16 (H even); positions
     ``[R]`` int32 or int64, read by the kernel as given.  Output in x's
     dtype.  Runs on PyTorch's current stream, never synchronises; raises
     on anything the kernel does not take or on a refused launch."""
@@ -72,8 +74,9 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
                          f"[R]; got {tuple(x.shape)}, "
                          f"{tuple(positions.shape)}")
     if x.dtype not in _DTYPES or positions.dtype not in _POS_DTYPES:
-        raise TypeError("x must be float32 or bfloat16 and positions int32 "
-                        f"or int64; got {x.dtype}, {positions.dtype}")
+        raise TypeError("x must be float32, bfloat16 or float16 and "
+                        "positions int32 or int64; got "
+                        f"{x.dtype}, {positions.dtype}")
     x, pos = x.contiguous(), positions.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -83,7 +86,7 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
     with torch.cuda.device(x.device):
         code = lib.rotary_launch(
             x.data_ptr(), pos.data_ptr(), out.data_ptr(), r, n, h,
-            int(x.dtype == torch.bfloat16), int(pos.dtype == torch.int64),
+            _DTYPES[x.dtype], int(pos.dtype == torch.int64),
             float(theta), torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = lib.rotary_error(code).decode()

@@ -8,7 +8,10 @@ GPU by ``chip_smoke.py`` (phase 9).
 
 Tolerances are those of ``tests/test_kernels.py``: f32 2e-5 (summation
 order), bf16 2e-2 compared in f32 (one bf16 rounding of the output on
-either side), with two stated exceptions for rotary:
+either side); f16, which B9 and B10 take since queue C3's lift, 4e-3 (one
+f16 rounding, 2^-11 of the value, on either side, and an ulp of the
+cotangent's rounding under autograd; phase 8's flash tolerance), with two
+stated exceptions for rotary:
 
 * against the Pallas kernel, the reference's own kernel-vs-oracle bound
   for rotary (1e-4, ``tests/test_kernels.py:test_rotary``): that kernel
@@ -43,11 +46,14 @@ ro = importlib.import_module("repro_torch.kernels.rotary")
 torch.set_num_threads(1)
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
-       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+       "bfloat16": dict(rtol=2e-2, atol=2e-2),
+       "float16": dict(rtol=4e-3, atol=4e-3)}
 #: the reference's own bound between its rotary kernel and its oracle
 ROPE_KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
-JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+      "float16": jnp.float16}
+TD = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+      "float16": torch.float16}
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -69,7 +75,7 @@ def _norm_inputs(rows, d, seed=0):
 
 
 @pytest.mark.parametrize("rows,d", [(64, 128), (33, 96), (257, 64)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rmsnorm_fwd(rows, d, dtype):
     x, s = _norm_inputs(rows, d)
     jx, tx = _pair(x, dtype)
@@ -97,11 +103,13 @@ def test_rmsnorm_takes_any_leading_dims():
     (33, 96, "float32", "float32"),
     (33, 96, "float32", "bfloat16"),
     (33, 96, "bfloat16", "bfloat16"),
+    (33, 96, "float16", "float16"),
+    (64, 128, "float16", "float32"),
 ])
 def test_rmsnorm_bwd(rows, d, dtype, scale_dtype):
     """dx and ds of sum(sin(rmsnorm(x, s))): autograd through the port's
     ``RMSNormFn`` against ``jax.grad`` through the Pallas custom VJP.  A
-    bf16 scale gets its ds back in bf16 on both sides."""
+    bf16 or f16 scale gets its ds back in its dtype on both sides."""
     x, s = _norm_inputs(rows, d, seed=2)
     jx, tx = _pair(x, dtype)
     js, ts = _pair(s, scale_dtype)
@@ -143,10 +151,11 @@ def _rope_case(r, n, h, lo, hi, seed=0):
 
 
 @pytest.mark.parametrize("r,n,h,theta", [(100, 4, 32, 1e4), (64, 1, 64, 1e6)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rotary(r, n, h, theta, dtype):
     """Positions below 4,096: 2e-5 (f32) against the oracle, and the
-    reference's own 1e-4 against its Pallas kernel (module docstring)."""
+    reference's own 1e-4 against its Pallas kernel (module docstring);
+    16-bit types at their rounding tolerance on both."""
     x, pos = _rope_case(r, n, h, 0, 4096)
     jx, tx = _pair(x, dtype)
     got = ops.rotary(tx, torch.from_numpy(pos), theta=theta)
@@ -155,7 +164,7 @@ def test_rotary(r, n, h, theta, dtype):
                        rows_block=32)
     oracle = jref.ref_rotary(jx, jnp.asarray(pos), theta)
     np.testing.assert_allclose(_f32(got), _f32(oracle), **TOL[dtype])
-    tol = TOL[dtype] if dtype == "bfloat16" else ROPE_KERNEL_TOL
+    tol = TOL[dtype] if dtype != "float32" else ROPE_KERNEL_TOL
     np.testing.assert_allclose(_f32(got), _f32(kern), **tol)
 
 
