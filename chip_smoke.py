@@ -11,7 +11,8 @@ and holds every hand-written kernel against its plain PyTorch version:
 1. environment: torch / CUDA / nvcc versions, the card and its power limit;
 2. build every CUDA source under ``src/repro_torch/kernels/csrc`` into
    ``build/`` (one ``nvcc`` per source, started together), naming each
-   instantiation whose registers spill (none of B5's, B7's or B8's may);
+   instantiation whose registers spill (none of B5's, B7's, B8's, B9's,
+   B12's or B13's may; those of B9, B12 and B13 printed one by one);
 3. ``paged_decode_attention`` vs its plain version on the card: small
    shapes in f32 (2e-5) and bf16 (2e-2, and within one bf16 rounding of
    the plain version run in f32) with permuted tables, ragged lengths
@@ -128,12 +129,18 @@ and holds every hand-written kernel against its plain PyTorch version:
    in f16), each raising before anything launches;
 10. the kernel library's ssd_scan (B12) and wkv6 (B13) through ``ops``:
     each against its plain version at the CPU tests' shapes, at S = 999
-    and odd widths, f32 and bf16, B13 at strong decay (w in [0.05, 0.2],
-    finite); at full width (B = 2, S = 2,048; B12 at zamba2-1.2b's H = 64,
-    P = N = 64, B13 at rwkv6-1.6b's H = 32, K = V = 64; bf16 and f32), one
-    counted run of the path, each timed (CUDA-graph replay) beside the
-    bound and the plain version; their f16 refusals (queue C3) raising
-    before anything launches;
+    and odd widths, B13 at strong decay (w in [0.05, 0.2], finite), and at
+    the FMA kernels' N / K = 96, in f32, bf16 and f16 (taken since queue
+    C3's lift), every launch on the path its shape should take (``tc``,
+    tensor cores at f32 accuracy, wherever the shape allows; ``fma`` for
+    the rest) and printed; at full width (B = 2, S = 2,048; B12 at
+    zamba2-1.2b's H = 64, P = N = 64, B13 at rwkv6-1.6b's H = 32, K = V =
+    64) in bf16, f16 and f32, one counted run of the path each, every
+    launch on the tensor-core path and bit-equal to its relaunch, each
+    timed (CUDA-graph replay, two rotated input sets) beside the bound
+    (bytes, or the products as TF32 passes at 495 TFLOP/s: three for two
+    f32 operands, two where one is a 16-bit input), the previous f32
+    FMA-rate bound and, in bf16, the plain version;
 11. zamba2-1.2b and rwkv6-1.6b at full width and depth (random bf16
     weights from seed 0) through ``Engine(slots=8, max_len=2048,
     page_size=64)``: 12 greedy requests x 64 tokens (every request
@@ -156,6 +163,11 @@ result line: two checkouts' kernels timed by one script.
 does the same for phase 9's bf16 readings of B9 / B9-bwd (the hidden
 states and d_model 16,384, each against its plain version, timed beside
 the bound and the library calls, the device kernels a call);
+
+    python3 chip_smoke.py --scan [--src DIR]
+
+for phase 10's full-width readings of B12 / B13 in bf16 and f32 (each
+against its plain version, timed beside the bounds);
 ``--kernels-a-call`` prints those device kernels alone, as a JSON line
 (phase 9 runs it in a fresh process).
 
@@ -372,11 +384,12 @@ def spilling_entries(log: str) -> list[str]:
 
 
 #: sources none of whose instantiations may spill (B5 / B7: their f32
-#: FMA kernels and their bf16 / f16 wgmma kernels; B8; B9)
+#: FMA kernels and their bf16 / f16 wgmma kernels; B8; B9; B12 / B13: their
+#: tensor-core and FMA kernels)
 NO_SPILL = ("flash_attention", "flash_attention_bwd", "adamw_update",
-            "rmsnorm")
+            "rmsnorm", "ssd_scan", "wkv6")
 #: sources whose every instantiation's registers and spills are printed
-PER_INSTANTIATION = ("rmsnorm",)
+PER_INSTANTIATION = ("rmsnorm", "ssd_scan", "wkv6")
 
 
 def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
@@ -418,8 +431,8 @@ def phase_build() -> None:
                 print(f"[2]   {entry}: {r} registers, {sp} bytes spilled")
     print(f"[2] build total {time.perf_counter() - t0:.1f} s -> "
           f"{_build.build_dir()}")
-    check(not spilling, f"B5 / B7 / B8 / B9 instantiations spill: "
-          f"{spilling}")
+    check(not spilling, f"B5 / B7 / B8 / B9 / B12 / B13 instantiations "
+          f"spill: {spilling}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -3628,30 +3641,47 @@ def phase_library(card: str) -> dict:
 
 #: the CPU tests' shapes (tests/test_torch_scan_kernels.py) plus S that is
 #: a multiple of no chunk (999) and odd P, N / K, V: B12 (B, S, H, P, N),
-#: B13 (B, S, H, K, V)
+#: B13 (B, S, H, K, V); every one on the tensor-core path
 SSD_SMALL = [(2, 64, 2, 16, 8), (1, 100, 3, 8, 16), (1, 999, 4, 64, 64),
              (1, 77, 2, 40, 24)]
 WKV_SMALL = [(2, 48, 2, 16, 16), (1, 70, 1, 32, 32), (1, 999, 3, 64, 64),
              (1, 45, 2, 24, 40)]
+#: what the tensor-core paths leave to the FMA kernels: N, K = 96
+SSD_FMA = [(1, 130, 2, 16, 96)]
+WKV_FMA = [(1, 70, 2, 96, 32)]
 #: full width, B = 2, S = 2,048: B12 at zamba2-1.2b's (H = 2 * 2048 / 64,
 #: P = N = 64), B13 at rwkv6-1.6b's (H = 32, K = V = 64)
 SSD_FULL = (2, 2048, 64, 64, 64)
 WKV_FULL = (2, 2048, 32, 64, 64)
-#: B12 / B13 against their plain versions.  Both sum in f32, in another
-#: order (the plain version's einsum against the kernel's FMA loops), so
-#: the difference is a few units of 2^-24 of the terms a sum adds, which
-#: are at most the output's largest magnitude: 2e-5 of that.  A bf16
-#: output may besides round to the other neighbour: one bf16 ulp, at most
-#: 2^-7 of the value
+SCAN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+SCAN_KERNELS = ("ssd_scan", "wkv6")
+#: B12 / B13 against their plain versions.  Both sum in f32 (the kernels'
+#: products in 3xTF32, within a few 2^-22 of the f32 product), in another
+#: order than the plain version's einsum, so the difference is a few units
+#: of 2^-22 of the terms a sum adds, which are at most the output's
+#: largest magnitude: 2e-5 of that.  A 16-bit output may besides round to
+#: the other neighbour: one ulp, at most 2^-7 of the value in bf16, 2^-10
+#: in f16
 SCAN_F32_SLACK = 2e-5
+SCAN_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+#: the least time of f32-accurate products: TF32 tensor-core products
+#: (NVIDIA's datasheet, dense), three a product of two f32 operands
+#: (3xTF32), two where one operand is a 16-bit input (exact in TF32), by
+#: that input's dtype
+TF32_FLOPS = 495e12
+TF32_PASSES = {torch.float32: 3, torch.bfloat16: 2, torch.float16: 2}
+#: the chunk the operations are counted at, the one the bounds were first
+#: stated with (B12 64, B13 32): B13's quadratic part is smaller at 32
+#: than at its kernel's chunk of 64, and the bounds compare across PRs
+SSD_FLOP_CHUNK, WKV_FLOP_CHUNK = 64, 32
 
 
 def scan_close(got, want) -> tuple[bool, float]:
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     bound = SCAN_F32_SLACK * float(w.abs().max())
-    if got.dtype == torch.bfloat16:
-        bound = bound + 2.0 ** -7 * w.abs()
+    if got.dtype in SCAN_ULP:
+        bound = bound + SCAN_ULP[got.dtype] * w.abs()
     ok = bool(torch.isfinite(g).all()) and bool((diff <= bound).all())
     return ok, float(diff.max())
 
@@ -3681,153 +3711,249 @@ def wkv_case(shape, dtype, seed, lo=0.45, hi=0.95):
     return r, kk, vv, w, u
 
 
-def ssd_flops(shape, chunk: int) -> int:
+def ssd_flops(shape, chunk: int) -> tuple[int, int]:
     """f32 operations of the chunked SSD scan with C B^T formed once per
     batch row and chunk (B and C are shared by the heads): per chunk of q
     rows, q(q+1)/2 (C.B) dot products of N; per head q(q+1)/2 P (scores
     times dt x), q N P (C against the state), N P q (the state update)
-    multiply-adds."""
+    multiply-adds.  Returns (the operations with x as one operand: the
+    scores times x and the update; those of two f32 operands)."""
     b, s, h, p, n = shape
-    total = 0
+    with_x = f32 = 0
     for s0 in range(0, s, chunk):
         q = min(chunk, s - s0)
         tri = q * (q + 1) // 2
-        total += 2 * b * tri * n + 2 * b * h * (tri * p + 2 * q * n * p)
-    return total
+        with_x += 2 * b * h * (tri * p + q * n * p)
+        f32 += 2 * b * tri * n + 2 * b * h * q * n * p
+    return with_x, f32
 
 
-def wkv_flops(shape, chunk: int) -> int:
+def wkv_flops(shape, chunk: int) -> tuple[int, int]:
     """f32 operations of the chunked WKV6 form: per chunk of q rows and
     head, the q(q-1)/2 pair scores over K (three operations a channel:
     r k, times the decay, added) and the diagonal, the scores times v,
-    r against the state and the state update (multiply-adds)."""
+    r against the state and the state update (multiply-adds).  Returns
+    (the operations with v as one operand: the scores times v and the
+    update; those of two f32 operands)."""
     b, s, h, k, v = shape
-    total = 0
+    with_v = f32 = 0
     for s0 in range(0, s, chunk):
         q = min(chunk, s - s0)
-        total += b * h * (3 * q * (q - 1) // 2 * k + 3 * q * k
-                          + q * (q + 1) * v + 4 * q * k * v)
-    return total
+        with_v += b * h * (q * (q + 1) * v + 2 * q * k * v)
+        f32 += b * h * (3 * q * (q - 1) // 2 * k + 3 * q * k + 2 * q * k * v)
+    return with_v, f32
+
+
+def scan_bound(n_bytes: int, flops: tuple[int, int],
+               dtype: torch.dtype) -> dict:
+    """The least time of the work: the bytes at the memory rate against
+    the f32-accurate products as TF32 passes (``flops`` = (those with a
+    ``dtype`` input as one operand, those of two f32 operands)); the
+    previous bound (all at the f32 FMA rate) beside it."""
+    with_input, f32 = flops
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (TF32_PASSES[dtype] * with_input
+             + TF32_PASSES[torch.float32] * f32) / TF32_FLOPS * 1e3
+    t_fma = (with_input + f32) / PEAK_FLOPS[torch.float32] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, ops_ms=t_ops, fma_bound_ms=max(t_bytes, t_fma),
+                n_bytes=n_bytes, flops=with_input + f32)
+
+
+def scan_paths() -> dict:
+    """Launches of B12 / B13 since the last count reset by the path each
+    took: ``tc`` (tensor cores, 3xTF32) or ``fma``."""
+    return {f"{name} / {path}": n
+            for (name, path), n in sorted(kernel_guard().variants.items())
+            if name in SCAN_KERNELS}
+
+
+def on_path(fn, want: str, what: str):
+    """``fn()`` launches one B12 / B13 kernel, on the path ``want``."""
+    kernel_guard().variants.clear()
+    out = fn()
+    paths = scan_paths()
+    check(len(paths) == 1 and next(iter(paths)).endswith(f"/ {want}"),
+          f"{what}: launched on {paths}, expected the {want} path")
+    return out
 
 
 def scan_small_shapes() -> dict:
     """B12 and B13 against their plain versions at the CPU tests' shapes
-    (and S a multiple of no chunk), f32 and bf16, and B13 at strong
-    decay.  Returns the worst max_abs_err by name."""
+    (and S a multiple of no chunk, odd widths), B13 at strong decay, and
+    the FMA kernels' shapes, in f32, bf16 and f16; every launch on the
+    path its shape should take.  Returns the worst max_abs_err by name."""
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     from repro_torch.kernels.wkv6 import wkv6_plain
 
     worst: dict = {}
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def hold(name, dn, what, got, want, strong=False):
+        ok, err = scan_close(got, want)
+        key = f"{dn} {name}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(ok and (not strong or bool(torch.isfinite(got).all())),
+              f"{what}: max_abs_err {err:.3e}")
+
+    for dtype in SCAN_DTYPES:
         dn = str(dtype)[6:]
-        for i, shape in enumerate(SSD_SMALL):
+        paths = []
+        for i, shape in enumerate(SSD_SMALL + SSD_FMA):
+            path = "tc" if shape in SSD_SMALL else "fma"
             args = ssd_case(shape, dtype, 300 + i)
-            ok, err = scan_close(ops.ssd_scan(*args, impl="cuda"),
-                                 ssd_scan_plain(*args)[0])
-            worst[f"{dn} ssd_scan"] = max(worst.get(f"{dn} ssd_scan", 0), err)
-            check(ok, f"B12 at {shape} {dn}: max_abs_err {err:.3e}")
-        for i, shape in enumerate(WKV_SMALL):
+            got = on_path(lambda: ops.ssd_scan(*args, impl="cuda"), path,
+                          f"B12 {shape} {dn}")
+            hold("ssd_scan", dn, f"B12 at {shape} {dn}", got,
+                 ssd_scan_plain(*args)[0])
+            paths.append(f"B12 {shape}: {path}")
+        for i, shape in enumerate(WKV_SMALL + WKV_FMA):
+            path = "tc" if shape in WKV_SMALL else "fma"
             args = wkv_case(shape, dtype, 310 + i)
-            ok, err = scan_close(ops.wkv6(*args, impl="cuda"),
-                                 wkv6_plain(*args)[0])
-            worst[f"{dn} wkv6"] = max(worst.get(f"{dn} wkv6", 0), err)
-            check(ok, f"B13 at {shape} {dn}: max_abs_err {err:.3e}")
-        # strong decay: w in [0.05, 0.2], a chunk of 32 sums log-decays to
-        # about -96 at worst, past f32's exp range for the reference's form
+            got = on_path(lambda: ops.wkv6(*args, impl="cuda"), path,
+                          f"B13 {shape} {dn}")
+            hold("wkv6", dn, f"B13 at {shape} {dn}", got,
+                 wkv6_plain(*args)[0])
+            paths.append(f"B13 {shape}: {path}")
+        # strong decay: w in [0.05, 0.2], a chunk of 64 sums log-decays to
+        # about -190 at worst, past f32's exp range for the reference's form
         args = wkv_case((2, 256, 4, 64, 64), dtype, 320, lo=0.05, hi=0.2)
-        got = ops.wkv6(*args, impl="cuda")
-        ok, err = scan_close(got, wkv6_plain(*args)[0])
-        worst[f"{dn} wkv6 strong decay"] = err
-        check(ok and bool(torch.isfinite(got).all()),
-              f"B13 at strong decay {dn}: max_abs_err {err:.3e}")
+        got = on_path(lambda: ops.wkv6(*args, impl="cuda"), "tc",
+                      f"B13 strong decay {dn}")
+        hold("wkv6 strong decay", dn, f"B13 at strong decay {dn}", got,
+             wkv6_plain(*args)[0], strong=True)
+        paths.append("B13 (2, 256, 4, 64, 64) strong decay: tc")
+        print(f"[10] {dn} launches by path: {'; '.join(paths)}")
     torch.cuda.synchronize()
     print(f"[10] B12 / B13 at the CPU tests' shapes, S = 999 and odd widths, "
-          f"and B13 at w in [0.05, 0.2] (finite), f32 and bf16, against "
-          f"the plain versions: worst max_abs_err "
-          f"{ {k: f'{e:.2e}' for k, e in worst.items()} }")
+          f"the FMA kernels' N / K = 96, and B13 at w in [0.05, 0.2] "
+          f"(finite), f32, bf16 and f16, against the plain versions: worst "
+          f"max_abs_err { {k: f'{e:.2e}' for k, e in worst.items()} }")
     return worst
+
+
+def scan_timing(args, fn, plain, out, flops, *, plain_time=True) -> dict:
+    """``fn(*args)`` timed by CUDA-graph replay over two input sets (71 /
+    101 MB each in bf16, past the L2), beside its bounds and the plain
+    version."""
+    sets = [args, tuple(t.clone() for t in args)]
+    ms = graph_ms(lambda i: fn(*sets[i % 2]), 2)
+    plain_ms = time_ms(lambda i: plain(*sets[i % 2]), 2, warmup=1) \
+        if plain_time else None
+    del sets
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                **scan_bound(nbytes(*args, out), flops, args[0].dtype))
+
+
+def print_scan_row(name, dn, r, card, tag="[10]") -> None:
+    plain = (f"plain {r['plain_ms']:.4f} ms, " if r["plain_ms"] is not None
+             else "")
+    print(f"{tag}   {name} {dn}: {r['ms']:.4f} ms on the card (CUDA-graph "
+          f"replay, 2 rotated input sets), {plain}library none (no one "
+          f"PyTorch call computes it), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} (bytes {r['bytes_ms']:.4f}, TF32 products "
+          f"{r['ops_ms']:.4f} in {TF32_PASSES[torch.float32]} passes, "
+          f"{TF32_PASSES[getattr(torch, dn)]} on the {dn} operand; "
+          f"{r['n_bytes']} bytes, {r['flops']} flops; bound / kernel = "
+          f"{r['bound_ms'] / r['ms']:.1%}; the f32 FMA-rate bound "
+          f"{r['fma_bound_ms']:.4f} ms, {r['fma_bound_ms'] / r['ms']:.1%}), "
+          f"on {card}")
+
+
+def scan_full_width(dtype, card: str, *, timed: bool, plain_time: bool,
+                    tag: str = "[10]", paths_known: bool = True
+                    ) -> tuple[dict, dict]:
+    """B12 at zamba2's and B13 at rwkv6's full width in ``dtype``: one
+    counted run of the library path, each launch on the tensor-core path
+    (where ``paths_known``: a package whose B12 / B13 count launches by
+    path), made twice and bit-equal, against the plain version; timed
+    where ``timed``.  Returns (rows by kernel, launches of the run)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    dn = str(dtype)[6:]
+    s_args = ssd_case(SSD_FULL, dtype, 330)
+    w_args = wkv_case(WKV_FULL, dtype, 331)
+    ops.reset_launch_counts()
+    y_s = ops.ssd_scan(*s_args)
+    y_w = ops.wkv6(*w_args)
+    torch.cuda.synchronize()
+    run, paths = ops.launch_counts(), scan_paths()
+    want = {"ssd_scan": 1, "wkv6": 1}
+    check(run == {k_: want.get(k_, 0) for k_ in run},
+          f"phase 10 path launches {run}, expected {want}")
+    check(paths == {"ssd_scan / tc": 1, "wkv6 / tc": 1} or not paths_known,
+          f"full width {dn} off the tensor-core path: {paths}")
+    again = (ops.ssd_scan(*s_args), ops.wkv6(*w_args))
+    torch.cuda.synchronize()
+    check(torch.equal(y_s, again[0]) and torch.equal(y_w, again[1]),
+          f"B12 / B13 full width {dn} differ between launches")
+    ops.reset_launch_counts()
+    p_s = ops.ssd_scan(*s_args, impl="ref")
+    p_w = ops.wkv6(*w_args, impl="ref")
+    torch.cuda.synchronize()
+    check(not any(ops.launch_counts().values()),
+          f"impl='ref' launched kernels: {ops.launch_counts()}")
+    res = {"ssd_scan": scan_close(y_s, p_s), "wkv6": scan_close(y_w, p_w)}
+    for name, (ok, err) in res.items():
+        check(ok, f"{name} full width {dn}: max_abs_err {err:.3e}")
+    print(f"{tag} full width {dn}: B12 x {tuple(s_args[0].shape)} "
+          f"(N {SSD_FULL[4]}), B13 r {tuple(w_args[0].shape)}: "
+          f"max_abs_err { {n: f'{e:.2e}' for n, (_, e) in res.items()} } "
+          f"(max-abs {float(p_s.float().abs().max()):.1f} / "
+          f"{float(p_w.float().abs().max()):.1f}); launches by path {paths}, "
+          f"each bit-equal to its relaunch")
+    rows = {}
+    if timed:
+        for name, args, fn, plain, out, flops in (
+                ("ssd_scan", s_args, ops.ssd_scan, ssd_scan_plain, y_s,
+                 ssd_flops(SSD_FULL, SSD_FLOP_CHUNK)),
+                ("wkv6", w_args, ops.wkv6, wkv6_plain, y_w,
+                 wkv_flops(WKV_FULL, WKV_FLOP_CHUNK))):
+            rows[name] = scan_timing(args, fn, plain, out, flops,
+                                     plain_time=plain_time)
+            rows[name]["max_abs_err"] = res[name][1]
+            print_scan_row(name, dn, rows[name], card, tag)
+    return rows, run
 
 
 def phase_scan(card: str) -> dict:
     """Phase 10: the kernel library's B12 and B13 through ``ops`` at the
-    CPU tests' shapes and at full width (zamba2's and rwkv6's), one
-    counted run of the library path, each timed beside its bound and its
-    plain version.  Returns the kernels line's two rows."""
-    from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    from repro_torch.kernels.wkv6 import CHUNK as WKV_CHUNK
-    from repro_torch.kernels.wkv6 import wkv6_plain
-
+    CPU tests' shapes, the FMA kernels' shapes and at full width (zamba2's
+    and rwkv6's) in f32, bf16 and f16, one counted run of the library
+    path, each timed beside its bound and its plain version.  Returns the
+    kernels line's two rows."""
     t0 = time.perf_counter()
     scan_small_shapes()
-    # queue C3: B12 / B13 refuse f16, as their ops docstrings say
-    ops.reset_launch_counts()
-    expect_refusal("[10] C3", "B12 f16", TypeError, "torch.float16",
-                   lambda: ops.ssd_scan(*ssd_case(SSD_SMALL[0],
-                                                  torch.float16, 340)))
-    expect_refusal("[10] C3", "B13 f16", TypeError, "torch.float16",
-                   lambda: ops.wkv6(*wkv_case(WKV_SMALL[0], torch.float16,
-                                              341)))
-    torch.cuda.synchronize()
-    check(not any(ops.launch_counts().values()),
-          f"a refused input launched: {ops.launch_counts()}")
     rows, counts = {}, {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype)[6:]
-        s_args = ssd_case(SSD_FULL, dtype, 330)
-        w_args = wkv_case(WKV_FULL, dtype, 331)
-        # the path, counted: every call launches its kernel
-        ops.reset_launch_counts()
-        y_s = ops.ssd_scan(*s_args)
-        y_w = ops.wkv6(*w_args)
-        torch.cuda.synchronize()
-        run = ops.launch_counts()
-        want = {"ssd_scan": 1, "wkv6": 1}
-        check(run == {k_: want.get(k_, 0) for k_ in run},
-              f"phase 10 path launches {run}, expected {want}")
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        r, run = scan_full_width(dtype, card, timed=True,
+                                 plain_time=dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
-            counts = run
-        ops.reset_launch_counts()
-        p_s = ops.ssd_scan(*s_args, impl="ref")
-        p_w = ops.wkv6(*w_args, impl="ref")
-        torch.cuda.synchronize()
-        check(not any(ops.launch_counts().values()),
-              f"impl='ref' launched kernels: {ops.launch_counts()}")
-        res = {"ssd_scan": scan_close(y_s, p_s), "wkv6": scan_close(y_w, p_w)}
-        for name, (ok, err) in res.items():
-            check(ok, f"{name} full width {dn}: max_abs_err {err:.3e}")
-        print(f"[10] full width {dn}: B12 x {tuple(s_args[0].shape)} "
-              f"(N {SSD_FULL[4]}), B13 r {tuple(w_args[0].shape)}: "
-              f"max_abs_err { {n: f'{e:.2e}' for n, (_, e) in res.items()} } "
-              f"(max-abs {float(p_s.float().abs().max()):.1f} / "
-              f"{float(p_w.float().abs().max()):.1f})")
-        if dtype != torch.bfloat16:
-            continue
-        # timing, bf16: two input sets (71 / 101 MB each, past the L2)
-        for name, args, fn, plain, out, flops in (
-                ("ssd_scan", s_args, ops.ssd_scan, ssd_scan_plain, y_s,
-                 ssd_flops(SSD_FULL, SSD_CHUNK)),
-                ("wkv6", w_args, ops.wkv6, wkv6_plain, y_w,
-                 wkv_flops(WKV_FULL, WKV_CHUNK))):
-            sets = [args, tuple(t.clone() for t in args)]
-            ms = graph_ms(lambda i: fn(*sets[i % 2]), 2)
-            plain_ms = time_ms(lambda i: plain(*sets[i % 2]), 2, warmup=1)
-            rows[name] = lib_row(ms, plain_ms, None, nbytes(*args, out),
-                                 flops, torch.float32, res[name][1])
-            del sets
-    for name, r in rows.items():
-        print(f"[10]   {name} bf16: {r['ms']:.4f} ms on the card (CUDA-graph "
-              f"replay, 2 rotated input sets), plain {r['plain_ms']:.4f} ms, "
-              f"library none (no one PyTorch call computes it), bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['n_bytes']} "
-              f"bytes; bound / kernel = {r['bound_ms'] / r['ms']:.1%}), "
-              f"launches in the path run {counts[name]}, on {card}")
+            rows, counts = r, run
+        torch.cuda.empty_cache()
     print(f"[10] ssd_scan and wkv6 in {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     return {name: dict(launches=counts[name],
                        **{k: rows[name][k] for k in keys})
-            for name in ("ssd_scan", "wkv6")}
+            for name in SCAN_KERNELS}
+
+
+def scan_readings(card: str) -> None:
+    """``--scan``: phase 10's full-width readings alone, on the package
+    this script was pointed at (``--src``): B12 and B13 in bf16 and f32,
+    each against its plain version, timed beside the bounds.  Two
+    checkouts' kernels compared by one script; a package whose B12 / B13
+    have one path each (before the tensor-core paths) is taken as it
+    is."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    for dtype in (torch.bfloat16, torch.float32):
+        scan_full_width(dtype, card, timed=True, plain_time=False,
+                        tag="[scan]",
+                        paths_known=hasattr(ssd_mod, "launch_geometry"))
+        torch.cuda.empty_cache()
 
 
 # --- phase 11: zamba2-1.2b and rwkv6-1.6b served at full width -------------
@@ -4021,6 +4147,9 @@ def main() -> int:
         return 0
     if "--norm" in sys.argv:
         norm_readings(card)
+        return 0
+    if "--scan" in sys.argv:
+        scan_readings(card)
         return 0
     phase_build()
     kernel = phase_kernel(card)

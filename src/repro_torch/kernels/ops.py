@@ -108,14 +108,14 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
 def ssd_scan(x: torch.Tensor, logd: torch.Tensor, dt: torch.Tensor,
              bmat: torch.Tensor, cmat: torch.Tensor, *,
              impl: str = "auto") -> torch.Tensor:
-    """Mamba2 SSD chunk scan (B12): x ``[B, S, H, P]`` (f32 or bf16; on
-    CUDA tensors B12 refuses f16, which the reference's kernel takes,
-    with ``TypeError``), logd (= dt * a, at most 0) and dt ``[B, S, H]``,
-    B / C ``[B, S, N]`` shared by all heads; returns y ``[B, S, H, P]``
-    in x's dtype (the final state is not returned, as the reference's
-    ``ops`` returns y only).  Any S.  The reference's ``chunk`` / ``interpret`` arguments
-    shape TPU blocks only and are not carried over: B12 picks its chunk
-    itself, and the result does not depend on it beyond rounding."""
+    """Mamba2 SSD chunk scan (B12): x ``[B, S, H, P]`` (f32, bf16 or f16,
+    as the reference's kernel takes it), logd (= dt * a, at most 0) and
+    dt ``[B, S, H]``, B / C ``[B, S, N]`` shared by all heads; returns y
+    ``[B, S, H, P]`` in x's dtype (the final state is not returned, as the
+    reference's ``ops`` returns y only).  Any S.  The reference's
+    ``chunk`` / ``interpret`` arguments shape TPU blocks only and are not
+    carried over: B12 picks its chunk itself, and the result does not
+    depend on it beyond rounding."""
     if resolve_impl(impl, x) == "ref":
         return ssd_scan_plain(x, logd, dt, bmat, cmat)[0]
     return _ssd_cuda(x, logd, dt, bmat, cmat)
@@ -125,10 +125,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, *, impl: str = "auto"
          ) -> torch.Tensor:
     """RWKV6 WKV recurrence (B13): r, k ``[B, S, H, K]`` and v ``[B, S,
-    H, V]`` (f32 or bf16; on CUDA tensors B13 refuses f16, which the
-    reference's kernel takes, with ``TypeError``), the decay w ``[B, S,
-    H, K]`` in (0, 1), the bonus u ``[H, K]``; returns y ``[B, S, H, V]``
-    in r's dtype.  Any S.
+    H, V]`` (f32, bf16 or f16, as the reference's kernel takes them), the
+    decay w ``[B, S, H, K]`` in (0, 1), the bonus u ``[H, K]``; returns y
+    ``[B, S, H, V]`` in r's dtype.  Any S.
     Its exponents are all at most 0, so it follows the sequential
     recurrence at any decay, where the reference's Pallas kernel
     overflows below a chunk's summed log-decay of about -88 (by design,
