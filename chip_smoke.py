@@ -21,12 +21,23 @@ and holds every hand-written kernel against its plain PyTorch version:
    (bit-equal); and the main-path shape, timed (CUDA-graph replay)
    beside the plain version, a ``scaled_dot_product_attention``
    yardstick and the card's bound;
-4. the engine at full width: 12 greedy requests, then a shorter pass
-   with chunked prefill; every request completes, no page leaks, and
-   the kernel's launch count equals decode steps x layers;
-5. a decode step mid-flight: its time by the host clock, its device
-   kernels under ``torch.profiler``, and the same step taken through
-   the kernel and through the plain version — logits agree;
+4. the engine at full width: 12 greedy requests through
+   ``capture_decode=False`` (first: the process's first model run), then
+   through the engine whose decode step is one CUDA graph (the same
+   tokens), then a shorter pass with chunked prefill; every request
+   completes, no page leaks, and the kernel's launch count equals decode
+   steps x layers (counted from the graph's replays: ``step_traces == 1``
+   after the mix; the warm step and capture's host time and the graph
+   pool's memory printed); four
+   sampled requests (temperature 1) through two captured engines of one
+   seed give the same tokens, with fresh noise every step;
+5. a decode step mid-flight, 8 active slots: the captured step by the
+   host clock, one replay's device time by CUDA events, its idle share
+   and the profiler's view, beside the eager step's host clock and
+   device kernels under ``torch.profiler``; one replay's logits against
+   one eager run of the same static step from the same state (equal);
+   and the same step taken through the kernel and through the plain
+   version — logits agree;
 6. the offload compiler at full width, bf16 and f32: plan the decode
    step, build the plans' kernels (one ``nvcc`` per plan, started
    together, and the Triton kernels), hold every distinct segment's
@@ -40,10 +51,11 @@ and holds every hand-written kernel against its plain PyTorch version:
    library yardstick; serve the same 12 requests through
    ``Engine(offload=True)`` (launch counts = decode steps x layers for
    the attention and x segments of the plan for the fused kernels,
-   ``plan_misses == 1``); profile an offloaded decode step (B2's device
-   time a step, summed over its ``seg_`` kernels); and take one
-   decode step on the same state offloaded and eager, in bf16 and in
-   f32 — logits agree;
+   ``plan_misses == traces == 1`` and ``plan_hits == 0``, captured once)
+   and through ``capture_decode=False`` (the same tokens); phase 5's
+   decode readings for the offloaded step (B2's device time a step,
+   summed over its ``seg_`` kernels); and take one decode step on the
+   same state offloaded and eager, in bf16 and in f32 — logits agree;
 7. training full-width qwen3-1.7b (f32 master parameters, bf16 compute,
    2 x 1024 tokens a step) through ``make_train_step(offload=True)``:
    plan the loss, every fused segment's backward and the update (their
@@ -145,11 +157,12 @@ and holds every hand-written kernel against its plain PyTorch version:
     weights from seed 0) through ``Engine(slots=8, max_len=2048,
     page_size=64)``: 12 greedy requests x 64 tokens (every request
     completes, B1 launched 6 times a decode step for zamba2's shared
-    attention, 0 for rwkv6), a decode step profiled with 8 active slots
-    (zamba2: the step through B1 against its plain version), peak memory,
-    and the engine's prefill and decode logits of 3 requests against a
-    full-sequence forward of the same tokens (bf16 at full depth; f32 at
-    12 / 4 layers);
+    attention, 0 for rwkv6; captured once, the same tokens through
+    ``capture_decode=False``), phase 5's decode readings with 8 active
+    slots (zamba2: the step through B1 against its plain version), peak
+    memory, and the captured engine's prefill and decode logits of 3
+    requests against a full-sequence forward of the same tokens (bf16 at
+    full depth; f32 at 12 / 4 layers);
 12. a ``kernels`` JSON line, then the card line, then the result line.
 
     python3 chip_smoke.py --decode-segments [--src DIR]
@@ -157,6 +170,14 @@ and holds every hand-written kernel against its plain PyTorch version:
 takes phase 1 and phase 6's decode segment timings alone, on the package
 under ``DIR`` where given (another checkout's ``src``), and prints no
 result line: two checkouts' kernels timed by one script.
+
+    python3 chip_smoke.py --decode [--src DIR]
+
+takes phase 1 and the decode readings of phases 5, 6 and 11 alone
+(qwen3-1.7b eager and offloaded, zamba2-1.2b, rwkv6-1.6b: the captured
+step beside the eager one), on the package under ``DIR`` where given; a
+package whose ``Engine`` has no ``capture_decode`` gives the eager step
+alone, so one call compares two checkouts.
 
     python3 chip_smoke.py --norm [--src DIR]
 
@@ -583,9 +604,10 @@ def attention_layers(cfg) -> int:
     return sum(k in ATTENTION_KINDS for k in layer_kinds(cfg))
 
 
-def serve(engine, reqs, label: str, tag: str = "[4]") -> int:
+def serve(engine, reqs, label: str, tag: str = "[4]") -> tuple[int, dict]:
     """Run ``reqs`` to completion with the launch counts zeroed just
-    before; returns the kernel's launches, read just after."""
+    before; returns the kernel's launches, read just after, and the
+    completions."""
     layers = attention_layers(engine.cfg)
     ops.reset_launch_counts()
     steps0 = engine.decode_steps
@@ -614,8 +636,93 @@ def serve(engine, reqs, label: str, tag: str = "[4]") -> int:
     check(steps > 0 and launches == steps * layers,
           f"{launches} launches != {steps} decode steps x {layers} "
           "attention layers")
-    return launches
+    return launches, done
 
+
+def same_tokens(done: dict, want: dict, what: str, tag: str) -> None:
+    """Token-for-token equality of two engines' completions."""
+    diff = [r for r in want if done[r].tokens != want[r].tokens]
+    print(f"{tag} {what}: {len(want) - len(diff)}/{len(want)} requests "
+          "token for token identical")
+    check(not diff, f"{what}: requests {diff} differ")
+
+
+def check_captured(engine, label: str, tag: str) -> None:
+    """The engine has served a mix: its decode step was built once
+    (``step_traces == 1``) as one CUDA graph."""
+    check(engine._graph is not None, f"{label}: the decode step was not "
+          "captured")
+    check(engine.serve_counters["step_traces"] == 1,
+          f"{label}: step_traces {engine.serve_counters['step_traces']} "
+          "!= 1 after the mix")
+    graph = engine._graph
+    mem, gib = graph.memory, 2.0 ** 30
+    print(f"{tag} {label}: decode step captured once (step_traces 1), warm "
+          f"step and capture {graph.seconds:.2f} s; max_memory_allocated "
+          f"{mem['max_allocated'][0] / gib:.3f} -> "
+          f"{mem['max_allocated'][1] / gib:.3f} GiB, memory_reserved "
+          f"{mem['reserved'][0] / gib:.3f} -> {mem['reserved'][1] / gib:.3f} "
+          "GiB across the capture (the growth: the graph's private pool)")
+
+
+def serve_eager(eager, reqs, label: str, tag: str) -> dict:
+    """``eager`` (the same static step, ``capture_decode=False``) serves
+    ``reqs``; returns its completions."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eager.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(c.tokens) for c in done.values())
+    print(f"{tag} {label}, capture_decode=False: {tokens} tokens, "
+          f"{wall:.2f} s wall, {tokens / wall:.1f} tokens/s")
+    check(eager._graph is None, f"{label}: capture_decode=False captured")
+    return done
+
+
+def captured_vs_eager(engine, eager, reqs, label: str, tag: str) -> dict:
+    """The captured engine has served ``reqs`` (``check_captured``);
+    ``eager`` serves the same requests.  Returns its completions."""
+    check_captured(engine, label, tag)
+    return serve_eager(eager, reqs, label, tag)
+
+
+def sampled_runs(cfg, params, tag: str = "[4]") -> None:
+    """Temperature 1 through two captured engines of one seed: the same
+    tokens; the noise is drawn afresh before every step (no replay
+    reuses a draw), and the draws leave the greedy tokens."""
+    reqs = make_requests(cfg, [40, 300, 120, 64], 16, seed=8)
+    runs = []
+    for _ in range(2):
+        eng = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                     page_size=64, seed=11)
+        sums, step = [], eng.step
+
+        def summed(eng=eng, sums=sums, step=step):
+            n = eng.decode_steps
+            out = step()
+            if eng.decode_steps > n:
+                sums.append(float(eng._noise.double().sum()))
+            return out
+
+        eng.step = summed
+        done = eng.generate([dataclasses.replace(r, temperature=1.0)
+                             for r in reqs])
+        check(eng._graph is not None, "sampled engine not captured")
+        runs.append(({r: c.tokens for r, c in done.items()}, sums))
+        del eng
+    greedy = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                    page_size=64).generate(reqs)
+    (a, sums), (b, _) = runs
+    fresh = all(x != y for x, y in zip(sums, sums[1:]))
+    off_greedy = sum(a[r] != greedy[r].tokens for r in a)
+    print(f"{tag} temperature 1, two captured engines of seed 11: "
+          f"{'the same' if a == b else 'DIFFERENT'} tokens; noise drawn "
+          f"afresh before each of {len(sums)} steps: {fresh}; "
+          f"{off_greedy}/{len(a)} requests leave the greedy tokens")
+    check(a == b, "sampled tokens differ between two engines of one seed")
+    check(fresh and len(sums) > 1, "a decode step reused the noise")
+    check(off_greedy > 0, "sampled requests equal the greedy ones")
 
 def phase_engine():
     cfg = get_config("qwen3-1.7b")
@@ -630,18 +737,28 @@ def phase_engine():
           f"init {time.perf_counter() - t0:.1f} s")
     engine = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
                     page_size=64)
+    eager = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                   page_size=64, capture_decode=False)
     lens = np.random.default_rng(0).integers(16, 701, size=12)
     lens[0], lens[1] = 16, 700
-    launches = serve(engine, make_requests(cfg, lens, 64, seed=1),
-                     "whole-prompt prefill")
+    # the eager engine first: the process's first model run (library
+    # handles, kernel loading) falls on it, as it fell on the eager step
+    # of earlier readings of this phase
+    want = serve_eager(eager, make_requests(cfg, lens, 64, seed=1),
+                       "qwen3-1.7b", "[4]")
+    launches, done = serve(engine, make_requests(cfg, lens, 64, seed=1),
+                           "whole-prompt prefill")
+    check_captured(engine, "qwen3-1.7b", "[4]")
+    same_tokens(done, want, "captured vs eager decode step", "[4]")
 
     chunked = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
                      page_size=64, prefill_chunk=256)
     serve(chunked, make_requests(cfg, [300, 700, 520, 40], 16, seed=2),
           "prefill_chunk=256")
     del chunked
+    sampled_runs(cfg, params)
     print(f"[4] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return engine, launches
+    return engine, eager, launches
 
 
 def _leaves(tree):
@@ -654,9 +771,12 @@ def _leaves(tree):
         yield tree
 
 
-def profile_decode(engine, steps: int = 5, tag: str = "[5]") -> None:
+def profile_decode(engine, steps: int = 5, tag: str = "[5]",
+                   what: str = "decode step") -> dict:
     """Where a decode step's time goes: ``steps`` steps by the host
-    clock, then as many under ``torch.profiler``."""
+    clock, then as many under ``torch.profiler``.  Returns the host
+    clock, the device-busy time and the device kernels a step (the last
+    two None where the profiler saw no device kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     layers = engine.cfg.num_layers
@@ -685,10 +805,12 @@ def profile_decode(engine, steps: int = 5, tag: str = "[5]") -> None:
     busy_ms = sum(dev_us(e) for e in rows) / 1e3 / steps
     n_launch = sum(e.count for e in rows) / steps
     if not rows:
-        print(f"{tag} decode step {step_ms:.2f} ms by the host clock; "
-              "device time by kernel: not measured (profiler saw none)")
-        return
-    print(f"{tag} decode step, 8 active slots: {step_ms:.2f} ms by the host "
+        graph = [e.key for e in prof.key_averages() if "Graph" in e.key]
+        print(f"{tag} {what} {step_ms:.2f} ms by the host clock; device "
+              "time by kernel: not measured (the profiler saw no device "
+              f"kernel; graph rows {graph})")
+        return {"host_ms": step_ms, "busy_ms": None, "kernels": None}
+    print(f"{tag} {what}, 8 active slots: {step_ms:.2f} ms by the host "
           f"clock; under the profiler {n_launch:.0f} device kernels a step "
           f"({n_launch / layers:.0f} a layer) busy for {busy_ms:.2f} ms "
           f"= {busy_ms / step_ms:.1%} of the step, the device idle for the "
@@ -703,6 +825,143 @@ def profile_decode(engine, steps: int = 5, tag: str = "[5]") -> None:
               f"a step over {sum(n for _, n in grid.values()):.0f} launches: "
               + ", ".join(f"{sym} {ms * 1e3 / n:.2f} us x{n:.0f}"
                           for sym, (ms, n) in sorted(grid.items())))
+    return {"host_ms": step_ms, "busy_ms": busy_ms, "kernels": n_launch}
+
+
+#: the eight prompts of the mid-flight decode readings
+MIDFLIGHT_LENS = [33, 700, 64, 129, 511, 250, 17, 400]
+
+
+def admit_midflight(engine, tag: str) -> float:
+    """Admit MIDFLIGHT_LENS's prompts (32 new tokens each) into every
+    slot; returns the host milliseconds of the admits."""
+    for r in make_requests(engine.cfg, MIDFLIGHT_LENS, 32, seed=3):
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._pump()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"{tag} admitted {len(MIDFLIGHT_LENS)} prompts (lengths "
+          f"{MIDFLIGHT_LENS}) in {ms:.1f} ms")
+    return ms
+
+
+def replay_ms(engine, steps: int = 5) -> float:
+    """Mean device milliseconds of one replay of the engine's decode
+    graph by CUDA events around it, over ``steps`` engine steps."""
+    graph = engine._graph
+    events = []
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        type(graph).replay(graph)
+        end.record()
+        events.append((start, end))
+
+    graph.replay = timed
+    try:
+        for _ in range(steps):
+            engine.step()
+    finally:
+        del graph.replay
+    torch.cuda.synchronize()
+    check(len(events) == steps, "a step did not replay the graph")
+    return sum(a.elapsed_time(b) for a, b in events) / steps
+
+
+def drain(engine) -> None:
+    while engine._host_active.any():
+        engine.step()
+    engine.pop_finished()
+    check(engine.pool.used_pages == 0, "pages leaked")
+
+
+def replay_vs_eager_logits(engine, tag: str) -> float:
+    """One replay's logits against one eager run of the same static step
+    from the same state (the slot state, the emit buffer and the
+    recurrent rows put back after each; both write the same K/V entry).
+    The same kernels run in the same order: the difference should be 0."""
+    engine._stage_inputs(None)
+    saved = [t.clone() for t in (*engine._state.values(), engine._emit,
+                                 *[t for c in engine.cache
+                                   for n, t in c.items()
+                                   if n not in ("k", "v")])]
+
+    def put_back():
+        for t, s in zip((*engine._state.values(), engine._emit,
+                         *[t for c in engine.cache for n, t in c.items()
+                           if n not in ("k", "v")]), saved):
+            t.copy_(s)
+
+    engine._graph.replay()
+    replayed = engine._logits.float().clone()
+    put_back()
+    engine._static_step()
+    eager = engine._logits.float().clone()
+    put_back()
+    torch.cuda.synchronize()
+    err = float((replayed - eager).abs().max())
+    same = int((replayed.argmax(-1) == eager.argmax(-1)).sum())
+    print(f"{tag} one replay's logits vs one eager step from the same "
+          f"state: max abs difference {err} (expected 0: the same kernels "
+          f"in the same order), same greedy token in {same}/"
+          f"{engine.slots} rows")
+    check(bool(torch.isfinite(replayed).all()), "non-finite replay logits")
+    check(err == 0.0, "a replay's logits differ from the eager step's")
+    return err
+
+
+def decode_readings(engine, eager, tag: str, label: str,
+                    steps: int = 5) -> dict:
+    """The decode step mid-flight, 8 active slots, the same prompts in
+    both engines: the captured one (None on a package without
+    ``capture_decode``) by the host clock, one replay's device time by
+    CUDA events and the idle share, then under the profiler; the eager
+    one (``capture_decode=False``, or the package's own) by the host
+    clock and the profiler; then a replay's logits against the eager
+    step's.  The engines are left mid-flight."""
+    out = {}
+    if engine is not None:
+        admit_midflight(engine, tag)
+        for _ in range(2):
+            engine.step()
+        check(engine._graph is not None, f"{label}: not captured")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+        dev = replay_ms(engine, steps)
+        print(f"{tag} {label} captured decode step, 8 active slots: "
+              f"{host:.3f} ms by the host clock, one replay {dev:.4f} ms "
+              f"on the device (CUDA events), idle {1 - dev / host:.1%} "
+              "of the step")
+        prof = profile_decode(engine, steps=steps, tag=tag,
+                              what=f"{label} captured decode step")
+        out["captured"] = {"host_ms": host, "replay_ms": dev,
+                           "idle": 1 - dev / host, "profiler": prof}
+    admit_midflight(eager, tag)
+    prof = profile_decode(eager, steps=steps, tag=tag,
+                          what=f"{label} eager decode step")
+    out["eager"] = prof
+    if prof["busy_ms"] is not None:
+        print(f"{tag} {label} eager decode step: {prof['host_ms']:.3f} ms "
+              f"by the host clock, busy {prof['busy_ms']:.4f} ms, idle "
+              f"{1 - prof['busy_ms'] / prof['host_ms']:.1%}")
+    if engine is not None:
+        c = out["captured"]
+        busy = "not measured" if prof["busy_ms"] is None else \
+            f"{prof['busy_ms']:.4f} ms"
+        print(f"{tag} {label}: step {prof['host_ms']:.3f} -> "
+              f"{c['host_ms']:.3f} ms by the host clock "
+              f"({prof['host_ms'] / c['host_ms']:.1f}x); eager device busy "
+              f"{busy}, one replay {c['replay_ms']:.4f} ms")
+        replay_vs_eager_logits(engine, tag)
+    return out
 
 
 #: the generated B2 kernel's name: ``seg_<program hash>_<rows>_<block>``
@@ -722,21 +981,16 @@ def grid_device_ms(rows, dev_us, steps: int) -> dict:
     return out
 
 
-def phase_full_width_check(engine, tag: str = "[5]") -> None:
-    """Stop the engine mid-flight and take one decode step twice on the
-    same state: through the kernel, and through the plain version (the
-    recurrent layers' state rows restored after each step)."""
+def phase_full_width_check(engine, eager, label: str,
+                           tag: str = "[5]") -> dict:
+    """Stop the engine mid-flight (``decode_readings``) and take one
+    decode step twice on the same state: through the kernel, and through
+    the plain version (the recurrent layers' state rows restored after
+    each step).  Returns the decode readings."""
     cfg = engine.cfg
-    lens = [33, 700, 64, 129, 511, 250, 17, 400]
-    for r in make_requests(cfg, lens, 32, seed=3):
-        engine.submit(r)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine._pump()
-    torch.cuda.synchronize()
-    print(f"{tag} admitted {len(lens)} prompts (lengths {lens}) in "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    profile_decode(engine, tag=tag)
+    lens = MIDFLIGHT_LENS
+    readings = decode_readings(engine, eager, tag, label)
+    drain(eager)
     st = engine._state
     tables = torch.as_tensor(engine.pool.tables, device="cuda")
     active = st["active"]
@@ -776,10 +1030,8 @@ def phase_full_width_check(engine, tag: str = "[5]") -> None:
     check(err <= LOGIT_TOL, "full-width logits differ")
     check(mean_err <= LOGIT_MEAN_TOL, "full-width logits differ in the mean")
     check(float(gap) <= 2 * err, "greedy tokens differ beyond a tie")
-    while engine._host_active.any():
-        engine.step()
-    engine.pop_finished()
-    check(engine.pool.used_pages == 0, "pages leaked")
+    drain(engine)
+    return readings
 
 
 # ------------------------------------------------------------ offload (6)
@@ -1170,7 +1422,7 @@ def phase_offload_roles() -> None:
             check(ok, f"grid segment '{label}' {dtype} vs plain")
 
 
-def serve_offload(engine, cfg, plan) -> dict:
+def serve_offload(engine, eager, cfg, plan) -> dict:
     layers = cfg.num_layers
     n_grid = sum(s.matmul is None for s in plan.segments)
     n_mm = len(plan.segments) - n_grid
@@ -1196,7 +1448,13 @@ def serve_offload(engine, cfg, plan) -> dict:
         check(c.status == "ok" and len(c.tokens) == r.max_new_tokens,
               f"offloaded request {r.rid}: {c.status}/{c.reason}")
     check(engine.pool.used_pages == 0, "offloaded engine leaked pages")
-    check(engine.offload_stats["plan_misses"] == 1, "plan_misses != 1")
+    st = engine.offload_stats
+    check(st["plan_misses"] == st["traces"] == 1 and st["plan_hits"] == 0,
+          f"offload_stats {st}: not plan_misses == traces == 1, "
+          "plan_hits == 0")
+    same_tokens(captured_vs_eager(engine, eager, make_requests(
+        cfg, lens, 64, seed=1), "qwen3-1.7b offload=True", "[6]"), done,
+        "offloaded, captured vs eager decode step", "[6]")
     check(counts["paged_decode_attention"] == steps * layers,
           "attention launches != steps x layers")
     check(counts["fused_segment_grid"] == steps * n_grid,
@@ -1207,16 +1465,21 @@ def serve_offload(engine, cfg, plan) -> dict:
 
 
 def offload_vs_eager(engine, label: str, tol: float, mean_tol: float, *,
-                     profile: bool = False) -> None:
-    """One decode step on the same state, offloaded and eager (after
-    profiling offloaded steps when asked)."""
+                     eager=None) -> dict | None:
+    """One decode step on the same state, offloaded and eager (after the
+    decode readings of the captured offloaded step beside ``eager``'s,
+    when given)."""
     cfg = engine.cfg
-    lens = [33, 700, 64, 129, 511, 250, 17, 400]
-    for r in make_requests(cfg, lens, 32, seed=3):
-        engine.submit(r)
-    engine._pump()
-    if profile:
-        profile_decode(engine, tag="[6]")
+    lens = MIDFLIGHT_LENS
+    readings = None
+    if eager is not None:
+        readings = decode_readings(engine, eager, "[6]",
+                                   "qwen3-1.7b offload=True")
+        drain(eager)
+    else:
+        for r in make_requests(cfg, lens, 32, seed=3):
+            engine.submit(r)
+        engine._pump()
     st = engine._state
     tables = torch.as_tensor(engine.pool.tables, device="cuda")
     check(int(st["active"].sum()) == len(lens), "not every slot decodes")
@@ -1239,10 +1502,8 @@ def offload_vs_eager(engine, label: str, tol: float, mean_tol: float, *,
           f"{same}/{len(lens)} rows, largest gap {gap:.4f}")
     check(err <= tol and mean_err <= mean_tol, f"{label} logits differ")
     check(gap <= 2 * err, f"{label} greedy tokens differ beyond a tie")
-    while engine._host_active.any():
-        engine.step()
-    engine.pop_finished()
-    check(engine.pool.used_pages == 0, "pages leaked")
+    drain(engine)
+    return readings
 
 
 def phase_offload(params, card: str):
@@ -1263,11 +1524,13 @@ def phase_offload(params, card: str):
         print(f"[6]   {line}")
     timed = phase_offload_kernels({"bf16": plan16, "f32": plan32}, card)
     phase_offload_roles()
-    counts = serve_offload(off, cfg, plan16)
+    eager = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                   page_size=64, offload=True, capture_decode=False)
+    counts = serve_offload(off, eager, cfg, plan16)
     offload_vs_eager(off, "bf16", OFFLOAD_LOGIT_TOL, OFFLOAD_LOGIT_MEAN_TOL,
-                     profile=True)
+                     eager=eager)
     offload_vs_eager(off32, "f32", LOGIT_TOL_F32, LOGIT_MEAN_TOL_F32)
-    del off32, params32
+    del off32, params32, eager
     return timed, counts
 
 
@@ -3978,27 +4241,30 @@ ZOO_F32_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
 
 
 def capture_logits(engine):
-    """Wrap the engine's model so that every prefill and every decode
-    step's logits are kept, with the slot -> request map of the step.
-    Returns the two lists and ``restore()``, which unwraps the model."""
+    """Wrap the engine's model's prefill and its decode step so that every
+    prefill's and every decode step's logits are kept (a replay's: the
+    captured graph's output), with the slot -> request map of the step.
+    Returns the two lists and ``restore()``, which unwraps both."""
     prefills, steps = [], []
-    model = engine.model
+    model, run = engine.model, engine._run_decode_step
 
     def prefill(*a, **kw):
         logits, cache = model.prefill(*a, **kw)
         prefills.append(logits[0].float().clone())
         return logits, cache
 
-    def decode(*a, **kw):
-        logits, cache = model.decode_step_paged(*a, **kw)
-        steps.append((logits.float().clone(), engine._slot_rid.copy(),
-                      engine._state["active"].clone()))
-        return logits, cache
+    def decode():
+        rid, active = engine._slot_rid.copy(), engine._state["active"].clone()
+        run()
+        steps.append((engine._logits.float().clone(), rid, active))
 
     def restore():
-        engine.model = model     # drops the cycle engine -> capture -> engine
+        # drops the cycle engine -> capture -> engine
+        engine.model = model
+        del engine._run_decode_step
 
-    engine.model = model._replace(prefill=prefill, decode_step_paged=decode)
+    engine.model = model._replace(prefill=prefill)
+    engine._run_decode_step = decode
     return prefills, steps, restore
 
 
@@ -4022,6 +4288,7 @@ def engine_vs_forward(cfg, params, lens, new_tokens, seed, label: str
     reqs = make_requests(cfg, lens, new_tokens, seed)
     done = engine.generate(reqs)
     restore()
+    check(engine._graph is not None, f"{label}: decode step not captured")
     bf16 = engine.model.dtype == torch.bfloat16
     if bf16:
         f32_model = build_model(dataclasses.replace(cfg, dtype="float32"),
@@ -4097,18 +4364,23 @@ def phase_zoo(card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         engine = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
                         page_size=64)
+        eager = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                       page_size=64, capture_decode=False)
         lens = np.random.default_rng(0).integers(16, 701, size=12)
         lens[0], lens[1] = 16, 700
-        launches = serve(engine, make_requests(cfg, lens, 64, seed=1),
-                         f"{arch} whole-prompt prefill", tag="[11]")
+        launches, done = serve(engine, make_requests(cfg, lens, 64, seed=1),
+                               f"{arch} whole-prompt prefill", tag="[11]")
         n_attn = attention_layers(cfg)
         print(f"[11] {arch}: B1 launched {launches} times, "
               f"{n_attn} a decode step (its attention layers)")
-        phase_full_width_check(engine, tag="[11]")
+        same_tokens(captured_vs_eager(engine, eager, make_requests(
+            cfg, lens, 64, seed=1), arch, "[11]"), done,
+            "captured vs eager decode step", "[11]")
+        phase_full_width_check(engine, eager, arch, tag="[11]")
         print(f"[11] {arch} serving peak device memory "
               f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (weights, "
               f"caches, prefill of 700 tokens, 8-slot decode)")
-        del engine
+        del engine, eager
         engine_vs_forward(cfg, params, [100, 333, 700], 64, 5,
                           f"{arch} bf16")
         del params, model
@@ -4120,6 +4392,51 @@ def phase_zoo(card: str) -> None:
                           f"{arch} f32 at {cut.num_layers} layers")
         del cmodel
     print(f"[11] zamba2 and rwkv6 served in {time.perf_counter() - t0:.1f} s")
+
+
+def decode_alone(card: str) -> None:
+    """``--decode``: the decode readings of phases 5, 6 and 11 alone
+    (``decode_readings``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
+    rwkv6-1.6b; full width and depth, random bf16 weights from seed 0),
+    on the package under ``--src`` where given.  A package whose
+    ``Engine`` has no ``capture_decode`` (before the compiled step) gives
+    the eager readings alone: one call compares two checkouts."""
+    import inspect
+
+    import repro_torch
+
+    captures = "capture_decode" in inspect.signature(Engine).parameters
+    print(f"[d] decode readings of {os.path.dirname(repro_torch.__file__)} "
+          f"({'captured and eager' if captures else 'eager only: its Engine has no capture_decode'}); "
+          f"card {card}")
+    params = None
+    for arch, offload in (("qwen3-1.7b", False), ("qwen3-1.7b", True),
+                          ("zamba2-1.2b", False), ("rwkv6-1.6b", False)):
+        cfg = get_config(arch)
+        if params is None or params[0] != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(cfg, device="cuda")
+            params = (arch, cast_params(model.init(0), model.dtype))
+            del model
+        kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
+                  offload=offload)
+        eager = Engine(cfg, params[1], **kw,
+                       **({"capture_decode": False} if captures else {}))
+        engine = Engine(cfg, params[1], **kw) if captures else None
+        if offload:
+            plan = eager.prepare_decode()
+            if plan.library:
+                fm.finish_library(fm.start_library(plan.library))
+        label = f"{arch}{' offload=True' if offload else ''}"
+        t0 = time.perf_counter()
+        decode_readings(engine, eager, "[d]", label)
+        for eng in (engine, eager):
+            if eng is not None:
+                drain(eng)
+        print(f"[d] {label}: {time.perf_counter() - t0:.1f} s")
+        del engine, eager
 
 
 def kernel_entry(timed: dict, kind: str) -> dict:
@@ -4151,12 +4468,15 @@ def main() -> int:
     if "--scan" in sys.argv:
         scan_readings(card)
         return 0
+    if "--decode" in sys.argv:
+        decode_alone(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
-    engine, launches = phase_engine()
-    phase_full_width_check(engine)
+    engine, eager, launches = phase_engine()
+    phase_full_width_check(engine, eager, "qwen3-1.7b")
     params = engine.params
-    del engine
+    del engine, eager
     timed, counts = phase_offload(params, card)
     del params
     torch.cuda.empty_cache()

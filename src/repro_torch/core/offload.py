@@ -2230,6 +2230,7 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
     backward (``_segment_vjp``).
 
     ``wrapped`` exposes ``stats`` (OffloadStats), ``policy``,
+    ``bind(*a)`` (look the plan up once, bound to these tensors),
     ``warm(*a)`` (plan a signature without running it),
     ``warm_backward(*a)`` (plan its segments' backward too),
     ``plan_for(*a)``, ``explain(*a)`` (the DecisionReport) and
@@ -2275,11 +2276,24 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
             stats.plan_hits += 1
         return entry, leaves
 
-    def wrapped(*args):
+    def bind(*args) -> Callable[[], Any]:
+        """The plan of ``args``' signature, looked up once (counted as
+        that call's miss or hit) and bound to ``args``' tensors:
+        ``run()`` runs it on those very tensors and returns what
+        ``wrapped(*args)`` would, without another lookup — the form for
+        inputs that are fixed buffers (the engine's decode step, replayed
+        as a CUDA graph).  ``run.plan`` is the plan."""
         entry, leaves = entry_for(args)
         tensors = [x for x, t in zip(leaves, entry.is_tensor) if t]
-        out = entry.run(*tensors)
-        return pytree.tree_unflatten(list(out), entry.out_spec)
+
+        def run():
+            return pytree.tree_unflatten(list(entry.run(*tensors)),
+                                         entry.out_spec)
+        run.plan = entry.plan
+        return run
+
+    def wrapped(*args):
+        return bind(*args)()
 
     def warm(*args) -> OffloadPlan:
         """Plan ``args``' signature now, as a first call would (counted
@@ -2294,6 +2308,7 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
 
     wrapped.stats = stats
     wrapped.policy = policy
+    wrapped.bind = bind
     wrapped.warm = warm
     wrapped.warm_backward = warm_backward
     wrapped.plan_for = lambda *args: entry_for(args, count=False)[0].plan

@@ -10,7 +10,9 @@ injector's port.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
+from typing import Iterator
 
 import torch
 
@@ -33,13 +35,32 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
     return impl
 
 
+class LaunchRecord:
+    """The ``count_launch`` / ``count_variant`` calls made while a CUDA
+    graph was captured.  Capture launches nothing, and a replay launches
+    every captured kernel without calling a wrapper, so the calls are
+    kept here and ``replay()`` counts them once per replay of the graph."""
+
+    def __init__(self, guard: "KernelGuard"):
+        self._guard = guard
+        self.calls: list[tuple[str, str | None, str | None]] = []
+
+    def replay(self) -> None:
+        for kernel, symbol, variant in self.calls:
+            if variant is None:
+                self._guard._add_launch(kernel)
+            else:
+                self._guard._add_variant(kernel, symbol, variant)
+
+
 @dataclass
 class KernelGuard:
     """Per-process kernel bookkeeping.  ``launches[name]`` is a plain
-    integer bumped by a wrapper exactly where it launches its kernel;
-    ``epoch`` changes when kernel health changes, which nothing does
-    until fault injection is ported (failure and quarantine counts
-    arrive with it)."""
+    integer bumped by a wrapper exactly where it launches its kernel
+    (inside ``recording()`` the call is recorded instead, and counted
+    by each replay of the captured graph); ``epoch`` changes when kernel
+    health changes, which nothing does until fault injection is ported
+    (failure and quarantine counts arrive with it)."""
 
     epoch: int = 0
     launches: dict[str, int] = field(default_factory=dict)
@@ -48,14 +69,38 @@ class KernelGuard:
     #: variant each generated symbol's last launch took
     variants: dict[tuple[str, str], int] = field(default_factory=dict)
     last_variant: dict[str, str] = field(default_factory=dict)
+    _record: LaunchRecord | None = field(default=None, repr=False)
 
     def stats(self) -> dict[str, int]:
         return {"guard_epoch": self.epoch}
 
     def count_launch(self, kernel: str) -> None:
-        self.launches[kernel] = self.launches.get(kernel, 0) + 1
+        if self._record is not None:
+            self._record.calls.append((kernel, None, None))
+        else:
+            self._add_launch(kernel)
 
     def count_variant(self, kernel: str, symbol: str, variant: str) -> None:
+        if self._record is not None:
+            self._record.calls.append((kernel, symbol, variant))
+        else:
+            self._add_variant(kernel, symbol, variant)
+
+    @contextmanager
+    def recording(self) -> Iterator[LaunchRecord]:
+        """Record instead of count the launches made inside (a CUDA
+        graph's capture); the record's ``replay()`` counts them."""
+        record, outer = LaunchRecord(self), self._record
+        self._record = record
+        try:
+            yield record
+        finally:
+            self._record = outer
+
+    def _add_launch(self, kernel: str) -> None:
+        self.launches[kernel] = self.launches.get(kernel, 0) + 1
+
+    def _add_variant(self, kernel: str, symbol: str, variant: str) -> None:
         self.variants[kernel, variant] = \
             self.variants.get((kernel, variant), 0) + 1
         self.last_variant[symbol] = variant

@@ -137,7 +137,9 @@ def rope_frequencies(head_dim: int, theta: float, device=None
                      ) -> torch.Tensor:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    base = torch.tensor(theta, dtype=torch.float32, device=device)
+    # a fill on the device, not a copy from the host: the decode step
+    # runs this inside a CUDA graph's capture
+    base = torch.full((), theta, dtype=torch.float32, device=device)
     return 1.0 / (base ** exponent)  # [head_dim//2]
 
 

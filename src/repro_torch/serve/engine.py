@@ -15,27 +15,43 @@ page boundaries, preemption by recompute (exact for greedy decoding),
 deadlines, NaN-logits abort, pause/resume on transient page-alloc
 faults, bounded-queue backpressure.
 
+The decode step is compiled as the JAX engine compiles it (``jax.jit``
+with donation): it is a *static step* that reads and writes only fixed
+buffers — the slot state (pos/tok/budget/temp/active), a ``[slots,
+table_width]`` block-table buffer, a ``[slots]`` poison mask, a
+``[slots, vocab]`` Gumbel-noise buffer, the page pools and recurrent
+state rows, and a ``[4, slots]`` emit buffer — every one written **in
+place**.  On a CUDA device the first decode step runs it eagerly on a
+side stream (a real step: it builds every kernel it launches), then
+captures it as ONE CUDA graph; every later step copies the tables (and
+the poison mask) in from pinned host buffers, replays the graph and
+reads the emit buffer back — one host sync per decode step.  A failed
+capture raises; ``capture_decode=False`` runs the same static step
+eagerly on the card, as the CPU always does.  ``serve_counters
+["step_traces"]`` counts builds of the step (captures on a card), the
+JAX engine's trace count: 1 at steady state whatever the admission
+churn, plus one for each kernel-guard epoch change (``kernel_replans``),
+which drops the graph as the JAX engine re-jits.
+
 What differs, because PyTorch runs eagerly:
 
-* there is nothing to trace, so the JAX engine's trace counters
-  (``admit_traces`` / ``step_traces`` / ``chunk_traces`` /
-  ``control_traces``) are gone from ``serve_counters``;
-* the page pools and the slot state are updated **in place** (the JAX
-  engine donates them to its jitted functions);
-* slot state (pos/tok/budget/temp/active) lives on the device and the
-  step reads its emit tuple back **once** — one host sync per decode
-  step;
+* admit, chunked prefill and the slot controls run eagerly, so the
+  JAX engine's ``admit_traces`` / ``chunk_traces`` / ``control_traces``
+  are not in ``serve_counters``;
 * greedy decoding matches the JAX engine token for token; sampled rows
-  (``temperature > 0``) draw from the engine's ``torch.Generator`` and
-  cannot match ``jax.random`` bit for bit.
+  (``temperature > 0``) take the Gumbel-max draw ``argmax(logits / T +
+  G)`` over noise ``G = -log(E)``, ``E ~ Exp(1)``, drawn from the
+  engine's ``torch.Generator`` before each step (an exact draw from
+  ``softmax(logits / T)``), and cannot match ``jax.random`` bit for bit.
 
 ``offload=True`` (or an ``offload_policy``) runs the paged decode step
 through the offload compiler (``repro_torch.core.offload.mpu_offload``),
-wrapped where the JAX engine wraps it: the step is captured and planned
-once for the pool's decode signature, and every decode step runs the
-plan — fused segments as single kernel launches, everything else as
-its op.  ``offload_stats`` shows the plan cache (``plan_misses == 1``
-at steady state), ``explain_decode()`` the per-segment decisions.
+wrapped where the JAX engine wraps it: the plan is looked up once for the
+pool's decode signature and bound to the fixed buffers (``bind``), and
+the static step runs it — fused segments as single kernel launches,
+everything else as its op.  ``offload_stats`` shows the plan cache: the
+JAX engine's zero-retrace steady state, ``plan_misses == traces == 1``
+and ``plan_hits == 0``; ``explain_decode()`` the per-segment decisions.
 
 Recurrent stacks (zamba2's mamba2 layers, rwkv6) keep one state row per
 slot: admit writes the prompt's final state into the slot's row, a
@@ -104,6 +120,7 @@ class Engine:
                  max_preempts: int = 3, max_queue: int = 0,
                  fault_injector: Any = None,
                  offload_policy: "OffloadPolicy | None" = None,
+                 capture_decode: bool = True,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -137,6 +154,28 @@ class Engine:
             "temp": torch.zeros((slots,), dtype=torch.float32, device=dev),
             "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
         }
+        # the static decode step's other fixed buffers (see the module
+        # docstring); the tables and the poison mask are staged in pinned
+        # host memory and copied in before each step
+        pinned = dev.type == "cuda"
+        self._tables = torch.zeros((slots, self.table_width),
+                                   dtype=torch.int32, device=dev)
+        self._tables_host = torch.zeros((slots, self.table_width),
+                                        dtype=torch.int32, pin_memory=pinned)
+        self._poison = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self._poison_host = torch.zeros((slots,), dtype=torch.bool,
+                                        pin_memory=pinned)
+        self._noise = torch.zeros((slots, cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self._emit = torch.zeros((4, slots), dtype=torch.int32, device=dev)
+        #: the last decode step's logits; once captured, the graph's own
+        #: output tensor, which each replay rewrites
+        self._logits: torch.Tensor | None = None
+        self._capture = capture_decode and dev.type == "cuda"
+        self._step_built = False
+        self._graph: StepGraph | None = None
+        self._decode_run = None    # the offloaded plan, bound to the buffers
+
         # host mirrors (slot occupancy / page-growth bookkeeping)
         self._host_active = np.zeros((slots,), bool)   # occupied (incl. prefilling)
         self._decode_active = np.zeros((slots,), bool)  # decoding
@@ -198,7 +237,8 @@ class Engine:
                                                policy=offload_policy)
 
         self.decode_steps = 0
-        self.serve_counters = {"preemptions": 0, "preemption_retries": 0,
+        self.serve_counters = {"step_traces": 0,
+                               "preemptions": 0, "preemption_retries": 0,
                                "preempt_vetoes": 0, "deadline_cancels": 0,
                                "nan_aborts": 0, "page_faults": 0,
                                "alloc_stalls": 0, "kernel_replans": 0,
@@ -222,46 +262,79 @@ class Engine:
         self._state["active"][slot] = on
 
     @torch.no_grad()
-    def _device_step(self, tables: torch.Tensor, poison: np.ndarray | None):
-        """One decode for every slot; updates the slot state in place and
-        returns the emit tuple stacked ``[4, slots]`` (emitted token,
-        was_active, done, bad) still on the device."""
+    def _static_step(self) -> torch.Tensor:
+        """One decode for every slot, on the fixed buffers only: the
+        slot state advances in place and the emit buffer receives
+        (emitted token, was_active, done, bad) — what the CUDA graph
+        captures.  Every row computes its greedy and its sampled token;
+        ``temp > 0`` picks, as in the JAX engine.  Returns the logits."""
         st, max_len = self._state, self.max_len
-        if self._decode_offload is not None:
-            logits, self.cache = self._decode_offload(
-                self.params, self.cache, st["tok"], st["pos"], tables,
-                st["active"])
+        if self._decode_run is not None:
+            logits, _ = self._decode_run()
         else:
-            logits, self.cache = self.model.decode_step_paged(
-                self.params, self.cache, st["tok"], st["pos"], tables,
+            logits, _ = self.model.decode_step_paged(
+                self.params, self.cache, st["tok"], st["pos"], self._tables,
                 st["active"], max_len=max_len)
-        if poison is not None:
-            # chaos: poisoned rows get non-finite logits
-            mask = torch.as_tensor(poison, device=self.device)
-            logits = torch.where(mask[:, None], torch.nan, logits)
+        self._logits = logits
+        # chaos: poisoned rows get non-finite logits (an all-False mask
+        # without an injector leaves them as they are)
+        logits = torch.where(self._poison[:, None], torch.nan, logits)
         # a poisoned row must not kill the batch: detect non-finite
         # logits per row, sample that row from neutral logits, and
         # report the mask so the host aborts just that request
         was_active = st["active"]
         bad = was_active & ~torch.isfinite(logits).all(-1)
         safe = torch.where(bad[:, None], 0.0, logits)
-        nxt = torch.argmax(safe, -1).to(torch.int32)
+        greedy = torch.argmax(safe, -1).to(torch.int32)
         temps = st["temp"]
-        if self._sampling:
-            probs = torch.softmax(
-                safe / torch.clamp(temps[:, None], min=1e-3), -1)
-            sampled = torch.multinomial(
-                probs, 1, generator=self.rng)[:, 0].to(torch.int32)
-            nxt = torch.where(temps > 0, sampled, nxt)
-        emitted = st["tok"]
+        sampled = torch.argmax(torch.addcdiv(
+            self._noise, safe, torch.clamp(temps[:, None], min=1e-3)),
+            -1).to(torch.int32)
+        nxt = torch.where(temps > 0, sampled, greedy)
         one = was_active.to(torch.int32)
-        st["pos"] += one
-        st["budget"] -= one
+        st["pos"].add_(one)
+        st["budget"].sub_(one)
         done = was_active & ((st["budget"] < 0) | (st["pos"] >= max_len - 1))
-        st["tok"] = torch.where(was_active, nxt, st["tok"])
-        st["active"] = was_active & ~done
-        return torch.stack([emitted, was_active.to(torch.int32),
-                            done.to(torch.int32), bad.to(torch.int32)])
+        self._emit.copy_(torch.stack([st["tok"], one, done.to(torch.int32),
+                                      bad.to(torch.int32)]))
+        st["tok"].copy_(torch.where(was_active, nxt, st["tok"]))
+        st["active"].copy_(was_active & ~done)
+        return self._logits
+
+    def _stage_inputs(self, poison: np.ndarray | None) -> None:
+        """This step's inputs into the fixed buffers, outside the graph:
+        the block tables (and the poison mask) from pinned host buffers,
+        and fresh Gumbel noise while a slot samples."""
+        self._tables_host.numpy()[:] = self.pool.tables
+        self._tables.copy_(self._tables_host, non_blocking=True)
+        if poison is not None:
+            self._poison_host.numpy()[:] = poison
+            self._poison.copy_(self._poison_host, non_blocking=True)
+        if self._sampling:
+            self._noise.exponential_(generator=self.rng).log_().neg_()
+
+    def _decode_args(self) -> tuple:
+        st = self._state
+        return (self.params, self.cache, st["tok"], st["pos"], self._tables,
+                st["active"])
+
+    def _run_decode_step(self) -> None:
+        """Run the static step: replay its graph, or build the step
+        first (``step_traces``): bind the offloaded plan to the fixed
+        buffers and, on a card, warm up and capture."""
+        if self._graph is not None:
+            self._graph.replay()
+            return
+        if not self._step_built:
+            if self._decode_offload is not None and self._decode_run is None:
+                self._decode_run = self._decode_offload.bind(
+                    *self._decode_args())
+            self._step_built = True
+            self.serve_counters["step_traces"] += 1
+            if self._capture:
+                self._graph = StepGraph(self._static_step, self.device)
+                return
+        self._static_step()
 
     @property
     def _sampling(self) -> bool:
@@ -288,9 +361,10 @@ class Engine:
     @property
     def offload_stats(self) -> dict | None:
         """Plan-cache counters of the offloaded decode step (None when
-        offload is off).  The paged decode has one signature (fixed pool,
-        fixed-width tables), so the steady state is ``plan_misses ==
-        traces == 1`` with one ``plan_hit`` per further decode step."""
+        offload is off).  The plan is looked up when the static step is
+        built, not per decode step, so the steady state is the JAX
+        engine's: ``plan_misses == traces == 1`` and ``plan_hits == 0``
+        whatever the churn."""
         if self._decode_offload is None:
             return None
         return {**self._decode_offload.stats.as_dict(),
@@ -302,11 +376,7 @@ class Engine:
         None when offload is off."""
         if self._decode_offload is None:
             return None
-        st = self._state
-        return getattr(self._decode_offload, method)(
-            self.params, self.cache, st["tok"], st["pos"],
-            torch.as_tensor(self.pool.tables, device=self.device),
-            st["active"])
+        return getattr(self._decode_offload, method)(*self._decode_args())
 
     def explain_decode(self):
         """The offload DecisionReport of the paged decode step for the
@@ -316,8 +386,12 @@ class Engine:
 
     def prepare_decode(self):
         """Capture and plan the decode step for the pool's signature now
-        (what the first decode step would do); returns the plan."""
-        return self._on_decode_signature("warm")
+        and bind the plan to the fixed buffers (what the first decode
+        step would do); returns the plan (None when offload is off)."""
+        if self._decode_offload is None:
+            return None
+        self._decode_run = self._decode_offload.bind(*self._decode_args())
+        return self._decode_run.plan
 
     def decode_plan(self):
         """The OffloadPlan of the paged decode step (None when offload
@@ -477,7 +551,7 @@ class Engine:
                 return  # stall: decode completions will free pages
         tokens = np.zeros((1, c), np.int32)
         tokens[0, :n_valid] = prompt[ctx:ctx + n_valid]
-        logits, self.cache = self.model.prefill_chunk(
+        logits, _ = self.model.prefill_chunk(
             self.params, self.cache, tokens, self._table_row(slot),
             int(ctx), int(n_valid))
         ctx += n_valid
@@ -533,12 +607,15 @@ class Engine:
                 self.serve_counters["deadline_cancels"] += 1
 
     def _check_guard_epoch(self):
-        """Note a change of kernel health.  Eager dispatch consults the
-        guard on every call, so there is nothing to rebuild; the counter
-        keeps its name from the JAX engine."""
+        """A change of kernel health drops the static step — its graph
+        and its bound plan — so that the next decode step rebuilds it,
+        as the JAX engine re-jits its step (``kernel_replans``)."""
         if kernel_guard().epoch != self._guard_epoch:
             self._guard_epoch = kernel_guard().epoch
             self.serve_counters["kernel_replans"] += 1
+            self._graph = None
+            self._decode_run = None
+            self._step_built = False
 
     def _grow_pages(self):
         """Before a decode step, make sure every active slot owns the
@@ -590,11 +667,11 @@ class Engine:
         poison = None
         if self._injector is not None:
             poison = self._injector.poison_slots(self._decode_active)
-        tables = torch.as_tensor(self.pool.tables, device=self.device)
-        emit = self._device_step(tables, poison)
+        self._stage_inputs(poison)
+        self._run_decode_step()
         self.decode_steps += 1
         # the single host sync of the step
-        em, wa, dn, bd = emit.cpu().numpy()
+        em, wa, dn, bd = self._emit.cpu().numpy()
         out = []
         for s in range(self.slots):
             if not wa[s]:
@@ -711,6 +788,48 @@ class Engine:
                     f"page_size {self.page_size})")
         drain()
         return done
+
+
+class StepGraph:
+    """A static step as ONE CUDA graph.  ``fn`` runs once eagerly on a
+    side stream (a real step, whose results stand: it builds and loads
+    every kernel the step launches), then is captured, which runs
+    nothing; ``replay()`` launches every captured kernel and counts the
+    launches the capture recorded (``kernel_guard().recording()``).
+    ``fn`` returns its output tensor: the captured one, which each replay
+    rewrites, holds the warm step's values until the first replay.
+    ``memory`` holds ``max_memory_allocated`` / ``memory_reserved``
+    before and after the capture (the growth of the reserved bytes is the
+    graph's private pool), ``seconds`` the host time of the warm step and
+    the capture."""
+
+    def __init__(self, fn, device: torch.device):
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm = fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        # what the capture does on entry, so that ``before`` counts no
+        # cached block the capture would release
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        before = (torch.cuda.max_memory_allocated(device),
+                  torch.cuda.memory_reserved(device))
+        self.graph = torch.cuda.CUDAGraph()
+        with kernel_guard().recording() as self.launches, \
+                torch.cuda.graph(self.graph, capture_error_mode="global"):
+            out = fn()
+        out.copy_(warm)
+        self.memory = {
+            "max_allocated": (before[0],
+                              torch.cuda.max_memory_allocated(device)),
+            "reserved": (before[1], torch.cuda.memory_reserved(device))}
+        self.seconds = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replay()
 
 
 def _fit_len(x: torch.Tensor, length: int) -> torch.Tensor:
