@@ -22,13 +22,22 @@ and holds every hand-written kernel against its plain PyTorch version:
    beside the plain version, a ``scaled_dot_product_attention``
    yardstick and the card's bound;
 4. the engine at full width: 12 greedy requests through
-   ``capture_decode=False`` (first: the process's first model run), then
-   through the engine whose decode step is one CUDA graph (the same
-   tokens), then a shorter pass with chunked prefill; every request
+   ``capture_decode=False`` (first: the process's first model run; every
+   static function eager), then twice through the engine whose decode
+   step, admits (one graph a pow2 prompt bucket), chunk and slot controls
+   are CUDA graphs (the same tokens), then a shorter pass with chunked
+   prefill, captured and eager (the same tokens); every request
    completes, no page leaks, and the kernel's launch count equals decode
    steps x layers (counted from the graph's replays: ``step_traces == 1``
    after the mix; the warm step and capture's host time and the graph
-   pool's memory printed); four
+   pool's memory printed); ``admit_traces`` equals the mix's distinct
+   buckets after the first pass and stays there on the second,
+   ``chunk_traces == 1``, ``control_traces`` printed, with the shared
+   pool's reserved bytes; each pass's admit time of the first 8 prompts,
+   time to first token (median, max) and tokens/s; every admit bucket's
+   graph and the chunk's replayed against the same static function run
+   eagerly from the same state (pages, rows, slot state and last logits
+   bit-equal), each replay's device time by CUDA events; four
    sampled requests (temperature 1) through two captured engines of one
    seed give the same tokens, with fresh noise every step;
 5. a decode step mid-flight, 8 active slots: the captured step by the
@@ -52,7 +61,9 @@ and holds every hand-written kernel against its plain PyTorch version:
    ``Engine(offload=True)`` (launch counts = decode steps x layers for
    the attention and x segments of the plan for the fused kernels,
    ``plan_misses == traces == 1`` and ``plan_hits == 0``, captured once)
-   and through ``capture_decode=False`` (the same tokens); phase 5's
+   and through ``capture_decode=False`` (the same tokens), then again
+   through the captured engine (phase 4's admit readings, counters and
+   replays); phase 5's
    decode readings for the offloaded step (B2's device time a step,
    summed over its ``seg_`` kernels); and take one decode step on the
    same state offloaded and eager, in bf16 and in f32 — logits agree;
@@ -158,7 +169,9 @@ and holds every hand-written kernel against its plain PyTorch version:
     page_size=64)``: 12 greedy requests x 64 tokens (every request
     completes, B1 launched 6 times a decode step for zamba2's shared
     attention, 0 for rwkv6; captured once, the same tokens through
-    ``capture_decode=False``), phase 5's decode readings with 8 active
+    ``capture_decode=False``; served twice, phase 4's admit readings, the
+    admits eager — no bucket — and ``admit_traces`` the mix's distinct
+    lengths), phase 5's decode readings with 8 active
     slots (zamba2: the step through B1 against its plain version), peak
     memory, and the captured engine's prefill and decode logits of 3
     requests against a full-sequence forward of the same tokens (bf16 at
@@ -178,6 +191,14 @@ takes phase 1 and the decode readings of phases 5, 6 and 11 alone
 step beside the eager one), on the package under ``DIR`` where given; a
 package whose ``Engine`` has no ``capture_decode`` gives the eager step
 alone, so one call compares two checkouts.
+
+    python3 chip_smoke.py --admit [--src DIR]
+
+takes phase 1 and the admit readings of phases 4, 6 and 11 alone (the
+12-request mix eager, then twice captured, for qwen3-1.7b eager and
+offloaded, zamba2-1.2b and rwkv6-1.6b), on the package under ``DIR``
+where given; a package whose ``Engine`` has no ``admit_traces`` serves
+the mix twice with its own (eager) admits.
 
     python3 chip_smoke.py --norm [--src DIR]
 
@@ -199,6 +220,7 @@ matrix products run in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -238,7 +260,7 @@ from repro_torch.kernels.guard import kernel_guard
 from repro_torch.models import build_model
 from repro_torch.models.layers import cast_params, lm_head_apply
 from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
-from repro_torch.serve import Engine, Request
+from repro_torch.serve import Engine, Request, bucket_length
 # the module, not the entry point of the same name the package exports
 fe = importlib.import_module("repro_torch.kernels.fused_elementwise")
 
@@ -604,39 +626,100 @@ def attention_layers(cfg) -> int:
     return sum(k in ATTENTION_KINDS for k in layer_kinds(cfg))
 
 
-def serve(engine, reqs, label: str, tag: str = "[4]") -> tuple[int, dict]:
+def timed_generate(engine, reqs) -> tuple[dict, dict]:
+    """``engine.generate(reqs)`` by the host clock, the device synchronized
+    before and after.  Returns the completions and the readings: the wall
+    seconds and tokens/s, the first ``_pump``'s seconds (the admits of the
+    first prompts, one a free slot) and how many it admitted, and each
+    request's time to first token (submit, at the start, to the end of the
+    step that emits its first token; median and max)."""
+    pump, step = engine._pump, engine.step
+    marks, first = {}, {}
+
+    def timed_pump():
+        if "admit_s" in marks:
+            return pump()
+        t = time.perf_counter()
+        moved = pump()
+        torch.cuda.synchronize()
+        marks["admit_s"] = time.perf_counter() - t
+        marks["admitted"] = int(engine._host_active.sum())
+        return moved
+
+    def timed_step():
+        out = step()
+        now = time.perf_counter() - t0
+        for rid, _ in out:
+            first.setdefault(rid, now)
+        return out
+
+    engine._pump, engine.step = timed_pump, timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        done = engine.generate(reqs)
+        torch.cuda.synchronize()
+    finally:
+        del engine._pump, engine.step
+    wall = time.perf_counter() - t0
+    tokens = sum(len(c.tokens) for c in done.values())
+    ttft = sorted(first.values())
+    return done, {"wall": wall, "tokens": tokens, "tokens_s": tokens / wall,
+                  **marks, "ttft_median": float(np.median(ttft)),
+                  "ttft_max": ttft[-1]}
+
+
+def admit_line(r: dict) -> str:
+    return (f"first {r['admitted']} prompts admitted in {r['admit_s']:.3f} s; "
+            f"time to first token median {r['ttft_median']:.3f} s, max "
+            f"{r['ttft_max']:.3f} s (host clock, submit -> first emitted "
+            f"token); {r['tokens_s']:.1f} tokens/s")
+
+
+def print_passes(first: dict, second: dict, label: str, tag: str) -> None:
+    """Two passes of one mix through one engine, side by side."""
+    print(f"{tag} {label} admits, pass 1 / pass 2: first prompts "
+          f"{first['admit_s']:.3f} / {second['admit_s']:.3f} s, time to "
+          f"first token median {first['ttft_median']:.3f} / "
+          f"{second['ttft_median']:.3f} s, max {first['ttft_max']:.3f} / "
+          f"{second['ttft_max']:.3f} s, {first['tokens_s']:.1f} / "
+          f"{second['tokens_s']:.1f} tokens/s")
+
+
+def serve(engine, reqs, label: str, tag: str = "[4]"
+          ) -> tuple[dict, dict, dict]:
     """Run ``reqs`` to completion with the launch counts zeroed just
-    before; returns the kernel's launches, read just after, and the
-    completions."""
+    before; returns the launch counts, read just after, the completions
+    and the readings of ``timed_generate``."""
     layers = attention_layers(engine.cfg)
     ops.reset_launch_counts()
     steps0 = engine.decode_steps
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()["paged_decode_attention"]
+    done, r = timed_generate(engine, reqs)
+    counts = ops.launch_counts()
+    launches = counts["paged_decode_attention"]
     steps = engine.decode_steps - steps0
-    tokens = sum(len(c.tokens) for c in done.values())
-    print(f"{tag} {label}: {len(reqs)} requests, {tokens} tokens, {steps} "
-          f"decode steps, {wall:.2f} s wall, {tokens / wall:.1f} tokens/s, "
-          f"{launches} kernel launches (each one wrapper call: the "
-          f"attention kernel plus, when split, its combine kernel), "
+    fused = {k: counts[k] for k in ("fused_segment_grid",
+                                    "fused_matmul_segment") if counts[k]}
+    print(f"{tag} {label}: {len(reqs)} requests, {r['tokens']} tokens, "
+          f"{steps} decode steps, {r['wall']:.2f} s wall, "
+          f"{r['tokens_s']:.1f} tokens/s, {launches} kernel launches (each "
+          f"one wrapper call: the attention kernel plus, when split, its "
+          f"combine kernel){f', fused {fused}' if fused else ''}, "
           f"serve_counters "
           f"{ {k: v for k, v in engine.serve_counters.items() if v} }")
-    for r in reqs:
-        c = done[r.rid]
-        check(c.status == "ok" and len(c.tokens) == r.max_new_tokens,
-              f"request {r.rid}: status {c.status}/{c.reason}, "
+    print(f"{tag} {label}: {admit_line(r)}")
+    for q in reqs:
+        c = done[q.rid]
+        check(c.status == "ok" and len(c.tokens) == q.max_new_tokens,
+              f"request {q.rid}: status {c.status}/{c.reason}, "
               f"{len(c.tokens)} tokens")
         check(all(0 <= t < engine.cfg.vocab_size for t in c.tokens),
-              f"request {r.rid}: token outside the vocabulary")
+              f"request {q.rid}: token outside the vocabulary")
     check(engine.pool.used_pages == 0, "pages leaked")
     check(steps > 0 and launches == steps * layers,
           f"{launches} launches != {steps} decode steps x {layers} "
           "attention layers")
-    return launches, done
+    return {**counts, "decode_steps": steps}, done, r
 
 
 def same_tokens(done: dict, want: dict, what: str, tag: str) -> None:
@@ -666,17 +749,14 @@ def check_captured(engine, label: str, tag: str) -> None:
 
 
 def serve_eager(eager, reqs, label: str, tag: str) -> dict:
-    """``eager`` (the same static step, ``capture_decode=False``) serves
-    ``reqs``; returns its completions."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eager.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tokens = sum(len(c.tokens) for c in done.values())
-    print(f"{tag} {label}, capture_decode=False: {tokens} tokens, "
-          f"{wall:.2f} s wall, {tokens / wall:.1f} tokens/s")
-    check(eager._graph is None, f"{label}: capture_decode=False captured")
+    """``eager`` (the same static functions, ``capture_decode=False``)
+    serves ``reqs``; returns its completions."""
+    done, r = timed_generate(eager, reqs)
+    print(f"{tag} {label}, capture_decode=False: {r['tokens']} tokens, "
+          f"{r['wall']:.2f} s wall, {r['tokens_s']:.1f} tokens/s; "
+          f"{admit_line(r)}")
+    check(eager._graph is None and not eager._graphs,
+          f"{label}: capture_decode=False captured")
     return done
 
 
@@ -685,6 +765,165 @@ def captured_vs_eager(engine, eager, reqs, label: str, tag: str) -> dict:
     ``eager`` serves the same requests.  Returns its completions."""
     check_captured(engine, label, tag)
     return serve_eager(eager, reqs, label, tag)
+
+
+def expected_admits(engine, lens) -> int:
+    """The admit builds a mix of prompt lengths ``lens`` takes: one a pow2
+    bucket, or one a distinct length where bucketing is off (the JAX
+    engine's ``admit_traces``).  Chunked prompts take no admit."""
+    chunk = engine.prefill_chunk if engine._chunkable else 0
+    whole = [int(n) for n in lens if not chunk or n <= chunk]
+    if not engine.bucket_prompts:
+        return len(set(whole))
+    return len({bucket_length(n, engine.max_len) for n in whole})
+
+
+def pool_bytes(engine) -> int:
+    """The reserved bytes the captures of the admit, chunk and control
+    graphs added: the pool they share."""
+    return sum(g.memory["reserved"][1] - g.memory["reserved"][0]
+               for g in engine._graphs.values())
+
+
+def check_admits(engine, lens, label: str, tag: str,
+                 before: dict | None = None) -> dict:
+    """The engine has served a mix of prompt lengths ``lens`` (again,
+    where ``before`` holds the counters after the first pass): its
+    ``admit_traces`` is the mix's distinct buckets (lengths where
+    bucketing is off) and froze on the repeat; ``chunk_traces`` is 1 where
+    it chunked.  Prints the graphs, the build time and the shared pool's
+    reserved bytes; returns the trace counters."""
+    sc = engine.serve_counters
+    traces = {k: sc[k] for k in ("admit_traces", "step_traces",
+                                 "chunk_traces", "control_traces")}
+    want = expected_admits(engine, lens)
+    graphs = engine._graphs
+    built = sum(g.seconds for g in graphs.values())
+    admits = sorted(k[1] for k in graphs if k[0] == "admit")
+    print(f"{tag} {label}: {traces}; admit graphs by bucket {admits}, "
+          f"{len(graphs)} graphs in all, built (warm call and capture) in "
+          f"{built:.2f} s; the shared pool reserves "
+          f"{pool_bytes(engine) / 2**20:.1f} MiB"
+          + ("" if before is None else
+             f"; after the first pass {before}"))
+    check(traces["admit_traces"] == want,
+          f"{label}: admit_traces {traces['admit_traces']} != {want}")
+    if engine._capture and engine.bucket_prompts:
+        check(len(admits) == want, f"{label}: {len(admits)} admit graphs")
+    if not engine.bucket_prompts:
+        check(not admits, f"{label}: an unbucketed admit was captured")
+    if engine._chunkable:
+        check(traces["chunk_traces"] == 1, f"{label}: chunk_traces "
+              f"{traces['chunk_traces']} != 1")
+    if before is not None:
+        check(traces == before, f"{label}: the counters moved on the "
+              f"repeat: {before} -> {traces}")
+    return traces
+
+
+def snapshot(engine, slot: int, ids) -> list:
+    """Copies of what an admit or a chunk of ``slot`` writes: the pages
+    ``ids`` of every attention layer, the slot's recurrent rows, the slot
+    state and the last logits."""
+    out = [t[slot].clone() for t in engine._state.values()]
+    out.append(engine._prefill_logits.clone())
+    for c in engine.cache:
+        for n, t in c.items():
+            out.append(t[ids].clone() if n in ("k", "v") else
+                       t[slot].clone())
+    return out
+
+
+def put_back(engine, slot: int, ids, saved: list) -> None:
+    it = iter(saved)
+    for t in engine._state.values():
+        t[slot] = next(it)
+    engine._prefill_logits.copy_(next(it))
+    for c in engine.cache:
+        for n, t in c.items():
+            if n in ("k", "v"):
+                t[ids] = next(it)
+            else:
+                t[slot] = next(it)
+
+
+def replay_vs_eager(engine, key: tuple, slot: int, ids, label: str,
+                    tag: str, reps: int = 5) -> float:
+    """The staged call ``key`` through its graph and through the same
+    static function run eagerly, from the same state: every page and row
+    it writes, the slot state and the last logits bit-equal.  Returns one
+    replay's device milliseconds (CUDA events, mean of ``reps``; the
+    replays repeat the same writes)."""
+    graph = engine._graphs[key]
+    fn = (functools.partial(engine._static_admit, key[1])
+          if key[0] == "admit" else getattr(engine, f"_static_{key[0]}"))
+    before = snapshot(engine, slot, ids)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    replayed = snapshot(engine, slot, ids)
+    put_back(engine, slot, ids, before)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    eager = snapshot(engine, slot, ids)
+    put_back(engine, slot, ids, before)
+    same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    print(f"{tag} {label} {key}: one replay {ms:.3f} ms on the device "
+          f"(CUDA events, mean of {reps}), the same function eagerly "
+          f"{eager_ms:.1f} ms by the host clock; pages {ids.tolist()}, the "
+          f"slot's rows and state, the last logits "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    check(same, f"{label} {key}: a replay differs from the eager call")
+    return ms
+
+
+def admit_replays(engine, label: str, tag: str) -> dict:
+    """For every admit bucket the engine captured (the engine drained):
+    a prompt of the bucket staged into slot 0, then ``replay_vs_eager``.
+    Returns bucket -> one replay's device ms."""
+    check(not engine._host_active.any(), f"{label}: engine not drained")
+    cfg, out, slot = engine.cfg, {}, 0
+    for key in sorted(k for k in engine._graphs if k[0] == "admit"):
+        width = key[1]
+        n = max(1, 3 * width // 4)
+        prompt = make_requests(cfg, [n], 1, seed=9)[0].prompt
+        need = engine.pool.pages_for(min(width, engine.kv_capacity))
+        check(engine.pool.ensure(slot, need), "pages for the admit check")
+        ids = torch.as_tensor(engine.pool.tables[slot][:need].astype(
+            np.int64), device=engine.device)
+        engine._stage(slot, 0, n, 7, 0.0, prompt, width)
+        out[width] = replay_vs_eager(engine, key, slot, ids, label, tag)
+        engine.pool.free_slot(slot)
+    return out
+
+
+def chunk_replay(engine, label: str, tag: str) -> float:
+    """The chunk graph against the eager static chunk (the engine
+    drained): slot 0's second chunk (ctx = one chunk, up to 200 real
+    tokens), its pages compared (scratch page 0, where pad rows land in
+    an unspecified order, left out)."""
+    check(not engine._host_active.any(), f"{label}: engine not drained")
+    c, slot = engine.prefill_chunk, 0
+    n = min(200, c - 1)
+    prompt = make_requests(engine.cfg, [n], 1, seed=10)[0].prompt
+    need = engine.pool.pages_for(c + n)
+    check(engine.pool.ensure(slot, need), "pages for the chunk check")
+    ids = torch.as_tensor(engine.pool.tables[slot][:need].astype(np.int64),
+                          device=engine.device)
+    engine._stage(slot, c, n, 7, 0.0, prompt, c)
+    ms = replay_vs_eager(engine, ("chunk",), slot, ids, label, tag)
+    engine.pool.free_slot(slot)
+    return ms
 
 
 def sampled_runs(cfg, params, tag: str = "[4]") -> None:
@@ -724,6 +963,35 @@ def sampled_runs(cfg, params, tag: str = "[4]") -> None:
     check(fresh and len(sums) > 1, "a decode step reused the noise")
     check(off_greedy > 0, "sampled requests equal the greedy ones")
 
+def serve_twice(engine, eager, cfg, lens, new_tokens: int, seed: int,
+                label: str, tag: str) -> tuple[dict, dict]:
+    """The mix through the eager engine (``capture_decode=False``: every
+    static function eager; first, as the process's first model run where
+    it is), then twice through the captured one (admit graphs built in the
+    first pass, replayed in the second); tokens identical, the counters
+    as ``check_admits`` wants; then every admit bucket replayed against
+    its eager call.  Returns the first captured pass's launch counts (and
+    its decode steps) and completions."""
+    want = serve_eager(eager, make_requests(cfg, lens, new_tokens, seed),
+                       label, tag)
+    check_admits(eager, lens, f"{label} capture_decode=False", tag)
+    counts, done, first = serve(
+        engine, make_requests(cfg, lens, new_tokens, seed),
+        f"{label} pass 1", tag)
+    check_captured(engine, label, tag)
+    same_tokens(done, want, f"{label} captured vs eager", tag)
+    before = check_admits(engine, lens, f"{label} pass 1", tag)
+    _, again, second = serve(engine, make_requests(cfg, lens, new_tokens,
+                                                   seed),
+                             f"{label} pass 2", tag)
+    same_tokens(again, want, f"{label} pass 2 vs eager", tag)
+    check_admits(engine, lens, f"{label} pass 2", tag, before=before)
+    print_passes(first, second, label, tag)
+    if engine.bucket_prompts:
+        admit_replays(engine, label, tag)
+    return counts, done
+
+
 def phase_engine():
     cfg = get_config("qwen3-1.7b")
     model = build_model(cfg, device="cuda")
@@ -744,21 +1012,25 @@ def phase_engine():
     # the eager engine first: the process's first model run (library
     # handles, kernel loading) falls on it, as it fell on the eager step
     # of earlier readings of this phase
-    want = serve_eager(eager, make_requests(cfg, lens, 64, seed=1),
-                       "qwen3-1.7b", "[4]")
-    launches, done = serve(engine, make_requests(cfg, lens, 64, seed=1),
-                           "whole-prompt prefill")
-    check_captured(engine, "qwen3-1.7b", "[4]")
-    same_tokens(done, want, "captured vs eager decode step", "[4]")
+    counts, _ = serve_twice(engine, eager, cfg, lens, 64, 1, "qwen3-1.7b",
+                            "[4]")
 
-    chunked = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
-                     page_size=64, prefill_chunk=256)
-    serve(chunked, make_requests(cfg, [300, 700, 520, 40], 16, seed=2),
-          "prefill_chunk=256")
-    del chunked
+    chunk_lens = [300, 700, 520, 40]
+    kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
+              prefill_chunk=256)
+    chunked, chunked_eager = Engine(cfg, params, **kw), \
+        Engine(cfg, params, **kw, capture_decode=False)
+    _, done, _ = serve(chunked, make_requests(cfg, chunk_lens, 16, seed=2),
+                       "prefill_chunk=256")
+    check_admits(chunked, chunk_lens, "prefill_chunk=256", "[4]")
+    same_tokens(done, serve_eager(chunked_eager, make_requests(
+        cfg, chunk_lens, 16, seed=2), "prefill_chunk=256", "[4]"),
+        "prefill_chunk=256, captured vs eager", "[4]")
+    chunk_replay(chunked, "prefill_chunk=256", "[4]")
+    del chunked, chunked_eager
     sampled_runs(cfg, params)
     print(f"[4] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return engine, eager, launches
+    return engine, eager, counts["paged_decode_attention"]
 
 
 def _leaves(tree):
@@ -1423,40 +1695,22 @@ def phase_offload_roles() -> None:
 
 
 def serve_offload(engine, eager, cfg, plan) -> dict:
-    layers = cfg.num_layers
+    """Phase 4's mix through ``serve_twice`` on the offloaded engines:
+    the plan looked up once, and each fused kernel launched once a decode
+    step for each of its segments in the plan."""
     n_grid = sum(s.matmul is None for s in plan.segments)
     n_mm = len(plan.segments) - n_grid
     lens = np.random.default_rng(0).integers(16, 701, size=12)
     lens[0], lens[1] = 16, 700
-    reqs = make_requests(cfg, lens, 64, seed=1)
-    ops.reset_launch_counts()
-    steps0 = engine.decode_steps
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    steps = engine.decode_steps - steps0
-    tokens = sum(len(c.tokens) for c in done.values())
-    print(f"[6] Engine(offload=True): {len(reqs)} requests, {tokens} tokens, "
-          f"{steps} decode steps, {wall:.2f} s wall, {tokens / wall:.1f} "
-          f"tokens/s, launches {counts}, offload_stats "
-          f"{engine.offload_stats}")
-    for r in reqs:
-        c = done[r.rid]
-        check(c.status == "ok" and len(c.tokens) == r.max_new_tokens,
-              f"offloaded request {r.rid}: {c.status}/{c.reason}")
-    check(engine.pool.used_pages == 0, "offloaded engine leaked pages")
+    counts, _ = serve_twice(engine, eager, cfg, lens, 64, 1,
+                            "qwen3-1.7b offload=True", "[6]")
+    steps = counts["decode_steps"]
     st = engine.offload_stats
+    print(f"[6] Engine(offload=True): launches in pass 1 {counts}, "
+          f"offload_stats {st}")
     check(st["plan_misses"] == st["traces"] == 1 and st["plan_hits"] == 0,
           f"offload_stats {st}: not plan_misses == traces == 1, "
           "plan_hits == 0")
-    same_tokens(captured_vs_eager(engine, eager, make_requests(
-        cfg, lens, 64, seed=1), "qwen3-1.7b offload=True", "[6]"), done,
-        "offloaded, captured vs eager decode step", "[6]")
-    check(counts["paged_decode_attention"] == steps * layers,
-          "attention launches != steps x layers")
     check(counts["fused_segment_grid"] == steps * n_grid,
           f"grid launches != steps x {n_grid}")
     check(counts["fused_matmul_segment"] == steps * n_mm,
@@ -4241,17 +4495,18 @@ ZOO_F32_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
 
 
 def capture_logits(engine):
-    """Wrap the engine's model's prefill and its decode step so that every
-    prefill's and every decode step's logits are kept (a replay's: the
-    captured graph's output), with the slot -> request map of the step.
-    Returns the two lists and ``restore()``, which unwraps both."""
+    """Wrap the engine's static-function runner and its decode step so
+    that every admit's and every decode step's logits are kept (read from
+    the fixed buffers the graphs write: a replay's too), with the slot ->
+    request map of the step.  Returns the two lists and ``restore()``,
+    which unwraps both."""
     prefills, steps = [], []
-    model, run = engine.model, engine._run_decode_step
+    run_static, run = engine._run_static, engine._run_decode_step
 
-    def prefill(*a, **kw):
-        logits, cache = model.prefill(*a, **kw)
-        prefills.append(logits[0].float().clone())
-        return logits, cache
+    def admit_or_control(key, fn, counter, **kw):
+        run_static(key, fn, counter, **kw)
+        if key[0] == "admit":
+            prefills.append(engine._prefill_logits[0].float().clone())
 
     def decode():
         rid, active = engine._slot_rid.copy(), engine._state["active"].clone()
@@ -4260,10 +4515,9 @@ def capture_logits(engine):
 
     def restore():
         # drops the cycle engine -> capture -> engine
-        engine.model = model
-        del engine._run_decode_step
+        del engine._run_static, engine._run_decode_step
 
-    engine.model = model._replace(prefill=prefill)
+    engine._run_static = admit_or_control
     engine._run_decode_step = decode
     return prefills, steps, restore
 
@@ -4368,14 +4622,11 @@ def phase_zoo(card: str) -> None:
                        page_size=64, capture_decode=False)
         lens = np.random.default_rng(0).integers(16, 701, size=12)
         lens[0], lens[1] = 16, 700
-        launches, done = serve(engine, make_requests(cfg, lens, 64, seed=1),
-                               f"{arch} whole-prompt prefill", tag="[11]")
+        launches = serve_twice(engine, eager, cfg, lens, 64, 1, arch,
+                               "[11]")[0]["paged_decode_attention"]
         n_attn = attention_layers(cfg)
         print(f"[11] {arch}: B1 launched {launches} times, "
               f"{n_attn} a decode step (its attention layers)")
-        same_tokens(captured_vs_eager(engine, eager, make_requests(
-            cfg, lens, 64, seed=1), arch, "[11]"), done,
-            "captured vs eager decode step", "[11]")
         phase_full_width_check(engine, eager, arch, tag="[11]")
         print(f"[11] {arch} serving peak device memory "
               f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (weights, "
@@ -4394,6 +4645,25 @@ def phase_zoo(card: str) -> None:
     print(f"[11] zamba2 and rwkv6 served in {time.perf_counter() - t0:.1f} s")
 
 
+#: the four serving engines of the ``--decode`` / ``--admit`` readings
+ENGINES = (("qwen3-1.7b", False), ("qwen3-1.7b", True),
+           ("zamba2-1.2b", False), ("rwkv6-1.6b", False))
+
+
+def serving_weights(arch: str, held: dict) -> tuple:
+    """The config and full-width bf16 serving weights of ``arch`` (seed
+    0), kept in ``held`` for the next engine of the same arch; another
+    arch's are dropped first."""
+    cfg = get_config(arch)
+    if arch not in held:
+        held.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device="cuda")
+        held[arch] = cast_params(model.init(0), model.dtype)
+    return cfg, held[arch]
+
+
 def decode_alone(card: str) -> None:
     """``--decode``: the decode readings of phases 5, 6 and 11 alone
     (``decode_readings``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
@@ -4409,22 +4679,14 @@ def decode_alone(card: str) -> None:
     print(f"[d] decode readings of {os.path.dirname(repro_torch.__file__)} "
           f"({'captured and eager' if captures else 'eager only: its Engine has no capture_decode'}); "
           f"card {card}")
-    params = None
-    for arch, offload in (("qwen3-1.7b", False), ("qwen3-1.7b", True),
-                          ("zamba2-1.2b", False), ("rwkv6-1.6b", False)):
-        cfg = get_config(arch)
-        if params is None or params[0] != arch:
-            params = None
-            gc.collect()
-            torch.cuda.empty_cache()
-            model = build_model(cfg, device="cuda")
-            params = (arch, cast_params(model.init(0), model.dtype))
-            del model
+    held = {}
+    for arch, offload in ENGINES:
+        cfg, params = serving_weights(arch, held)
         kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
                   offload=offload)
-        eager = Engine(cfg, params[1], **kw,
+        eager = Engine(cfg, params, **kw,
                        **({"capture_decode": False} if captures else {}))
-        engine = Engine(cfg, params[1], **kw) if captures else None
+        engine = Engine(cfg, params, **kw) if captures else None
         if offload:
             plan = eager.prepare_decode()
             if plan.library:
@@ -4437,6 +4699,54 @@ def decode_alone(card: str) -> None:
                 drain(eng)
         print(f"[d] {label}: {time.perf_counter() - t0:.1f} s")
         del engine, eager
+
+
+def admit_alone(card: str) -> None:
+    """``--admit``: the admit readings of phases 4, 6 and 11 alone
+    (``serve_twice``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
+    rwkv6-1.6b; full width and depth, random bf16 weights from seed 0; the
+    12-request mix through ``capture_decode=False``, then twice through
+    the captured engine, every admit bucket replayed against its eager
+    call), on the package under ``--src`` where given.  A package whose
+    ``Engine`` has no ``admit_traces`` (before the compiled admit) serves
+    the mix twice through its own engine, whose admits are eager: one call
+    compares two checkouts."""
+    import repro_torch
+
+    lens = np.random.default_rng(0).integers(16, 701, size=12)
+    lens[0], lens[1] = 16, 700
+    held, compiled = {}, None
+    for arch, offload in ENGINES:
+        cfg, params = serving_weights(arch, held)
+        kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
+                  offload=offload)
+        engine = Engine(cfg, params, **kw)
+        if compiled is None:
+            compiled = "admit_traces" in engine.serve_counters
+            print(f"[a] admit readings of "
+                  f"{os.path.dirname(repro_torch.__file__)} ("
+                  f"{'compiled admits' if compiled else 'eager admits: its Engine has no admit_traces'}"
+                  f"); card {card}")
+        if offload:
+            plan = engine.prepare_decode()
+            if plan.library:
+                fm.finish_library(fm.start_library(plan.library))
+        label = f"{arch}{' offload=True' if offload else ''}"
+        t0 = time.perf_counter()
+        if compiled:
+            eager = Engine(cfg, params, **kw, capture_decode=False)
+            serve_twice(engine, eager, cfg, lens, 64, 1, label, "[a]")
+            del eager
+        else:
+            runs = []
+            for n in (1, 2):
+                _, r = timed_generate(engine, make_requests(cfg, lens, 64,
+                                                            seed=1))
+                print(f"[a] {label} pass {n}: {admit_line(r)}")
+                runs.append(r)
+            print_passes(*runs, label, "[a]")
+        print(f"[a] {label}: {time.perf_counter() - t0:.1f} s")
+        del engine
 
 
 def kernel_entry(timed: dict, kind: str) -> dict:
@@ -4470,6 +4780,9 @@ def main() -> int:
         return 0
     if "--decode" in sys.argv:
         decode_alone(card)
+        return 0
+    if "--admit" in sys.argv:
+        admit_alone(card)
         return 0
     phase_build()
     kernel = phase_kernel(card)

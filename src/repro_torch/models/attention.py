@@ -141,14 +141,19 @@ def blockwise_attention(
     window: int = 0,
     q_block: int = 512,
     kv_block: int = 512,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
 ) -> torch.Tensor:
     """Online-softmax attention; never materializes [S, T] scores.
 
-    ``q_offset``: absolute position of q[0] (prefill continuation).
-    Products accumulate in f32 and softmax statistics are f32.  KV
-    blocks that lie wholly in a causal query block's future are skipped:
-    they would contribute exact zeros.
+    ``q_offset``: absolute position of q[0] (prefill continuation), an
+    int or a 0-d int tensor on the device.  Products accumulate in f32
+    and softmax statistics are f32.  With an int offset, KV blocks that
+    lie wholly in a causal query block's future are skipped: they would
+    contribute exact zeros.  A tensor offset is not read on the host:
+    every KV block is walked and masked, which gives the same bits (KV
+    block 0 holds an admissible key for every query, so a block wholly
+    in the future adds ``exp(-inf) = 0`` to ``l`` and ``acc`` with a
+    correction of exactly 1).
     """
     B, S, NQ, H = q.shape
     T, NK = k.shape[1], k.shape[2]
@@ -173,9 +178,10 @@ def blockwise_attention(
                             dtype=torch.float32, device=dev),
                  torch.zeros((B, q_block, NK, G), dtype=torch.float32,
                              device=dev))
+        skip = causal and not isinstance(q_offset, torch.Tensor)
         last_q = q_offset + (qi + 1) * q_block - 1
         for ki in range(nkb):
-            if causal and ki * kv_block > last_q:
+            if skip and ki * kv_block > last_q:
                 break
             kblk = kp[:, ki * kv_block:(ki + 1) * kv_block]
             vblk = vp[:, ki * kv_block:(ki + 1) * kv_block]
@@ -258,7 +264,7 @@ def attention_prefill_apply(
     positions: torch.Tensor,       # [B, S]
     max_len: int,
     cache_dtype=torch.bfloat16,
-    length: int | None = None,
+    length: int | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Parallel prefill: full-sequence attention + KV cache capture.
 
@@ -267,8 +273,10 @@ def attention_prefill_apply(
     continues with slot = pos % window).
 
     ``length``: number of *real* tokens when the input is right-padded to
-    a shape bucket — the SWA rolling capture then arranges by the real
-    length so pad tokens never occupy a slot a real token owns (dense
+    a shape bucket (an int, or a 0-d int tensor on the device: the
+    arrangement is elementwise) — the SWA rolling capture then arranges
+    by the real length so pad tokens never occupy a slot a real token
+    owns (dense
     capture needs no masking: pad entries sit at positions >= length and
     decode overwrites them before its length mask would admit them)."""
     b, s, _ = x.shape
@@ -380,13 +388,14 @@ def attention_prefill_chunk(
     pages_k: torch.Tensor,         # [P, NK, page, H]
     pages_v: torch.Tensor,
     block_table: torch.Tensor,     # [NP] int32 — this request's pages
-    ctx_len: int,                  # tokens already cached
-    n_valid: int,                  # real tokens in this chunk
+    ctx_len: int | torch.Tensor,   # tokens already cached
+    n_valid: int | torch.Tensor,   # real tokens in this chunk
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked prefill for dense (non-SWA) attention: write the chunk's
     K/V into the request's pages, then attend the chunk's queries over
     the gathered context+chunk.  Pad rows of the chunk scatter into the
-    scratch page and produce unused outputs."""
+    scratch page and produce unused outputs.  ``ctx_len`` / ``n_valid``
+    may be 0-d int tensors on the device (nothing is read on the host)."""
     assert cfg.sliding_window == 0, "chunked prefill is dense-only"
     _, c, _ = x.shape
     page = pages_k.shape[2]

@@ -83,6 +83,12 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
     def _tokens(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev).long()
 
+    def _at(h: torch.Tensor, index) -> torch.Tensor:
+        """``h[:, index]``; a tensor index is read on the device."""
+        if isinstance(index, torch.Tensor):
+            return h.index_select(1, index.reshape(1).long())[:, 0]
+        return h[:, index]
+
     def _head(params: Params, h_last: torch.Tensor) -> torch.Tensor:
         h_last = rmsnorm_apply(params["final_ln"], h_last, cfg.norm_eps)
         return lm_head_apply(params["embed"], h_last, cfg.vocab_size)
@@ -136,13 +142,16 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 
     @torch.no_grad()
     def prefill(params: Params, batch: dict, max_len: int,
-                length: int | None = None) -> tuple[torch.Tensor, Cache]:
+                length: int | torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, Cache]:
         """Parallel prefill: one full-sequence pass that computes the
         last token's logits AND captures the decode cache.
 
         ``length``: real token count when ``tokens`` is right-padded to a
         shape bucket.  The last-token logits are read at the real end
-        and the SWA rolling capture arranges by the real length."""
+        and the SWA rolling capture arranges by the real length.  A 0-d
+        int tensor on the device is accepted and never read on the host,
+        so one CUDA graph serves every prompt of a bucket."""
         tokens = _tokens(batch["tokens"])
         b, s = tokens.shape
         x = embed_apply(params["embed"], tokens, dtype)
@@ -150,7 +159,7 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         h, cache = stack_prefill(params["layers"], cfg, x, positions,
                                  max_len, cache_dtype=dtype, length=length)
         last = s - 1 if length is None else length - 1
-        return _head(params, h[:, last]), cache
+        return _head(params, _at(h, last)), cache
 
     @torch.no_grad()
     def decode_step(params: Params, cache: Cache, token: torch.Tensor,
@@ -182,17 +191,23 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
 
     @torch.no_grad()
     def prefill_chunk(params: Params, cache: Cache, tokens: torch.Tensor,
-                      block_table: torch.Tensor, ctx_len: int, n_valid: int
+                      block_table: torch.Tensor,
+                      ctx_len: int | torch.Tensor,
+                      n_valid: int | torch.Tensor
                       ) -> tuple[torch.Tensor, Cache]:
         """One prompt chunk [1, C] for a single request: scatter its K/V
         into the request's pages and return the logits at the chunk's
         last *real* token (meaningful only on the final chunk).  Dense
-        attention-only decoder stacks (no SWA, no recurrent state)."""
+        attention-only decoder stacks (no SWA, no recurrent state).
+        ``ctx_len`` / ``n_valid`` may be 0-d int tensors on the device,
+        never read on the host (one CUDA graph for every chunk)."""
         assert cfg.sliding_window == 0 and attention_only_pattern(cfg)
         x = embed_apply(params["embed"], _tokens(tokens), dtype)
         h, cache = stack_prefill_chunk(params["layers"], cfg, x, cache,
                                        block_table, ctx_len, n_valid)
-        return _head(params, h[:, max(n_valid - 1, 0)]), cache
+        last = (torch.clamp(n_valid - 1, min=0)
+                if isinstance(n_valid, torch.Tensor) else max(n_valid - 1, 0))
+        return _head(params, _at(h, last)), cache
 
     return Model(cfg, dev, dtype, init, forward, loss_fn, prefill,
                  decode_step, init_cache, init_paged_cache, decode_step_paged,

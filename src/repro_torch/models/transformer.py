@@ -139,7 +139,8 @@ def block_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def block_prefill_apply(params: Params, cfg: ModelConfig, kind: str,
                         x: torch.Tensor, positions: torch.Tensor,
-                        max_len: int, cache_dtype, length: int | None
+                        max_len: int, cache_dtype,
+                        length: int | torch.Tensor | None
                         ) -> tuple[torch.Tensor, dict]:
     """Parallel prefill of one block: its output and its decode cache."""
     h = rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
@@ -322,7 +323,8 @@ def init_stack_cache_paged(cfg: ModelConfig, slots: int, num_pages: int,
 
 def stack_prefill(params: list[Params], cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, max_len: int, *,
-                  cache_dtype=torch.bfloat16, length: int | None = None
+                  cache_dtype=torch.bfloat16,
+                  length: int | torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, Cache]:
     """Parallel prefill through the stack, emitting the decode cache."""
     cache: Cache = []
@@ -378,8 +380,10 @@ def stack_decode_paged(params: list[Params], cfg: ModelConfig,
 
 def stack_prefill_chunk(params: list[Params], cfg: ModelConfig,
                         x: torch.Tensor, cache: Cache,
-                        block_table: torch.Tensor, ctx_len: int,
-                        n_valid: int) -> tuple[torch.Tensor, Cache]:
+                        block_table: torch.Tensor,
+                        ctx_len: int | torch.Tensor,
+                        n_valid: int | torch.Tensor
+                        ) -> tuple[torch.Tensor, Cache]:
     """One prompt chunk through an attention-only stack, scattering K/V
     straight into the request's pages.  x [1,C,d]; block_table [NP].
     Dense attention only (asserted upstream)."""

@@ -15,34 +15,61 @@ page boundaries, preemption by recompute (exact for greedy decoding),
 deadlines, NaN-logits abort, pause/resume on transient page-alloc
 faults, bounded-queue backpressure.
 
-The decode step is compiled as the JAX engine compiles it (``jax.jit``
-with donation): it is a *static step* that reads and writes only fixed
-buffers — the slot state (pos/tok/budget/temp/active), a ``[slots,
-table_width]`` block-table buffer, a ``[slots]`` poison mask, a
-``[slots, vocab]`` Gumbel-noise buffer, the page pools and recurrent
-state rows, and a ``[4, slots]`` emit buffer — every one written **in
-place**.  On a CUDA device the first decode step runs it eagerly on a
-side stream (a real step: it builds every kernel it launches), then
-captures it as ONE CUDA graph; every later step copies the tables (and
-the poison mask) in from pinned host buffers, replays the graph and
-reads the emit buffer back — one host sync per decode step.  A failed
-capture raises; ``capture_decode=False`` runs the same static step
-eagerly on the card, as the CPU always does.  ``serve_counters
-["step_traces"]`` counts builds of the step (captures on a card), the
-JAX engine's trace count: 1 at steady state whatever the admission
-churn, plus one for each kernel-guard epoch change (``kernel_replans``),
-which drops the graph as the JAX engine re-jits.
+The engine's functions are compiled as the JAX engine compiles them
+(``jax.jit`` with donation): each is a *static function* that reads and
+writes only fixed buffers, every one written **in place**.
+
+* The decode step reads and writes the slot state (pos/tok/budget/temp/
+  active), a ``[slots, table_width]`` block-table buffer, a ``[slots]``
+  poison mask, a ``[slots, vocab]`` Gumbel-noise buffer, the page pools
+  and recurrent state rows, and a ``[4, slots]`` emit buffer.
+* Admit (prefill, scatter into the slot's pages and state rows, and
+  activate), the prefill chunk, and the slot controls (activate after the
+  last chunk, deactivate, reactivate) read their per-request values from
+  one int32 input buffer — the control words (slot, tokens cached before,
+  tokens added, budget, the temperature's f32 bits), the slot's
+  block-table row and the prompt tokens, a bucket's ``[1, s_b]`` or the
+  chunk's ``[1, prefill_chunk]`` view of one ``[1, max_len]`` buffer —
+  and leave the prompt's last logits in a ``[1, vocab]`` buffer.  The
+  lengths reach the model as 0-d device tensors (``model.prefill``'s
+  ``length``, ``prefill_chunk``'s ``ctx_len`` / ``n_valid``), never read
+  on the host.
+
+On a CUDA device a function runs eagerly once on a side stream at its
+first call (a real call, whose results stand: it builds every kernel it
+launches), then is captured as ONE CUDA graph (``StepGraph``) that every
+later call replays: the decode step once, admit once per pow2 prompt
+bucket, the chunk once, each control once.  Inputs are copied in from
+pinned host buffers before a replay; a decode step reads the emit buffer
+back — one host sync per decode step.  The admit, chunk and control
+graphs share one memory pool (``_prefill_pool``): each one's only lasting
+effect is its writes into the fixed buffers, allocated outside the pool,
+so the pool is bounded by the largest bucket.  A failed capture raises;
+``capture_decode=False`` runs every static function eagerly on the card,
+as the CPU always does, with the same counters.  ``serve_counters`` has
+the JAX engine's trace counts, counting builds (captures on a card):
+``step_traces`` (1 at steady state whatever the admission churn, plus
+one for each kernel-guard epoch change, ``kernel_replans``, which drops
+the decode graph as the JAX engine re-jits its step; the other graphs
+stay, as the JAX engine keeps its other functions), ``admit_traces``
+(one per prompt shape), ``chunk_traces`` (1) and ``control_traces`` (one
+per control function used).  Where admit bucketing is off (recurrent
+stacks, ``bucket_prompts=False``), a graph keyed on an exact prompt
+length would be captured and almost never replayed: the same static
+admit runs eagerly on the card, and ``admit_traces`` counts one build
+per distinct prompt length, the JAX engine's trace count.
 
 What differs, because PyTorch runs eagerly:
 
-* admit, chunked prefill and the slot controls run eagerly, so the
-  JAX engine's ``admit_traces`` / ``chunk_traces`` / ``control_traces``
-  are not in ``serve_counters``;
 * greedy decoding matches the JAX engine token for token; sampled rows
   (``temperature > 0``) take the Gumbel-max draw ``argmax(logits / T +
   G)`` over noise ``G = -log(E)``, ``E ~ Exp(1)``, drawn from the
   engine's ``torch.Generator`` before each step (an exact draw from
-  ``softmax(logits / T)``), and cannot match ``jax.random`` bit for bit.
+  ``softmax(logits / T)``), and cannot match ``jax.random`` bit for bit;
+* code that wraps the model's ``prefill`` / ``decode_step_paged`` sees
+  only the warm call and the capture of a function that is replayed:
+  read ``_prefill_logits`` and ``_logits`` (the graphs' outputs)
+  instead.
 
 ``offload=True`` (or an ``offload_policy``) runs the paged decode step
 through the offload compiler (``repro_torch.core.offload.mpu_offload``),
@@ -66,6 +93,7 @@ of the port.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any
@@ -84,6 +112,12 @@ from repro_torch.serve.kv_pool import PagePool, bucket_length, ceil_pow2
 
 if TYPE_CHECKING:
     from repro_torch.core.policy import OffloadPolicy
+
+
+#: the control words at the head of the engine's input buffer: the slot,
+#: the tokens cached before the call, the tokens it adds, the decode
+#: budget, and the temperature's f32 bits
+CTRL = 5
 
 
 @dataclass
@@ -111,7 +145,12 @@ class Completion:
 
 
 class Engine:
-    """Continuous-batching engine over a paged KV cache."""
+    """Continuous-batching engine over a paged KV cache.
+
+    ``capture_decode`` governs all five static functions (the decode
+    step, admit, the prefill chunk and the slot controls): on a CUDA
+    device each is captured as a CUDA graph, or with False runs eagerly
+    (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
                  max_len: int = 512, seed: int = 0, offload: bool = False,
@@ -175,6 +214,28 @@ class Engine:
         self._step_built = False
         self._graph: StepGraph | None = None
         self._decode_run = None    # the offloaded plan, bound to the buffers
+        # the admit / chunk / control functions' inputs (see the module
+        # docstring), staged through a pinned mirror in one copy a call;
+        # ``_staged`` marks the last copy out of the mirror
+        tw = self.table_width
+        self._inputs = torch.zeros((CTRL + tw + max_len,), dtype=torch.int32,
+                                   device=dev)
+        self._inputs_host = torch.zeros((CTRL + tw + max_len,),
+                                        dtype=torch.int32, pin_memory=pinned)
+        self._staged = torch.cuda.Event() if pinned else None
+        self._ctrl = self._inputs[:CTRL]
+        self._temp = self._inputs[CTRL - 1:CTRL].view(torch.float32)
+        self._row = self._inputs[CTRL:CTRL + tw]
+        self._prompt = self._inputs[CTRL + tw:][None]      # [1, max_len]
+        #: the last admitted prompt's (or prefill chunk's) last logits
+        self._prefill_logits = torch.zeros((1, cfg.vocab_size),
+                                           dtype=torch.float32, device=dev)
+        #: the admit / chunk / control graphs by key, the keys built, and
+        #: the memory pool the graphs share
+        self._graphs: dict[tuple, StepGraph] = {}
+        self._built: set[tuple] = set()
+        self._prefill_pool = (torch.cuda.graph_pool_handle()
+                              if self._capture else None)
 
         # host mirrors (slot occupancy / page-growth bookkeeping)
         self._host_active = np.zeros((slots,), bool)   # occupied (incl. prefilling)
@@ -237,29 +298,116 @@ class Engine:
                                                policy=offload_policy)
 
         self.decode_steps = 0
-        self.serve_counters = {"step_traces": 0,
+        self.serve_counters = {"admit_traces": 0, "step_traces": 0,
+                               "chunk_traces": 0, "control_traces": 0,
                                "preemptions": 0, "preemption_retries": 0,
                                "preempt_vetoes": 0, "deadline_cancels": 0,
                                "nan_aborts": 0, "page_faults": 0,
                                "alloc_stalls": 0, "kernel_replans": 0,
                                "reject_queue_full": 0, "reject_deadline": 0}
 
-    # -- device-side control ------------------------------------------------
-    def _activate(self, slot: int, logits: torch.Tensor, pos0: int,
-                  budget: int, temp: float):
-        """Start decoding in ``slot``: its first token is the argmax of
-        the prefill's last logits."""
-        st = self._state
-        st["pos"][slot] = pos0
-        st["tok"][slot] = torch.argmax(logits[0]).to(torch.int32)
-        st["budget"][slot] = budget
-        st["temp"][slot] = temp
-        st["active"][slot] = True
+    # -- static admit, chunk and controls -----------------------------------
+    def _stage(self, slot: int, ctx: int = 0, n: int = 0, budget: int = 0,
+               temp: float = 0.0, tokens: np.ndarray | None = None,
+               width: int = 0) -> None:
+        """One call's inputs into the fixed input buffer, outside any
+        graph: the control words and, with ``tokens``, the slot's
+        block-table row and the tokens right-padded with zeros to
+        ``width``, in one copy from the pinned mirror.  The mirror is
+        rewritten only once the previous copy out of it has run."""
+        if self._staged is not None:
+            self._staged.synchronize()
+        h = self._inputs_host.numpy()
+        h[:CTRL] = (slot, ctx, n, budget, np.float32(temp).view(np.int32))
+        end = CTRL
+        if tokens is not None:
+            t0 = CTRL + self.table_width
+            h[CTRL:t0] = self.pool.tables[slot]
+            h[t0:t0 + tokens.shape[0]] = tokens
+            h[t0 + tokens.shape[0]:t0 + width] = 0
+            end = t0 + width
+        self._inputs[:end].copy_(self._inputs_host[:end], non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def _run_static(self, key: tuple, fn, counter: str, *,
+                    capture: bool = True) -> None:
+        """Run an admit / chunk / control function: replay its graph, or
+        build it first (``counter`` counts the build) and, on a card,
+        warm it up and capture it into the pool these graphs share —
+        unless ``capture`` is off (an unbucketed admit: eager)."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            return
+        if key not in self._built:
+            self._built.add(key)
+            self.serve_counters[counter] += 1
+            if self._capture and capture:
+                self._graphs[key] = StepGraph(fn, self.device,
+                                              pool=self._prefill_pool)
+                return
+        fn()
+
+    @torch.no_grad()
+    def _static_admit(self, width: int) -> torch.Tensor:
+        """Admit the staged prompt, padded to ``width`` tokens (its pow2
+        bucket, or its length where bucketing is off): prefill, scatter
+        the cache into the slot's first pages and state rows, activate
+        the slot.  Returns the prompt's last logits (a fixed buffer)."""
+        cap = self.kv_capacity
+        n_pr = self.pool.pages_for(
+            cap if self.cfg.sliding_window > 0 else min(width, cap))
+        logits, cache1 = self.model.prefill(
+            self.params, {"tokens": self._prompt[:, :width]}, self.max_len,
+            self._ctrl[2])
+        self._prefill_logits.copy_(logits)
+        _scatter_admit(self.cache, cache1, self._row,
+                       self._ctrl[0:1].long(), page=self.page_size,
+                       n_pr=n_pr)
+        return self._static_activate()
+
+    @torch.no_grad()
+    def _static_chunk(self) -> torch.Tensor:
+        """One staged prompt chunk into the slot's pages; its last real
+        token's logits into ``_prefill_logits``, which it returns."""
+        c = self._ctrl
+        logits, _ = self.model.prefill_chunk(
+            self.params, self.cache, self._prompt[:, :self.prefill_chunk],
+            self._row, c[1], c[2])
+        return self._prefill_logits.copy_(logits)
+
+    @torch.no_grad()
+    def _static_activate(self) -> torch.Tensor:
+        """Start decoding in the staged slot at position ctx + n: its
+        first token is the argmax of the prompt's last logits."""
+        st, c = self._state, self._ctrl
+        slot = c[0:1].long()
+        st["pos"].index_copy_(0, slot, c[1:2] + c[2:3])
+        st["tok"].index_copy_(0, slot, torch.argmax(
+            self._prefill_logits, -1).to(torch.int32))
+        st["budget"].index_copy_(0, slot, c[3:4])
+        st["temp"].index_copy_(0, slot, self._temp)
+        st["active"].index_fill_(0, slot, True)
+        return self._prefill_logits
+
+    # pausing/resuming only flips ``active``: pos/tok/budget are
+    # untouched, so resuming continues token-exact
+    @torch.no_grad()
+    def _static_deactivate(self) -> torch.Tensor:
+        return self._state["active"].index_fill_(
+            0, self._ctrl[0:1].long(), False)
+
+    @torch.no_grad()
+    def _static_reactivate(self) -> torch.Tensor:
+        return self._state["active"].index_fill_(
+            0, self._ctrl[0:1].long(), True)
 
     def _set_active(self, slot: int, on: bool):
-        # pausing/resuming only flips ``active``: pos/tok/budget are
-        # untouched, so resuming continues token-exact
-        self._state["active"][slot] = on
+        self._stage(slot)
+        name = "reactivate" if on else "deactivate"
+        self._run_static((name,), getattr(self, f"_static_{name}"),
+                         "control_traces")
 
     @torch.no_grad()
     def _static_step(self) -> torch.Tensor:
@@ -491,9 +639,6 @@ class Engine:
         if req.deadline_s > 0 and req.deadline_at == 0.0:
             req.deadline_at = time.monotonic() + req.deadline_s
 
-    def _table_row(self, slot: int) -> torch.Tensor:
-        return torch.as_tensor(self.pool.tables[slot], device=self.device)
-
     def admit(self, req: Request) -> bool:
         """Admit a request into a free slot (prefill now, or start a
         chunked prefill).  Returns False when no slot/pages are free."""
@@ -516,14 +661,11 @@ class Engine:
             self.kv_capacity if swa else min(s_b, self.kv_capacity))
         if not self._pool_ensure(slot, need)[0]:
             return False
-        tokens = np.zeros((1, s_b), np.int32)
-        tokens[0, :s] = toks
-        logits, cache1 = self.model.prefill(
-            self.params, {"tokens": tokens}, self.max_len, int(s))
-        _scatter_admit(self.cache, cache1, self._table_row(slot), slot,
-                       page=self.page_size, n_pr=need)
-        self._activate(slot, logits, int(s), int(req.max_new_tokens - 1),
-                       float(req.temperature))
+        self._stage(slot, 0, s, req.max_new_tokens - 1, req.temperature,
+                    toks, s_b)
+        self._run_static(("admit", s_b),
+                         functools.partial(self._static_admit, s_b),
+                         "admit_traces", capture=self.bucket_prompts)
         self._occupy(slot, req, pos0=s)
         self._decode_active[slot] = True
         return True
@@ -549,17 +691,14 @@ class Engine:
                         f"{info['req'].rid}: need {need} pages, "
                         f"free {self.pool.free_pages}")
                 return  # stall: decode completions will free pages
-        tokens = np.zeros((1, c), np.int32)
-        tokens[0, :n_valid] = prompt[ctx:ctx + n_valid]
-        logits, _ = self.model.prefill_chunk(
-            self.params, self.cache, tokens, self._table_row(slot),
-            int(ctx), int(n_valid))
+        req = info["req"]
+        self._stage(slot, ctx, n_valid, req.max_new_tokens - 1,
+                    req.temperature, prompt[ctx:ctx + n_valid], c)
+        self._run_static(("chunk",), self._static_chunk, "chunk_traces")
         ctx += n_valid
         if ctx >= prompt.shape[0]:
-            req = info["req"]
-            self._activate(slot, logits, int(ctx),
-                           int(req.max_new_tokens - 1),
-                           float(req.temperature))
+            self._run_static(("activate",), self._static_activate,
+                             "control_traces")
             del self._prefilling[slot]
             self._decode_active[slot] = True
             self._host_pos[slot] = ctx
@@ -609,7 +748,9 @@ class Engine:
     def _check_guard_epoch(self):
         """A change of kernel health drops the static step — its graph
         and its bound plan — so that the next decode step rebuilds it,
-        as the JAX engine re-jits its step (``kernel_replans``)."""
+        as the JAX engine re-jits its step (``kernel_replans``).  The
+        admit, chunk and control graphs stay: they launch no kernel of
+        the library, and the JAX engine rebuilds only its step."""
         if kernel_guard().epoch != self._guard_epoch:
             self._guard_epoch = kernel_guard().epoch
             self.serve_counters["kernel_replans"] += 1
@@ -791,19 +932,20 @@ class Engine:
 
 
 class StepGraph:
-    """A static step as ONE CUDA graph.  ``fn`` runs once eagerly on a
-    side stream (a real step, whose results stand: it builds and loads
-    every kernel the step launches), then is captured, which runs
+    """A static function as ONE CUDA graph.  ``fn`` runs once eagerly on
+    a side stream (a real call, whose results stand: it builds and loads
+    every kernel the function launches), then is captured, which runs
     nothing; ``replay()`` launches every captured kernel and counts the
     launches the capture recorded (``kernel_guard().recording()``).
-    ``fn`` returns its output tensor: the captured one, which each replay
-    rewrites, holds the warm step's values until the first replay.
+    ``fn`` returns its output tensor: a captured one, which each replay
+    rewrites, holds the warm call's values until the first replay.
     ``memory`` holds ``max_memory_allocated`` / ``memory_reserved``
-    before and after the capture (the growth of the reserved bytes is the
-    graph's private pool), ``seconds`` the host time of the warm step and
-    the capture."""
+    before and after the capture (the growth of the reserved bytes is
+    what the graph added to its pool: a private one, or ``pool``, a
+    handle shared with other graphs), ``seconds`` the host time of the
+    warm call and the capture."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, pool=None):
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -818,9 +960,11 @@ class StepGraph:
                   torch.cuda.memory_reserved(device))
         self.graph = torch.cuda.CUDAGraph()
         with kernel_guard().recording() as self.launches, \
-                torch.cuda.graph(self.graph, capture_error_mode="global"):
+                torch.cuda.graph(self.graph, pool=pool,
+                                 capture_error_mode="global"):
             out = fn()
-        out.copy_(warm)
+        if out is not warm:
+            out.copy_(warm)
         self.memory = {
             "max_allocated": (before[0],
                               torch.cuda.max_memory_allocated(device)),
@@ -847,12 +991,12 @@ RECURRENT_LEAVES = ("ssm", "conv", "wkv", "tshift", "cshift")
 
 
 def _scatter_admit(cache: Cache, cache1: Cache, table_row: torch.Tensor,
-                   slot: int, *, page: int, n_pr: int) -> None:
+                   slot: torch.Tensor, *, page: int, n_pr: int) -> None:
     """Merge a single-request prefill cache into the paged pools, in
     place: each attention layer's K/V ``[1, T, NK, H]`` scatters its
     first ``n_pr`` pages through the slot's block-table row; each
-    recurrent leaf writes the slot's state row.  A leaf of another name
-    raises."""
+    recurrent leaf writes the slot's state row (``slot``: a ``[1]`` long
+    tensor on the device).  A leaf of another name raises."""
     ids = table_row[:n_pr].long()
     for pool_layer, one in zip(cache, cache1):
         for name, t in one.items():
@@ -863,7 +1007,8 @@ def _scatter_admit(cache: Cache, cache1: Cache, table_row: torch.Tensor,
                 pool_layer[name][ids] = x.to(pool_layer[name].dtype)
             elif name in RECURRENT_LEAVES and \
                     t.shape[1:] == pool_layer[name].shape[1:]:
-                pool_layer[name][slot] = t[0].to(pool_layer[name].dtype)
+                pool_layer[name].index_copy_(
+                    0, slot, t.to(pool_layer[name].dtype))
             else:
                 raise ValueError(f"cannot merge cache leaf {name!r} "
                                  f"{tuple(t.shape)} into the paged cache")

@@ -315,11 +315,12 @@ def test_engine_surface_of_this_slice(setup):
     assert off.offload and off.offload_stats["plan_misses"] == 0
     eng = _engine(setup)
     assert eng.offload_stats is None and eng.explain_decode() is None
-    # the compiled decode step's trace counter, at 0 before any step; the
-    # JAX engine's admit / chunk / control trace counters stay absent
-    assert [k for k in eng.serve_counters if k.endswith("_traces")] == \
-        ["step_traces"]
-    assert eng.serve_counters["step_traces"] == 0
+    # the JAX engine's trace counters of its compiled functions (admit,
+    # decode step, chunk, controls), in its order, at 0 before any call
+    traces = ["admit_traces", "step_traces", "chunk_traces",
+              "control_traces"]
+    assert [k for k in eng.serve_counters if k.endswith("_traces")] == traces
+    assert all(eng.serve_counters[k] == 0 for k in traces)
     stats = eng.serve_stats
     assert stats["pages_used"] == 0 and stats["decode_steps"] == 0
     assert stats["kernel_launches"] == {

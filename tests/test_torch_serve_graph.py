@@ -54,31 +54,42 @@ ATTENTION = "paged_decode_attention"
 
 
 class StandInGraph:
-    """``StepGraph`` on the CPU: a warm step that stands, a capture that
-    leaves no trace in the buffers, replays counted from the record."""
+    """``StepGraph`` on the CPU: a warm call that stands, a capture that
+    leaves no trace in the buffers, replays counted from the record.
+    ``fn`` is one of the engine's static functions (the decode step,
+    admit for a bucket, the chunk, a control)."""
 
-    def __init__(self, fn, device):
-        eng = fn.__self__
-        warm = fn()                              # the warm step
+    def __init__(self, fn, device, pool=None):
+        self.eng = eng = _engine_of(fn)
+        warm = fn()                              # the warm call
         saved = [t.clone() for t in _buffers(eng)]
         with kernel_guard().recording() as self.launches:
             self.out = fn()                      # the capture
         for t, s in zip(_buffers(eng), saved):
             t.copy_(s)
-        self.out.copy_(warm)
+        if self.out is not warm:
+            self.out.copy_(warm)
         self.fn = fn
 
     def replay(self):
         with kernel_guard().recording():         # no wrapper runs
             self.out.copy_(self.fn())            # into the graph's output
-        self.fn.__self__._logits = self.out      # no Python ran
+        if self.fn == self.eng._static_step:
+            self.eng._logits = self.out          # no Python ran
         self.launches.replay()
 
 
+def _engine_of(fn):
+    """The engine a static function belongs to (a bound method, or a
+    partial of one)."""
+    return getattr(fn, "__self__", None) or fn.func.__self__
+
+
 def _buffers(eng) -> list:
-    """Every fixed buffer of the static step."""
+    """Every fixed buffer of the static functions."""
     return [*eng._state.values(), eng._tables, eng._poison, eng._noise,
-            eng._emit, *[t for layer in eng.cache for t in layer.values()]]
+            eng._emit, eng._inputs, eng._prefill_logits,
+            *[t for layer in eng.cache for t in layer.values()]]
 
 
 @pytest.fixture(autouse=True)
