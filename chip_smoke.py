@@ -101,7 +101,19 @@ and holds every hand-written kernel against its plain PyTorch version:
    weight stream (B3) at the CPU tests' shapes and at full width, on
    misaligned operands, with K splits, an lhs prologue, an f32 weight
    cast and batch slices; the forward plan unchanged by batched
-   anchors, its attention ``bmm`` declined;
+   anchors, its attention ``bmm`` declined; then the compiled step
+   (``compile_train_step``: one CUDA graph over the donated state) from
+   the same seed-0 state for 3 steps against those eager steps — losses,
+   grad norms and lr of every step and every parameter and moment after
+   step 3 bit-equal (compared on the host, leaf by leaf), launches a step
+   by kernel equal, ``train_traces == 1``, the loss's and the update's
+   ``plan_misses == traces == 1`` / ``plan_hits == 0``, ``bwd_plan_stats()``
+   unchanged after the warm step; a replay's host clock, device time
+   (CUDA events), idle share, kernels a step, the warm call's and the
+   capture's seconds, the graph pool's bytes, peak memory and tokens/s
+   beside the eager step's; and the 2-layer f32 build with remat on,
+   offload off and 2 microbatches, captured against ``capture=False``
+   (bit-equal);
 8. flash and batched anchors at the attention width of qwen3-1.7b (16
    query / 8 kv heads, head_dim 128, 2 x 2048 tokens, bf16):
    ``mpu_offload`` of the GQA attention chain plans one flash segment
@@ -128,7 +140,7 @@ and holds every hand-written kernel against its plain PyTorch version:
 9. the kernel library's rmsnorm (B9, forward and backward), rotary (B10)
    and dense decode attention (B11, token-major and head-major) through
    ``ops``: each against its plain version at the CPU tests' shapes in f32
-   (2e-5) and bf16 (2e-2), B9 / B10 also in f16 (4e-3), plus rows for
+   (2e-5), bf16 (2e-2) and f16 (4e-3; B1 there too), plus rows for
    every path of B9 (registers, staged, direct; any D) and a
    misaligned x, and decode with ragged, full
    and empty rows in one split and in several (by T); at the width of qwen3-1.7b (hidden states
@@ -145,11 +157,14 @@ and holds every hand-written kernel against its plain PyTorch version:
    process (one a call each); B9 and B10 in f16 at that width (one counted run, ds bit-equal
    over three launches, an f32 scale too), timed; B9 at d_model 16,384
    in f32, bf16 and f16 (staged rows, ds bit-equal), bf16 and f16
-   timed beside the same; B5 / B7 in bf16 and f16 at head dim 96 (taken
-   since queue C2's lift) against their plain versions; and the inputs
-   B1, B5, B7 and B11 refuse (queue C2: B5 / B7 at head dims 12 and 264,
-   G = 128, f32 head dim 96, B7's f32 head dim 128; queue C3: B1 / B11
-   in f16), each raising before anything launches;
+   timed beside the same; B1 and B11 (both layouts) in f16 at phase 3's
+   main shape (queue C3's lift), one counted run against the plain
+   versions, timed beside the bound, the plain version and SDPA; B5 / B7
+   in bf16 and f16 at head dim 96 (taken since queue C2's lift) against
+   their plain versions; and the inputs B1, B5, B7 and B11 refuse (queue
+   C2: B5 / B7 at head dims 12 and 264, G = 128, f32 head dim 96, B7's
+   f32 head dim 128; B1 / B11 at head dims 40 / 24), each raising before
+   anything launches;
 10. the kernel library's ssd_scan (B12) and wkv6 (B13) through ``ops``:
     each against its plain version at the CPU tests' shapes, at S = 999
     and odd widths, B13 at strong decay (w in [0.05, 0.2], finite), and at
@@ -199,6 +214,14 @@ takes phase 1 and the admit readings of phases 4, 6 and 11 alone (the
 offloaded, zamba2-1.2b and rwkv6-1.6b), on the package under ``DIR``
 where given; a package whose ``Engine`` has no ``admit_traces`` serves
 the mix twice with its own (eager) admits.
+
+    python3 chip_smoke.py --train [--src DIR]
+
+takes phase 1 and phase 7's training readings alone (full-width
+qwen3-1.7b planned and built, 3 eager steps, then 3 compiled steps held
+against them, and the 2-layer f32 build), on the package under ``DIR``
+where given; a package without ``compile_train_step`` gives the eager
+step alone, so one call compares two checkouts.
 
     python3 chip_smoke.py --norm [--src DIR]
 
@@ -285,7 +308,7 @@ MAIN_SHAPE = (8, 32, 64, 16, 8, 128)      # qwen3-1.7b, 8 slots, max_len 2048
 #: kernel against plain version: f32 2e-5 (summation order), bf16 2e-2
 #: (one bf16 rounding on either side); f16 4e-3 (one f16 rounding, 2^-11
 #: of the value, on either side; FLASH_TOL's f16 bound), which B9 / B10
-#: take since queue C3's lift
+#: and B1 / B11 take since queue C3's lift
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 #: a bf16 output is also held to what rounding explains: against the plain
 #: version run in f32 on the same bf16 values, one rounding of the result
@@ -2044,7 +2067,7 @@ def train_steps(step, held: list, data, tokens: int, plans):
 
     state = held.pop()
     ops.reset_launch_counts()
-    times, per_step, losses, peaks = [], [], [], []
+    times, per_step, losses, peaks, gnorms, lrs = [], [], [], [], [], []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     for i in range(3):
         before = ops.launch_counts()
@@ -2063,8 +2086,10 @@ def train_steps(step, held: list, data, tokens: int, plans):
                          if after[k] - before[k]})
         per_step[-1]["grid operand copies"] = sum(fe.COPIES.values()) - copies
         losses.append(float(metrics["loss"]))
-        check(np.isfinite(losses[-1]) and
-              np.isfinite(float(metrics["grad_norm"])), "non-finite step")
+        gnorms.append(float(metrics["grad_norm"]))
+        lrs.append(float(metrics["lr"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(gnorms[-1]),
+              "non-finite step")
     prof.__exit__(None, None, None)
     counts = ops.launch_counts()
     peak = max(peaks)
@@ -2109,7 +2134,10 @@ def train_steps(step, held: list, data, tokens: int, plans):
           f"sm90 cost model: {EARLIER_BWD_LAUNCHES[0]} / "
           f"{EARLIER_BWD_LAUNCHES[1]})")
     return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak,
-                               B2=b2_ms, grid=grid, **by_form)
+                               B2=b2_ms, grid=grid, **by_form, losses=losses,
+                               gnorms=gnorms, lrs=lrs, per_step=per_step,
+                               times=times,
+                               kernels=sum(e.count for e in rows) / 2)
 
 
 def memory_split(step, state, batch, plans) -> dict:
@@ -2741,6 +2769,7 @@ def phase_train(card: str):
     held = [state]
     del state
     state, counts, reading = train_steps(step, held, data, tokens, plans)
+    host = host_state(state)
     reading.update(memory_split(step, state,
                                 device_batch(data.batch(3), DEVICE), plans))
     batch = device_batch(data.batch(0), DEVICE)
@@ -2753,7 +2782,12 @@ def phase_train(card: str):
     update_leaf_segment(plans[-1], b8, card)
     sm90_variants()
     del state, step, plans
+    gc.collect()
     torch.cuda.empty_cache()
+    reading["compiled"] = train_compiled(model, tcfg, data, tokens, reading,
+                                         host, "bf16 full width")
+    del host
+    train_small_compiled()
 
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     model32 = build_model(cfg32, device=DEVICE)
@@ -2770,6 +2804,245 @@ def phase_train(card: str):
           counts["fused_matmul_drhs_segment"] > 0,
           "the training steps launched no B4 / B6")
     return rows, counts, b8, reading
+
+
+# ------------------------------------------ the compiled training step (7)
+
+#: the kernels whose launches a step the compiled and the eager step must
+#: share (the training path's; the grid kernel's operand copies beside)
+TRAIN_KERNELS = ("fused_segment_grid", "fused_matmul_segment",
+                 "fused_matmul_dlhs_segment", "fused_matmul_drhs_segment")
+
+
+def state_leaves(state) -> list:
+    """The leaves of a training state: parameters, step, moments."""
+    import torch.utils._pytree as pytree
+    return pytree.tree_leaves(state)
+
+
+def host_state(state) -> list:
+    """Every leaf of a training state copied to the host, one at a time,
+    so that the next run's state can take the card's memory."""
+    return [t.detach().cpu() for t in state_leaves(state)]
+
+
+def state_differences(state, host: list) -> list:
+    """(leaf index, shape, max abs difference) of every leaf of ``state``
+    that is not bit-equal to ``host``'s, compared on the host leaf by
+    leaf."""
+    out = []
+    for i, (t, h) in enumerate(zip(state_leaves(state), host)):
+        c = t.detach().cpu()
+        if not torch.equal(c, h):
+            out.append((i, tuple(h.shape), max_err(c, h)))
+    return out
+
+
+def timed_replays(graph, events: list) -> None:
+    """Record CUDA events around each replay of ``graph`` into
+    ``events`` (until ``del graph.replay``)."""
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        type(graph).replay(graph)
+        end.record()
+        events.append((start, end))
+    graph.replay = timed
+
+
+def train_compiled(model, tcfg, data, tokens: int, eager: dict,
+                   host: list | None, label: str, tag: str = "[7]") -> dict:
+    """``compile_train_step`` from the seed-0 state for 3 steps (the
+    first: the warm call and the capture; then replays), held against
+    the eager run ``eager`` (``train_steps``' reading, its final state on
+    the host as ``host``): losses, grad norms and lr of every step and
+    every parameter and moment after step 3 bit-equal (else phase 7's
+    bf16 rule, naming the leaves that differ), launches a step by kernel
+    equal, ``train_traces == 1``, the loss's and the update's
+    ``plan_misses == traces == 1`` and ``plan_hits == 0``, and
+    ``bwd_plan_stats()`` unchanged after the warm step.  Prints a replay's
+    host clock, its device time (CUDA events), the idle share, the
+    kernels a step (profiler, a 4th step), the warm call's and the
+    capture's seconds, the graph pool's bytes, peak memory and tokens/s,
+    beside the eager step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.offload import bwd_plan_stats
+    from repro_torch.train import compile_train_step, init_train_state
+
+    state = init_train_state(model, 0)
+    step = compile_train_step(model, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    times, per_step, metrics, events = [], [], [], []
+    warm_bwd = None
+    for i in range(3):
+        before = ops.launch_counts()
+        copies = sum(fe.COPIES.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] - before[k]})
+        per_step[-1]["grid operand copies"] = \
+            sum(fe.COPIES.values()) - copies
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        if i == 0:
+            warm_bwd = bwd_plan_stats().as_dict()
+            graph = step.graph
+            check(graph is not None, f"{label}: the step was not captured")
+            timed_replays(graph, events)
+    del graph.replay
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(events) == 2, f"{label}: steps 2-3 did not replay the graph")
+    dev_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+    host_ms = (times[1] + times[2]) / 2 * 1e3
+    losses = [x["loss"] for x in metrics]
+    check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+              for x in metrics), f"{label}: a non-finite compiled step")
+
+    # counters as under jit
+    counters = dict(step.counters)
+    check(counters["train_traces"] == 1,
+          f"{label}: train_traces {counters['train_traces']}")
+    for name, st in (("loss", step.stats), ("update", step.update_stats)):
+        st = st.as_dict()
+        check(st["plan_misses"] == st["traces"] == 1 and
+              st["plan_hits"] == 0, f"{label}: {name} plan stats {st}")
+    now_bwd = bwd_plan_stats().as_dict()
+    check(all(now_bwd[k] == warm_bwd[k] for k in ("plan_misses", "traces",
+                                                  "plan_hits")),
+          f"{label}: bwd_plan_stats moved after the warm step: {warm_bwd} "
+          f"-> {now_bwd}")
+    want = eager["per_step"][2]
+    for i, got in enumerate(per_step):
+        check(got == want, f"{label}: launches of step {i + 1} {got} differ "
+              f"from the eager step's {want}")
+
+    # against the eager run: bit for bit, else phase 7's bf16 rule
+    same_metrics = [x["loss"] for x in metrics] == eager["losses"] and \
+        [x["grad_norm"] for x in metrics] == eager["gnorms"] and \
+        [x["lr"] for x in metrics] == eager["lrs"]
+    diffs = state_differences(state, host) if host is not None else []
+    bit_equal = same_metrics and not diffs
+    print(f"{tag} {label} compiled vs eager, 3 steps from the seed-0 state: "
+          f"losses {losses} vs {eager['losses']}, grad norms "
+          f"{[x['grad_norm'] for x in metrics]} vs {eager['gnorms']}, lr "
+          f"{[x['lr'] for x in metrics]} vs {eager['lrs']}; "
+          f"{len(host or [])} leaves (parameters, step, moments) "
+          f"compared on the host: {len(diffs)} differ"
+          + (f" (first: {diffs[:4]})" if diffs else "")
+          + f"; {'bit-equal' if bit_equal else 'NOT bit-equal'}")
+    if not bit_equal:
+        for x, el, eg in zip(metrics, eager["losses"], eager["gnorms"]):
+            dl = abs(x["loss"] - el)
+            rel = abs(x["grad_norm"] - eg) / eg
+            check(dl <= TRAIN_LOSS_TOL and rel <= TRAIN_GNORM_RTOL,
+                  f"{label}: compiled and eager steps differ beyond phase "
+                  f"7's bf16 rule (loss {dl:.2e}, grad norm {rel:.2e})")
+        print(f"{tag} {label}: not bit-equal, within phase 7's bf16 rule "
+              f"(loss {TRAIN_LOSS_TOL}, grad norm {TRAIN_GNORM_RTOL})")
+
+    # a 4th step under the profiler: the replay's kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, data.batch(3))
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    rows = [e for e in device if "Memcpy" not in e.key]
+    kernels = sum(e.count for e in rows) if rows else None
+    busy = sum(dev_us(e) for e in rows) / 1e3 if rows else None
+    # the copy-back of the update's outputs into the donated state (and
+    # any other device-to-device copy of the step)
+    copies = [e for e in device if "Memcpy" in e.key]
+    copy_ms = sum(dev_us(e) for e in copies) / 1e3 if copies else None
+    print(f"{tag} {label} compiled step's device copies (profiler, step 4): "
+          + (", ".join(f"{e.key} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+                       for e in copies) if copies else "none seen"))
+    pool = graph.memory["reserved"][1] - graph.memory["reserved"][0]
+    warm_s, capture_s = graph.warm_seconds, graph.seconds - graph.warm_seconds
+    print(f"{tag} {label} compiled step: first step {times[0]:.3f} s (warm "
+          f"call {warm_s:.3f} s, capture {capture_s:.3f} s), replays "
+          f"{[round(t * 1e3, 3) for t in times[1:]]} ms by the host clock "
+          f"({host_ms:.3f} ms a step, {tokens / host_ms * 1e3:.0f} tokens/s);"
+          f" one replay {dev_ms:.3f} ms on the device (CUDA events), idle "
+          f"{1 - dev_ms / host_ms:.1%} of the step; "
+          + (f"{kernels} device kernels a step, busy {busy:.3f} ms "
+             "(profiler, step 4)" if rows else "device kernels: not measured"
+             " (the profiler saw none)")
+          + f"; graph pool {pool} bytes reserved ({pool / 2 ** 30:.2f} GiB),"
+          f" peak device memory {peak:.2f} GiB ({resident:.2f} allocated "
+          f"before the first step: the state and what earlier phases "
+          f"hold); train_traces "
+          f"{counters['train_traces']}, kernel_replans "
+          f"{counters['kernel_replans']}; launches a step {per_step[2]}")
+    print(f"{tag} {label} eager step beside it (same run): "
+          f"{eager['step_ms']:.3f} ms a step by the host clock "
+          f"({tokens / eager['step_ms'] * 1e3:.0f} tokens/s), device busy "
+          f"{eager['busy_ms']:.3f} ms ({eager['kernels']:.0f} kernels a "
+          f"step), peak {eager['peak']:.2f} GiB; compiled / eager host "
+          f"clock {host_ms / eager['step_ms']:.3f}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(host_ms=host_ms, replay_ms=dev_ms, idle=1 - dev_ms / host_ms,
+                kernels=kernels, busy_ms=busy, copy_ms=copy_ms,
+                warm_s=warm_s,
+                capture_s=capture_s, pool=pool, peak=peak, resident=resident,
+                tokens_s=tokens / host_ms * 1e3, bit_equal=bit_equal,
+                launches=per_step[2])
+
+
+def train_small_compiled(tag: str = "[7]") -> None:
+    """The 2-layer f32 build at full width with ``remat=True``,
+    ``offload=False`` and 2 microbatches: ``compile_train_step`` captured
+    against the same step with ``capture=False`` (eager on the card) for
+    3 steps from the seed-0 state — metrics and every leaf bit-equal,
+    ``train_traces == 1`` each."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import compile_train_step, init_train_state
+
+    cfg32 = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2,
+                                dtype="float32")
+    model32 = build_model(cfg32, device=DEVICE)
+    tcfg = TrainConfig(remat=True, offload=False, microbatches=2)
+    data = SyntheticLM(make_data_config(cfg32, ShapeConfig("chip",
+                                                           *TRAIN_SHAPE)))
+    runs = {}
+    for capture in (False, True):
+        state = init_train_state(model32, 0)
+        step = compile_train_step(model32, tcfg, capture=capture)
+        ms, t0 = [], time.perf_counter()
+        for i in range(3):
+            state, m = step(state, data.batch(i))
+            ms.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        check(step.counters["train_traces"] == 1 and
+              (step.graph is not None) == capture,
+              f"small build capture={capture}: {step.counters}")
+        runs[capture] = (ms, host_state(state), time.perf_counter() - t0)
+        del state, step
+    (m0, s0, t_eager), (m1, s1, t_comp) = runs[False], runs[True]
+    diffs = [i for i, (a, b) in enumerate(zip(s0, s1)) if not torch.equal(a, b)]
+    print(f"{tag} 2-layer f32 full width, remat on, offload off, 2 "
+          f"microbatches: compiled vs capture=False, 3 steps: losses "
+          f"{[x['loss'] for x in m1]} vs {[x['loss'] for x in m0]}; "
+          f"{len(s0)} leaves, {len(diffs)} differ; {t_comp:.1f} s vs "
+          f"{t_eager:.1f} s for the 3 steps")
+    check(m0 == m1 and not diffs,
+          "small build: compiled and eager steps differ")
 
 
 # --------------------------------------------- flash and batched anchors (8)
@@ -3484,8 +3757,9 @@ def decode_case(shape, dtype, seed):
 
 def library_small_shapes() -> None:
     """B9 (forward, backward), B10 and B11 against their plain versions
-    on the card at the CPU tests' shapes, f32 (2e-5) and bf16 (2e-2), and
-    B9 / B10 in f16 (4e-3; B11 refuses f16, ``refused_inputs``)."""
+    on the card at the CPU tests' shapes, f32 (2e-5), bf16 (2e-2) and f16
+    (4e-3), and B1 in f16 at its CPU tests' shapes (phase 3 holds it in
+    f32 and bf16), one split and several."""
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
 
     worst: dict = {}
@@ -3540,7 +3814,19 @@ def library_small_shapes() -> None:
                                               impl="cuda")),
                   "B10 with int64 positions differs from int32")
         if dtype == torch.float16:
-            continue
+            for i, shape in enumerate(SMALL_SHAPES):
+                args = make_case(shape, dtype, seed=240 + i,
+                                 empty_row=shape[0] > 1)
+                want = paged_decode_attention_plain(*args)
+                for splits in (None, 1, 3):
+                    got = paged_decode_attention(*args, num_splits=splits)
+                    note((dn, "paged_decode_attention"),
+                         close_to_plain(got, want, args), max_err(got, want),
+                         f"B1 at {shape} {dn} splits={splits}")
+                    if shape[0] > 1:
+                        check(bool((got[-1] == 0).all()),
+                              "B1: a row with length 0 must come out as "
+                              "zeros")
         for i, shape in enumerate(DECODE_SMALL):
             q, kc, vc, kh, vh, lengths = decode_case(shape, dtype, 220 + i)
             want = ops.decode_attention(q, kc, vc, lengths, impl="ref")
@@ -3557,8 +3843,9 @@ def library_small_shapes() -> None:
     errs = {f"{d} {n}": f"{e:.2e}" for (d, n), e in worst.items()}
     print(f"[9] B9 / B10 / B11 at the CPU tests' shapes (and direct-path, "
           f"wide and misaligned rows for B9; one and several splits for "
-          f"B11), f32 and bf16 (B9 / B10 also f16), against the plain "
-          f"versions: worst max_abs_err {errs}")
+          f"B11), f32, bf16 and f16, and B1 in f16 at its CPU tests' "
+          f"shapes (queue C3 lifted), against the plain versions: worst "
+          f"max_abs_err {errs}")
 
 
 def lib_row(ms, plain_ms, library_ms, n_bytes, n_flops, dtype, err) -> dict:
@@ -4005,6 +4292,102 @@ def library_f16(card: str) -> None:
         del ts
 
 
+def decode_f16(card: str) -> dict:
+    """Queue C3 lifted for B1 / B11: f16 at full width (phase 3's main
+    shape, 8 sequences, 16 / 8 heads of 128, lengths to 2,048), one
+    counted run — B1 on the pool, B11 on the same rows as dense caches in
+    both layouts — against the plain versions (4e-3), B11's layouts
+    bit-equal and B11 against B1; each timed (CUDA-graph replay, inputs
+    rotated past the L2) beside the bound, the plain version and SDPA.
+    Returns the readings by kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    dtype = torch.float16
+    b, np_, page, nq, nk, h = MAIN_SHAPE
+    t = np_ * page
+    n_rot = LIB_ROTATE["decode_attention"]
+    pools = [make_case(MAIN_SHAPE, dtype, seed=100 + j, full_row=True)
+             for j in range(n_rot)]
+    q, pk, pv, tables, lengths = pools[0]
+
+    def dense(case):
+        gath = [c[case[3].long()] for c in case[1:3]]
+        tok = [c.permute(0, 1, 3, 2, 4).reshape(b, t, nk, h).contiguous()
+               for c in gath]
+        hm = [c.permute(0, 2, 1, 3, 4).reshape(b, nk, t, h).contiguous()
+              for c in gath]
+        return tok, hm
+    caches = [dense(c) for c in pools]
+    tok, hm = caches[0]
+    ops.reset_launch_counts()
+    b1 = ops.paged_decode_attention(q, pk, pv, tables, lengths)
+    o_tm = ops.decode_attention(q, *tok, lengths)
+    o_hm = ops.decode_attention(q, *hm, lengths, head_major=True)
+    torch.cuda.synchronize()
+    run = ops.launch_counts()
+    want_run = {"paged_decode_attention": 1, "decode_attention": 2}
+    check(run == {k_: want_run.get(k_, 0) for k_ in run},
+          f"phase 9 f16 decode launches {run}, expected {want_run}")
+    w_b1 = paged_decode_attention_plain(q, pk, pv, tables, lengths)
+    w_tm = decode_attention_plain(q, *tok, lengths)
+    res = {"paged_decode_attention": within(b1, w_b1, TOL[dtype]),
+           "decode_attention": within(o_tm, w_tm, TOL[dtype]),
+           "decode vs B1": within(o_tm, b1, TOL[dtype])}
+    for name, (ok, err) in res.items():
+        check(ok, f"{name} full width float16: max_abs_err {err:.3e}")
+    check(torch.equal(o_tm, o_hm),
+          "B11 token-major and head-major differ at full width (float16)")
+    print(f"[9] C3 lifted for B1 / B11: full width float16 {MAIN_SHAPE}, "
+          f"lengths {lengths.tolist()}: max_abs_err "
+          f"{ {n: f'{e:.2e}' for n, (_, e) in res.items()} } (tolerance "
+          f"{TOL[dtype]}); B11 layouts bit-equal, B11 "
+          f"{'bit-equal to' if torch.equal(o_tm, b1) else 'within the rule of'}"
+          f" B1; launches {run}")
+    live = int(lengths.sum())
+    live_pages = int(((lengths + page - 1) // page).sum())
+    elt = q.element_size()
+    kv_bytes = 2 * live * nk * h * elt + 2 * q.numel() * elt + 4 * b
+    flops = 4 * live * nq * h
+    mask = (torch.arange(t, device=DEVICE)[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], *caches[i % n_rot][1], attn_mask=mask,
+            enable_gqa=True)
+    check(within(sdpa(0)[:, :, 0], w_tm, TOL[dtype])[0],
+          "scaled_dot_product_attention disagrees with the plain version "
+          "(float16)")
+    lib_ms = graph_ms(sdpa, n_rot)
+    out = {}
+    for name, ms, plain_ms, n_bytes in (
+            ("paged_decode_attention", graph_ms(
+                lambda i: paged_decode_attention(*pools[i % n_rot]), n_rot),
+             time_ms(lambda i: paged_decode_attention_plain(
+                 *pools[i % n_rot]), n_rot),
+             kv_bytes + 4 * live_pages),
+            ("decode_attention", graph_ms(lambda i: ops.decode_attention(
+                q, *caches[i % n_rot][0], lengths), n_rot),
+             time_ms(lambda i: decode_attention_plain(
+                 q, *caches[i % n_rot][0], lengths), n_rot), kv_bytes)):
+        out[name] = lib_row(ms, plain_ms, lib_ms, n_bytes, flops, dtype,
+                            res[name][1])
+    out["decode_attention"]["ms_head_major"] = graph_ms(
+        lambda i: ops.decode_attention(q, *caches[i % n_rot][1], lengths,
+                                       head_major=True), n_rot)
+    for name, r in out.items():
+        extra = (f", head-major {r['ms_head_major']:.4f} ms"
+                 if "ms_head_major" in r else "")
+        print(f"[9]   {name} float16: {r['ms']:.4f} ms on the card "
+              f"(CUDA-graph replay, {n_rot} rotated input sets{extra}), "
+              f"plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms (scaled_dot_product_attention), "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['n_bytes']} bytes; bound / kernel = "
+              f"{r['bound_ms'] / r['ms']:.1%}), on {card}")
+    return out
+
+
 def norm_readings(card: str) -> None:
     """``--norm``: phase 9's bf16 readings of B9 / B9-bwd alone, on the
     package this script was pointed at (``--src``): the hidden states [2,
@@ -4118,16 +4501,6 @@ def refused_inputs() -> None:
     dk, dv = (seeded(gen, (2, 32, 2, 24), torch.float32) for _ in range(2))
     expect("B11 f32 head_dim 24", ValueError, "head_dim 24",
            lambda: ops.decode_attention(dq, dk, dv, lengths))
-    # queue C3: f16, which the reference's kernels take; B9 / B10 take it
-    # since its lift, B1 / B11 refuse it as their ops docstrings say
-    pq, pk, pv, tables, lengths = make_case((2, 2, 16, 4, 2, 64),
-                                            torch.float16, seed=19)
-    expect_refusal("[9] C3", "B1 f16", TypeError, "torch.float16",
-                   lambda: ops.paged_decode_attention(pq, pk, pv, tables,
-                                                      lengths))
-    dk, dv = (seeded(gen, (2, 32, 2, 64), torch.float16) for _ in range(2))
-    expect_refusal("[9] C3", "B11 f16", TypeError, "torch.float16",
-                   lambda: ops.decode_attention(pq, dk, dv, lengths))
     torch.cuda.synchronize()
     check(not any(ops.launch_counts().values()),
           f"a refused input launched: {ops.launch_counts()}")
@@ -4135,13 +4508,15 @@ def refused_inputs() -> None:
 
 def phase_library(card: str) -> dict:
     """Phase 9: the kernel library's B9 (forward, backward), B10 and B11
-    at the CPU tests' shapes and at full width, and the inputs B1, B5, B7
-    and B11 refuse.  Returns the kernels line's four rows."""
+    at the CPU tests' shapes and at full width, B1 / B11 in f16, and the
+    inputs B1, B5, B7 and B11 refuse.  Returns the kernels line's four
+    rows."""
     t0 = time.perf_counter()
     refused_inputs()
     library_small_shapes()
     rows, counts = library_full_width(card)
     library_f16(card)
+    decode_f16(card)
     library_wide_rows(card)
     print(f"[9] path launches (bf16 run): "
           f"{ {k: n for k, n in counts.items() if n} }")
@@ -4749,6 +5124,46 @@ def admit_alone(card: str) -> None:
         del engine
 
 
+def train_alone(card: str) -> None:
+    """``--train``: phase 7's training readings alone, on the package
+    under ``--src`` where given: full-width qwen3-1.7b (bf16 compute, f32
+    masters, offload on, remat off, 2 x 1,024 tokens) planned and built,
+    3 eager steps (``train_steps``), then 3 steps of
+    ``compile_train_step`` held against them (``train_compiled``) and the
+    2-layer f32 build (``train_small_compiled``).  A package without
+    ``compile_train_step`` (before the compiled step) gives the eager
+    step alone: one call compares two checkouts."""
+    import repro_torch
+    import repro_torch.train as train_mod
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import init_train_state, make_train_step
+
+    compiled = hasattr(train_mod, "compile_train_step")
+    print(f"[t] training readings of {os.path.dirname(repro_torch.__file__)}"
+          f" ({'compiled and eager' if compiled else 'eager only: no compile_train_step'}"
+          f"); card {card}")
+    cfg = get_config("qwen3-1.7b")
+    tcfg = TrainConfig(remat=False, offload=True)
+    model = build_model(cfg, device=DEVICE)
+    data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
+                                                         *TRAIN_SHAPE)))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    step = make_train_step(model, tcfg)
+    held = [init_train_state(model, 0)]
+    plans = plan_training(step, held[0], data.batch(0), "bf16")
+    state, _, eager = train_steps(step, held, data, tokens, plans)
+    host = host_state(state) if compiled else None
+    del state, step, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    if compiled:
+        train_compiled(model, tcfg, data, tokens, eager, host,
+                       "bf16 full width", tag="[t]")
+        del host
+        train_small_compiled(tag="[t]")
+
+
 def kernel_entry(timed: dict, kind: str) -> dict:
     """The JSON fields of one fused kernel: its most-launched distinct
     segment that has a library yardstick (ties: the larger bound)."""
@@ -4783,6 +5198,9 @@ def main() -> int:
         return 0
     if "--admit" in sys.argv:
         admit_alone(card)
+        return 0
+    if "--train" in sys.argv:
+        train_alone(card)
         return 0
     phase_build()
     kernel = phase_kernel(card)

@@ -68,6 +68,7 @@ import dataclasses
 import operator
 import time
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
@@ -2039,9 +2040,28 @@ _BWD_PLANS: list[OffloadPlan] = []
 _BWD_PLANS_KEEP = 256       # a bounded window of recent backward plans
 
 
+#: > 0 inside ``repeated_lookups()``
+_REPEATING = [0]
+
+
 def bwd_plan_stats() -> OffloadStats:
     """Plan-cache counters of segment backward (cotangent) planning."""
     return _BWD_STATS
+
+
+@contextmanager
+def repeated_lookups():
+    """Backward plan lookups made inside repeat lookups already counted:
+    a plan found is not counted as a hit again (a miss still counts).
+    A compiled step runs its function once more to capture it, a
+    microbatch loop runs the same backward once a microbatch; the
+    reference traces each once (``jax.jit``, a ``lax.scan`` body), and
+    counted this way ``bwd_plan_stats()`` reads as its counters do."""
+    _REPEATING[0] += 1
+    try:
+        yield
+    finally:
+        _REPEATING[0] -= 1
 
 
 def bwd_plans() -> list[OffloadPlan]:
@@ -2114,7 +2134,7 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
             _BWD_STATS.plan_misses += 1
             _BWD_STATS.traces += 1
             entry = cache[key] = compile_for(primals, cts)
-        else:
+        elif not _REPEATING[0]:
             _BWD_STATS.plan_hits += 1
         return entry
 
@@ -2276,17 +2296,29 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
             stats.plan_hits += 1
         return entry, leaves
 
-    def bind(*args) -> Callable[[], Any]:
+    def bind(*args) -> Callable[..., Any]:
         """The plan of ``args``' signature, looked up once (counted as
         that call's miss or hit) and bound to ``args``' tensors:
         ``run()`` runs it on those very tensors and returns what
         ``wrapped(*args)`` would, without another lookup — the form for
         inputs that are fixed buffers (the engine's decode step, replayed
-        as a CUDA graph).  ``run.plan`` is the plan."""
+        as a CUDA graph).  ``run(*a)`` runs it on ``a`` instead, which
+        must have the same signature — for inputs a compiled function
+        makes anew each call after looking its plans up once (the
+        training step's gradients, its microbatches' views).  ``run.plan``
+        is the plan."""
         entry, leaves = entry_for(args)
-        tensors = [x for x, t in zip(leaves, entry.is_tensor) if t]
+        key = [_leaf_signature(x) for x in leaves]
+        bound = [x for x, t in zip(leaves, entry.is_tensor) if t]
 
-        def run():
+        def run(*a):
+            tensors = bound
+            if a:
+                flat = pytree.tree_leaves(list(a))
+                if [_leaf_signature(x) for x in flat] != key:
+                    raise ValueError("a bound plan runs on its own "
+                                     "signature only")
+                tensors = [x for x, t in zip(flat, entry.is_tensor) if t]
             return pytree.tree_unflatten(list(entry.run(*tensors)),
                                          entry.out_spec)
         run.plan = entry.plan

@@ -118,25 +118,24 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 //   lengths       [B] int32
 //   chunk         tokens a split is made of whole runs of
 //   part          [B, NQ, num_splits, H + 2] f32 scratch (num_splits > 1)
-//   is_bf16       1: bfloat16, 0: float32
+//   dtype         0: float32, 1: bfloat16, 2: float16
 extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const int* lengths, void* out, float* part, int B, int NQ, int NK, int H,
-    int T_len, int chunk, int num_splits, int is_bf16, int64_t stride_b,
+    int T_len, int chunk, int num_splits, int dtype, int64_t stride_b,
     int64_t stride_head, int64_t stride_tok, float scale, void* stream) {
-  if (!decode::shape_ok(B, NQ, NK, H, num_splits, is_bf16) || T_len <= 0 ||
+  if (!decode::shape_ok(B, NQ, NK, H, num_splits, dtype) || T_len <= 0 ||
       chunk <= 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      is_bf16 ? launch_dtype<__nv_bfloat16>(q, k_cache, v_cache, lengths, out,
-                                            part, B, NQ, NK, H, T_len, chunk,
-                                            num_splits, stride_b, stride_head,
-                                            stride_tok, scale, s)
-              : launch_dtype<float>(q, k_cache, v_cache, lengths, out, part, B,
-                                    NQ, NK, H, T_len, chunk, num_splits,
-                                    stride_b, stride_head, stride_tok, scale,
-                                    s);
+#define REPRO_DTYPE(T)                                                     \
+  launch_dtype<T>(q, k_cache, v_cache, lengths, out, part, B, NQ, NK, H,   \
+                  T_len, chunk, num_splits, stride_b, stride_head,         \
+                  stride_tok, scale, s)
+  const cudaError_t e = dtype == DT_BF16  ? REPRO_DTYPE(__nv_bfloat16)
+                        : dtype == DT_F16 ? REPRO_DTYPE(__half)
+                                          : REPRO_DTYPE(float);
+#undef REPRO_DTYPE
   return static_cast<int>(e);
 }
 

@@ -23,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +61,24 @@ template <> struct Vec16<__nv_bfloat16> {
     return __float2bfloat16(x);
   }
 };
+
+template <> struct Vec16<__half> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&o)[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __half22float2(h[i]);
+      o[2 * i] = f.x; o[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ __half cast(float x) {
+    return __float2half_rn(x);
+  }
+};
+
+// dtype codes shared with kernels/decode_attention.py
+constexpr int DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2;
 
 template <typename T>
 __device__ __forceinline__ uint4 load16(const T* p) {
@@ -257,10 +276,11 @@ cudaError_t launch_with_combine(Kernel kern, size_t smem, int B, int NQ,
 }
 
 // The shapes both kernels take: H a power-of-two number (at most 32) of
-// 16-byte vectors, NQ a multiple of NK.
+// 16-byte vectors, NQ a multiple of NK; a known dtype code.
 inline bool shape_ok(int B, int NQ, int NK, int H, int num_splits,
-                     int is_bf16) {
-  const int vec = is_bf16 ? 8 : 4;
+                     int dtype) {
+  if (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_F16) return false;
+  const int vec = dtype == DT_F32 ? 4 : 8;
   const int lpr = H / vec;
   return B > 0 && NK > 0 && NQ % NK == 0 && num_splits > 0 && H % vec == 0 &&
          lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;

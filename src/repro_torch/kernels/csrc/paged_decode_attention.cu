@@ -134,26 +134,25 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 //   k/v_pages     [P, NK, page, H], strides in elements, H contiguous
 //   tables        [B, NP] int32 contiguous;  lengths [B] int32
 //   part          [B, NQ, num_splits, H + 2] f32 scratch (num_splits > 1)
-//   is_bf16       1: bfloat16, 0: float32
+//   dtype         0: float32, 1: bfloat16, 2: float16
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* tables, const int* lengths, void* out, float* part, int B,
-    int NQ, int NK, int H, int page, int NP, int num_splits, int is_bf16,
+    int NQ, int NK, int H, int page, int NP, int num_splits, int dtype,
     int64_t stride_page, int64_t stride_head, int64_t stride_tok, float scale,
     void* stream) {
-  if (!decode::shape_ok(B, NQ, NK, H, num_splits, is_bf16) || page <= 0 ||
+  if (!decode::shape_ok(B, NQ, NK, H, num_splits, dtype) || page <= 0 ||
       NP <= 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      is_bf16 ? launch_dtype<__nv_bfloat16>(q, k_pages, v_pages, tables,
-                                            lengths, out, part, B, NQ, NK, H,
-                                            page, NP, num_splits, stride_page,
-                                            stride_head, stride_tok, scale, s)
-              : launch_dtype<float>(q, k_pages, v_pages, tables, lengths, out,
-                                    part, B, NQ, NK, H, page, NP, num_splits,
-                                    stride_page, stride_head, stride_tok,
-                                    scale, s);
+#define REPRO_DTYPE(T)                                                      \
+  launch_dtype<T>(q, k_pages, v_pages, tables, lengths, out, part, B, NQ,   \
+                  NK, H, page, NP, num_splits, stride_page, stride_head,    \
+                  stride_tok, scale, s)
+  const cudaError_t e = dtype == DT_BF16  ? REPRO_DTYPE(__nv_bfloat16)
+                        : dtype == DT_F16 ? REPRO_DTYPE(__half)
+                                          : REPRO_DTYPE(float);
+#undef REPRO_DTYPE
   return static_cast<int>(e);
 }
 

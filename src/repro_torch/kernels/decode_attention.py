@@ -30,7 +30,8 @@ KERNEL_DENSE = "decode_attention"
 #: of a paged cache is reduced in B1's order
 DENSE_CHUNK = 64
 
-_DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes the kernels take, by the code they are passed as
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -112,12 +113,12 @@ def default_num_splits(b: int, nq: int, nk: int, n_pages: int,
 def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               what: str) -> None:
     """What both kernels need of q and the K / V they read in place:
-    one dtype (f32 or bf16) and device, a row of H elements a power-of-two
-    number (at most 32) of 16-byte vectors, H contiguous, rows 16-byte
-    aligned, one set of strides for K and V."""
+    one dtype (f32, bf16 or f16) and device, a row of H elements a
+    power-of-two number (at most 32) of 16-byte vectors, H contiguous,
+    rows 16-byte aligned, one set of strides for K and V."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q and {what} must share dtype float32 or bfloat16;"
-                        f" got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"q and {what} must share dtype float32, bfloat16 "
+                        f"or float16; got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in ((f"k_{what}", k), (f"v_{what}", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -175,7 +176,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            num_splits: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel.  q ``[B,NQ,H]``; pages ``[P,NK,page,H]``;
     ``block_tables [B,NP]`` int32; ``lengths [B]`` int32 (each at most
-    ``NP * page``).  f32 or bf16 in, f32 math, output in q's dtype.
+    ``NP * page``).  f32, bf16 or f16 in, f32 math, output in q's
+    dtype.
 
     Runs on PyTorch's current stream, never synchronises, and raises on
     anything the kernel does not take or on a refused launch: there is
@@ -209,7 +211,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             b, nq, nk, h, page, n_pages, num_splits,
-            int(q.dtype == torch.bfloat16),
+            _DTYPES[q.dtype],
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             1.0 / (h ** 0.5), torch.cuda.current_stream().cuda_stream)
     if code != 0:
@@ -260,8 +262,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Launch the dense-cache CUDA kernel.  q ``[B,NQ,H]``; caches
     ``[B,T,NK,H]`` token-major or, with ``head_major``, ``[B,NK,T,H]``,
     read in place through their strides (no pad, no transpose); lengths
-    ``[B]`` (as int32; at most T counts).  f32 or bf16 in, f32 math,
-    output in q's dtype.  The live tokens are cut into runs of whole
+    ``[B]`` (as int32; at most T counts).  f32, bf16 or f16 in, f32
+    math, output in q's dtype.  The live tokens are cut into runs of whole
     ``DENSE_CHUNK``-token chunks, as many as fill the card
     (``default_num_splits``, from the shapes alone).
 
@@ -300,7 +302,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), b, nq, nk, h, t,
-            DENSE_CHUNK, num_splits, int(q.dtype == torch.bfloat16), s_b,
+            DENSE_CHUNK, num_splits, _DTYPES[q.dtype], s_b,
             s_head, s_tok, 1.0 / (h ** 0.5),
             torch.cuda.current_stream().cuda_stream)
     if code != 0:

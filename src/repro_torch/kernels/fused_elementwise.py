@@ -708,7 +708,7 @@ def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
     name, kernel, geo = hit
     if copied:
         symbol = name.partition("_s")[0]
-        COPIES[symbol] = COPIES.get(symbol, 0) + copied
+        kernel_guard().count_into(COPIES, symbol, copied)
     # no multiply-add contraction: eager PyTorch rounds every op's result,
     # and a bf16 `a * b + c` contracted into one fma skips a rounding
     with torch.cuda.device(dev):

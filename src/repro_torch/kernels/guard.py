@@ -36,14 +36,17 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
 
 
 class LaunchRecord:
-    """The ``count_launch`` / ``count_variant`` calls made while a CUDA
-    graph was captured.  Capture launches nothing, and a replay launches
-    every captured kernel without calling a wrapper, so the calls are
-    kept here and ``replay()`` counts them once per replay of the graph."""
+    """The ``count_launch`` / ``count_variant`` / ``count_into`` calls
+    made while a CUDA graph was captured.  Capture launches nothing, and
+    a replay launches every captured kernel without calling a wrapper, so
+    the calls are kept here and ``replay()`` counts them once per replay
+    of the graph."""
 
     def __init__(self, guard: "KernelGuard"):
         self._guard = guard
         self.calls: list[tuple[str, str | None, str | None]] = []
+        #: the ``count_into`` calls: (counter, key, n)
+        self.adds: list[tuple[dict, str, int]] = []
 
     def replay(self) -> None:
         for kernel, symbol, variant in self.calls:
@@ -51,6 +54,8 @@ class LaunchRecord:
                 self._guard._add_launch(kernel)
             else:
                 self._guard._add_variant(kernel, symbol, variant)
+        for counter, key, n in self.adds:
+            counter[key] = counter.get(key, 0) + n
 
 
 @dataclass
@@ -85,6 +90,15 @@ class KernelGuard:
             self._record.calls.append((kernel, symbol, variant))
         else:
             self._add_variant(kernel, symbol, variant)
+
+    def count_into(self, counter: dict, key: str, n: int = 1) -> None:
+        """``counter[key] += n`` for work done beside a launch (the grid
+        kernel's operand copies): now, or inside ``recording()`` once per
+        replay of the captured graph, as launches are counted."""
+        if self._record is not None:
+            self._record.adds.append((counter, key, n))
+        else:
+            counter[key] = counter.get(key, 0) + n
 
     @contextmanager
     def recording(self) -> Iterator[LaunchRecord]:

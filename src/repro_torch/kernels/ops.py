@@ -54,11 +54,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            **kw) -> torch.Tensor:
     """Decode attention over a paged KV pool (block-table indexed): q
     ``[B, NQ, H]``, pools ``[P, NK, page, H]``, tables ``[B, NP]``,
-    lengths ``[B]``.  On CUDA tensors B1 refuses, with ``ValueError`` /
-    ``TypeError``, where the reference's Pallas kernel takes them: a
-    dtype other than f32 or bf16, and a head_dim that is not a
+    lengths ``[B]``; f32, bf16 or f16, as the reference's kernel takes
+    them.  On CUDA tensors B1 refuses, with ``ValueError``, where the
+    reference's Pallas kernel takes them: a head_dim that is not a
     power-of-two count (at most 32) of 16-byte vectors — f32 takes H in
-    {4, 8, ..., 128}, bf16 H in {8, 16, ..., 256}."""
+    {4, 8, ..., 128}, bf16 and f16 H in {8, 16, ..., 256}."""
     if resolve_impl(impl, q) == "ref":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, lengths)
@@ -74,10 +74,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``[B, T, NK, H]`` or, with ``head_major``, ``[B, NK, T, H]``, each
     read in place; ``lengths [B]``.  A row of length 0 gives zeros.  The
     reference's ``kv_block`` / ``interpret`` arguments shape TPU blocks
-    only and are not carried over.  On CUDA tensors B11 refuses what B1
-    refuses (see ``paged_decode_attention``): a dtype other than f32 or
-    bf16, a head_dim that is not a power-of-two count (at most 32) of
-    16-byte vectors, and rows not 16-byte aligned."""
+    only and are not carried over.  f32, bf16 or f16.  On CUDA tensors
+    B11 refuses what B1 refuses (see ``paged_decode_attention``): a
+    head_dim that is not a power-of-two count (at most 32) of 16-byte
+    vectors, and rows not 16-byte aligned."""
     if resolve_impl(impl, q) == "ref":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       head_major=head_major)

@@ -6,10 +6,12 @@ trains random-weight ``--arch`` at full width on one GPU, 2 sequences of
 1,024 tokens a step (what one H100 holds with f32 master parameters and
 AdamW moments).  ``--offload`` runs the step through the offload
 compiler (``--offload-mode`` picks its decision backend) and prints the
-plans' decisions.  ``--local`` trains the reduced config on 4 x 128
-tokens instead; ``--device cpu`` runs the plain PyTorch path on the CPU
-(the kernels need the GPU).  One device, no mesh, no checkpoints (they
-arrive with the durability slice).
+plans' decisions.  The step is compiled (``compile_train_step``): the
+launcher prints ``train_traces``, the first step's warm call and capture
+seconds and the graph pool's bytes.  ``--local`` trains the reduced
+config on 4 x 128 tokens instead; ``--device cpu`` runs the plain
+PyTorch path on the CPU (the kernels need the GPU).  One device, no
+mesh, no checkpoints (they arrive with the durability slice).
 """
 from __future__ import annotations
 
@@ -52,9 +54,19 @@ def main(argv: list[str] | None = None) -> None:
     tcfg = TrainConfig(total_steps=args.steps, offload=offload,
                        offload_policy=OffloadPolicy(mode=args.offload_mode)
                        if args.offload_mode else None)
-    _, history = train(cfg, shape, tcfg, device=args.device, log_every=1)
+    held = []
+    _, history = train(cfg, shape, tcfg, device=args.device, log_every=1,
+                       on_step=held.append)
     print(f"trained {len(history)} steps: loss {history[0]['loss']:.4f} -> "
           f"{history[-1]['loss']:.4f}")
+    step = held[0]
+    graph = step.graph
+    built = "eager (no CUDA graph on this device)" if graph is None else (
+        f"warm step + capture {graph.seconds:.1f} s (warm "
+        f"{graph.warm_seconds:.1f} s), graph pool "
+        f"{graph.memory['reserved'][1] - graph.memory['reserved'][0]} bytes")
+    print(f"compiled step: train_traces {step.counters['train_traces']}, "
+          f"{built}")
     if offload:
         print(f"backward plans: {bwd_plan_stats().as_dict()}")
     print("done")

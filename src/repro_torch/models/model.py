@@ -26,6 +26,7 @@ layer's entry in ``layers`` is the one tied dict.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -132,7 +133,8 @@ def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda"
         loss = cross_entropy_loss(
             logits, _tokens(batch["labels"]),
             None if mask is None else torch.as_tensor(mask, device=dev))
-        n = torch.as_tensor(batch["tokens"]).numel()
+        # the token count is the batch's shape, never read from its data
+        n = math.prod(batch["tokens"].shape)
         return loss + aux, {"loss": loss, "moe_aux": aux,
                             "tokens": torch.full((), float(n), device=dev)}
 
