@@ -234,7 +234,27 @@ the bound and the library calls, the device kernels a call);
 for phase 10's full-width readings of B12 / B13 in bf16 and f32 (each
 against its plain version, timed beside the bounds);
 ``--kernels-a-call`` prints those device kernels alone, as a JSON line
-(phase 9 runs it in a fresh process).
+(phase 9 runs it in a fresh process).  Phase 9 also launches two B9-bwd
+calls of different shapes at once on two streams, then captures both on
+two branches of one graph (queue C4: each launch's own arrival ticket),
+every output bit-equal to its launch made alone.  Phase 12, also alone as
+
+    python3 chip_smoke.py --durability [--src DIR]
+
+trains full-width qwen3-1.7b at 4 layers (offloaded, compiled, 2 x 1,024
+tokens) with ``train()`` in a subprocess from an empty checkpoint
+directory and plan store under ``TMPDIR`` (steps 0-3, checkpoints every 2
+steps), tears step 3's checkpoint, and resumes in a fresh subprocess:
+step 3 bit-equal (metrics and every leaf's sha256), every loss, update
+and backward plan a disk hit; it prints planning, first-step, save,
+verify and restore seconds and GB/s, the checkpoint's bytes, peak device
+memory and peak host RSS during each save.  Both subprocesses then serve
+8 requests through a full-depth ``Engine(offload=True)`` on the same
+store (the warm one's decode plan a disk hit, the same greedy tokens),
+and the second serves them again with every ``fused_segment_grid``
+launch faulted (quarantine, ``kernel_replans == 1``, the re-captured step
+launching no B2, every request ``ok``; the share of tokens equal to the
+unfaulted engine's and the largest logit difference printed).
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -3975,6 +3995,87 @@ def one_call_kernels(tag: str) -> dict:
     return out
 
 
+#: B9-bwd launches in flight at once (queue C4): two shapes on two paths
+#: (bf16 rows in registers, f32 rows staged), launched on two streams
+#: ``C4_REPS`` times, then captured on two branches of one graph
+C4_CASES = (((4096,), 2048, torch.bfloat16), ((1024,), 5120, torch.float32))
+C4_REPS = 64
+
+
+def b9_bwd_concurrent(card: str) -> None:
+    """Queue C4: each B9-bwd launch counts its arriving blocks on a ticket
+    of its own workspace.  Two launches of different shapes in flight at
+    once on two streams, ``C4_REPS`` times, each bit-equal to the same
+    launch made alone and within phase 9's tolerance of its plain
+    version; then both captured on parallel branches of one CUDA graph
+    and replayed, the same.  Either failing fails the script."""
+    from repro_torch.kernels.rmsnorm import (
+        launch_geometry,
+        rmsnorm_bwd,
+        rmsnorm_bwd_plain,
+    )
+
+    cases = []
+    for i, (rows, d, dtype) in enumerate(C4_CASES):
+        gen = torch.Generator(device=DEVICE).manual_seed(260 + i)
+        x, s, g = norm_case(gen, rows, d, dtype, dtype)
+        alone = rmsnorm_bwd(x, s, g)
+        for got, want, what in zip(alone, rmsnorm_bwd_plain(x, s, g),
+                                   ("dx", "ds")):
+            ok, err = within(got, want, TOL[dtype])
+            check(ok, f"C4: B9-bwd {what} alone at {rows + (d,)} "
+                      f"{dtype}: max_abs_err {err:.3e}")
+        geo = launch_geometry(
+            rows[0], d, dtype, backward=True,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        cases.append(((x, s, g), alone, f"{rows + (d,)} {str(dtype)[6:]} "
+                                        f"{geo.path}, grid {geo.grid}"))
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(C4_REPS):
+        rep = []
+        for st, (args, _, _) in zip(streams, cases):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                rep.append(rmsnorm_bwd(*args))
+        outs.append(rep)
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    two_streams_s = time.perf_counter() - t0
+    for rep in outs:
+        for (_, alone, what), got in zip(cases, rep):
+            check(all(torch.equal(a, b) for a, b in zip(got, alone)),
+                  f"C4: B9-bwd {what} on two streams differs from the "
+                  "launch made alone")
+    del outs
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.graph(graph):
+        main = torch.cuda.current_stream()
+        side.wait_stream(main)
+        first = rmsnorm_bwd(*cases[0][0])
+        with torch.cuda.stream(side):
+            second = rmsnorm_bwd(*cases[1][0])
+        main.wait_stream(side)
+    for _ in range(C4_REPS):
+        for o in (*first, *second):
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, (_, alone, what) in zip((first, second), cases):
+            check(all(torch.equal(a, b) for a, b in zip(got, alone)),
+                  f"C4: B9-bwd {what} on a graph branch differs from the "
+                  "launch made alone")
+    del graph
+    print(f"[9] C4: B9-bwd {cases[0][2]} and {cases[1][2]} in flight "
+          f"together: {C4_REPS} launch pairs on two streams "
+          f"({two_streams_s:.3f} s) and {C4_REPS} replays of both on two "
+          f"branches of one graph, every output bit-equal to its launch "
+          f"made alone; card {card}")
+
+
 def library_full_width(card: str) -> tuple[dict, dict]:
     """The kernel library at the width of qwen3-1.7b: one counted run of
     the path (``ops.rmsnorm`` forward and backward on the hidden states,
@@ -4100,9 +4201,16 @@ def library_full_width(card: str) -> tuple[dict, dict]:
                                         res["rmsnorm_bwd dx"][1],
                                         res["rmsnorm_bwd ds"][1])}))
         kernels = one_call_kernels("[9]")
-        check(all(len(k) == KERNEL_CALLS for k in kernels.values()),
+        # B9-bwd zeroes its launch's arrival ticket first (queue C4)
+        memsets = {n: sum(k.startswith("Memset") for k in ks)
+                   for n, ks in kernels.items()}
+        launched = {n: [k for k in ks if not k.startswith("Memset")]
+                    for n, ks in kernels.items()}
+        check(all(len(k) == KERNEL_CALLS for k in launched.values())
+              and memsets == {"rmsnorm": 0, "rmsnorm_bwd": KERNEL_CALLS},
               f"B9 / B9-bwd launch {kernels} over {KERNEL_CALLS} calls, "
-              f"not one kernel a call each")
+              f"not one kernel a call each (and B9-bwd one 4-byte memset "
+              f"a call)")
         for name, t in (("rotary", q), ("rotary k", k)):
             ts = [t] + [t.clone() for _ in range(LIB_ROTATE["rotary"] - 1)]
             ms = graph_ms(lambda i: rotary(ts[i % len(ts)], pos, theta=theta),
@@ -4514,6 +4622,7 @@ def phase_library(card: str) -> dict:
     t0 = time.perf_counter()
     refused_inputs()
     library_small_shapes()
+    b9_bwd_concurrent(card)
     rows, counts = library_full_width(card)
     library_f16(card)
     decode_f16(card)
@@ -5039,6 +5148,421 @@ def serving_weights(arch: str, held: dict) -> tuple:
     return cfg, held[arch]
 
 
+# --- phase 12: durability and injected faults -------------------------------
+
+#: steps of the durability runs and their checkpoint cadence: process A
+#: trains steps 0-3 (checkpoints at 2 and 3), process B resumes at 3
+DUR_STEPS, DUR_EVERY = 4, 2
+#: the depth the durability runs train qwen3-1.7b at (full width): three
+#: checkpoints of the full 28-layer state (24.4 GB each) exceed what one
+#: call of the machine with the card may write to its disk (45 GiB, freed
+#: blocks included); at 4 layers a checkpoint is ~9.9 GB.  The engines
+#: serve the full depth
+DUR_LAYERS = 4
+#: the engine's requests in the durability and fault runs (prompt lengths)
+DUR_LENS = (16, 200, 64, 500, 33, 700, 128, 300)
+DUR_NEW_TOKENS = 16
+#: the marker of a durability child's result line
+DUR_MARK = "DURABILITY "
+
+
+class RssPeak:
+    """The process's peak resident set while the block runs, sampled
+    from ``/proc/self/status`` every 5 ms (bytes; 0 where it cannot be
+    read)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self.now()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self.now())
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self.now())
+
+    @staticmethod
+    def now() -> int:
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1]) * 1024
+        except OSError:
+            pass
+        return 0
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def engine_run(engine, reqs) -> tuple[dict, list]:
+    """Serve ``reqs`` to the end, keeping every decode step's logits."""
+    _, steps, restore = capture_logits(engine)
+    try:
+        done = engine.generate(reqs)
+    finally:
+        restore()
+    return done, steps
+
+
+def logit_agreement(steps_a: list, steps_b: list) -> tuple[float, int]:
+    """The largest logit difference of two engines' decode steps over the
+    steps before their greedy tokens first part (later steps decode other
+    histories), and how many steps were compared."""
+    worst, n = 0.0, 0
+    for (la, ra, aa), (lb, rb, ab) in zip(steps_a, steps_b):
+        if not (np.array_equal(ra, rb) and torch.equal(aa, ab)):
+            break
+        rows = aa.nonzero()[:, 0]
+        worst = max(worst, max_err(la[rows], lb[rows]))
+        n += 1
+        if not torch.equal(la[rows].argmax(-1), lb[rows].argmax(-1)):
+            break
+    return worst, n
+
+
+def injected_faults(cfg, params, unfaulted: dict, unfaulted_steps) -> dict:
+    """The offloaded engine with every grid-segment launch faulted (bursts
+    of 3, the guard's threshold): the first decode step's warm call
+    demotes three launches to the plain version and quarantines
+    ``fused_segment_grid``; the next step sees the epoch change, plans
+    all_far and captures again (``kernel_replans``).  Returns what the
+    parent checks and prints."""
+    from repro_torch.serve import FaultConfig, FaultInjector
+
+    inj = FaultInjector(FaultConfig(kernel_fail_rate=1.0, kernel_fail_burst=3,
+                                    kernel_targets=("fused_segment_grid",)))
+    guard = kernel_guard()
+    epoch0 = guard.epoch
+    eng = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                 page_size=64, offload=True, fault_injector=inj)
+    t0 = time.perf_counter()
+    done, steps = engine_run(eng, make_requests(cfg, DUR_LENS,
+                                                DUR_NEW_TOKENS, seed=5))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    recaptured = [c[0] for c in eng._graph.launches.calls]
+    same = total = 0
+    for rid, c in done.items():
+        want = unfaulted[rid]
+        total += len(want)
+        same += sum(a == b for a, b in zip(c.tokens, want))
+    worst, n = logit_agreement(unfaulted_steps, steps)
+    out = dict(statuses=sorted({c.status for c in done.values()}),
+               guard=guard.stats(), epoch_moved=guard.epoch - epoch0,
+               health=guard.health(), injector=dict(inj.counters),
+               serve={k: eng.serve_counters[k] for k in
+                      ("kernel_replans", "step_traces")},
+               offload=eng.offload_stats,
+               recaptured={k: recaptured.count(k) for k in set(recaptured)},
+               same_tokens=same, tokens=total, max_logit_diff=worst,
+               compared_steps=n, seconds=seconds)
+    from repro_torch.core.artifacts import set_disk_injector
+
+    guard.injector = None
+    set_disk_injector(None)
+    guard.reset()
+    del eng
+    return out
+
+
+def durability_child(role: str, root: str) -> dict:
+    """One process of phase 12 (run by ``phase_durability`` as
+    ``chip_smoke.py --durability-child ROLE ROOT``, with ``MPU_PLAN_CACHE``
+    set): ``train()`` of full-width qwen3-1.7b (offloaded, compiled,
+    2 x 1,024 tokens) to step 3 with checkpoints every 2 steps under
+    ROOT/ckpt — A from an empty checkpoint directory and plan store, B
+    resuming — then an offloaded ``Engine`` on the same store (and, in B,
+    the injected-fault engine).  Returns its readings."""
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.core.offload import bwd_plan_stats
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train import train
+
+    cfg = get_config("qwen3-1.7b")
+    tcfg_model = dataclasses.replace(cfg, num_layers=DUR_LAYERS)
+    ckpt_dir = os.path.join(root, "ckpt")
+    out: dict = {"role": role, "save": [], "verify": [], "restore": []}
+    clock = [time.perf_counter()]
+
+    def timed(name, fn):
+        def call(directory, step, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with RssPeak() as rss:
+                res = fn(directory, step, *a, **kw)
+            torch.cuda.synchronize()
+            out[name].append(dict(
+                step=step, s=time.perf_counter() - t0, peak_rss=rss.peak,
+                start_rss=rss.start,
+                bytes=dir_bytes(os.path.join(directory, f"step_{step}"))))
+            clock[0] = time.perf_counter()
+            return res
+        return call
+
+    init = loop_mod.init_train_state
+
+    def timed_init(model, seed):
+        state = init(model, seed)
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+        return state
+
+    ckpt_mod.save = timed("save", ckpt_mod.save)
+    ckpt_mod.restore = timed("restore", ckpt_mod.restore)
+    ckpt_mod.verify_step = timed("verify", ckpt_mod.verify_step)
+    loop_mod.init_train_state = timed_init
+    steps, held = [], []
+
+    def on_metrics(step, m):
+        now = time.perf_counter()
+        steps.append(dict(step=step, s=now - clock[0],
+                          **{k: m[k] for k in ("loss", "grad_norm", "lr")}))
+        clock[0] = now
+
+    tcfg = TrainConfig(remat=False, offload=True, total_steps=DUR_STEPS,
+                       checkpoint_every=DUR_EVERY, checkpoint_dir=ckpt_dir)
+    shape = ShapeConfig("chip", *TRAIN_SHAPE)
+
+    def plan_ahead(step):
+        """What phase 7's ``plan_training`` does before the first step:
+        the loss, every segment's backward and the update planned on a
+        throwaway state of the step's shapes, and every CUDA translation
+        unit built together (queue C5: a backward translation unit built
+        at its first launch inside a fresh process's first step fails
+        that launch)."""
+        from repro_torch.train.step import device_batch, init_train_state
+
+        held.append(step)
+        t0 = time.perf_counter()
+        st = init_train_state(step.model, 0)
+        db = device_batch(SyntheticLM(make_data_config(
+            tcfg_model, shape, tcfg.seed)).batch(0), "cuda")
+        plans = [step.loss_fn.warm(st.params, db),
+                 *step.loss_fn.warm_backward(st.params, db),
+                 step.update_fn.warm(st.params, st.params, st.opt)]
+        t1 = time.perf_counter()
+        units = sorted({tuple(p.library) for p in plans if p.library})
+        for h in [fm.start_library(u) for u in units]:
+            fm.finish_library(h)
+        del st, db
+        torch.cuda.empty_cache()
+        out["plan_ahead"] = dict(plan_s=t1 - t0,
+                                 build_s=time.perf_counter() - t1,
+                                 plans=len(plans), units=len(units))
+        clock[0] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = train(tcfg_model, shape, tcfg, device="cuda", log_every=0,
+                     on_metrics=on_metrics, on_step=plan_ahead)
+    torch.cuda.synchronize()
+    step, graph = held[0], held[0].graph
+    out.update(
+        steps=steps, peak_device=torch.cuda.max_memory_allocated(),
+        plans={"loss": step.stats.as_dict(),
+               "update": step.update_stats.as_dict(),
+               "bwd": bwd_plan_stats().as_dict()},
+        graph=dict(seconds=graph.seconds, warm_seconds=graph.warm_seconds),
+        sums=json.loads(open(os.path.join(
+            ckpt_dir, f"step_{DUR_STEPS - 1}", "shard_0.sums.json")).read()
+        )["tensors"])
+    del state, step, graph, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda")
+    params = cast_params(model.init(0), model.dtype)
+    del model
+    eng = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                 page_size=64, offload=True)
+    t0 = time.perf_counter()
+    done, dsteps = engine_run(eng, make_requests(cfg, DUR_LENS,
+                                                 DUR_NEW_TOKENS, seed=5))
+    torch.cuda.synchronize()
+    tokens = {rid: c.tokens for rid, c in done.items()}
+    out["engine"] = dict(tokens=tokens, offload=eng.offload_stats,
+                         seconds=time.perf_counter() - t0,
+                         statuses=sorted({c.status for c in done.values()}))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if role == "B":
+        out["faults"] = injected_faults(cfg, params, tokens, dsteps)
+    return out
+
+
+def durability_run(role: str, root: str, env: dict) -> dict:
+    cmd = [sys.executable, os.path.abspath(__file__), "--durability-child",
+           role, root, "--src", _src_root()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(DUR_MARK)]
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-16000:], file=sys.stderr)
+    check(proc.returncode == 0 and bool(lines),
+          f"durability process {role} exited {proc.returncode} (its "
+          "standard error above)")
+    res = json.loads(lines[-1][len(DUR_MARK):])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def gbps(r: dict) -> str:
+    return (f"{r['s']:.1f} s, {r['bytes'] / 1e9:.2f} GB, "
+            f"{r['bytes'] / r['s'] / 1e9:.2f} GB/s")
+
+
+def print_durability(r: dict, card: str) -> None:
+    first = r["steps"][0]
+    pl, pa = r["plans"], r["plan_ahead"]
+    print(f"[12] process {r['role']}: the loss, {pa['plans'] - 2} backward "
+          f"plans and the update planned ahead in {pa['plan_s']:.1f} s, "
+          f"{pa['units']} CUDA translation units built in "
+          f"{pa['build_s']:.1f} s; card {card}")
+    print(f"[12] process {r['role']}: steps "
+          f"{[s['step'] for s in r['steps']]}, first step (step "
+          f"{first['step']}) {first['s']:.1f} s (warm call "
+          f"{r['graph']['warm_seconds']:.1f} + capture "
+          f"{r['graph']['seconds'] - r['graph']['warm_seconds']:.1f}); "
+          f"loss capture_s {pl['loss']['capture_s']:.1f} / plan_s "
+          f"{pl['loss']['plan_s']:.1f}, backward plans capture_s "
+          f"{pl['bwd']['capture_s']:.1f} / plan_s {pl['bwd']['plan_s']:.1f}"
+          f", update capture_s {pl['update']['capture_s']:.1f} / plan_s "
+          f"{pl['update']['plan_s']:.1f}; process {r['process_s']:.1f} s; "
+          f"card {card}")
+    for k in ("loss", "update", "bwd"):
+        st = pl[k]
+        print(f"[12] process {r['role']} {k} plans: plan_misses "
+              f"{st['plan_misses']}, plan_hits {st['plan_hits']}, traces "
+              f"{st['traces']}, disk_hits {st['disk_hits']}, disk_misses "
+              f"{st['disk_misses']}, disk_corrupt {st['disk_corrupt']}")
+    for name in ("save", "verify", "restore"):
+        for x in r[name]:
+            print(f"[12] process {r['role']} {name} step {x['step']}: "
+                  f"{gbps(x)}, peak host RSS {x['peak_rss'] / 2**30:.2f} "
+                  f"GiB ({x['start_rss'] / 2**30:.2f} at its start); card "
+                  f"{card}")
+    print(f"[12] process {r['role']}: peak device memory "
+          f"{r['peak_device'] / 2**30:.2f} GiB; engine "
+          f"{r['engine']['seconds']:.1f} s, decode plan "
+          f"{r['engine']['offload']}")
+
+
+def phase_durability(card: str) -> None:
+    """Phase 12: checkpoints and restart, the persistent plan store, and
+    injected faults, at full width (training cut to ``DUR_LAYERS``
+    layers).  Process A trains steps 0-3 with
+    checkpoints every 2 steps from an empty plan store; step 3's
+    checkpoint is then torn (renamed to ``step_3.tmp``, its shard cut);
+    a fresh process B restores step 2 and trains step 3, bit-equal to A
+    (metrics and every leaf's sha256), with every plan a disk hit.  Both
+    then serve the same requests through an offloaded engine on the same
+    store (B's decode plan a disk hit, the same greedy tokens), and B
+    serves them once more with every grid-segment launch faulted."""
+    import tempfile
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=DUR_LAYERS)
+    state_bytes = 12 * cfg.param_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_durability_")
+    try:
+        free = shutil.disk_usage(root).free
+        need = 2 * state_bytes + (4 << 30)
+        print(f"[12] durability under {root}: {free / 2**30:.1f} GiB free, "
+              f"the training state of qwen3-1.7b at full width and "
+              f"{DUR_LAYERS} layers {state_bytes / 2**30:.1f} GiB")
+        check(free >= need,
+              f"durability: {free / 2**30:.1f} GiB free under {root}; the "
+              f"phase keeps two checkpoints of the {state_bytes / 2**30:.1f}"
+              f" GiB training state and needs {need / 2**30:.1f} GiB (set "
+              "TMPDIR to a larger disk)")
+        env = {**os.environ, "MPU_PLAN_CACHE": os.path.join(root, "plans")}
+        a = durability_run("A", root, env)
+        print_durability(a, card)
+        last = DUR_STEPS - 1
+        ckpt = os.path.join(root, "ckpt")
+        check(sorted(os.listdir(ckpt)) == [f"step_{DUR_EVERY}",
+                                           f"step_{last}"],
+              f"process A left {sorted(os.listdir(ckpt))}")
+        torn = os.path.join(ckpt, f"step_{last}.tmp")
+        os.rename(os.path.join(ckpt, f"step_{last}"), torn)
+        with open(os.path.join(torn, "shard_0.npz"), "r+b") as f:
+            f.truncate(1 << 20)
+        b = durability_run("B", root, env)
+        print_durability(b, card)
+        check([s["step"] for s in b["steps"]] == [last],
+              f"process B ran steps {[s['step'] for s in b['steps']]}, "
+              f"not step {last} alone")
+        check(len(b["restore"]) == 1 and b["restore"][0]["step"] == DUR_EVERY,
+              f"process B restored {b['restore']}")
+        keys = ("loss", "grad_norm", "lr")
+        sa = {k: a["steps"][-1][k] for k in keys}
+        sb = {k: b["steps"][-1][k] for k in keys}
+        check(sa == sb, f"step {last} metrics differ: A {sa}, B {sb}")
+        differ = [k for k in a["sums"] if a["sums"][k] != b["sums"].get(k)]
+        check(a["sums"].keys() == b["sums"].keys() and not differ,
+              f"step {last} leaves differ between A and B: {differ[:5]}")
+        for k in ("loss", "update", "bwd"):
+            st = b["plans"][k]
+            check(st["plan_misses"] == 0 and st["disk_hits"] == st["traces"]
+                  and st["disk_hits"] > 0,
+                  f"process B {k} plans not all disk hits: {st}")
+        print(f"[12] resume: process B's step {last} bit-equal to process "
+              f"A's ({sb}; {len(b['sums'])} leaves, sha256 each), every "
+              "loss / update / backward plan a disk hit; planning A "
+              f"{a['plan_ahead']['plan_s']:.1f} s, B "
+              f"{b['plan_ahead']['plan_s']:.1f} s; first step A "
+              f"{a['steps'][0]['s']:.1f} s, B {b['steps'][0]['s']:.1f} s")
+        ea, eb = a["engine"], b["engine"]
+        check(ea["statuses"] == eb["statuses"] == ["ok"],
+              f"engine statuses {ea['statuses']}, {eb['statuses']}")
+        check(eb["offload"]["plan_misses"] == 0
+              and eb["offload"]["disk_hits"] == 1,
+              f"warm engine's decode plan not a disk hit: {eb['offload']}")
+        check(ea["tokens"] == eb["tokens"],
+              "the warm engine's greedy tokens differ from the cold one's")
+        print(f"[12] engine warm restart: decode plan a disk hit "
+              f"(plan_misses 0), greedy tokens of {len(eb['tokens'])} "
+              f"requests identical to the cold engine's; cold "
+              f"{ea['seconds']:.1f} s, warm {eb['seconds']:.1f} s")
+        f = b["faults"]
+        check(f["guard"]["quarantines"] == 1 and f["epoch_moved"] >= 1,
+              f"no quarantine: guard {f['guard']}")
+        check(f["serve"]["kernel_replans"] == 1,
+              f"kernel_replans {f['serve']['kernel_replans']}, not 1")
+        check(f["recaptured"].get("fused_segment_grid", 0) == 0,
+              f"the re-captured step launches B2: {f['recaptured']}")
+        check(f["statuses"] == ["ok"], f"faulted statuses {f['statuses']}")
+        print(f"[12] injected faults (fused_segment_grid, rate 1, bursts of "
+              f"3): guard {f['guard']}, health {f['health']}, injector "
+              f"{f['injector']}, {f['serve']}, decode plans "
+              f"{f['offload']}; the re-captured step launches "
+              f"{f['recaptured']}; every request ok; "
+              f"{f['same_tokens']}/{f['tokens']} tokens "
+              f"({f['same_tokens'] / max(f['tokens'], 1):.1%}) match the "
+              f"unfaulted engine's, largest logit difference "
+              f"{f['max_logit_diff']:.4f} over {f['compared_steps']} decode "
+              f"steps; {f['seconds']:.1f} s; card {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def decode_alone(card: str) -> None:
     """``--decode``: the decode readings of phases 5, 6 and 11 alone
     (``decode_readings``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
@@ -5179,6 +5703,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if "--durability-child" in sys.argv:
+        i = sys.argv.index("--durability-child")
+        print(DUR_MARK + json.dumps(durability_child(*sys.argv[i + 1:i + 3])))
+        return 0
     if "--kernels-a-call" in sys.argv:
         print(json.dumps(kernels_a_call()))
         return 0
@@ -5202,6 +5730,9 @@ def main() -> int:
     if "--train" in sys.argv:
         train_alone(card)
         return 0
+    if "--durability" in sys.argv:
+        phase_durability(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
     engine, eager, launches = phase_engine()
@@ -5220,7 +5751,9 @@ def main() -> int:
     scan = phase_scan(card)
     torch.cuda.empty_cache()
     phase_zoo(card)
-    print(f"[12] total {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phase_durability(card)
+    print(f"[13] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",

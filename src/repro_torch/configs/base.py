@@ -229,13 +229,26 @@ class TrainConfig:
     # (else the default greedy policy) at call time.
     offload: bool = False
     offload_policy: "OffloadPolicy | None" = None
-    # fault tolerance: checkpoints every this many steps (0 = none; the
-    # checkpoint manager arrives with the durability slice, and until then
-    # ``train`` refuses a positive value)
+    # fault tolerance: a checkpoint every this many steps, under
+    # ``checkpoint_dir``, the newest ``keep_checkpoints`` kept.  Unlike the
+    # reference (100, under a fixed /tmp path) ``checkpoint_every``
+    # defaults to 0 and a positive value needs a directory: no run
+    # silently resumes another's state.  A directory alone restores from
+    # it without saving.
     checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+    keep_checkpoints: int = 3
     # hard per-step wall-time deadline (0 = disabled): a step exceeding
-    # it is flagged by StragglerMonitor
+    # it is flagged by StragglerMonitor and the loop force-commits a
+    # checkpoint (train.loop)
     step_deadline_s: float = 0.0
+
+    def __post_init__(self):
+        if self.checkpoint_every > 0 and not self.checkpoint_dir:
+            raise ValueError(
+                "TrainConfig.checkpoint_every > 0 needs checkpoint_dir "
+                "(no default directory: a run must not resume another's "
+                "state by accident)")
 
     def resolved_offload_policy(self) -> "OffloadPolicy | None":
         """The policy the train step pins (None: unpinned)."""

@@ -51,7 +51,13 @@ reference's:
 
 ``mpu_offload(fn, policy=...)`` caches one plan per (policy, direction,
 input signature) in an LRU bounded by the policy's ``max_plans``;
-backward plans are cached per segment under "bwd"-tagged keys.
+backward plans are cached per segment under "bwd"-tagged keys.  With
+``persist_dir`` (or ``MPU_PLAN_CACHE``) both also live in a durable
+``ArtifactStore``: a fresh process captures the graph again, finds its
+plan under the graph's canonical fingerprint, rebinds it to the fresh
+nodes and builds the runner without planning.  While the kernel guard
+holds a segment kernel quarantined at the policy's impl, the effective
+policy is ``mode="all_far"`` and the store is bypassed both ways.
 
 A ``bmm`` whose batch axes were moved into place by a copy (a ``clone``
 of a permute, as ``torch.einsum`` writes the model attention's
@@ -59,13 +65,17 @@ of a permute, as ``torch.einsum`` writes the model attention's
 ``dot_general`` there has batch axes that are not leading, and the
 reference never anchors it.
 
-Not planned yet (never formed): segment-boundary donation, the
-persistent plan cache and the static plan verifier.
+Not planned yet (never formed): segment-boundary donation and the
+static plan verifier.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import operator
+import os
+import re
 import time
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -76,6 +86,7 @@ import torch
 import torch.fx as fx
 import torch.utils._pytree as pytree
 
+from repro_torch.core.artifacts import ArtifactStore
 from repro_torch.core.isa import Loc
 from repro_torch.core.locator import GraphAnnotation, annotate_graph, node_val
 from repro_torch.core.policy import (
@@ -92,6 +103,7 @@ from repro_torch.core.prims import (
     node_name,
 )
 from repro_torch.kernels.flash_attention import refusal as flash_refusal
+from repro_torch.kernels.guard import kernel_guard
 from repro_torch.kernels.blockprog import (
     DTYPES,
     PLACEMENT_KWARGS,
@@ -381,13 +393,24 @@ class OffloadPlan:
 @dataclass
 class OffloadStats:
     """Plan-cache counters of one wrapper: ``traces`` counts graph
-    captures (one per plan miss); ``capture_s`` and ``plan_s`` are the
-    host seconds spent capturing and planning (runner build included)."""
+    captures (one per in-memory miss); ``capture_s`` and ``plan_s`` are
+    the host seconds spent capturing and planning (runner build and plan
+    loading included).
+
+    The ``disk_*`` counters cover the persistent plan cache
+    (``mpu_offload(persist_dir=...)`` / ``MPU_PLAN_CACHE``): a disk hit
+    rebinds the stored plan to the fresh capture instead of planning
+    (and is NOT a ``plan_miss``); a corrupt or skewed entry is counted,
+    quarantined on disk, and falls back to a fresh plan."""
 
     plan_hits: int = 0
     plan_misses: int = 0
     traces: int = 0
     evictions: int = 0
+    disk_hits: int = 0           # plans rebound from the durable store
+    disk_misses: int = 0         # store consulted, no usable entry
+    disk_corrupt: int = 0        # checksum/version/structure failures
+    disk_evictions: int = 0      # on-disk LRU entries this wrapper evicted
     capture_s: float = 0.0
     plan_s: float = 0.0
 
@@ -397,11 +420,26 @@ class OffloadStats:
 
     @property
     def hit_rate(self) -> float:
-        total = self.plan_hits + self.plan_misses
-        return self.plan_hits / total if total else 0.0
+        """Fraction of lookups served without planning (0.0 before the
+        first)."""
+        total = self.plan_hits + self.plan_misses + self.disk_hits
+        return (self.plan_hits + self.disk_hits) / total if total else 0.0
 
     def as_dict(self) -> dict[str, float]:
         return {**dataclasses.asdict(self), "hit_rate": self.hit_rate}
+
+    def __repr__(self) -> str:
+        disk = ""
+        if self.disk_hits or self.disk_misses or self.disk_corrupt \
+                or self.disk_evictions:
+            disk = (f", disk_hits={self.disk_hits}, "
+                    f"disk_misses={self.disk_misses}, "
+                    f"disk_corrupt={self.disk_corrupt}, "
+                    f"disk_evictions={self.disk_evictions}")
+        return (f"OffloadStats(plan_hits={self.plan_hits}, "
+                f"plan_misses={self.plan_misses}, traces={self.traces}, "
+                f"plan_evictions={self.evictions}, "
+                f"hit_rate={self.hit_rate:.3f}{disk})")
 
 
 def _eqn_io_bytes(node) -> int:
@@ -1878,8 +1916,8 @@ def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
 
 
 def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
-                  grad_policy: OffloadPolicy | None = None
-                  ) -> fx.GraphModule:
+                  grad_policy: OffloadPolicy | None = None,
+                  persist: "_PlanStore | None" = None) -> fx.GraphModule:
     """Bake the plan into a new graph: every node the plan leaves far is
     copied in graph order, and each fused segment becomes ONE call of its
     kernel (after its hoisted ``pre_eqns``, before its escaping views).
@@ -1890,8 +1928,9 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
     autograd differentiates as it does eager PyTorch.  With
     ``grad_policy`` each segment call is differentiable too
     (``_segment_vjp``: its backward re-plans the segment's cotangent
-    program under that policy); without it (a backward plan's own
-    runner) a segment is a plain kernel call."""
+    program under that policy, through the plan store ``persist`` where
+    given); without it (a backward plan's own runner) a segment is a
+    plain kernel call."""
     eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
     seg_by_start = {s.span_start: s for s in plan.segments}
     plan.library = _register_library(eqns, plan)
@@ -1917,7 +1956,8 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
             seg.matmul.flash is not None else segment_programs(eqns, seg)
         fn = _segment_kernel(seg, progs, impl=impl)
         if grad_policy is not None:
-            fn = _segment_vjp(eqns, seg, fn, policy=grad_policy)
+            fn = _segment_vjp(eqns, seg, fn, policy=grad_policy,
+                              persist=persist)
         call = graph.call_function(
             fn, tuple(env[v] for v in _segment_arg_vars(seg)))
         for k, var in enumerate(seg.outputs):
@@ -2022,6 +2062,254 @@ def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# The persistent plan cache: fingerprint, payload format, store lookups.
+#
+# A plan points at the nodes of the graph it was planned over, so it
+# cannot be pickled.  But ``capture`` of the same function on the same
+# signature gives the same node sequence, so a plan serializes as
+# positional node ids over that sequence, beside a canonical fingerprint
+# of the graph: op overloads, edges (by position), constants, and each
+# node's shape, dtype, stride and device — never make_fx's node names,
+# Python ids or data pointers.  A load captures again (the runner needs
+# the graph anyway), checks the fingerprint and rebinds the ids to the
+# fresh nodes, skipping the planner.  Anything that fails to match reads
+# as corruption: counted, quarantined on disk, and planned afresh.
+# ---------------------------------------------------------------------------
+
+_PLAN_SCHEMA = 1
+_HEXRE = re.compile(r"0x[0-9a-fA-F]+")
+#: constants up to this many elements are fingerprinted by value
+_CONST_HASH_ELEMS = 1 << 20
+
+
+class _PlanUnserializable(Exception):
+    """The plan holds a value the payload format does not carry: it is
+    not persisted, nothing else changes."""
+
+
+class _PlanMismatch(Exception):
+    """A stored plan does not match the fresh capture (fingerprint skew,
+    schema skew, a node id out of range, or a failed verify-on-load)."""
+
+
+def _canon(x, ids: dict) -> Any:
+    """The canonical, JSON-able form of a node argument or meta value."""
+    if isinstance(x, fx.Node):
+        return ["%", ids[x]]
+    if isinstance(x, (list, tuple)):
+        return [type(x).__name__, [_canon(a, ids) for a in x]]
+    if isinstance(x, dict):
+        return ["dict", [[str(k), _canon(x[k], ids)] for k in sorted(x)]]
+    if x is None or isinstance(x, (bool, int, str)):
+        return x
+    if isinstance(x, float):
+        return ["f", repr(x)]
+    if isinstance(x, torch.Tensor):
+        return ["T", list(x.shape), str(x.dtype), list(x.stride()),
+                x.device.type]
+    if isinstance(x, (torch.dtype, torch.device, torch.layout,
+                      torch.memory_format)):
+        return [type(x).__name__, str(x)]
+    if isinstance(x, slice):
+        return ["slice", _canon((x.start, x.stop, x.step), ids)]
+    return ["?", type(x).__name__, _HEXRE.sub("0x", repr(x))]
+
+
+def _target_name(node: fx.Node) -> str:
+    tgt = node.target
+    if isinstance(tgt, str):
+        # get_attr / call_method: the name make_fx chose is not canonical
+        return node.op if node.op == "get_attr" else tgt
+    if isinstance(tgt, (torch._ops.OpOverload, torch._ops.OpOverloadPacket)):
+        return str(tgt)
+    return f"{getattr(tgt, '__module__', '')}.{getattr(tgt, '__qualname__', tgt)}"
+
+
+def _constant_digest(gm: fx.GraphModule, node: fx.Node) -> Any:
+    val = getattr(gm, node.target, None)
+    if not isinstance(val, torch.Tensor):
+        return _canon(val, {})
+    out = _canon(val, {})
+    fake = type(val).__name__ == "FakeTensor"
+    if not fake and val.numel() <= _CONST_HASH_ELEMS:
+        data = val.detach().cpu().contiguous()
+        out.append(hashlib.sha256(
+            data.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+            if data.numel() else "")
+    return out
+
+
+def graph_fingerprint(gm: fx.GraphModule) -> str:
+    """The canonical fingerprint of a captured graph (see above): equal
+    for two captures of one function on one signature, in one process or
+    two."""
+    ids = {n: i for i, n in enumerate(gm.graph.nodes)}
+    h = hashlib.sha256()
+    for n in gm.graph.nodes:
+        rec = [n.op, _target_name(n), _canon(n.args, ids),
+               _canon(n.kwargs, ids), _canon(node_val(n), ids)]
+        if n.op == "get_attr":
+            rec.append(_constant_digest(gm, n))
+        h.update(json.dumps(rec, separators=(",", ":")).encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+_PLAN_TYPES = {c.__name__: c for c in (OperandSpec, MatmulAnchor, Segment,
+                                       SegmentDecision)}
+
+
+def _encode(x, ids: dict) -> Any:
+    """A plan value as JSON: nodes by position, the plan's dataclasses by
+    name and field, tuples and dicts tagged."""
+    if isinstance(x, fx.Node):
+        return {"n": ids[x]}
+    if isinstance(x, Loc):
+        return {"loc": x.value}
+    if isinstance(x, torch.dtype):
+        return {"dt": str(x).removeprefix("torch.")}
+    if type(x).__name__ in _PLAN_TYPES and dataclasses.is_dataclass(x):
+        return {"dc": type(x).__name__,
+                "f": {f.name: _encode(getattr(x, f.name), ids)
+                      for f in dataclasses.fields(x)}}
+    if isinstance(x, tuple):
+        return {"t": [_encode(a, ids) for a in x]}
+    if isinstance(x, list):
+        return [_encode(a, ids) for a in x]
+    if isinstance(x, dict):
+        return {"d": [[_encode(k, ids), _encode(v, ids)]
+                      for k, v in x.items()]}
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    raise _PlanUnserializable(type(x).__name__)
+
+
+def _decode(x, nodes: list) -> Any:
+    if isinstance(x, list):
+        return [_decode(a, nodes) for a in x]
+    if not isinstance(x, dict):
+        return x
+    if "n" in x:
+        i = x["n"]
+        if not isinstance(i, int) or not 0 <= i < len(nodes):
+            raise _PlanMismatch(f"node id {i!r} out of range")
+        return nodes[i]
+    if "loc" in x:
+        return Loc(x["loc"])
+    if "dt" in x:
+        dt = getattr(torch, x["dt"], None)
+        if not isinstance(dt, torch.dtype):
+            raise _PlanMismatch(f"unknown dtype {x['dt']!r}")
+        return dt
+    if "dc" in x:
+        cls = _PLAN_TYPES[x["dc"]]
+        return cls(**{k: _decode(v, nodes) for k, v in x["f"].items()})
+    if "t" in x:
+        return tuple(_decode(a, nodes) for a in x["t"])
+    if "d" in x:
+        return {_decode(k, nodes): _decode(v, nodes) for k, v in x["d"]}
+    raise _PlanMismatch(f"unknown payload entry {sorted(x)}")
+
+
+def _plan_doc(plan: OffloadPlan, gm: fx.GraphModule,
+              fingerprint: str) -> dict:
+    ids = {n: i for i, n in enumerate(gm.graph.nodes)}
+    ann = plan.annotation
+    return {"schema": _PLAN_SCHEMA, "fingerprint": fingerprint,
+            "segments": _encode(plan.segments, ids),
+            "decisions": _encode(plan.decisions, ids),
+            "naive": plan.naive_hbm_bytes, "fused": plan.fused_hbm_bytes,
+            "var_loc": _encode(ann.var_loc, ids),
+            "eqn_loc": _encode(ann.eqn_loc, ids)}
+
+
+def _plan_from_doc(doc: dict, gm: fx.GraphModule, fingerprint: str,
+                   policy: OffloadPolicy) -> OffloadPlan:
+    """Rebind a stored plan to the fresh capture ``gm``; raises
+    ``_PlanMismatch`` (or a decoding error) where it does not fit."""
+    if doc.get("schema") != _PLAN_SCHEMA:
+        raise _PlanMismatch("plan payload schema skew")
+    if doc.get("fingerprint") != fingerprint:
+        raise _PlanMismatch("graph fingerprint skew")
+    nodes = list(gm.graph.nodes)
+    ann = GraphAnnotation(_decode(doc["var_loc"], nodes),
+                          _decode(doc["eqn_loc"], nodes), gm.graph)
+    return OffloadPlan(ann, _decode(doc["segments"], nodes),
+                       int(doc["naive"]), int(doc["fused"]),
+                       decisions=_decode(doc["decisions"], nodes),
+                       policy=policy)
+
+
+def _device_key(tensors: Sequence) -> str:
+    """The card a plan was made for (name and compute capability), or the
+    CPU: part of a stored plan's key."""
+    dev = next((t.device for t in tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda), None)
+    if dev is None:
+        return "cpu"
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"{torch.cuda.get_device_name(dev)} sm_{major}{minor}"
+
+
+@dataclass
+class _PlanStore:
+    """A wrapper's persistent plan store and its verify-on-load flag."""
+
+    store: ArtifactStore
+    verify_loaded: bool = False
+
+
+def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
+                     persist: _PlanStore | None, key_parts: Sequence[str],
+                     stats: OffloadStats) -> OffloadPlan:
+    """The plan of ``gm`` under ``policy``: rebound from the store where
+    it holds a valid entry (``disk_hits``), else planned
+    (``plan_misses``) and written to the store.  While the kernel guard
+    is degraded for the policy's impl the store is neither read nor
+    written.  Never raises for the store's sake: every failure is a
+    counter and a fresh plan."""
+    if persist is not None and kernel_guard().degraded_for(policy.impl):
+        persist = None
+    fingerprint = dkey = fresh = None
+    if persist is not None:
+        store = persist.store
+        fingerprint = graph_fingerprint(gm)
+        dkey = store.key_for("plan", *key_parts, repr(policy), fingerprint)
+        raw, status = store.fetch(dkey)
+        if status == "corrupt":
+            stats.disk_corrupt += 1
+        elif raw is None:
+            stats.disk_misses += 1
+        else:
+            try:
+                plan = _plan_from_doc(json.loads(raw.decode()), gm,
+                                      fingerprint, policy)
+                if persist.verify_loaded:
+                    fresh = plan_offload(gm, policy=policy)
+                    if _plan_doc(fresh, gm, fingerprint) != \
+                            _plan_doc(plan, gm, fingerprint):
+                        raise _PlanMismatch("verify-on-load mismatch")
+                stats.disk_hits += 1
+                return plan
+            except Exception as e:  # counted fallback, never an exception
+                stats.disk_corrupt += 1
+                store.quarantine(dkey, f"{type(e).__name__}: {e}")
+    stats.plan_misses += 1
+    plan = fresh if fresh is not None else plan_offload(gm, policy=policy)
+    if dkey is not None:
+        try:
+            payload = json.dumps(_plan_doc(plan, gm, fingerprint)).encode()
+        except _PlanUnserializable:
+            return plan
+        evicted = persist.store.put(
+            dkey, payload, meta={"direction": key_parts[0],
+                                 "policy": repr(policy)})
+        if evicted > 0:
+            stats.disk_evictions += evicted
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # Grad through offload: a differentiable fused-segment call.
 #
 # A fused kernel has no derivative of its own.  Each segment call of a
@@ -2079,17 +2367,20 @@ def _bwd_signature(t: torch.Tensor) -> tuple:
 
 
 def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
-                        policy: OffloadPolicy) -> Callable:
+                        policy: OffloadPolicy,
+                        persist: _PlanStore | None = None) -> Callable:
     """``run_bwd(primals, cts)`` -> one gradient per primal (None for a
     non-float one), with the cotangent program planned through
     ``_build_runner`` once per (policy, signature) and cached on the
-    segment."""
+    segment; with ``persist``, the plan is also looked up in and written
+    to the forward wrapper's plan store (``bwd_plan_stats()`` counts
+    ``disk_hits`` in place of ``plan_misses``)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     replay = _segment_replay(eqns, seg)
     cache: dict = seg.__dict__.setdefault("_bwd_plan_cache", {})
 
-    def compile_for(primals, cts):
+    def compile_for(key, primals, cts):
         diff = [i for i, v in enumerate(primals) if v.is_floating_point()]
         rest = [i for i, v in enumerate(primals) if i not in diff]
         outs = [j for j, v in enumerate(seg.outputs)
@@ -2117,7 +2408,9 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
         _schedule_epilogues(gm)
         _fold_bmm_views(gm)
         t1 = time.perf_counter()
-        plan = plan_offload(gm, policy=policy)
+        plan = _plan_with_store(
+            gm, policy, persist,
+            ("bwd", repr(key[2:]), _device_key(primals)), _BWD_STATS)
         run = _build_runner(gm, plan, policy.impl)
         _BWD_STATS.capture_s += t1 - t0
         _BWD_STATS.plan_s += time.perf_counter() - t1
@@ -2131,9 +2424,8 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
                tuple(_bwd_signature(c) for c in cts if c is not None))
         entry = cache.get(key)
         if entry is None:
-            _BWD_STATS.plan_misses += 1
             _BWD_STATS.traces += 1
-            entry = cache[key] = compile_for(primals, cts)
+            entry = cache[key] = compile_for(key, primals, cts)
         elif not _REPEATING[0]:
             _BWD_STATS.plan_hits += 1
         return entry
@@ -2171,10 +2463,11 @@ class _SegmentFn(torch.autograd.Function):
 
 
 def _segment_vjp(eqns: Sequence, seg: Segment, kernel: Callable, *,
-                 policy: OffloadPolicy) -> Callable:
+                 policy: OffloadPolicy,
+                 persist: _PlanStore | None = None) -> Callable:
     """The differentiable call of one segment: the plain kernel call
     when no input needs a gradient, ``_SegmentFn`` otherwise."""
-    bwd = _segment_bwd_runner(eqns, seg, policy=policy)
+    bwd = _segment_bwd_runner(eqns, seg, policy=policy, persist=persist)
 
     def call(*vals):
         if torch.is_grad_enabled() and any(
@@ -2234,8 +2527,9 @@ def _leaf_signature(leaf) -> tuple:
     return ("s", type(leaf).__name__, repr(leaf))
 
 
-def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
-                ) -> Callable:
+def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
+                persist_dir: str | os.PathLike | None = None,
+                verify_loaded: bool = False) -> Callable:
     """Offload transform with a bounded, policy-keyed plan cache.
 
     ``wrapped(*args)`` looks up (effective policy, "fwd", input
@@ -2243,7 +2537,28 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
     plans it and builds the runner (evicting the least recently used
     plan beyond ``max_plans``); then it runs the plan on ``args``.  The
     effective policy is the innermost ``offload_policy(...)`` scope,
-    else ``policy``, else the default.
+    else ``policy``, else the default — with ``mode="all_far"`` while
+    the kernel guard holds a segment kernel quarantined at its impl
+    (``degraded_for``); the policy is part of the key, so the degraded
+    plan is a plan of its own, and the original one serves again once
+    the quarantine is lifted.  Cached plans are not dropped on a guard
+    epoch change: the runner dispatches every segment through the guard
+    on each call, so a plan bakes in no kernel choice.
+
+    ``persist_dir`` (default: the ``MPU_PLAN_CACHE`` environment
+    variable) enables the **persistent plan cache**: plans, forward and
+    the segments' backward ones, go to a durable ``ArtifactStore``
+    keyed by the policy, the direction, the captured graph's canonical
+    fingerprint, the input signature, the environment key and the card's
+    name and compute capability.  An in-memory miss that hits disk
+    captures the graph again (the fingerprint needs it), rebinds the
+    stored plan to its nodes and builds the runner with no planning
+    (``stats.disk_hits``, NOT a ``plan_miss``).  Corrupt, truncated or
+    version-skewed entries are counted (``disk_corrupt``), quarantined on
+    disk, and fall back to the cold plan — never an exception.  While
+    the guard is degraded the store is neither read nor written.
+    ``verify_loaded`` plans afresh on every disk load and compares the
+    two plans structurally; a mismatch counts as ``disk_corrupt``.
 
     The runner is differentiable: calling ``wrapped`` under autograd
     and differentiating its outputs runs each fused segment's planned
@@ -2254,26 +2569,50 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
     ``warm(*a)`` (plan a signature without running it),
     ``warm_backward(*a)`` (plan its segments' backward too),
     ``plan_for(*a)``, ``explain(*a)`` (the DecisionReport) and
-    ``cache_size()``.  Introspection never mutates the LRU or the
-    counters."""
+    ``cache_size()``.  Introspection never mutates the LRU, the counters
+    or the store."""
     cache: OrderedDict[Any, _Compiled] = OrderedDict()
     stats = OffloadStats()
     cache_bound = (policy or OffloadPolicy()).max_plans
+    if persist_dir is None:
+        persist_dir = os.environ.get("MPU_PLAN_CACHE") or None
+    store_box: list = []    # the lazily built _PlanStore (None on failure)
+
+    def persist_store() -> _PlanStore | None:
+        if persist_dir is None:
+            return None
+        if not store_box:
+            try:
+                store_box.append(_PlanStore(ArtifactStore(persist_dir),
+                                            verify_loaded))
+            except OSError:
+                store_box.append(None)
+        return store_box[0]
 
     def effective_policy() -> OffloadPolicy:
         override = active_policy_override()
-        if override is not None:
-            return override
-        return policy if policy is not None else OffloadPolicy()
+        pol = override if override is not None else (
+            policy if policy is not None else OffloadPolicy())
+        if pol.mode != "all_far" and kernel_guard().degraded_for(pol.impl):
+            pol = dataclasses.replace(pol, mode="all_far")
+        return pol
 
-    def compile_for(pol: OffloadPolicy, args) -> _Compiled:
+    def compile_for(pol: OffloadPolicy, args, count: bool) -> _Compiled:
         t0 = time.perf_counter()
         gm, out_spec, is_tensor = capture(fn, args)
         t1 = time.perf_counter()
-        plan = plan_offload(gm, policy=pol)
-        run = _build_runner(gm, plan, pol.impl, grad_policy=pol)
-        stats.capture_s += t1 - t0
-        stats.plan_s += time.perf_counter() - t1
+        persist = persist_store() if count else None
+        leaves, in_spec = pytree.tree_flatten(list(args))
+        sig = repr((str(in_spec), [_leaf_signature(x) for x in leaves]))
+        plan = _plan_with_store(gm, pol, persist,
+                                ("fwd", sig, _device_key(leaves)),
+                                stats if count else OffloadStats())
+        run = _build_runner(gm, plan, pol.impl, grad_policy=pol,
+                            persist=persist)
+        if count:
+            stats.traces += 1
+            stats.capture_s += t1 - t0
+            stats.plan_s += time.perf_counter() - t1
         return _Compiled(gm, plan, run, out_spec, is_tensor)
 
     def entry_for(args, count: bool = True) -> tuple[_Compiled, list]:
@@ -2283,10 +2622,8 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None
                tuple(_leaf_signature(x) for x in leaves))
         entry = cache.get(key)
         if entry is None:
-            entry = compile_for(pol, args)
+            entry = compile_for(pol, args, count)
             if count:
-                stats.plan_misses += 1
-                stats.traces += 1
                 cache[key] = entry
                 while len(cache) > cache_bound:
                     cache.popitem(last=False)

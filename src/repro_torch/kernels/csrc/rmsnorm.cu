@@ -38,12 +38,15 @@
 //    statistic is a warp shuffle and one shared-memory step.
 //  * Backward in one launch: each block writes one f32 partial ds row [D]
 //    (its row groups summed in order) to a workspace.  The last `fin`
-//    blocks to arrive at an atomic ticket (`g_arrived`, counted from the
-//    launch's `g_base`) wait for the others and each sums a slice of the
-//    columns over the partials in block order, then moves `g_base` on for
-//    the next launch.  Atomics on the ticket only: ds is the same bits on
-//    every launch.  A finisher waits only for blocks that arrive after it,
-//    so it never waits for a block that cannot start.
+//    blocks to arrive at an atomic ticket wait for the others and each
+//    sums a slice of the columns over the partials in block order.  The
+//    ticket is one word after the partials in the launch's own workspace,
+//    zeroed by the launcher just before the kernel on the same stream, so
+//    launches in flight at once (two streams, two branches of one CUDA
+//    graph) never share it, and a captured launch replays with its own.
+//    Atomics on the ticket only: ds is the same bits on every launch.  A
+//    finisher waits only for blocks that arrive after it, so it never
+//    waits for a block that cannot start.
 //  * Any other row takes the direct kernels: one row a block at a time,
 //    read from device memory for its statistic and again (from L2 where it
 //    stays) for the output, the scale from global memory, any D: a pointer
@@ -53,9 +56,7 @@
 // The launch geometry (path, threads, threads a row, stages, vectors a
 // thread, grid, finishers, shared memory) comes from the wrapper
 // (`launch_geometry` in kernels/rmsnorm.py); the launchers check it and
-// refuse what the kernels cannot run.  B9-bwd's tickets are one pair per
-// device, so its launches on one device must be ordered (one stream, as
-// PyTorch's autograd and a CUDA graph give them).
+// refuse what the kernels cannot run.
 //
 // Plain C interface, no PyTorch headers: built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -258,41 +259,38 @@ struct Staged {
   }
 };
 
-// The backward's tickets, one pair per device, zero at module load:
-// `g_arrived` counts arriving blocks over all launches (it wraps, and only
-// differences are read), `g_base` is its value when this launch began.
-__device__ unsigned int g_arrived = 0, g_base = 0;
-
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
+// The launch's ticket: the word after the nblk partial rows [D] of its
+// workspace, which the launcher zeroes before the kernel.
+__device__ __forceinline__ unsigned* ticket_of(float* part, int nblk, int D) {
+  return reinterpret_cast<unsigned*>(part + (int64_t)nblk * D);
+}
+
 // After each block has written its partial row part[blockIdx.x] (f32 [D]):
-// the last `fin` blocks to arrive each sum one slice of the columns (in
-// groups of 4 where D allows, read as float4) over all nblk partials, in
-// block order: a column's blocks cut into `segs` consecutive runs, each
-// summed in order, then the runs in order; cast to the scale's dtype.  The
-// finishers then move `g_base` on by nblk (each writes the same value),
-// ready for the next launch.  `tmp` is 4 * blockDim.x floats of shared
-// memory.
-__device__ void finish_ds(const float* part, int nblk, int D, void* ds, int dt, int fin,
+// the last `fin` blocks to arrive at the launch's ticket each sum one slice
+// of the columns (in groups of 4 where D allows, read as float4) over all
+// nblk partials, in block order: a column's blocks cut into `segs`
+// consecutive runs, each summed in order, then the runs in order; cast to
+// the scale's dtype.  `tmp` is 4 * blockDim.x floats of shared memory.
+__device__ void finish_ds(float* part, int nblk, int D, void* ds, int dt, int fin,
                           float* tmp) {
   __shared__ int slice;
-  __shared__ unsigned base;
+  unsigned* ticket = ticket_of(part, nblk, D);
   // every thread's partial written (the barrier), made visible device-wide
   // by thread 0's fence before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned b = *static_cast<volatile unsigned*>(&g_base);
     __threadfence();
-    slice = (int)(atomicAdd(&g_arrived, 1u) - b) - (nblk - fin);
-    base = b;
+    slice = (int)atomicAdd(ticket, 1u) - (nblk - fin);
     if (slice >= 0) {
       // a block that never arrives (a lost launch) traps after 2^34 clocks
       const long long first = clock64();
-      while (ld_acquire(&g_arrived) - b < (unsigned)nblk)
+      while (ld_acquire(ticket) < (unsigned)nblk)
         if (clock64() - first > (1ll << 34)) __trap();
     }
   }
@@ -340,7 +338,6 @@ __device__ void finish_ds(const float* part, int nblk, int D, void* ds, int dt, 
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) g_base = base + (unsigned)nblk;
 }
 
 // Narrow rows, held in registers: each warp of the grid takes an even
@@ -988,7 +985,8 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y, int
 // The backward, one launch: dx [rows, D] in x's dtype and ds [D] in the
 // scale's dtype.
 //   g         [rows, D] contiguous, x's dtype
-//   part      [grid, D] f32 scratch: the blocks' partial ds rows
+//   part      grid * D + 1 f32 words of scratch: the blocks' partial ds
+//             rows, then the launch's arrival ticket (zeroed here)
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* g, void* dx,
                                   void* ds, float* part, int64_t rows, int D, int xdt, int sdt,
                                   int path, int threads, int tpr, int stages, int nv, int vec,
@@ -998,6 +996,9 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* 
       !geo_ok(G, rows, D, elt_of(xdt), true, {x, g, dx}))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // this launch's ticket, after the partials, zeroed on the launch's stream
+  const cudaError_t z = cudaMemsetAsync(part + (int64_t)grid * D, 0, sizeof(unsigned), st);
+  if (z != cudaSuccess) return static_cast<int>(z);
   if (xdt == BF16)
     return bwd_launch<__nv_bfloat16>(G, x, scale, sdt, g, dx, part, ds, rows, D, eps, st);
   if (xdt == F16) return bwd_launch<__half>(G, x, scale, sdt, g, dx, part, ds, rows, D, eps, st);

@@ -175,16 +175,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 class _FlashAttentionFn(torch.autograd.Function):
     """B5 forward (with the log-sum-exp), B7 backward; the plain versions
-    for CPU tensors (``impl`` resolved as ``ops`` resolves it)."""
+    for CPU tensors (``impl`` resolved as ``ops`` resolves it, each
+    direction dispatched through the kernel guard)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, impl):
-        if resolve_impl(impl, q) == "ref":
-            o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                           window=window, return_lse=True)
-        else:
-            o, lse = _flash_cuda(q, k, v, causal=causal, window=window,
-                                 return_lse=True)
+        kw = dict(causal=causal, window=window, return_lse=True)
+        o, lse = kernel_guard().run(
+            "flash_attention", resolve_impl(impl, q),
+            lambda im: flash_attention_plain(q, k, v, **kw) if im == "ref"
+            else _flash_cuda(q, k, v, **kw))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.impl = causal, window, impl
         return o
@@ -193,11 +193,11 @@ class _FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, window=ctx.window)
-        if resolve_impl(ctx.impl, q) == "ref":
-            grads = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        else:
-            grads = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                        **kw)
+        grads = kernel_guard().run(
+            "flash_attention_bwd", resolve_impl(ctx.impl, q),
+            lambda im: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            if im == "ref" else flash_attention_bwd(
+                q, k, v, o, lse, do.contiguous(), **kw))
         return (*grads, None, None, None)
 
 

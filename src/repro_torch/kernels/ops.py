@@ -5,11 +5,14 @@ far.  ``impl`` is ``"auto"`` (the hand-written kernel for a CUDA
 tensor, the plain version for a CPU tensor), ``"cuda"`` (the kernel;
 raises for a CPU tensor) or ``"ref"`` (the plain PyTorch version, on
 whatever device the tensors are — how a kernel is compared with it on
-the card).  Nothing here catches a kernel's failure.
+the card).  Every call dispatches through the kernel guard
+(``KernelGuard.run``, under the reference's kernel names): only an
+injected fault (``FaultInjected``) or a quarantine serves a CUDA call by
+the plain version; a kernel's real failure propagates.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -40,6 +43,15 @@ from repro_torch.kernels.rotary import rotary as _rotary_cuda, rotary_plain
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_cuda, ssd_scan_plain
 from repro_torch.kernels.wkv6 import wkv6 as _wkv6_cuda, wkv6_plain
 
+def _dispatch(kernel: str, impl: str, t: torch.Tensor,
+              launch: Callable[[], Any], plain: Callable[[], Any]):
+    """``launch()`` or ``plain()``, as the guard's chain for ``impl``
+    resolved on ``t`` decides."""
+    return kernel_guard().run(
+        kernel, resolve_impl(impl, t),
+        lambda im: plain() if im == "ref" else launch())
+
+
 #: every ported kernel, by the name its launch counter goes under
 KERNELS = ("paged_decode_attention", "fused_segment_grid",
            "fused_matmul_segment", "fused_matmul_dlhs_segment",
@@ -59,11 +71,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     reference's Pallas kernel takes them: a head_dim that is not a
     power-of-two count (at most 32) of 16-byte vectors — f32 takes H in
     {4, 8, ..., 128}, bf16 and f16 H in {8, 16, ..., 256}."""
-    if resolve_impl(impl, q) == "ref":
-        return paged_decode_attention_plain(q, k_pages, v_pages,
-                                            block_tables, lengths)
-    return _paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths,
-                              **kw)
+    return _dispatch(
+        "paged_decode_attention", impl, q,
+        lambda: _paged_decode_cuda(q, k_pages, v_pages, block_tables,
+                                   lengths, **kw),
+        lambda: paged_decode_attention_plain(q, k_pages, v_pages,
+                                             block_tables, lengths))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -78,10 +91,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B11 refuses what B1 refuses (see ``paged_decode_attention``): a
     head_dim that is not a power-of-two count (at most 32) of 16-byte
     vectors, and rows not 16-byte aligned."""
-    if resolve_impl(impl, q) == "ref":
-        return decode_attention_plain(q, k_cache, v_cache, lengths,
-                                      head_major=head_major)
-    return _decode_cuda(q, k_cache, v_cache, lengths, head_major=head_major)
+    return _dispatch(
+        "decode_attention", impl, q,
+        lambda: _decode_cuda(q, k_cache, v_cache, lengths,
+                             head_major=head_major),
+        lambda: decode_attention_plain(q, k_cache, v_cache, lengths,
+                                       head_major=head_major))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
@@ -100,9 +115,9 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
     """Half-split RoPE on x ``[R, N, H]`` (f32, bf16 or f16, as the
     reference's kernel takes it) at ``positions [R]`` (int32 or int64),
     sin / cos made from ``theta`` in the kernel; output in x's dtype."""
-    if resolve_impl(impl, x) == "ref":
-        return rotary_plain(x, positions, theta)
-    return _rotary_cuda(x, positions, theta=theta)
+    return _dispatch("rotary", impl, x,
+                     lambda: _rotary_cuda(x, positions, theta=theta),
+                     lambda: rotary_plain(x, positions, theta))
 
 
 def ssd_scan(x: torch.Tensor, logd: torch.Tensor, dt: torch.Tensor,
@@ -116,9 +131,9 @@ def ssd_scan(x: torch.Tensor, logd: torch.Tensor, dt: torch.Tensor,
     ``chunk`` / ``interpret`` arguments shape TPU blocks only and are not
     carried over: B12 picks its chunk itself, and the result does not
     depend on it beyond rounding."""
-    if resolve_impl(impl, x) == "ref":
-        return ssd_scan_plain(x, logd, dt, bmat, cmat)[0]
-    return _ssd_cuda(x, logd, dt, bmat, cmat)
+    return _dispatch("ssd_scan", impl, x,
+                     lambda: _ssd_cuda(x, logd, dt, bmat, cmat),
+                     lambda: ssd_scan_plain(x, logd, dt, bmat, cmat)[0])
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,9 +148,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     overflows below a chunk's summed log-decay of about -88 (by design,
     see ``kernels/wkv6.py``).  The reference's ``chunk`` / ``interpret``
     arguments are not carried over: B13 picks its chunk itself."""
-    if resolve_impl(impl, r) == "ref":
-        return wkv6_plain(r, k, v, w, u)[0]
-    return _wkv6_cuda(r, k, v, w, u)
+    return _dispatch("wkv6", impl, r, lambda: _wkv6_cuda(r, k, v, w, u),
+                     lambda: wkv6_plain(r, k, v, w, u)[0])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -156,9 +170,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     declines a flash pair by it."""
     kw = dict(causal=causal, window=window, scale=scale,
               return_lse=return_lse)
-    if resolve_impl(impl, q) == "ref":
-        return flash_attention_plain(q, k, v, **kw)
-    return _flash_cuda(q, k, v, **kw)
+    return _dispatch("flash_attention", impl, q,
+                     lambda: _flash_cuda(q, k, v, **kw),
+                     lambda: flash_attention_plain(q, k, v, **kw))
 
 
 def fused_flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -172,11 +186,13 @@ def fused_flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``n_dim == head_dim``; one head per slice, no mask, the ``scale``
     the planner extracted from the chain.  Returns ``([rows, n_dim],)``."""
     s_pb = rows // batch
-    out = flash_attention(
-        q.reshape(batch, s_pb, 1, head_dim),
-        k.reshape(batch, t_dim, 1, head_dim),
-        v.reshape(batch, t_dim, 1, n_dim), causal=False, window=0,
-        scale=scale, impl=impl)
+    args = (q.reshape(batch, s_pb, 1, head_dim),
+            k.reshape(batch, t_dim, 1, head_dim),
+            v.reshape(batch, t_dim, 1, n_dim))
+    kw = dict(causal=False, window=0, scale=scale)
+    out = _dispatch("fused_flash", impl, q,
+                    lambda: _flash_cuda(*args, **kw),
+                    lambda: flash_attention_plain(*args, **kw))
     return (out.reshape(rows, n_dim).to(out_dtype),)
 
 
@@ -192,13 +208,13 @@ def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
     ``out_strides`` (per output, ``(shape, strides)`` or None) asks the
     kernel to write an output in that layout and return it so; the plain
     version returns every output as ``[rows, cols]``."""
-    if resolve_impl(impl, operands[0]) == "ref":
-        return fused_segment_grid_plain(
-            prog, operands, specs, rows=rows, out_cols=out_cols,
-            out_dtypes=out_dtypes, rows_block=rows_block)
-    return _grid_cuda(prog, operands, specs, rows=rows, out_cols=out_cols,
-                      out_dtypes=out_dtypes, rows_block=rows_block,
-                      out_strides=out_strides)
+    kw = dict(rows=rows, out_cols=out_cols, out_dtypes=out_dtypes,
+              rows_block=rows_block)
+    return _dispatch(
+        "fused_segment_grid", impl, operands[0],
+        lambda: _grid_cuda(prog, operands, specs, out_strides=out_strides,
+                           **kw),
+        lambda: fused_segment_grid_plain(prog, operands, specs, **kw))
 
 
 def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
@@ -217,9 +233,9 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
     kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
-    if resolve_impl(impl, lhs_operands[0]) == "ref":
-        return _fm.fused_matmul_segment_plain(*args, **kw)
-    return _fm.fused_matmul_segment(*args, **kw, sms=sms)
+    return _dispatch("fused_matmul", impl, lhs_operands[0],
+                     lambda: _fm.fused_matmul_segment(*args, **kw, sms=sms),
+                     lambda: _fm.fused_matmul_segment_plain(*args, **kw))
 
 
 def fused_matmul_dlhs_segment(pro, epi, lhs_operands, lhs_specs, rhs,
@@ -237,9 +253,10 @@ def fused_matmul_dlhs_segment(pro, epi, lhs_operands, lhs_specs, rhs,
     kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
-    if resolve_impl(impl, lhs_operands[0]) == "ref":
-        return _fmb.fused_matmul_dlhs_segment_plain(*args, **kw)
-    return _fmb.fused_matmul_dlhs_segment(*args, **kw, sms=sms)
+    return _dispatch(
+        "fused_matmul_dlhs", impl, lhs_operands[0],
+        lambda: _fmb.fused_matmul_dlhs_segment(*args, **kw, sms=sms),
+        lambda: _fmb.fused_matmul_dlhs_segment_plain(*args, **kw))
 
 
 def fused_matmul_drhs_segment(epi, lhs, rhs, epi_operands, epi_specs, *,
@@ -255,9 +272,10 @@ def fused_matmul_drhs_segment(epi, lhs, rhs, epi_operands, epi_specs, *,
     kw = dict(m_dim=m_dim, rows=rows, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               vmem_bytes=vmem_bytes, batch=batch)
-    if resolve_impl(impl, lhs) == "ref":
-        return _fmb.fused_matmul_drhs_segment_plain(*args, **kw)
-    return _fmb.fused_matmul_drhs_segment(*args, **kw)
+    return _dispatch("fused_matmul_drhs", impl, lhs,
+                     lambda: _fmb.fused_matmul_drhs_segment(*args, **kw),
+                     lambda: _fmb.fused_matmul_drhs_segment_plain(*args,
+                                                                  **kw))
 
 
 def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -265,9 +283,9 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  impl: str = "auto") -> tuple:
     """One fused AdamW pass over a leaf: ``(p', m', v')``; ``hyper`` =
     [lr, b1, b2, eps, wd, bc1, bc2] in f32."""
-    if resolve_impl(impl, p) == "ref":
-        return adamw_update_plain(p, g, m, v, hyper)
-    return _adamw_cuda(p, g, m, v, hyper)
+    return _dispatch("adamw_update", impl, p,
+                     lambda: _adamw_cuda(p, g, m, v, hyper),
+                     lambda: adamw_update_plain(p, g, m, v, hyper))
 
 
 def fused_segment(fn: Callable, bulk: Sequence[torch.Tensor],

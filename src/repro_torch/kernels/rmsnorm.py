@@ -321,9 +321,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
     """Launch the B9 backward: ``(dx, ds)`` for the cotangent ``g`` of
     ``rmsnorm(x, scale)``; dx in x's dtype, ds in scale's.  One launch:
     each block writes an f32 partial ds row, and the last blocks to finish
-    sum them in block order (the same bits on every launch).  Launches on
-    one device must be ordered (one stream): they share the kernel's
-    tickets.  Any D, as the forward."""
+    sum them in block order (the same bits on every launch).  The blocks'
+    arrival ticket is a word of this launch's own workspace, so launches
+    may run at once on several streams or graph branches.  Any D, as the
+    forward."""
     _check(x, scale, KERNEL_BWD)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("g must have x's shape, dtype and device; got "
@@ -335,9 +336,11 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
     if x2.numel() == 0:
         return dx.reshape(x.shape), ds.zero_()
     geo = _geometry(x2, g2, dx, backward=True)
-    # scratch for the blocks' partials; PyTorch's allocator hands its
-    # memory on only to later work on this stream, so dropping it is safe
-    part = torch.empty((geo.grid, x2.shape[1]), dtype=torch.float32,
+    # scratch for the blocks' partials and, after them, the launch's
+    # arrival ticket (zeroed by the launcher); PyTorch's allocator hands
+    # its memory on only to later work on this stream, so dropping it is
+    # safe
+    part = torch.empty(geo.grid * x2.shape[1] + 1, dtype=torch.float32,
                        device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -354,22 +357,24 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
 
 class RMSNormFn(torch.autograd.Function):
     """B9 forward, B9 backward; the plain versions for CPU tensors
-    (``impl`` resolved as ``ops`` resolves it).  The forward saves
+    (``impl`` resolved as ``ops`` resolves it, each direction dispatched
+    through the kernel guard).  The forward saves
     ``(x, scale)``, as the reference's VJP saves ``(x2, scale)``."""
 
     @staticmethod
     def forward(ctx, x, scale, eps, impl):
         ctx.save_for_backward(x, scale)
         ctx.eps, ctx.impl = eps, impl
-        if resolve_impl(impl, x) == "ref":
-            return rmsnorm_plain(x, scale, eps)
-        return rmsnorm(x, scale, eps=eps)
+        return kernel_guard().run(
+            "rmsnorm", resolve_impl(impl, x),
+            lambda im: rmsnorm_plain(x, scale, eps) if im == "ref"
+            else rmsnorm(x, scale, eps=eps))
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        if resolve_impl(ctx.impl, x) == "ref":
-            dx, ds = rmsnorm_bwd_plain(x, scale, g, ctx.eps)
-        else:
-            dx, ds = rmsnorm_bwd(x, scale, g, eps=ctx.eps)
+        dx, ds = kernel_guard().run(
+            "rmsnorm_bwd", resolve_impl(ctx.impl, x),
+            lambda im: rmsnorm_bwd_plain(x, scale, g, ctx.eps)
+            if im == "ref" else rmsnorm_bwd(x, scale, g, eps=ctx.eps))
         return dx, ds, None, None

@@ -11,11 +11,17 @@ launcher prints ``train_traces``, the first step's warm call and capture
 seconds and the graph pool's bytes.  ``--local`` trains the reduced
 config on 4 x 128 tokens instead; ``--device cpu`` runs the plain
 PyTorch path on the CPU (the kernels need the GPU).  One device, no
-mesh, no checkpoints (they arrive with the durability slice).
+mesh.  Checkpoints every 50 steps go to ``--ckpt-dir`` (default: a
+directory under the system's temporary directory, printed at start),
+and a run resumes from the newest one there, as the reference's
+launcher does.  ``MPU_PLAN_CACHE`` names a persistent plan store that
+every offloaded plan of the run is read from and written to.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
 from repro_torch.configs import (
     ARCH_IDS,
@@ -42,7 +48,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--offload-mode", default=None,
                     choices=list(PLANNER_MODES),
                     help="offload decision backend (implies --offload)")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_launch_train"),
+                    help="checkpoint directory (resumed from when it "
+                         "holds a checkpoint)")
     args = ap.parse_args(argv)
+    print(f"checkpoints: {args.ckpt_dir} (every 50 steps; resumed from "
+          f"when present); plan store: "
+          f"{os.environ.get('MPU_PLAN_CACHE') or 'none (MPU_PLAN_CACHE)'}")
 
     cfg = get_config(args.arch)
     if args.local:
@@ -51,13 +64,19 @@ def main(argv: list[str] | None = None) -> None:
     else:
         shape = ShapeConfig("train_1k", 1024, 2, "train")
     offload = args.offload or args.offload_mode is not None
-    tcfg = TrainConfig(total_steps=args.steps, offload=offload,
+    tcfg = TrainConfig(total_steps=args.steps, checkpoint_every=50,
+                       checkpoint_dir=args.ckpt_dir, offload=offload,
                        offload_policy=OffloadPolicy(mode=args.offload_mode)
                        if args.offload_mode else None)
     held = []
     _, history = train(cfg, shape, tcfg, device=args.device, log_every=1,
                        on_step=held.append)
-    print(f"trained {len(history)} steps: loss {history[0]['loss']:.4f} -> "
+    if not history:
+        print(f"nothing to train: {args.ckpt_dir} holds step "
+              f"{args.steps - 1} or later")
+        return
+    print(f"trained {len(history)} steps ({history[0]['step']}.."
+          f"{history[-1]['step']}): loss {history[0]['loss']:.4f} -> "
           f"{history[-1]['loss']:.4f}")
     step = held[0]
     graph = step.graph
@@ -68,7 +87,8 @@ def main(argv: list[str] | None = None) -> None:
     print(f"compiled step: train_traces {step.counters['train_traces']}, "
           f"{built}")
     if offload:
-        print(f"backward plans: {bwd_plan_stats().as_dict()}")
+        print(f"loss plans: {step.stats}")
+        print(f"backward plans: {bwd_plan_stats()}")
     print("done")
 
 

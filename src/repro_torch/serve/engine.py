@@ -86,9 +86,15 @@ decode step keeps the new state of the active slots only.  Prompt
 bucketing and chunked prefill stay off for them, as in the JAX engine;
 ``offload=True`` is not ported for them yet and raises.
 
-``fault_injector`` is duck-typed (``page_alloc()``, ``slow_step()``,
-``poison_slots(active)``).  The fixed-slot baseline engine, the fault
-injector itself and the static table verifier arrive with later slices
+``fault_injector`` (a ``repro_torch.serve.faults.FaultInjector``, or
+anything duck-typed alike: ``page_alloc()``, ``slow_step()``,
+``poison_slots(active)``) drives the step-time faults (NaN logits, page
+faults, slow steps); as in the JAX engine it is also installed on the
+kernel guard and the artifact layer for the engine's lifetime, so an
+injected kernel fault demotes a call to its plain version (a quarantine
+bumps the guard epoch: the step is captured again with all_far plans,
+``kernel_replans``) and disk faults reach the plan store.  The fixed-slot
+baseline engine and the static table verifier arrive with later slices
 of the port.
 """
 from __future__ import annotations
@@ -297,6 +303,14 @@ class Engine:
 
             self._decode_offload = mpu_offload(paged_decode,
                                                policy=offload_policy)
+
+        if fault_injector is not None:
+            # kernel dispatch and durable-artifact IO see the injector
+            # the step-time fault classes use
+            from repro_torch.core.artifacts import set_disk_injector
+            from repro_torch.kernels.guard import set_injector
+            set_injector(fault_injector)
+            set_disk_injector(fault_injector)
 
         self.decode_steps = 0
         self.serve_counters = {"admit_traces": 0, "step_traces": 0,

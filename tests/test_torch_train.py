@@ -349,10 +349,13 @@ def test_train_three_steps_finite_and_decreasing():
 
 
 def test_train_refuses_checkpointing_until_it_is_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """Checkpoints are ported; what is still refused is a cadence with no
+    directory (the port has no default path, unlike the reference)."""
+    with pytest.raises(ValueError, match="checkpoint_dir"):
         train(_tcfg(), ShapeConfig("s", *SHAPE),
               TrainConfig(checkpoint_every=100), device="cpu")
     assert TrainConfig().checkpoint_every == 0
+    assert TrainConfig().checkpoint_dir is None
 
 
 def test_converter_refuses_an_unused_leaf(pair):
@@ -364,10 +367,11 @@ def test_converter_refuses_an_unused_leaf(pair):
         from_jax_train_state(bad, pair["tcfg"], device="cpu")
 
 
-def test_launcher_trains_offloaded_on_the_cpu(capsys):
+def test_launcher_trains_offloaded_on_the_cpu(capsys, tmp_path):
     from repro_torch.launch import train as launch
+    # the launcher checkpoints and resumes: a directory of this test's own
     launch.main(["--local", "--device", "cpu", "--steps", "2",
-                 "--offload-mode", "greedy"])
+                 "--offload-mode", "greedy", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "trained 2 steps" in out and "backward plans" in out
 
