@@ -67,7 +67,8 @@ and holds every hand-written kernel against its plain PyTorch version:
    decode readings for the offloaded step (B2's device time a step,
    summed over its ``seg_`` kernels); and take one decode step on the
    same state offloaded and eager, in bf16 and in f32 — logits agree;
-7. training full-width qwen3-1.7b (f32 master parameters, bf16 compute,
+7. training full-width qwen3-1.7b cut to 4 layers (``TRAIN_LAYERS``;
+   ``--train`` trains all 28; f32 master parameters, bf16 compute,
    2 x 1024 tokens a step) through ``make_train_step(offload=True)``:
    plan the loss, every fused segment's backward and the update (their
    plan counts pinned), build
@@ -179,19 +180,24 @@ and holds every hand-written kernel against its plain PyTorch version:
     (bytes, or the products as TF32 passes at 495 TFLOP/s: three for two
     f32 operands, two where one is a 16-bit input), the previous f32
     FMA-rate bound and, in bf16, the plain version;
-11. zamba2-1.2b and rwkv6-1.6b at full width and depth (random bf16
+11. zamba2-1.2b and rwkv6-1.6b at full width, cut to 12 and 4 layers
+    (``ZOO_SERVE_LAYERS``; ``--decode`` serves the full depth; random bf16
     weights from seed 0) through ``Engine(slots=8, max_len=2048,
     page_size=64)``: 12 greedy requests x 64 tokens (every request
-    completes, B1 launched 6 times a decode step for zamba2's shared
-    attention, 0 for rwkv6; captured once, the same tokens through
+    completes, B1 launched once a decode step for each of zamba2's
+    shared-attention layers, 0 for rwkv6; captured once, the same tokens through
     ``capture_decode=False``; served twice, phase 4's admit readings, the
     admits eager — no bucket — and ``admit_traces`` the mix's distinct
     lengths), phase 5's decode readings with 8 active
     slots (zamba2: the step through B1 against its plain version), peak
     memory, and the captured engine's prefill and decode logits of 3
-    requests against a full-sequence forward of the same tokens (bf16 at
-    full depth; f32 at 12 / 4 layers);
-12. a ``kernels`` JSON line, then the card line, then the result line.
+    requests against a full-sequence forward of the same tokens (bf16;
+    f32 at 12 / 4 layers);
+12. durability and injected faults (below, also alone as
+    ``--durability``);
+13. zamba2-1.2b and rwkv6-1.6b trained, and queue C5's check (below, also
+    alone as ``--zoo-train``);
+14. a ``kernels`` JSON line, then the card line, then the result line.
 
     python3 chip_smoke.py --decode-segments [--src DIR]
 
@@ -217,8 +223,8 @@ the mix twice with its own (eager) admits.
 
     python3 chip_smoke.py --train [--src DIR]
 
-takes phase 1 and phase 7's training readings alone (full-width
-qwen3-1.7b planned and built, 3 eager steps, then 3 compiled steps held
+takes phase 1 and phase 7's training readings alone (full-width,
+full-depth qwen3-1.7b planned and built, 3 eager steps, then 3 compiled steps held
 against them, and the 2-layer f32 build), on the package under ``DIR``
 where given; a package without ``compile_train_step`` gives the eager
 step alone, so one call compares two checkouts.
@@ -255,6 +261,40 @@ and the second serves them again with every ``fused_segment_grid``
 launch faulted (quarantine, ``kernel_replans == 1``, the re-captured step
 launching no B2, every request ``ok``; the share of tokens equal to the
 unfaulted engine's and the largest logit difference printed).
+
+Phase 13, also alone as
+
+    python3 chip_smoke.py --zoo-train [--src DIR]
+
+first takes queue C5's check: full-width qwen3-1.7b (f32 masters, bf16
+compute, offloaded, remat off, 2 x 1,024 tokens) trained in a fresh
+subprocess at 4 and at 28 layers — 2 eager steps of ``make_train_step``
+as the first thing the process does, nothing planned or built ahead,
+then 2 steps of ``compile_train_step`` bit-equal to them — and, in the
+first, one bf16 dlhs segment launched through its plan's translation
+unit and through a second unit of its own, bit-equal.  Then each of
+full-width, full-depth zamba2-1.2b (38 layers, remat off) and
+rwkv6-1.6b (24 layers, remat on: off, its step would not fit in 80 GB)
+with random weights from seed 0 is trained the same way in a fresh
+subprocess for 3 eager and 3 compiled steps: every compiled step
+bit-equal to its eager step (losses, grad norms, lr, every leaf),
+``train_traces == 1``, the plan counters as under jit, the tied
+shared-attention block one tensor at every position with one AdamW
+entry; every distinct B2 / B3 / B4 / B6 segment of the loss, backward
+and update plans against its plain version (the bf16 anchored ones on
+the sm90 mainloop); a 2-layer f32 build (zamba2: 12, for two
+``shared_attention`` positions) offloaded against the plain eager step;
+for rwkv6, 3 steps of the plain eager step in f32 at full depth, their
+grad norms beside the offloaded bf16 steps'; it prints a replay's host
+clock, CUDA-event device time and idle share, tokens/s, the first eager
+step's capture, plan and build seconds, the first compiled step's warm
+and capture seconds, launches a step by kernel, the plans' node and
+segment counts, peak memory and the graph pool's bytes.  In the whole
+script, to keep within its time limit, zamba2's process takes its first
+eager step beside phase 12 and its timed steps after it, and the 4-layer
+C5 process runs beside zamba2's segment checks and f32 build, where the
+card's free memory allows (``BESIDE_GIB``); ``--durability`` and
+``--zoo-train`` run each process alone.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -1865,18 +1905,28 @@ TRAIN_F32_TOL = 1e-4
 TIMED_GRID = 3
 #: and the grid segments with the most device time a step
 TOP_GRID = 5
-#: the full-width bf16 training forward plan (fused, fused by form,
-#: declined) as measured before batched contractions were planned; they
-#: must not move it (the attention bmm stay declined)
-TRAIN_FORWARD_PLAN = (719, {"grid": 557, "fwd": 162}, 1019)
-#: the full-width bf16 backward plans (plans, fused by form, declined by
-#: form) and update plan (fused, declined), as planned before B2's
-#: redesign; its geometry must not move them
-TRAIN_BACKWARD_PLAN = (719, {"grid": 889, "drhs": 162, "dlhs": 162,
-                             "fwd": 84}, {"grid": 448})
-TRAIN_UPDATE_PLAN = (85, 284)
-#: B4 / B6 launches a bf16 step as planned before the sm90 cost model: a
-#: difference is a backward decision the new modeled bytes flip
+#: phase 7's depth in the whole script: full-width qwen3-1.7b cut to 4
+#: layers, so that the script keeps within its time limit (queue C5's
+#: check in phase 13 trains the 28 layers, eager and compiled, from a
+#: fresh process); ``--train`` trains the full depth
+TRAIN_LAYERS = 4
+#: the bf16 training plans of qwen3-1.7b at full width, by depth: the
+#: forward plan (fused, fused by form, declined) as measured before
+#: batched contractions were planned, which must not move it (the
+#: attention bmm stay declined); the backward plans (plans, fused by
+#: form, declined by form) and the update plan (fused, declined) as
+#: planned before B2's redesign, whose geometry must not move them
+TRAIN_PLANS = {28: ((719, {"grid": 557, "fwd": 162}, 1019),
+                    (719, {"grid": 889, "drhs": 162, "dlhs": 162,
+                           "fwd": 84}, {"grid": 448}),
+                    (85, 284)),
+               4: ((108, {"grid": 83, "fwd": 25}, 149),
+                   (108, {"grid": 133, "drhs": 25, "dlhs": 25, "fwd": 12},
+                    {"grid": 65}),
+                   (13, 44))}
+#: B4 / B6 launches a bf16 step at 28 layers as planned before the sm90
+#: cost model: a difference is a backward decision the new modeled bytes
+#: flip
 EARLIER_BWD_LAUNCHES = (162, 162)
 
 
@@ -1957,7 +2007,7 @@ def sm90_resources(logs) -> tuple[list, list]:
     return sorted(set(regs)), spilling
 
 
-def build_units(plans) -> tuple[list, float, list, int]:
+def build_units(plans, tag: str = "[7]") -> tuple[list, float, list, int]:
     """Build the CUDA translation units of the plans, one ``nvcc`` each,
     all started together.  Returns the units, the seconds, the registers
     per thread by instantiation and the number with spills; fails if an
@@ -1972,14 +2022,15 @@ def build_units(plans) -> tuple[list, float, list, int]:
                  for log in logs for ln in log.splitlines())
     sm90_regs, sm90_spilling = sm90_resources(logs)
     if sm90_regs or sm90_spilling:
-        print(f"[7] sm90 mainloop / weight-stream instantiations: registers "
+        print(f"{tag} sm90 mainloop / weight-stream instantiations: registers "
               f"per thread {sm90_regs}, {len(sm90_spilling)} spilling")
     check(not sm90_spilling, f"sm90 / stream instantiations spill: "
           f"{sm90_spilling}")
     return units, time.perf_counter() - t0, regs, spills
 
 
-def plan_training(step, state, batch, label: str):
+def plan_training(step, state, batch, label: str, *, layers: int = 28,
+                  tag: str = "[7]", copied_bmm: bool = True):
     """Capture and plan the loss (forward), the backward of every fused
     segment and the update, then build all their CUDA translation units
     together.  Returns every plan of the step: the forward, the
@@ -1991,9 +2042,9 @@ def plan_training(step, state, batch, label: str):
     dbatch = device_batch(batch, DEVICE)
     fplan = step.loss_fn.warm(state.params, dbatch)
     bplans = step.loss_fn.warm_backward(state.params, dbatch)
-    uplan = step.update_fn.warm(state.params, state.params, state.opt)
+    uplan = step.update_fn.warm(*update_args(state))
     fst, bst = step.stats, bwd_plan_stats()
-    units, build_s, regs, spills = build_units([fplan, uplan, *bplans])
+    units, build_s, regs, spills = build_units([fplan, uplan, *bplans], tag)
 
     def forms(plans, fused):
         n: dict = {}
@@ -2004,39 +2055,40 @@ def plan_training(step, state, batch, label: str):
                     n[k] = n.get(k, 0) + 1
         return n
 
-    print(f"[7] {label}: forward plan {len(fplan.segments)} fused "
+    print(f"{tag} {label}: forward plan {len(fplan.segments)} fused "
           f"{forms([fplan], True)} / {sum(not d.fused for d in fplan.decisions)}"
           f" declined, traffic {fplan.traffic_reduction:.2f}x; update plan "
           f"{len(uplan.segments)} fused / "
           f"{sum(not d.fused for d in uplan.decisions)} declined")
-    print(f"[7] {label}: {len(bplans)} backward plans: fused "
+    print(f"{tag} {label}: {len(bplans)} backward plans: fused "
           f"{forms(bplans, True)}, declined {forms(bplans, False)}")
     bmm = [d for d in fplan.decisions if d.form == "bmm"]
-    print(f"[7] {label}: {len(bmm)} attention bmm in the forward, "
+    print(f"{tag} {label}: {len(bmm)} bmm in the forward, "
           f"{sum(not d.fused and 'batch axes not leading' in d.reason for d in bmm)}"
           f" declined for batch axes that a copy moved")
-    check(all(not d.fused and "batch axes not leading" in d.reason
-              for d in bmm), f"{label}: an attention bmm was anchored")
+    check(all(not d.fused and (not copied_bmm or "batch axes not leading"
+                                in d.reason) for d in bmm),
+          f"{label}: a bmm was anchored")
     if label == "bf16":
-        check((len(fplan.segments), forms([fplan], True),
-               sum(not d.fused for d in fplan.decisions)) ==
-              TRAIN_FORWARD_PLAN, f"{label}: the forward plan moved from "
-              f"{TRAIN_FORWARD_PLAN}")
-        check((len(bplans), forms(bplans, True), forms(bplans, False)) ==
-              TRAIN_BACKWARD_PLAN, f"{label}: the backward plans moved from "
-              f"{TRAIN_BACKWARD_PLAN}")
-        check((len(uplan.segments),
-               sum(not d.fused for d in uplan.decisions)) ==
-              TRAIN_UPDATE_PLAN, f"{label}: the update plan moved from "
-              f"{TRAIN_UPDATE_PLAN}")
+        got = ((len(fplan.segments), forms([fplan], True),
+                sum(not d.fused for d in fplan.decisions)),
+               (len(bplans), forms(bplans, True), forms(bplans, False)),
+               (len(uplan.segments),
+                sum(not d.fused for d in uplan.decisions)))
+        want = TRAIN_PLANS.get(layers)
+        print(f"{tag} {label} plans at {layers} layers: {got}")
+        check(want is not None, f"{label}: no plan counts pinned at "
+              f"{layers} layers")
+        for what, g, w in zip(("forward", "backward", "update"), got, want):
+            check(g == w, f"{label}: the {what} plans moved from {w}")
     why: dict = {}
     for p in [fplan, *bplans]:
         for d in p.decisions:
             if d.form and not d.fused:
                 why.setdefault(d.form, d.reason)
     for form, reason in why.items():
-        print(f"[7] {label}: a declined {form} anchor, for example: {reason}")
-    print(f"[7] {label}: capture {fst.capture_s + bst.capture_s:.1f} s "
+        print(f"{tag} {label}: a declined {form} anchor, for example: {reason}")
+    print(f"{tag} {label}: capture {fst.capture_s + bst.capture_s:.1f} s "
           f"(forward {fst.capture_s:.1f}, backward {bst.capture_s:.1f}), plan "
           f"{fst.plan_s + bst.plan_s:.1f} s (forward {fst.plan_s:.1f}, "
           f"backward {bst.plan_s:.1f}); {len(units)} CUDA translation units "
@@ -2046,9 +2098,26 @@ def plan_training(step, state, batch, label: str):
     return [fplan, *bplans, uplan]
 
 
+def update_args(state) -> tuple:
+    """The offloaded update's arguments in the train step's own form:
+    the state's unique tensors (``Ties``) — the parameters, the
+    parameters again standing in for the f32 gradients, and the moments
+    with the step."""
+    from repro_torch.models.transformer import Ties
+    from repro_torch.optim import AdamWState
+
+    ties = Ties(state.params)
+    unique = ties.unique(state.params)
+    return unique, unique, AdamWState(state.opt.step,
+                                      ties.unique(state.opt.m),
+                                      ties.unique(state.opt.v))
+
+
 def global_norm_of(grads) -> float:
+    """The global norm of a gradient tree, a tied block counted once."""
+    from repro_torch.models.transformer import Ties
     from repro_torch.optim import global_norm
-    return float(global_norm(grads))
+    return float(global_norm(Ties(grads).unique(grads)))
 
 
 #: the kernel of each anchored form, as the profiler's symbols name it
@@ -2150,8 +2219,8 @@ def train_steps(step, held: list, data, tokens: int, plans):
               sorted(grid.items(), key=lambda x: -x[1][0])[:15]))
     print(f"[7] launches a step (step 3): {per_step[2]}; B4 / B6 "
           f"{per_step[2].get('fused_matmul_dlhs_segment', 0)} / "
-          f"{per_step[2].get('fused_matmul_drhs_segment', 0)} (before the "
-          f"sm90 cost model: {EARLIER_BWD_LAUNCHES[0]} / "
+          f"{per_step[2].get('fused_matmul_drhs_segment', 0)} (at 28 layers "
+          f"before the sm90 cost model: {EARLIER_BWD_LAUNCHES[0]} / "
           f"{EARLIER_BWD_LAUNCHES[1]})")
     return state, counts, dict(step_ms=host_ms, busy_ms=busy_ms, peak=peak,
                                B2=b2_ms, grid=grid, **by_form, losses=losses,
@@ -2165,16 +2234,18 @@ def memory_split(step, state, batch, plans) -> dict:
     parts — the forward, the backward and the update — each with its own
     peak; and the f32 workspace the anchored segments of the plans ask
     for (the largest call's, and the LM head's)."""
-    import torch.utils._pytree as pytree
     from repro_torch.core.offload import _matmul_gen, segment_call
+    from repro_torch.models.transformer import Ties
+    from repro_torch.optim import AdamWState
 
     gib = 2.0 ** 30
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    leaves, spec = pytree.tree_flatten(state.params)
-    leaves = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = step.loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    # the step's own form: gradients and the update of the unique leaves
+    ties = Ties(state.params)
+    leaves = [p.detach().requires_grad_() for p in ties.unique(state.params)]
+    loss, _ = step.loss_fn(ties.tree(leaves), batch)
     torch.cuda.synchronize()
     fwd_peak = torch.cuda.max_memory_allocated()
     saved = torch.cuda.memory_allocated() - resident
@@ -2186,8 +2257,10 @@ def memory_split(step, state, batch, plans) -> dict:
     grad_bytes = sum(g.numel() * g.element_size() for g in grads)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        out = step.update_fn(state.params, pytree.tree_unflatten(
-            list(grads), spec), state.opt)
+        out = step.update_fn(ties.unique(state.params), list(grads),
+                             AdamWState(state.opt.step,
+                                        ties.unique(state.opt.m),
+                                        ties.unique(state.opt.v)))
     torch.cuda.synchronize()
     upd_peak = torch.cuda.max_memory_allocated()
     del out, grads, leaves
@@ -2215,7 +2288,7 @@ def memory_split(step, state, batch, plans) -> dict:
 
 
 def train_numerics(model, step, state, batch, tcfg, label: str, *,
-                   f32: bool):
+                   f32: bool, tag: str = "[7]"):
     """The offloaded and the plain eager step's loss and gradients on
     the same weights and batch.  Returns the offloaded gradients."""
     from repro_torch.train import make_train_step
@@ -2228,7 +2301,7 @@ def train_numerics(model, step, state, batch, tcfg, label: str, *,
     if f32:
         worst = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(_leaves(grads_o), _leaves(grads_p)))
-        print(f"[7] {label}: loss offloaded {float(loss_o):.6f} vs plain "
+        print(f"{tag} {label}: loss offloaded {float(loss_o):.6f} vs plain "
               f"{float(loss_p):.6f} (|diff| {dl:.2e}, tolerance "
               f"{F32_LOSS_TOL}); worst gradient leaf {worst:.2e} of its "
               f"max-abs (tolerance {F32_GRAD_TOL}); grad norm {gn_o:.4f} "
@@ -2237,7 +2310,7 @@ def train_numerics(model, step, state, batch, tcfg, label: str, *,
               f"{label}: offloaded and plain gradients differ")
     else:
         rel = abs(gn_o - gn_p) / gn_p
-        print(f"[7] {label}: loss offloaded {float(loss_o):.5f} vs plain "
+        print(f"{tag} {label}: loss offloaded {float(loss_o):.5f} vs plain "
               f"{float(loss_p):.5f} (|diff| {dl:.2e}, tolerance "
               f"{TRAIN_LOSS_TOL}); global grad norm {gn_o:.4f} vs "
               f"{gn_p:.4f} (relative {rel:.2e}, tolerance "
@@ -2773,19 +2846,26 @@ def phase_train(card: str):
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.train.step import device_batch
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=TRAIN_LAYERS)
     tcfg = TrainConfig(remat=False, offload=True)
     model = build_model(cfg, device=DEVICE)
     state = init_train_state(model, 0)
     data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
                                                          *TRAIN_SHAPE)))
     tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
-    print(f"[7] training qwen3-1.7b at full width and depth: f32 master "
-          f"parameters and AdamW moments, bf16 compute, "
+    t0 = time.perf_counter()
+
+    def done(what: str) -> None:
+        print(f"[7] {what}, {time.perf_counter() - t0:.1f} s into the phase")
+    print(f"[7] training qwen3-1.7b at full width, {TRAIN_LAYERS} layers: "
+          f"f32 master parameters and AdamW moments, bf16 compute, "
           f"{TRAIN_SHAPE[1]} x {TRAIN_SHAPE[0]} tokens a step, remat off, "
           f"offload on")
     step = make_train_step(model, tcfg)
-    plans = plan_training(step, state, data.batch(0), "bf16")
+    plans = plan_training(step, state, data.batch(0), "bf16",
+                          layers=TRAIN_LAYERS)
+    done("planned and built")
     held = [state]
     del state
     state, counts, reading = train_steps(step, held, data, tokens, plans)
@@ -2796,18 +2876,22 @@ def phase_train(card: str):
     grads = train_numerics(model, step, state, batch, tcfg,
                            "bf16 offloaded vs plain step", f32=False)
     b8 = phase_adamw(state, grads, tcfg, card)
+    done("steps, memory, numerics and B8")
     del grads
     rows = check_train_segments(plans, torch.bfloat16, card, timed=True,
                                 grid_ms=reading["grid"])
     update_leaf_segment(plans[-1], b8, card)
+    done("segments")
     sm90_variants()
+    done("sm90 variants")
     del state, step, plans
     gc.collect()
     torch.cuda.empty_cache()
     reading["compiled"] = train_compiled(model, tcfg, data, tokens, reading,
-                                         host, "bf16 full width")
+                                         host, f"bf16 {TRAIN_LAYERS} layers")
     del host
     train_small_compiled()
+    done("compiled steps")
 
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     model32 = build_model(cfg32, device=DEVICE)
@@ -2848,11 +2932,11 @@ def host_state(state) -> list:
 
 def state_differences(state, host: list) -> list:
     """(leaf index, shape, max abs difference) of every leaf of ``state``
-    that is not bit-equal to ``host``'s, compared on the host leaf by
-    leaf."""
+    that is not bit-equal to ``host``'s, compared leaf by leaf where
+    ``host``'s leaf lies (on the host, or kept on the device)."""
     out = []
     for i, (t, h) in enumerate(zip(state_leaves(state), host)):
-        c = t.detach().cpu()
+        c = t.detach().to(h.device)
         if not torch.equal(c, h):
             out.append((i, tuple(h.shape), max_err(c, h)))
     return out
@@ -2872,33 +2956,46 @@ def timed_replays(graph, events: list) -> None:
 
 
 def train_compiled(model, tcfg, data, tokens: int, eager: dict,
-                   host: list | None, label: str, tag: str = "[7]") -> dict:
-    """``compile_train_step`` from the seed-0 state for 3 steps (the
-    first: the warm call and the capture; then replays), held against
-    the eager run ``eager`` (``train_steps``' reading, its final state on
-    the host as ``host``): losses, grad norms and lr of every step and
-    every parameter and moment after step 3 bit-equal (else phase 7's
-    bf16 rule, naming the leaves that differ), launches a step by kernel
-    equal, ``train_traces == 1``, the loss's and the update's
-    ``plan_misses == traces == 1`` and ``plan_hits == 0``, and
-    ``bwd_plan_stats()`` unchanged after the warm step.  Prints a replay's
-    host clock, its device time (CUDA events), the idle share, the
-    kernels a step (profiler, a 4th step), the warm call's and the
-    capture's seconds, the graph pool's bytes, peak memory and tokens/s,
-    beside the eager step's."""
-    from torch.profiler import ProfilerActivity, profile
+                   host: list | None, label: str, tag: str = "[7]",
+                   steps: int = 3, plans_of=None, profile: bool = True
+                   ) -> dict:
+    """``compile_train_step`` from the seed-0 state for ``steps`` steps
+    (the first: the warm call and the capture; then replays), held
+    against the eager run ``eager`` (``train_steps``' reading, its final
+    state on the host as ``host``): losses, grad norms and lr of every
+    step and every parameter and moment after the last step bit-equal
+    (else phase 7's bf16 rule, naming the leaves that differ), launches a
+    step by kernel equal, ``train_traces == 1``, the loss's and the
+    update's ``plan_misses == traces == 1`` and ``plan_hits == 0``,
+    ``bwd_plan_stats()`` unchanged after the warm step, and every tensor
+    the state's tree holds at several places (a tied block and its
+    moments) still one tensor.  Prints a replay's host clock, its device
+    time (CUDA events), the idle share, the kernels a step (profiler, one
+    more step), the warm call's and the capture's seconds, the graph
+    pool's bytes, peak memory and tokens/s, beside the eager step's.
+    ``plans_of``: the eager step whose offloaded loss and update the
+    compiled step looks its plans up in (planned once in the process; the
+    plan counters then count the eager steps too and are not checked);
+    ``profile=False`` takes no profiled step."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profile_ctx
 
     from repro_torch.core.offload import bwd_plan_stats
+    from repro_torch.models.transformer import Ties
     from repro_torch.train import compile_train_step, init_train_state
 
     state = init_train_state(model, 0)
+    tied = [Ties(t).index for t in (state.params, state.opt.m, state.opt.v)]
     step = compile_train_step(model, tcfg)
+    if plans_of is not None:
+        step.loss_fn, step.update_fn = plans_of.loss_fn, plans_of.update_fn
+        step.stats, step.update_stats = plans_of.stats, plans_of.update_stats
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     times, per_step, metrics, events = [], [], [], []
     warm_bwd = None
-    for i in range(3):
+    for i in range(steps):
         before = ops.launch_counts()
         copies = sum(fe.COPIES.values())
         torch.cuda.synchronize()
@@ -2919,9 +3016,15 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
             timed_replays(graph, events)
     del graph.replay
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(len(events) == 2, f"{label}: steps 2-3 did not replay the graph")
+    check(len(events) == steps - 1,
+          f"{label}: steps 2-{steps} did not replay the graph")
     dev_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
-    host_ms = (times[1] + times[2]) / 2 * 1e3
+    host_ms = sum(times[1:]) / len(times[1:]) * 1e3
+    check([Ties(t).index for t in (state.params, state.opt.m,
+                                   state.opt.v)] == tied,
+          f"{label}: the state's tied tensors came apart")
+    unique = len(step._unique_state(state))
+    n_tied = sum(len(x) - max(x, default=-1) - 1 for x in tied)
     losses = [x["loss"] for x in metrics]
     check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
               for x in metrics), f"{label}: a non-finite compiled step")
@@ -2932,14 +3035,14 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
           f"{label}: train_traces {counters['train_traces']}")
     for name, st in (("loss", step.stats), ("update", step.update_stats)):
         st = st.as_dict()
-        check(st["plan_misses"] == st["traces"] == 1 and
-              st["plan_hits"] == 0, f"{label}: {name} plan stats {st}")
+        check(plans_of is not None or st["plan_misses"] == st["traces"] == 1
+              and st["plan_hits"] == 0, f"{label}: {name} plan stats {st}")
     now_bwd = bwd_plan_stats().as_dict()
     check(all(now_bwd[k] == warm_bwd[k] for k in ("plan_misses", "traces",
                                                   "plan_hits")),
           f"{label}: bwd_plan_stats moved after the warm step: {warm_bwd} "
           f"-> {now_bwd}")
-    want = eager["per_step"][2]
+    want = eager["per_step"][-1]
     for i, got in enumerate(per_step):
         check(got == want, f"{label}: launches of step {i + 1} {got} differ "
               f"from the eager step's {want}")
@@ -2950,14 +3053,19 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
         [x["lr"] for x in metrics] == eager["lrs"]
     diffs = state_differences(state, host) if host is not None else []
     bit_equal = same_metrics and not diffs
-    print(f"{tag} {label} compiled vs eager, 3 steps from the seed-0 state: "
+    print(f"{tag} {label} compiled vs eager, {steps} steps from the seed-0 "
+          f"state: "
           f"losses {losses} vs {eager['losses']}, grad norms "
           f"{[x['grad_norm'] for x in metrics]} vs {eager['gnorms']}, lr "
           f"{[x['lr'] for x in metrics]} vs {eager['lrs']}; "
-          f"{len(host or [])} leaves (parameters, step, moments) "
-          f"compared on the host: {len(diffs)} differ"
+          + (f"{len(host)} leaves (parameters, step, moments) compared: "
+             f"{len(diffs)} differ" if host is not None
+             else "the state not compared")
           + (f" (first: {diffs[:4]})" if diffs else "")
-          + f"; {'bit-equal' if bit_equal else 'NOT bit-equal'}")
+          + f"; {'bit-equal' if bit_equal else 'NOT bit-equal'}; "
+          f"{n_tied} places of the state hold a tensor another place "
+          f"holds (a tied block), still one tensor each; the step "
+          f"donates and writes {unique} unique tensors")
     if not bit_equal:
         for x, el, eg in zip(metrics, eager["losses"], eager["gnorms"]):
             dl = abs(x["loss"] - el)
@@ -2968,18 +3076,20 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
         print(f"{tag} {label}: not bit-equal, within phase 7's bf16 rule "
               f"(loss {TRAIN_LOSS_TOL}, grad norm {TRAIN_GNORM_RTOL})")
 
-    # a 4th step under the profiler: the replay's kernels
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, data.batch(3))
-        torch.cuda.synchronize()
-
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
+
+    # one more step under the profiler: the replay's kernels
+    device = []
+    if profile:
+        with profile_ctx(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, data.batch(steps))
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and dev_us(e) > 0]
     rows = [e for e in device if "Memcpy" not in e.key]
     kernels = sum(e.count for e in rows) if rows else None
     busy = sum(dev_us(e) for e in rows) / 1e3 if rows else None
@@ -2987,9 +3097,11 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
     # any other device-to-device copy of the step)
     copies = [e for e in device if "Memcpy" in e.key]
     copy_ms = sum(dev_us(e) for e in copies) / 1e3 if copies else None
-    print(f"{tag} {label} compiled step's device copies (profiler, step 4): "
-          + (", ".join(f"{e.key} x{e.count} {dev_us(e) / 1e3:.3f} ms"
-                       for e in copies) if copies else "none seen"))
+    if profile:
+        print(f"{tag} {label} compiled step's device copies (profiler, step "
+              f"{steps + 1}): "
+              + (", ".join(f"{e.key} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+                           for e in copies) if copies else "none seen"))
     pool = graph.memory["reserved"][1] - graph.memory["reserved"][0]
     warm_s, capture_s = graph.warm_seconds, graph.seconds - graph.warm_seconds
     print(f"{tag} {label} compiled step: first step {times[0]:.3f} s (warm "
@@ -2999,21 +3111,25 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
           f" one replay {dev_ms:.3f} ms on the device (CUDA events), idle "
           f"{1 - dev_ms / host_ms:.1%} of the step; "
           + (f"{kernels} device kernels a step, busy {busy:.3f} ms "
-             "(profiler, step 4)" if rows else "device kernels: not measured"
-             " (the profiler saw none)")
+             f"(profiler, step {steps + 1})" if rows else
+             "device kernels: not measured (" + (
+                 "the profiler saw none)" if profile else "not profiled)"))
           + f"; graph pool {pool} bytes reserved ({pool / 2 ** 30:.2f} GiB),"
           f" peak device memory {peak:.2f} GiB ({resident:.2f} allocated "
           f"before the first step: the state and what earlier phases "
           f"hold); train_traces "
           f"{counters['train_traces']}, kernel_replans "
-          f"{counters['kernel_replans']}; launches a step {per_step[2]}")
+          f"{counters['kernel_replans']}; launches a step {per_step[-1]}")
+    eager_busy = (f"device busy {eager['busy_ms']:.3f} ms "
+                  f"({eager['kernels']:.0f} kernels a step)"
+                  if eager.get("busy_ms") is not None
+                  else "device busy not measured")
     print(f"{tag} {label} eager step beside it (same run): "
           f"{eager['step_ms']:.3f} ms a step by the host clock "
-          f"({tokens / eager['step_ms'] * 1e3:.0f} tokens/s), device busy "
-          f"{eager['busy_ms']:.3f} ms ({eager['kernels']:.0f} kernels a "
-          f"step), peak {eager['peak']:.2f} GiB; compiled / eager host "
-          f"clock {host_ms / eager['step_ms']:.3f}")
-    del state, step
+          f"({tokens / eager['step_ms'] * 1e3:.0f} tokens/s), {eager_busy}, "
+          f"peak {eager['peak']:.2f} GiB; compiled / eager host clock "
+          f"{host_ms / eager['step_ms']:.3f}")
+    del state, step, graph
     gc.collect()
     torch.cuda.empty_cache()
     return dict(host_ms=host_ms, replay_ms=dev_ms, idle=1 - dev_ms / host_ms,
@@ -3021,7 +3137,8 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
                 warm_s=warm_s,
                 capture_s=capture_s, pool=pool, peak=peak, resident=resident,
                 tokens_s=tokens / host_ms * 1e3, bit_equal=bit_equal,
-                launches=per_step[2])
+                launches=per_step[-1], first_s=times[0],
+                metrics=metrics, unique=unique, tied=n_tied)
 
 
 def train_small_compiled(tag: str = "[7]") -> None:
@@ -4976,6 +5093,10 @@ ZOO_BF16_SPREAD = 2.0
 ZOO_F32_TOL = 1e-3
 #: the f32 depths (two zamba2 periods: two tied shared-attention layers)
 ZOO_F32_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
+#: phase 11's depth in the whole script (zamba2: two shared_attention
+#: positions), so that the script keeps within its time limit with phase
+#: 13; ``--decode`` / ``--admit`` serve the full depth
+ZOO_SERVE_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
 
 
 def capture_logits(engine):
@@ -5075,14 +5196,16 @@ def engine_vs_forward(cfg, params, lens, new_tokens, seed, label: str
 
 
 def phase_zoo(card: str) -> None:
-    """Phase 11: zamba2-1.2b and rwkv6-1.6b at full width and depth,
-    random bf16 weights from seed 0, served through the paged Engine as
-    phase 4 serves qwen3; a decode step profiled mid-flight; the engine's
-    logits against full-sequence forwards (bf16 at full depth, f32 at a
-    cut depth)."""
+    """Phase 11: zamba2-1.2b and rwkv6-1.6b at full width, cut to
+    ``ZOO_SERVE_LAYERS``, random bf16 weights from seed 0, served through
+    the paged Engine as phase 4 serves qwen3; a decode step profiled
+    mid-flight; the engine's logits against full-sequence forwards (bf16,
+    and f32 at ``ZOO_F32_LAYERS``).  ``--decode`` and ``--admit`` serve
+    the full depth."""
     t0 = time.perf_counter()
     for arch in ZOO_ARCHS:
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=ZOO_SERVE_LAYERS[arch])
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5092,7 +5215,7 @@ def phase_zoo(card: str) -> None:
         params = cast_params(model.init(0), model.dtype)
         n_params = sum({id(t): t.numel() for t in _leaves(params)}.values())
         kinds = layer_kinds(cfg)
-        print(f"[11] {arch} full width: {cfg.num_layers} layers "
+        print(f"[11] {arch} full width, cut to {cfg.num_layers} layers "
               f"({ {k: kinds.count(k) for k in dict.fromkeys(kinds)} }), "
               f"d_model {cfg.d_model}, {n_params / 1e9:.2f} B parameters "
               f"in {model.dtype} (tied ones once); device memory "
@@ -5341,9 +5464,8 @@ def durability_child(role: str, root: str) -> dict:
         """What phase 7's ``plan_training`` does before the first step:
         the loss, every segment's backward and the update planned on a
         throwaway state of the step's shapes, and every CUDA translation
-        unit built together (queue C5: a backward translation unit built
-        at its first launch inside a fresh process's first step fails
-        that launch)."""
+        unit built together, so that the planning seconds read apart from
+        the first step's."""
         from repro_torch.train.step import device_batch, init_train_state
 
         held.append(step)
@@ -5353,7 +5475,7 @@ def durability_child(role: str, root: str) -> dict:
             tcfg_model, shape, tcfg.seed)).batch(0), "cuda")
         plans = [step.loss_fn.warm(st.params, db),
                  *step.loss_fn.warm_backward(st.params, db),
-                 step.update_fn.warm(st.params, st.params, st.opt)]
+                 step.update_fn.warm(*update_args(st))]
         t1 = time.perf_counter()
         units = sorted({tuple(p.library) for p in plans if p.library})
         for h in [fm.start_library(u) for u in units]:
@@ -5462,7 +5584,7 @@ def print_durability(r: dict, card: str) -> None:
           f"{r['engine']['offload']}")
 
 
-def phase_durability(card: str) -> None:
+def phase_durability(card: str, beside: str = "") -> None:
     """Phase 12: checkpoints and restart, the persistent plan store, and
     injected faults, at full width (training cut to ``DUR_LAYERS``
     layers).  Process A trains steps 0-3 with
@@ -5486,7 +5608,9 @@ def phase_durability(card: str) -> None:
         need = 2 * state_bytes + (4 << 30)
         print(f"[12] durability under {root}: {free / 2**30:.1f} GiB free, "
               f"the training state of qwen3-1.7b at full width and "
-              f"{DUR_LAYERS} layers {state_bytes / 2**30:.1f} GiB")
+              f"{DUR_LAYERS} layers {state_bytes / 2**30:.1f} GiB"
+              + (f"; its seconds are taken beside {beside}" if beside
+                 else ""))
         check(free >= need,
               f"durability: {free / 2**30:.1f} GiB free under {root}; the "
               f"phase keeps two checkpoints of the {state_bytes / 2**30:.1f}"
@@ -5561,6 +5685,508 @@ def phase_durability(card: str) -> None:
               f"steps; {f['seconds']:.1f} s; card {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 13: zamba2-1.2b and rwkv6-1.6b trained; queue C5's check -------
+
+#: the fresh-process training runs of queue C5's check: full-width
+#: qwen3-1.7b at these depths, 2 eager then 2 compiled steps each
+C5_LAYERS = (4, 28)
+#: the models phase 13 trains at full width and depth: the layers of
+#: their f32 numerics build (zamba2 needs 12 for two shared_attention
+#: positions) and ``remat`` (on where the step's peak with it off would
+#: not fit in the card's 80 GB: PERF.md section 4)
+ZOO_TRAIN = {"zamba2-1.2b": (12, False), "rwkv6-1.6b": (2, True)}
+#: the models whose phase 13 process also takes the plain eager step in
+#: f32 at full depth (``plain_f32_steps``): rwkv6's grad norm grows
+#: 1,796 -> 1,136 -> 1,155,378 over the offloaded bf16 steps (PR 28)
+F32_STEPS = ("rwkv6-1.6b",)
+TRAIN_MARK = "TRAIN_CHILD "
+#: the seconds a training process may take, waiting included
+CHILD_TIMEOUT = 900
+#: the card's free memory (GiB) that a process started beside other work
+#: needs: zamba2-1.2b's first eager step (36.9 GiB allocated at its peak)
+#: beside phase 12's processes (21.7), and the 4-layer C5 process (21.8)
+#: beside zamba2's segment checks and f32 build (PR 28's readings), each
+#: with room for the caching allocator's slack
+BESIDE_GIB = {"phase 12": 66.0, "zamba2 checks": 48.0}
+#: the card's memory (GiB) outside this process's allocator that a
+#: process started alone tolerates: the CUDA contexts
+OTHERS_GIB = 2.0
+
+
+def fresh_train(arch: str, layers: int, steps: int, full: bool,
+                tag: str, remat: bool = False, two_units: bool = False,
+                hold: str | None = None, signal: str | None = None) -> dict:
+    """One fresh process's training run (``chip_smoke.py --train-child``):
+    full-width ``arch`` at ``layers`` (0: its full depth), f32 masters,
+    bf16 compute, ``TrainConfig(remat=remat, offload=True)``, 2 x 1,024
+    tokens a step — ``steps`` eager steps of ``make_train_step`` as the
+    first thing the process does, nothing planned or built ahead, then
+    ``steps`` steps of ``compile_train_step`` from the same seed-0 state
+    held against them (``train_compiled``; the compiled step looks its
+    plans up in the eager step's wrappers).  With ``two_units``: one
+    dlhs segment launched through a second unit as well
+    (``shared_segment_check``).  With ``full``: the plans' node and
+    segment counts, every distinct segment of the loss, its backward and
+    the update against its plain version, and the f32 build of
+    ``ZOO_TRAIN`` layers (remat off, planned and built ahead), offloaded
+    against the plain eager step.  ``hold``: a file whose existence the
+    process waits for after its first eager step (what shared the card
+    with it until then is gone before its timed steps); ``signal``: a
+    file it writes once its timed steps are over and their memory given
+    back (what comes next may share the card).
+    Returns its readings."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.core.offload import bwd_plan_stats
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.models.transformer import Ties
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import device_batch
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    label = f"{arch} at {cfg.num_layers} layers" + ", remat" * remat
+    tcfg = TrainConfig(remat=remat, offload=True)
+    model = build_model(cfg, device=DEVICE)
+    data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
+                                                         *TRAIN_SHAPE)))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    step = make_train_step(model, tcfg)
+    state = init_train_state(model, 0)
+    n_params = sum(t.numel() for t in Ties(state.params).unique(state.params))
+    ops.reset_launch_counts()
+    eager = dict(times=[], losses=[], gnorms=[], lrs=[], per_step=[])
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        before, copies = ops.launch_counts(), sum(fe.COPIES.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        torch.cuda.synchronize()
+        eager["times"].append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        eager["per_step"].append({k: after[k] - before[k] for k in after
+                                  if after[k] - before[k]})
+        eager["per_step"][-1]["grid operand copies"] = \
+            sum(fe.COPIES.values()) - copies
+        for k, key in (("losses", "loss"), ("gnorms", "grad_norm"),
+                       ("lrs", "lr")):
+            eager[k].append(float(m[key]))
+        check(np.isfinite(eager["losses"][-1]) and
+              np.isfinite(eager["gnorms"][-1]), f"{label}: non-finite step")
+        if i == 0 and hold is not None:
+            t_hold = time.perf_counter()
+            while not os.path.exists(hold):
+                check(time.perf_counter() - t_hold < CHILD_TIMEOUT,
+                      f"{label}: not released after its first step")
+                time.sleep(0.2)
+            eager["held_s"] = time.perf_counter() - t_hold
+    eager["step_ms"] = sum(eager["times"][1:]) / (steps - 1) * 1e3
+    eager["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    lst, bst = step.stats, bwd_plan_stats()
+    gen = [n for n in _build.BUILD_SECONDS if n.startswith("gen-")]
+    first = dict(seconds=eager["times"][0],
+                 capture_s=lst.capture_s + bst.capture_s,
+                 plan_s=lst.plan_s + bst.plan_s,
+                 build_s=sum(_build.BUILD_SECONDS[n] for n in gen),
+                 units=len(gen), bwd_plans=bst.traces)
+    print(f"{tag} {label} ({n_params / 1e9:.3f} B parameters), the "
+          f"process's first {steps} eager steps, nothing planned ahead: "
+          f"{[round(t, 3) for t in eager['times']]} s by the host clock; "
+          f"the first: loss and backward capture {first['capture_s']:.1f} s,"
+          f" plan {first['plan_s']:.1f} s ({first['bwd_plans']} backward "
+          f"plans), {first['units']} CUDA translation units built at their "
+          f"first launch in {first['build_s']:.1f} s; losses "
+          f"{eager['losses']}, grad norms {eager['gnorms']}; peak "
+          f"{eager['peak']:.2f} GiB; launches a step {eager['per_step'][-1]}")
+    out = dict(arch=arch, layers=cfg.num_layers, params=n_params,
+               remat=remat, first=first, eager=eager)
+    plans = None
+    if two_units:
+        dbatch = device_batch(data.batch(0), DEVICE)
+        shared_segment_check(step.loss_fn.backward_plans_for(state.params,
+                                                             dbatch), tag)
+        del dbatch
+    if full:
+        dbatch = device_batch(data.batch(0), DEVICE)
+        fplan = step.loss_fn.plan_for(state.params, dbatch)
+        bplans = step.loss_fn.backward_plans_for(state.params, dbatch)
+        uplan = step.update_fn.plan_for(*update_args(state))
+        plans = [fplan, *bplans, uplan]
+        out["plans"] = dict(
+            forward=(len(fplan.eqns), len(fplan.segments)),
+            backward=(len(bplans), sum(len(p.eqns) for p in bplans),
+                      sum(len(p.segments) for p in bplans)),
+            update=(len(uplan.eqns), len(uplan.segments)))
+        print(f"{tag} {label} plans (nodes, segments): forward "
+              f"{out['plans']['forward']}, {len(bplans)} backward plans "
+              f"{out['plans']['backward'][1:]}, update "
+              f"{out['plans']['update']}")
+        del dbatch
+    # the eager steps' final state, to hold the compiled steps' against:
+    # the zoo's kept on the device (both states fit), queue C5's check
+    # compares the metrics alone.  The compiled steps look their plans up
+    # in the eager step's wrappers (planned once in the process)
+    host = [t.detach() for t in state_leaves(state)] if full else None
+    plans_of = step
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["compiled"] = train_compiled(model, tcfg, data, tokens, eager, host,
+                                     label, tag=tag, steps=steps,
+                                     plans_of=plans_of, profile=False)
+    check(out["compiled"]["bit_equal"],
+          f"{label}: the compiled steps are not bit-equal to the eager ones")
+    if not full:
+        print(f"{tag} {label}: compiled steps' losses, grad norms and lr "
+              f"bit-equal to the eager steps'")
+    del host, plans_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    if signal is not None:
+        open(signal, "w").close()
+    if not full:
+        return out
+    out["segments"] = len(train_segments(plans))
+    check_train_segments(plans, torch.bfloat16, "", timed=False, tag=tag)
+    del plans, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers32 = ZOO_TRAIN[arch][0]
+    cfg32 = dataclasses.replace(get_config(arch), num_layers=layers32,
+                                dtype="float32")
+    tcfg = dataclasses.replace(tcfg, remat=False)
+    model32 = build_model(cfg32, device=DEVICE)
+    state32 = init_train_state(model32, 0)
+    step32 = make_train_step(model32, tcfg)
+    host_batch32 = SyntheticLM(make_data_config(cfg32, ShapeConfig(
+        "chip", *TRAIN_SHAPE))).batch(0)
+    batch32 = device_batch(host_batch32, DEVICE)
+    label32 = f"f32 {layers32}-layer {arch}"
+    # planned and built ahead, together, as phase 7 builds its f32 step
+    plan_training(step32, state32, host_batch32, label32, tag=tag,
+                  copied_bmm=False)
+    train_numerics(model32, step32, state32, batch32, tcfg,
+                   f"{label32} offloaded vs plain", f32=True, tag=tag)
+    if arch in F32_STEPS:
+        del model32, state32, step32, batch32
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["f32_gnorms"] = plain_f32_steps(arch, steps, remat, eager, tag)
+    return out
+
+
+def plain_f32_steps(arch: str, steps: int, remat: bool, eager: dict,
+                    tag: str) -> list[float]:
+    """``steps`` steps of the plain eager step (no offload) in f32 at full
+    width and depth from the seed-0 state, on phase 13's batches: their
+    grad norms beside the offloaded bf16 steps' (``eager``), to tell what
+    the model does from what the port's offloaded bf16 path does."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    model = build_model(cfg, device=DEVICE)
+    data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
+                                                         *TRAIN_SHAPE)))
+    step = make_train_step(model, TrainConfig(remat=remat, offload=False))
+    state, out, losses = init_train_state(model, 0), [], []
+    for i in range(steps):
+        state, m = step(state, data.batch(i))
+        out.append(float(m["grad_norm"]))
+        losses.append(float(m["loss"]))
+    print(f"{tag} {arch}: the plain eager step in f32 (no offload, remat "
+          f"{'on' if remat else 'off'}), {steps} steps from the seed-0 "
+          f"state: losses {losses}, grad norms {out}; the offloaded bf16 "
+          f"steps: losses {eager['losses']}, grad norms {eager['gnorms']}")
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shared_segment_check(plans, tag: str) -> None:
+    """Queue C5's cause, directly: a bf16 dlhs segment that its plan's
+    unit already launched, instantiated again in a translation unit of its
+    own and launched through it in the same process — before
+    ``-fno-gnu-unique`` the second unit's launcher found the first's
+    once-only guard set and launched its own kernel without the
+    shared-memory attribute (refused: ``invalid argument``).  Both
+    launches must run and agree bit for bit."""
+    from repro_torch.core.offload import (
+        _matmul_gen,
+        _segment_kernel,
+        segment_call,
+        segment_programs,
+    )
+
+    for plan in plans:
+        for seg in plan.segments:
+            if seg.matmul is None or seg.matmul.form != "dlhs":
+                continue
+            gen = _matmul_gen(segment_call(plan.eqns, seg))
+            if gen.get("path") != "sm90" or not all(gen["tma"]):
+                continue
+            name = gen["name"]
+            call = _segment_kernel(seg, segment_programs(plan.eqns, seg),
+                                   impl="cuda")
+            vals = seg_operands(seg, 7)
+            first = call(*vals)
+            own = _build.start_generated(fm.translation_unit([name]) +
+                                         "// the segment in a unit of its "
+                                         "own\n")
+            lib, held = _build.finish_generated(*own), fm._LIB_OF[name]
+            fm._LIB_OF[name] = lib[0]
+            try:
+                again = call(*vals)
+                torch.cuda.synchronize()
+            finally:
+                fm._LIB_OF[name] = held
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            print(f"{tag} dlhs segment {name} launched through its plan's "
+                  f"unit and through a second unit of its own in this "
+                  f"process: both ran, bit-equal {same}")
+            check(same, f"{name}: the two units' launches differ")
+            return
+    check(False, "no bf16 sm90 dlhs segment with both operands by TMA")
+
+
+class TrainChild:
+    """``fresh_train`` in a subprocess of its own (``chip_smoke.py
+    --train-child``), started at once; its output goes to files until it
+    ends.  ``hold``: it waits after its first eager step until
+    ``release()``; ``signal``: ``wait_timed()`` returns once its timed
+    steps are over and their memory given back.  So the whole script runs
+    a child's first step beside other work and its timed steps alone."""
+
+    def __init__(self, arch: str, layers: int, steps: int, full: bool,
+                 tag: str, *, remat: bool = False, two_units: bool = False,
+                 hold: bool = False, signal: bool = False):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        self.hold = os.path.join(self.dir, "release") if hold else None
+        self.signal = os.path.join(self.dir, "timed") if signal else None
+        self.label = f"{arch} at {layers or 'full'} layers"
+        spec = dict(arch=arch, layers=layers, steps=steps, full=full,
+                    tag=tag, remat=remat, two_units=two_units,
+                    hold=self.hold, signal=self.signal)
+        cmd = [sys.executable, os.path.abspath(__file__), "--train-child",
+               json.dumps(spec), "--src", _src_root()]
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self.out, stderr=self.err,
+                                     text=True)
+
+    def release(self) -> None:
+        if self.hold is not None:
+            open(self.hold, "w").close()
+
+    def wait_timed(self) -> None:
+        while not os.path.exists(self.signal) and self.proc.poll() is None:
+            check(time.perf_counter() - self.t0 < CHILD_TIMEOUT,
+                  f"{self.label}: its timed steps did not end within "
+                  f"{CHILD_TIMEOUT} s")
+            time.sleep(0.2)
+
+    def finish(self) -> dict:
+        """Waits for the process; prints its lines, returns its
+        readings."""
+        try:
+            self.proc.wait(timeout=max(
+                1.0, CHILD_TIMEOUT - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+        process_s = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        lines, err = self.out.read().splitlines(), self.err.read()
+        self.stop()
+        for ln in lines:
+            if not ln.startswith(TRAIN_MARK):
+                print(ln)
+        marked = [ln for ln in lines if ln.startswith(TRAIN_MARK)]
+        if self.proc.returncode != 0 or not marked:
+            print(err[-16000:], file=sys.stderr)
+        check(self.proc.returncode == 0 and bool(marked),
+              f"{self.label}: the training process exited "
+              f"{self.proc.returncode} (its standard error above)")
+        res = json.loads(marked[-1][len(TRAIN_MARK):])
+        res["process_s"] = process_s
+        return res
+
+    def stop(self) -> None:
+        """Ends the process if it still runs; removes its files."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in (self.out, self.err):
+            f.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def card_to_itself(timeout: float = 300.0) -> None:
+    """Waits until no process but this one holds the card's memory, as a
+    process started alone needs (a process that ended may give its memory
+    back late); prints the wait, and the card's processes, when there
+    was one."""
+    t0 = time.perf_counter()
+
+    def others() -> float:
+        free, total = torch.cuda.mem_get_info()
+        return (total - free - torch.cuda.memory_reserved()) / 2 ** 30
+
+    apps, first = None, others()
+    held = first
+    while held > OTHERS_GIB and time.perf_counter() - t0 < timeout:
+        if apps is None:
+            apps = run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"]).replace("\n", "; ")
+        time.sleep(1.0)
+        held = others()
+    if apps is not None:
+        print(f"[13] {first:.2f} GiB of the card held outside this "
+              f"process's allocator (its processes: {apps or 'none listed'}"
+              f"); {held:.2f} after {time.perf_counter() - t0:.1f} s")
+
+
+def c5_line(r: dict, beside: str = "") -> None:
+    print(f"[c5] qwen3-1.7b at {r['layers']} layers: the process's first "
+          f"steps ran, {r['process_s']:.1f} s in all (first eager step "
+          f"{r['first']['seconds']:.1f} s, first compiled step "
+          f"{r['compiled']['first_s']:.1f} s), compiled bit-equal to "
+          f"eager" + (f"; beside {beside}" if beside else ""))
+
+
+def c5_child(layers: int) -> TrainChild:
+    """Queue C5's check at ``layers``: a fresh process's first offloaded
+    steps with ``remat=False``, nothing planned ahead; the smaller
+    process also launches a dlhs segment through a second unit."""
+    return TrainChild("qwen3-1.7b", layers, 2, False, "[c5]",
+                      two_units=layers == C5_LAYERS[0])
+
+
+def zoo_child(arch: str, **kw) -> TrainChild:
+    return TrainChild(arch, 0, 3, True, "[13]", remat=ZOO_TRAIN[arch][1],
+                      **kw)
+
+
+def zoo_line(r: dict, card: str, launches: dict, beside: str = "") -> None:
+    """Phase 13's checks and summary line of one model's process."""
+    arch, remat, c = r["arch"], r["remat"], r["compiled"]
+    launches[arch] = c["launches"]
+    check(all(c["launches"].get(k, 0) > 0 for k in (
+        "fused_segment_grid", "fused_matmul_segment",
+        "fused_matmul_dlhs_segment", "fused_matmul_drhs_segment")),
+          f"{arch}: a step launched no B2, B3, B4 or B6: {c['launches']}")
+    held = r["eager"].get("held_s")
+    print(f"[13] {arch}: {r['layers']} layers, {r['params'] / 1e9:.3f} B"
+          f" parameters, remat {'on' if remat else 'off'}; a replay "
+          f"{c['host_ms']:.3f} ms by the host clock, {c['replay_ms']:.3f} ms"
+          f" on the device (CUDA events), idle {c['idle']:.1%}, "
+          f"{c['tokens_s']:.0f} tokens/s (eager "
+          f"{TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / r['eager']['step_ms'] * 1e3:.0f}"
+          f"); first eager step {r['first']['seconds']:.1f} s (capture "
+          f"{r['first']['capture_s']:.1f}, plan {r['first']['plan_s']:.1f}"
+          f", {r['first']['units']} units built {r['first']['build_s']:.1f}"
+          + (f"; beside {beside}" if beside else "")
+          + f"), first compiled step {c['first_s']:.1f} s (warm "
+          f"{c['warm_s']:.1f}, capture {c['capture_s']:.1f}); plans "
+          f"{r['plans']}; {r['segments']} distinct segments held against "
+          f"their plain versions; peak {c['peak']:.2f} GiB, graph pool "
+          f"{c['pool']} bytes; {c['tied']} tied places, {c['unique']} "
+          f"unique state tensors; launches a step {c['launches']}; "
+          f"train_traces 1; {r['process_s']:.1f} s in all"
+          + (f" ({held:.1f} of them waiting after the first step)"
+             if held is not None else "") + f" on {card}")
+
+
+def durability_and_zoo_train(card: str, t0: float) -> dict:
+    """Phases 12 and 13 and queue C5's check in the whole script, their
+    processes overlapped where the card's memory allows and no timed step
+    shares the card: zamba2-1.2b's process starts beside phase 12 and
+    takes its first eager step there, then waits for phase 12's end
+    before its timed steps; the 4-layer C5 process runs beside zamba2's
+    untimed checks (its segments, the f32 build); the 28-layer C5 process
+    and then rwkv6-1.6b's run alone, each once no other process holds
+    the card's memory (``card_to_itself``).  Each overlap is taken only where
+    the card has ``BESIDE_GIB`` free for it at its start, else the two
+    run one after the other.  Phase 12's seconds, zamba2's first step and
+    the 4-layer C5 process's readings are taken beside that other work
+    (``--durability`` / ``--zoo-train`` give them alone).  Returns the
+    zoo models' launches a step by kernel."""
+    launches, children = {}, []
+
+    def free_gib() -> float:
+        return torch.cuda.mem_get_info()[0] / 2 ** 30
+
+    def start(child: TrainChild) -> TrainChild:
+        children.append(child)
+        return child
+
+    torch.cuda.empty_cache()
+    free = free_gib()
+    beside = free >= BESIDE_GIB["phase 12"]
+    print(f"[12] {free:.2f} GiB of the card free (this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f}): zamba2-1.2b's "
+          f"process starts {'beside phase 12' if beside else 'after it'}")
+    try:
+        zamba = start(zoo_child("zamba2-1.2b", hold=True, signal=True)) \
+            if beside else None
+        phase_durability(card, beside="phase 13's zamba2-1.2b process (its "
+                         "start and first eager step)" if beside else "")
+        print(f"[time] phase 12 ended at {time.perf_counter() - t0:.1f} s")
+        if zamba is None:
+            zamba = start(zoo_child("zamba2-1.2b", signal=True))
+        zamba.release()
+        zamba.wait_timed()
+        free = free_gib()
+        small = start(c5_child(C5_LAYERS[0])) \
+            if free >= BESIDE_GIB["zamba2 checks"] else None
+        print(f"[13] {free:.2f} GiB of the card free after zamba2-1.2b's "
+              f"timed steps: the 4-layer C5 process starts "
+              f"{'beside its checks' if small else 'after them'}")
+        zoo_line(zamba.finish(), card, launches,
+                 beside="phase 12" if beside else "")
+        if small is None:
+            c5_line(start(c5_child(C5_LAYERS[0])).finish())
+        else:
+            c5_line(small.finish(), beside="zamba2-1.2b's segment checks "
+                    "and f32 build")
+        print(f"[time] zamba2-1.2b's and the 4-layer C5 process ended at "
+              f"{time.perf_counter() - t0:.1f} s")
+        # alone on the card, rwkv6 (the largest) last
+        for make in (lambda: c5_child(C5_LAYERS[1]),
+                     lambda: zoo_child("rwkv6-1.6b")):
+            card_to_itself()
+            r = start(make()).finish()
+            if r["arch"] in ZOO_TRAIN:
+                zoo_line(r, card, launches)
+            else:
+                c5_line(r)
+        card_to_itself(60.0)
+    finally:
+        for child in children:
+            child.stop()
+    print(f"[time] phase 13 and queue C5's check ended at "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def zoo_alone(card: str) -> dict:
+    """``--zoo-train``: queue C5's check and phase 13, each process alone
+    on the card.  Returns the launches a step by kernel of each zoo
+    model (its compiled step's replay)."""
+    launches = {}
+    for layers in C5_LAYERS:
+        c5_line(c5_child(layers).finish())
+    for arch in ZOO_TRAIN:
+        zoo_line(zoo_child(arch).finish(), card, launches)
+    return launches
 
 
 def decode_alone(card: str) -> None:
@@ -5707,6 +6333,11 @@ def main() -> int:
         i = sys.argv.index("--durability-child")
         print(DUR_MARK + json.dumps(durability_child(*sys.argv[i + 1:i + 3])))
         return 0
+    if "--train-child" in sys.argv:
+        i = sys.argv.index("--train-child")
+        res = fresh_train(**json.loads(sys.argv[i + 1]))
+        print(TRAIN_MARK + json.dumps(res))
+        return 0
     if "--kernels-a-call" in sys.argv:
         print(json.dumps(kernels_a_call()))
         return 0
@@ -5733,27 +6364,38 @@ def main() -> int:
     if "--durability" in sys.argv:
         phase_durability(card)
         return 0
+    if "--zoo-train" in sys.argv:
+        zoo_alone(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
+    print(f"[time] phases 1-3 ended at {time.perf_counter() - t0:.1f} s")
     engine, eager, launches = phase_engine()
     phase_full_width_check(engine, eager, "qwen3-1.7b")
+    print(f"[time] phases 4-5 ended at {time.perf_counter() - t0:.1f} s")
     params = engine.params
     del engine, eager
     timed, counts = phase_offload(params, card)
+    print(f"[time] phase 6 ended at {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     train_rows, train_counts, b8, _ = phase_train(card)
+    print(f"[time] phase 7 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     b5, b7 = phase_flash(card)
+    print(f"[time] phase 8 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     lib = phase_library(card)
+    print(f"[time] phase 9 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     scan = phase_scan(card)
+    print(f"[time] phase 10 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     phase_zoo(card)
+    print(f"[time] phase 11 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    phase_durability(card)
-    print(f"[13] total {time.perf_counter() - t0:.1f} s")
+    durability_and_zoo_train(card, t0)
+    print(f"[14] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",

@@ -28,8 +28,13 @@ Fault-tolerance properties (as the reference's):
     after a new commit that verifies, and the newest VERIFIED checkpoint
     is never deleted.
 
-Leaves are torch tensors, flattened with the reference's path keys
-(``.params/embed``, ``.opt/.step``, ...).  numpy has no bfloat16, so a
+Leaves are torch tensors, keyed by their paths in the reference's form
+(``.params/embed/table``, ``.opt/.step``, ...) over the port's own tree,
+whose layers are a list (``layers/<i>``) where the reference stacks them
+under ``decoder``: the two packages share the files, and a state moves
+between them through ``convert.py``.  A tied tensor is one leaf, named by
+the model's tree (``Ties.keys``: zamba2's block under ``shared_attn``,
+with the reference's leaf names below it).  numpy has no bfloat16, so a
 bf16 leaf is stored as its ``uint16`` view and the manifest names
 ``bfloat16``.  ``restore`` writes into the example tree's tensors, on
 their device, and returns that tree.
@@ -67,6 +72,7 @@ from repro_torch.core.artifacts import (
     fsync_dir,
     read_bytes,
 )
+from repro_torch.models.transformer import Ties
 
 #: torch dtypes stored as another numpy dtype of the same bytes
 _STORED_AS = {torch.bfloat16: (np.uint16, np.int16, torch.int16)}
@@ -80,10 +86,13 @@ class CheckpointCorrupt(RuntimeError):
 
 
 def _flatten_with_paths(tree: Any) -> tuple[list[tuple[str, Any]], Any]:
-    flat, spec = pytree.tree_flatten_with_path(tree)
-    keyed = [("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                       for k in path), leaf) for path, leaf in flat]
-    return keyed, spec
+    """(key, leaf) pairs, each tensor once (``Ties``): a tensor that
+    several places hold (zamba2's tied shared-attention block, its
+    moments) is written and restored once, under the name the model's
+    tree gives it (``Ties.keys``: the reference's ``.../shared_attn/...``),
+    and a restore into it fills every place."""
+    ties = Ties(tree)
+    return list(zip(ties.keys(tree), ties.unique(tree))), ties.spec
 
 
 def _dtype_name(t: torch.Tensor) -> str:

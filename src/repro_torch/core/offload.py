@@ -2633,36 +2633,35 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
             stats.plan_hits += 1
         return entry, leaves
 
+    def call(entry: _Compiled, leaves: list):
+        tensors = [x for x, t in zip(leaves, entry.is_tensor) if t]
+        return pytree.tree_unflatten(list(entry.run(*tensors)),
+                                     entry.out_spec)
+
     def bind(*args) -> Callable[..., Any]:
         """The plan of ``args``' signature, looked up once (counted as
-        that call's miss or hit) and bound to ``args``' tensors:
-        ``run()`` runs it on those very tensors and returns what
-        ``wrapped(*args)`` would, without another lookup — the form for
-        inputs that are fixed buffers (the engine's decode step, replayed
-        as a CUDA graph).  ``run(*a)`` runs it on ``a`` instead, which
-        must have the same signature — for inputs a compiled function
-        makes anew each call after looking its plans up once (the
-        training step's gradients, its microbatches' views).  ``run.plan``
-        is the plan."""
+        that call's miss or hit): ``run(*a)`` runs it on ``a``, which
+        must have the same signature, and returns what ``wrapped(*a)``
+        would, without another lookup — for a compiled function that
+        looks its plans up once (the engine's decode step on its fixed
+        buffers, the training step's gradients and microbatch views).
+        The run keeps no reference to ``args``' tensors.  ``run.plan`` is
+        the plan."""
         entry, leaves = entry_for(args)
         key = [_leaf_signature(x) for x in leaves]
-        bound = [x for x, t in zip(leaves, entry.is_tensor) if t]
+        del leaves
 
         def run(*a):
-            tensors = bound
-            if a:
-                flat = pytree.tree_leaves(list(a))
-                if [_leaf_signature(x) for x in flat] != key:
-                    raise ValueError("a bound plan runs on its own "
-                                     "signature only")
-                tensors = [x for x, t in zip(flat, entry.is_tensor) if t]
-            return pytree.tree_unflatten(list(entry.run(*tensors)),
-                                         entry.out_spec)
+            flat = pytree.tree_leaves(list(a))
+            if [_leaf_signature(x) for x in flat] != key:
+                raise ValueError("a bound plan runs on its own signature "
+                                 "only")
+            return call(entry, flat)
         run.plan = entry.plan
         return run
 
     def wrapped(*args):
-        return bind(*args)()
+        return call(*entry_for(args))
 
     def warm(*args) -> OffloadPlan:
         """Plan ``args``' signature now, as a first call would (counted
@@ -2681,6 +2680,18 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     wrapped.warm = warm
     wrapped.warm_backward = warm_backward
     wrapped.plan_for = lambda *args: entry_for(args, count=False)[0].plan
+
+    def backward_plans_for(*args) -> list[OffloadPlan]:
+        """The backward plans the fused segments of ``args``' plan hold
+        so far (each made by a backward that ran), looked up without
+        counting."""
+        run = entry_for(args, count=False)[0].run
+        return [entry[1] for node in run.graph.nodes
+                if hasattr(node.target, "segment")
+                for entry in node.target.segment.__dict__.get(
+                    "_bwd_plan_cache", {}).values()]
+
+    wrapped.backward_plans_for = backward_plans_for
     wrapped.explain = lambda *args: \
         entry_for(args, count=False)[0].plan.report()
     wrapped.cache_size = lambda: len(cache)

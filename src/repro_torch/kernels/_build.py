@@ -26,8 +26,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
+#: ``-fno-gnu-unique``: a function-local static of a template in a header
+#: (the launchers' ``static const cudaError_t attr =
+#: cudaFuncSetAttribute(...)``) is otherwise an ``STB_GNU_UNIQUE`` symbol,
+#: which the dynamic linker binds once for the whole process whatever
+#: ``RTLD_LOCAL`` says.  Two generated libraries that instantiate the same
+#: segment would share one guard, and the second library's kernel would
+#: launch without its shared-memory attribute ever set (refused:
+#: ``invalid argument``).  With the flag every library keeps its own.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 = found built)

@@ -52,10 +52,12 @@
 // thread owns a column of the tile).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 
 // FM_BN (output columns of a block) and FM_BK (K depth of one staged
@@ -310,6 +312,34 @@ __device__ __forceinline__ float fm_acc_sum(const float* __restrict__ ws, int ro
   return s;
 }
 
+// What a launcher returns: 0, a CUDA runtime error of a plain launch, or
+// one of these codes past the runtime's, naming the step of an sm90 or
+// weight-stream launcher that was refused (``fm_error`` spells them out):
+//   FM_ERR_MAP + 1000 * operand + CUresult  a TMA map refused to encode
+//                                           (operand 0 = A, 1 = B;
+//                                           CUDA_ERROR_NOT_FOUND: no
+//                                           cuTensorMapEncodeTiled)
+//   FM_ERR_ATTR + cudaError_t               the shared-memory attribute
+//   FM_ERR_PENDING + cudaError_t            an error an earlier call left
+//                                           on this thread, found before
+//                                           the launch
+//   FM_ERR_LAUNCH + cudaError_t             the launch itself
+constexpr int FM_ERR_MAP = 10000, FM_ERR_ATTR = 20000, FM_ERR_PENDING = 30000,
+              FM_ERR_LAUNCH = 40000;
+
 extern "C" const char* fm_error(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  static thread_local char msg[200];
+  if (code < FM_ERR_MAP) return cudaGetErrorString((cudaError_t)code);
+  if (code < FM_ERR_ATTR) {
+    const int op = (code - FM_ERR_MAP) / 1000, res = (code - FM_ERR_MAP) % 1000;
+    snprintf(msg, sizeof msg, "the TMA map of operand %s was refused (CUresult %d%s)",
+             op == 0 ? "A" : "B", res,
+             res == CUDA_ERROR_NOT_FOUND ? ": cuTensorMapEncodeTiled not found" : "");
+    return msg;
+  }
+  const char* step = code < FM_ERR_PENDING ? "the shared-memory attribute was refused"
+                     : code < FM_ERR_LAUNCH ? "an earlier call left an error before the launch"
+                                            : "the launch was refused";
+  snprintf(msg, sizeof msg, "%s: %s", step, cudaGetErrorString((cudaError_t)(code % 10000)));
+  return msg;
 }

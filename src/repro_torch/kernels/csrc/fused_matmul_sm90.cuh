@@ -412,28 +412,32 @@ __global__ void __launch_bounds__(FM90_THREADS, 1)
 
 // --------------------------------------------------------------- host
 
-// Encode the TMA operands' maps and launch the GEMM of segment S.
+// Encode the TMA operands' maps and launch the GEMM of segment S.  A
+// refused step returns its own code (fused_matmul.cuh, FM_ERR_*).
 template <class S, bool AT, bool BT>
 int fm90_run(const typename S::Args& a, float* ws, cudaStream_t s) {
   using G = Fm90Geom<S::TN>;
   CUtensorMap ta{}, tb{};
   if constexpr (AT) {
-    const bool ok = fm90_a_mn<S>() ? fm90_map(&ta, a.l0, S::PER, S::K, S::BATCH, 64, 64)
-                                   : fm90_map(&ta, a.l0, S::K, S::PER, S::BATCH, 64, FM90_TM);
-    if (!ok) return (int)cudaErrorInvalidValue;
+    const CUresult r = fm90_a_mn<S>() ? fm90_map(&ta, a.l0, S::PER, S::K, S::BATCH, 64, 64)
+                                      : fm90_map(&ta, a.l0, S::K, S::PER, S::BATCH, 64, FM90_TM);
+    if (r != CUDA_SUCCESS) return FM_ERR_MAP + (int)r;
   }
   if constexpr (BT) {
-    const bool ok = fm90_b_mn<S>() ? fm90_map(&tb, a.w0, S::N, S::K, S::BATCH, 64, 64)
-                                   : fm90_map(&tb, a.w0, S::K, S::N, S::BATCH, 64, S::TN);
-    if (!ok) return (int)cudaErrorInvalidValue;
+    const CUresult r = fm90_b_mn<S>() ? fm90_map(&tb, a.w0, S::N, S::K, S::BATCH, 64, 64)
+                                      : fm90_map(&tb, a.w0, S::K, S::N, S::BATCH, 64, S::TN);
+    if (r != CUDA_SUCCESS) return FM_ERR_MAP + 1000 + (int)r;
   }
   auto kern = fm90_gemm<S, AT, BT>;
   // once, at the first (eager) launch: never inside a graph capture
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
+  if (attr != cudaSuccess) return FM_ERR_ATTR + (int)attr;
+  const cudaError_t pending = cudaGetLastError();
+  if (pending != cudaSuccess) return FM_ERR_PENDING + (int)pending;
   const dim3 grid(S::BATCH * ((S::PER + FM90_TM - 1) / FM90_TM), (S::N + S::TN - 1) / S::TN,
                   S::KS);
   kern<<<grid, FM90_THREADS, G::SMEM, s>>>(a, ws, ta, tb);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : FM_ERR_LAUNCH + (int)e;
 }

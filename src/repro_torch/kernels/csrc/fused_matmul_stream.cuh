@@ -203,15 +203,19 @@ __global__ void __launch_bounds__(FMS_THREADS, 2) fms_gemm(typename S::Args a, f
 }
 
 // Launch the stream of segment S (its shared memory set at the first,
-// eager launch: never inside a graph capture).
+// eager launch: never inside a graph capture).  A refused step returns
+// its own code (fused_matmul.cuh, FM_ERR_*).
 template <class S, bool ASYNC>
 int fms_run(const typename S::Args& a, float* ws, cudaStream_t s) {
   using G = FmsGeom<S>;
   auto kern = fms_gemm<S, ASYNC>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
+  if (attr != cudaSuccess) return FM_ERR_ATTR + (int)attr;
+  const cudaError_t pending = cudaGetLastError();
+  if (pending != cudaSuccess) return FM_ERR_PENDING + (int)pending;
   const dim3 grid(S::BATCH * G::RG, (S::N + FMS_TN - 1) / FMS_TN, S::KS);
   kern<<<grid, FMS_THREADS, G::SMEM, s>>>(a, ws);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : FM_ERR_LAUNCH + (int)e;
 }

@@ -332,17 +332,18 @@ static fm90_encode_t fm90_encoder() {
 
 // A bf16 tensor [d2][d1][d0] (d0 contiguous, rows dense) read in boxes
 // of [1][b1][b0] with the 128-byte swizzle; zeros past every edge.
-static bool fm90_map(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                     uint32_t b0, uint32_t b1) {
+// Returns the encoder's result (CUDA_ERROR_NOT_FOUND without one).
+static CUresult fm90_map(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1,
+                         uint64_t d2, uint32_t b0, uint32_t b1) {
   const fm90_encode_t enc = fm90_encoder();
-  if (enc == nullptr) return false;
+  if (enc == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t one[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
              one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // A dense 16-bit tensor [d3][d2][d1][d0] (d0 contiguous) read in boxes of

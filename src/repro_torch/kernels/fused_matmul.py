@@ -1077,8 +1077,12 @@ def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         code = launch(ptrs, torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.fm_error(code).decode()}")
+        ops = ", ".join(f"{tuple(v.shape)} {v.dtype} stride {v.stride()} "
+                        f"at {v.data_ptr():#x}" for v in operands)
+        raise RuntimeError(
+            f"{kernel} launch failed: {lib.fm_error(code).decode()} "
+            f"(code {code}; segment {gen['name']}{suffix}, "
+            f"{gen.get('path', 'fma')}; operands {ops})")
     kernel_guard().count_launch(kernel)
     if variant is not None:
         kernel_guard().count_variant(kernel, gen["name"], variant)

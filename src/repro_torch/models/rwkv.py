@@ -12,14 +12,17 @@ the bonus for the current token.  Prefill uses the chunked form, decode
 the one-step recurrence.  Channel mix is the squared-ReLU MLP with token
 shift.  Heads are normalised with a per-head LayerNorm (``ln_x``).
 
-``wkv6_chunked`` is plain PyTorch: the chunked form that
-``kernels/wkv6.py`` keeps beside B13 (``wkv6_plain``), with the model's
-chunk, a carried-in state and the final state; the model does not
-launch B13.  Its exponents are all at most 0 (the decay between two
-positions of a chunk is taken per pair), where the reference's
-``k * exp(-cum)`` overflows once a chunk's summed log-decay passes about
--88.  Where the reference is finite the two agree up to rounding; the
-difference is by design.
+``wkv6_chunked`` is the model's own chunked WKV6 in plain PyTorch, as
+the reference's model keeps its own apart from the kernel (the same
+arithmetic as ``kernels/wkv6.py``'s ``wkv6_plain``, which serves the
+kernel's tests), with the model's chunk, a carried-in state and the
+final state; the model does not launch B13.  Training differentiates it
+and the offload compiler captures it as it stands: the chunk loop
+unrolled, each chunk's output written into its slice of ``y``.  Its
+exponents are all at most 0 (the decay between two positions of a chunk
+is taken per pair), where the reference's ``k * exp(-cum)`` overflows
+once a chunk's summed log-decay passes about -88.  Where the reference
+is finite the two agree up to rounding; the difference is by design.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig
-from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models.layers import Params, at, dense_init
 
 
@@ -90,8 +92,40 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked WKV6.  r, k, w ``[B, S, H, K]``, v ``[B, S, H, V]``, u
     ``[H, K]``, state0 ``[B, H, K, V]``.  Returns ``(y [B, S, H, V] in
     r's dtype, final state [B, H, K, V] f32)``."""
-    return wkv6_plain(r, k, v, w, u, chunk=min(chunk, r.shape[1]),
-                      state0=state0)
+    b, s, h, kk = r.shape
+    vv = v.shape[-1]
+    chunk = min(chunk, s)
+    state = (torch.zeros((b, h, kk, vv), dtype=torch.float32,
+                         device=r.device) if state0 is None
+             else state0.float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    logw = torch.log(torch.clamp(w.float(), min=1e-20))
+    uf = u.float()
+    y = torch.empty((b, s, h, vv), dtype=r.dtype, device=r.device)
+    for s0 in range(0, s, chunk):
+        sl = slice(s0, min(s0 + chunk, s))
+        q = sl.stop - s0
+        rq, kq, vq = rf[:, sl], kf[:, sl], vf[:, sl]             # [B,Q,H,*]
+        cum = torch.cumsum(logw[:, sl], dim=1)                   # inclusive
+        prev = cum - logw[:, sl]                                 # cum_{i-1}
+        strict = torch.ones((q, q), dtype=torch.bool,
+                            device=r.device).tril(-1)
+        # exp(cum_{i-1} - cum_j) for j < i, per channel: every exponent <= 0
+        diff = prev[:, :, None] - cum[:, None, :]                # [B,Q,Q,H,K]
+        pair = torch.exp(torch.where(strict[None, :, :, None, None], diff,
+                                     -torch.inf))
+        scores = torch.einsum("bihk,bjhk,bijhk->bhij", rq, kq, pair)
+        diag = torch.einsum("bihk,hk,bihk->bih", rq, uf, kq)
+        out = torch.einsum("bhij,bjhv->bihv", scores, vq)
+        out = out + diag[..., None] * vq
+        out = out + torch.einsum("bihk,bhkv->bihv", rq * torch.exp(prev),
+                                 state)
+        y[:, sl] = out.to(r.dtype)
+        end = cum[:, -1]                                         # [B, H, K]
+        kscale = kq * torch.exp(end[:, None] - cum)
+        state = state * torch.exp(end)[..., None] + torch.einsum(
+            "bjhk,bjhv->bhkv", kscale, vq)
+    return y, state
 
 
 def wkv6_step(r, k, v, w, u, state):

@@ -6,12 +6,15 @@ chunk.  x ``[B, S, d]``; inner dim ``d_in = expand * d``; heads ``d_in /
 head_dim``; state ``N = cfg.ssm.state_dim``.  B / C projections are
 shared by all heads (one group, as in zamba2).
 
-``ssd_chunked`` is plain PyTorch, as the reference's model has it: the
-chunked form that ``kernels/ssd_scan.py`` keeps beside B12
-(``ssd_scan_plain``), here with the model's own chunk, a carried-in
-state and the final state.  The model does not launch B12: the
-reference's model does not run its Pallas kernel either, and the kernel
-does not return the state that prefill hands to decode.
+``ssd_chunked`` is the model's own chunked scan in plain PyTorch, as the
+reference's model keeps its own apart from the kernel (the same
+arithmetic as ``kernels/ssd_scan.py``'s ``ssd_scan_plain``, which serves
+the kernel's tests), with the model's chunk, a carried-in state and the
+final state.  The model does not launch B12: the reference's model does
+not run its Pallas kernel either, and the kernel does not return the
+state that prefill hands to decode.  Training differentiates it and the
+offload compiler captures it as it stands: the chunk loop unrolled, each
+chunk's output written into its slice of ``y``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.layers import (
     Params,
     at,
@@ -88,8 +90,33 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     step sizes, f32); a ``[H]`` (negative decay rates, f32); bmat, cmat
     ``[B, S, N]``; state0 ``[B, H, P, N]``.  Returns ``(y [B, S, H, P] in
     xh's dtype, final state [B, H, P, N] f32)``."""
-    return ssd_scan_plain(xh, dt * a, dt, bmat, cmat,
-                          chunk=min(chunk, xh.shape[1]), state0=state0)
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    chunk = min(chunk, s)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+             if state0 is None else state0.float())
+    xf, ld, dtf = xh.float(), (dt * a).float(), dt.float()
+    bf, cf = bmat.float(), cmat.float()
+    y = torch.empty((b, s, h, p), dtype=xh.dtype, device=xh.device)
+    for s0 in range(0, s, chunk):
+        sl = slice(s0, min(s0 + chunk, s))
+        q = sl.stop - s0
+        csum = torch.cumsum(ld[:, sl], dim=1).transpose(1, 2)   # [B, H, Q]
+        tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+        diff = csum[..., :, None] - csum[..., None, :]
+        decay = torch.exp(torch.where(tri, diff, -torch.inf))    # [B,H,Q,Q]
+        scores = torch.einsum("bin,bjn->bij", cf[:, sl], bf[:, sl])
+        xw = xf[:, sl] * dtf[:, sl, :, None]                     # [B,Q,H,P]
+        y_intra = torch.einsum("bhij,bjhp->bihp",
+                               scores[:, None] * decay, xw)
+        y_inter = torch.einsum("bin,bhpn->bihp", cf[:, sl], state) * \
+            torch.exp(csum).transpose(1, 2)[..., None]
+        y[:, sl] = (y_intra + y_inter).to(xh.dtype)
+        end = csum[..., -1:]                                     # [B, H, 1]
+        dback = torch.exp(end - csum).transpose(1, 2)[..., None]  # [B,Q,H,1]
+        state = state * torch.exp(end)[..., None] + torch.einsum(
+            "bjhp,bjn->bhpn", xw * dback, bf[:, sl])
+    return y, state
 
 
 def mamba2_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, *,

@@ -33,6 +33,7 @@ slot; its decode computes fresh state and writes it back into the cache.
 """
 from __future__ import annotations
 
+import collections
 from typing import Any
 
 import torch
@@ -267,6 +268,61 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig,
               if "shared_attention" in kinds else None)
     return [shared if kind == "shared_attention"
             else init_block(gen, cfg, kind, dtype) for kind in kinds]
+
+
+class Ties:
+    """How a parameter tree's places map onto its unique tensors: the
+    one place where the tied ``shared_attention`` block is counted once.
+
+    ``init_stack`` puts the same dict at every ``shared_attention``
+    position, as the reference keeps ``params["shared_attn"]`` once.
+    Training treats the tree as its unique tensors (by identity, in the
+    order of their first place among ``pytree.tree_leaves``):
+    ``unique(tree)`` picks them from ``tree`` or from any tree of the
+    same structure (gradients, moments), and ``tree(leaves)`` rebuilds
+    the structure from one tensor a unique leaf, the same tensor at every
+    place that held one.  So a gradient taken with respect to the unique
+    leaves is the sum over the tied positions, an optimizer keeps one
+    entry for the block, and a norm counts it once.  A tree without ties
+    maps one to one."""
+
+    def __init__(self, tree: Any):
+        leaves, self.spec = pytree.tree_flatten(tree)
+        ids: dict[int, int] = {}
+        self.index = [ids.setdefault(id(t), len(ids)) for t in leaves]
+        # unique tensors are numbered in the order of their first places
+        self.first: list[int] = []
+        for i, u in enumerate(self.index):
+            if u == len(self.first):
+                self.first.append(i)
+
+    def unique(self, tree: Any) -> list:
+        """The leaves of ``tree`` at the unique tensors' first places."""
+        leaves = pytree.tree_leaves(tree)
+        return [leaves[i] for i in self.first]
+
+    def tree(self, leaves: list) -> Any:
+        """The structure with ``leaves[u]`` at every place of unique
+        tensor ``u``."""
+        return pytree.tree_unflatten([leaves[u] for u in self.index],
+                                     self.spec)
+
+    def keys(self, tree: Any) -> list[str]:
+        """A name for each unique tensor of ``tree``: its first place's
+        path, ``/``-joined; a tensor that several places hold is the
+        tied block, named as the reference names it — ``shared_attn``
+        in place of its first position's ``layers/<i>``."""
+        paths = [p for p, _ in pytree.tree_flatten_with_path(tree)[0]]
+        places = collections.Counter(self.index)
+        out = []
+        for u, i in enumerate(self.first):
+            parts = [str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in paths[i]]
+            if places[u] > 1:
+                at = parts.index("layers")
+                parts[at:at + 2] = ["shared_attn"]
+            out.append("/".join(parts))
+        return out
 
 
 def stack_apply(params: list[Params], cfg: ModelConfig, x: torch.Tensor,

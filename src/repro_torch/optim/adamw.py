@@ -9,6 +9,13 @@ the JAX package belongs to the sharding slice.
 
 Like the JAX package the update is functional: it returns new
 parameter and moment tensors and leaves its inputs as they were.
+
+A tied block that several places of the parameter tree hold (zamba2's
+shared attention, ``Ties``) has one AdamW entry: ``init_state`` gives
+every place of it the same pair of moments, as the reference's tree holds
+``shared_attn`` once.  The other functions map over the leaves they are
+given: the training step gives them its unique tensors, so the block is
+updated once and counts once in the global norm.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.utils._pytree as pytree
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.transformer import Ties
 
 Params = Any
 
@@ -30,13 +38,15 @@ class AdamWState(NamedTuple):
 
 
 def init_state(params: Params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    leaves = pytree.tree_leaves(params)
-    dev = leaves[0].device if leaves else None
+    ties = Ties(params)
+    unique = ties.unique(params)
+
+    def zeros():
+        return ties.tree([torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device) for p in unique])
+    dev = unique[0].device if unique else None
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
-                      pytree.tree_map(zeros, params),
-                      pytree.tree_map(zeros, params))
+                      zeros(), zeros())
 
 
 def adamw_hyper(cfg: TrainConfig, lr: torch.Tensor, bc1: torch.Tensor,
@@ -52,7 +62,10 @@ def adamw_hyper(cfg: TrainConfig, lr: torch.Tensor, bc1: torch.Tensor,
 def apply_updates(params: Params, grads: Params, state: AdamWState,
                   cfg: TrainConfig, lr: torch.Tensor, *,
                   use_kernel: bool = False) -> tuple[Params, AdamWState]:
-    """One AdamW step; ``lr`` is the scheduled learning rate (0-d)."""
+    """One AdamW step; ``lr`` is the scheduled learning rate (0-d).
+    Each leaf is updated once: a tree that holds a tensor at several
+    places is given as its unique tensors (``Ties.unique``), as the
+    training step gives it."""
     step = state.step + 1
     bc1 = 1.0 - cfg.beta1 ** step.float()
     bc2 = 1.0 - cfg.beta2 ** step.float()

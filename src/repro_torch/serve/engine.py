@@ -433,7 +433,7 @@ class Engine:
         ``temp > 0`` picks, as in the JAX engine.  Returns the logits."""
         st, max_len = self._state, self.max_len
         if self._decode_run is not None:
-            logits, _ = self._decode_run()
+            logits, _ = self._decode_run(*self._decode_args())
         else:
             logits, _ = self.model.decode_step_paged(
                 self.params, self.cache, st["tok"], st["pos"], self._tables,

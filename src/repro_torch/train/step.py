@@ -38,7 +38,7 @@ from repro_torch.core.graph import StepGraph
 from repro_torch.core.offload import mpu_offload, repeated_lookups
 from repro_torch.kernels.guard import kernel_guard
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import attention_only_pattern
+from repro_torch.models.transformer import Ties
 from repro_torch.optim import (
     AdamWState,
     apply_updates,
@@ -57,15 +57,9 @@ def _offloaded(fn, tcfg: TrainConfig):
     return mpu_offload(fn, policy=tcfg.resolved_offload_policy())
 
 
-def _check_trainable(model: Model, tcfg: TrainConfig,
-                     offload: bool | None) -> bool:
-    """Whether the step is offloaded (``offload``, default
-    ``tcfg.offload``); raises for a stack the port does not train."""
-    if not attention_only_pattern(model.cfg) or \
-            "shared_attention" in model.cfg.block_pattern:
-        raise NotImplementedError(
-            f"training {model.cfg.name} (blocks {model.cfg.block_pattern}) "
-            "is not ported yet: the port trains dense attention stacks")
+def _use_offload(tcfg: TrainConfig, offload: bool | None) -> bool:
+    """Whether the step is offloaded: ``offload``, default
+    ``tcfg.offload``."""
     return tcfg.offload if offload is None else offload
 
 
@@ -77,7 +71,9 @@ def _loss_fn(model: Model, tcfg: TrainConfig, use_offload: bool):
 
 def _update_fn(tcfg: TrainConfig, use_offload: bool):
     """``update_fn(params, grads, opt) -> (params, opt, grad_norm, lr)``:
-    clip, schedule, AdamW."""
+    clip, schedule, AdamW.  The step calls it on the unique leaves
+    (``_unique_opt``), so that a capture, which traces every leaf as an
+    input of its own, still sees a tied block once."""
     def update_fn(params, grads, opt):
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = warmup_cosine(tcfg, opt.step)
@@ -89,6 +85,14 @@ def _update_fn(tcfg: TrainConfig, use_offload: bool):
 def init_train_state(model: Model, seed: int = 0) -> TrainState:
     params = model.init(seed)
     return TrainState(params, init_state(params))
+
+
+def _unique_opt(ties: Ties, opt: AdamWState) -> AdamWState:
+    return AdamWState(opt.step, ties.unique(opt.m), ties.unique(opt.v))
+
+
+def _tied_opt(ties: Ties, opt: AdamWState) -> AdamWState:
+    return AdamWState(opt.step, ties.tree(opt.m), ties.tree(opt.v))
 
 
 def device_batch(batch: dict, device: torch.device) -> dict:
@@ -105,47 +109,56 @@ def make_train_step(model: Model, tcfg: TrainConfig, *,
     ``compute_grads(params, batch) -> (loss, metrics, grads)`` and, when
     offloaded, ``loss_fn`` / ``update_fn`` (the wrappers), ``stats`` /
     ``update_stats`` (their plan-cache counters) and ``explain_loss`` /
-    ``explain_update`` (their decision reports).  Stacks with recurrent
-    or tied blocks (zamba2, rwkv6) are served, not yet trained: raises."""
-    use_offload = _check_trainable(model, tcfg, offload)
+    ``explain_update`` (their decision reports).  Gradients are taken
+    with respect to the parameters' unique tensors (``Ties``): a tied
+    block's gradient is the sum over its positions, and the returned
+    state holds one updated tensor (and one pair of moments) for it at
+    every position."""
+    use_offload = _use_offload(tcfg, offload)
     loss_fn = _loss_fn(model, tcfg, use_offload)
 
-    def grads_of(params, batch):
-        leaves, spec = pytree.tree_flatten(params)
-        leaves = [p.detach().requires_grad_() for p in leaves]
-        loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    def grads_of(params, batch, ties):
+        leaves = [p.detach().requires_grad_() for p in ties.unique(params)]
+        loss, metrics = loss_fn(ties.tree(leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            pytree.tree_unflatten(list(grads), spec)
+            list(grads)
 
-    def compute_grads(params, batch):
+    def unique_grads(params, batch, ties):
+        """(loss, metrics, one gradient a unique leaf)."""
         batch = device_batch(batch, model.device)
         if tcfg.microbatches <= 1:
-            return grads_of(params, batch)
+            return grads_of(params, batch, ties)
         n = tcfg.microbatches
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        acc = pytree.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in ties.unique(params)]
         for i in range(n):
             mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, _, grads = grads_of(params, mb)
-            acc = pytree.tree_map(torch.add, acc, grads)
+            loss, _, grads = grads_of(params, mb, ties)
+            acc = [a + g for a, g in zip(acc, grads)]
             loss_sum = loss_sum + loss
         inv = 1.0 / n
-        grads = pytree.tree_map(lambda g: g * inv, acc)
-        return loss_sum * inv, {"loss": loss_sum * inv}, grads
+        return loss_sum * inv, {"loss": loss_sum * inv}, \
+            [g * inv for g in acc]
+
+    def compute_grads(params, batch):
+        ties = Ties(params)
+        loss, metrics, grads = unique_grads(params, batch, ties)
+        return loss, metrics, ties.tree(grads)
 
     update_fn = _update_fn(tcfg, use_offload)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        loss, metrics, grads = compute_grads(state.params, batch)
+        ties = Ties(state.params)
+        loss, metrics, grads = unique_grads(state.params, batch, ties)
         with torch.no_grad():
-            params, opt, gnorm, lr = update_fn(state.params, grads,
-                                               state.opt)
+            params, opt, gnorm, lr = update_fn(
+                ties.unique(state.params), grads, _unique_opt(ties, state.opt))
         metrics = {**metrics, "grad_norm": gnorm, "lr": lr,
                    "loss": metrics.get("loss", loss)}
-        return TrainState(params, opt), metrics
+        return TrainState(ties.tree(params), _tied_opt(ties, opt)), metrics
 
     train_step.compute_grads = compute_grads
     if use_offload:
@@ -188,7 +201,9 @@ class _Build:
         self.host = torch.zeros((nbytes,), dtype=torch.uint8,
                                 pin_memory=pinned)
         self.staged = torch.cuda.Event() if pinned else None
-        self.batch = {k: self._view(self.flat, k) for k in self.layout}
+        # in the caller's key order, as ``make_train_step`` hands the
+        # batch to the loss: both then look up one plan
+        self.batch = {k: self._view(self.flat, k) for k in batch}
         self.host_views = {k: self._view(self.host, k).numpy()
                            for k in self.layout}
         self.graph: StepGraph | None = None
@@ -244,6 +259,8 @@ class CompiledTrainStep:
       storage under ``torch.no_grad()`` — and returns that same
       ``TrainState``.  A later call with any other state raises
       ``ValueError``, as a donated buffer is invalid in the reference.
+      A tied block's tensors are donated, differentiated and written
+      once (``Ties``).
     * **Batch staging.**  A batch (host arrays, or tensors) goes into
       fixed device buffers by one non-blocking copy from a pinned mirror
       (``_Build.stage``); microbatches are views of those buffers, their
@@ -271,12 +288,11 @@ class CompiledTrainStep:
       next replay does not overwrite them.
 
     On a CPU device, or with ``capture=False``, the same static step
-    runs eagerly every call, with the same counters.  Stacks the port
-    does not train raise, as ``make_train_step``."""
+    runs eagerly every call, with the same counters."""
 
     def __init__(self, model: Model, tcfg: TrainConfig, *,
                  offload: bool | None = None, capture: bool = True):
-        use_offload = _check_trainable(model, tcfg, offload)
+        use_offload = _use_offload(tcfg, offload)
         self.model, self.tcfg = model, tcfg
         self.device = model.device
         self._capture = capture and self.device.type == "cuda"
@@ -285,6 +301,7 @@ class CompiledTrainStep:
         self.offload = use_offload
         self.counters = {"train_traces": 0, "kernel_replans": 0}
         self._state: TrainState | None = None
+        self._ties: Ties | None = None
         self._builds: dict[tuple, _Build] = {}
         self._acc: list[torch.Tensor] | None = None
         self._pool = None
@@ -308,7 +325,8 @@ class CompiledTrainStep:
             if bad:
                 raise ValueError(f"the state must lie on {self.device}; "
                                  f"leaves on {bad[0]}")
-            for p in pytree.tree_leaves(state.params):
+            self._ties = Ties(state.params)
+            for p in self._ties.unique(state.params):
                 p.requires_grad_(True)
             self._state = state
             return
@@ -322,25 +340,29 @@ class CompiledTrainStep:
                 "(donated, as in the reference's jitted step): pass the "
                 "state it returned")
 
+    def _unique_state(self, state: TrainState) -> list[torch.Tensor]:
+        """The state's unique tensors: parameters, step, moments."""
+        return [*self._ties.unique(state.params),
+                *pytree.tree_leaves(_unique_opt(self._ties, state.opt))]
+
     def _fixed_buffers(self) -> list[torch.Tensor]:
-        """Every buffer a static step writes."""
-        out = [t.data for t in pytree.tree_leaves(self._state)]
+        """Every buffer a static step writes, each once."""
+        out = [t.data for t in self._unique_state(self._state)]
         out += [b.metrics for b in self._builds.values()
                 if b.metrics is not None]
         return out + list(self._acc or [])
 
     # -- the static step --------------------------------------------------
     def _grads(self, b: _Build, params, batch):
-        """(loss, metrics, grads) of one (micro)batch: the loss plan
-        looked up at the build's first run."""
+        """(loss, metrics, one gradient a unique leaf) of one
+        (micro)batch: the loss plan looked up at the build's first run."""
         if b.loss_run is None:
             b.loss_run = (self.loss_fn.bind(params, batch) if self.offload
                           else self.loss_fn)
-        leaves = pytree.tree_leaves(params)
         loss, metrics = b.loss_run(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, self._ties.unique(params))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            pytree.tree_unflatten(list(grads), pytree.tree_structure(params))
+            list(grads)
 
     def _static_step(self, b: _Build) -> torch.Tensor:
         """One training step on the fixed buffers only (what the graph
@@ -357,7 +379,7 @@ class CompiledTrainStep:
                 if self._acc is None:
                     self._acc = [torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device)
-                                 for p in pytree.tree_leaves(st.params)]
+                                 for p in self._ties.unique(st.params)]
                 loss_sum = torch.zeros((), dtype=torch.float32,
                                        device=self.device)
                 for a in self._acc:
@@ -368,25 +390,22 @@ class CompiledTrainStep:
                     with repeated_lookups() if i else nullcontext():
                         loss, _, g = self._grads(b, st.params, mb)
                     with torch.no_grad():
-                        for a, gi in zip(self._acc, pytree.tree_leaves(g)):
+                        for a, gi in zip(self._acc, g):
                             a.add_(gi)
                     loss_sum = loss_sum + loss
                 inv = 1.0 / n
-                grads = pytree.tree_unflatten(
-                    [a * inv for a in self._acc],
-                    pytree.tree_structure(st.params))
+                grads = [a * inv for a in self._acc]
                 loss = loss_sum * inv
                 metrics = {"loss": loss}
             with torch.no_grad():
+                args = (self._ties.unique(st.params), grads,
+                        _unique_opt(self._ties, st.opt))
                 if b.update_run is None:
-                    b.update_run = (
-                        self.update_fn.bind(st.params, grads, st.opt)
-                        if self.offload else self.update_fn)
-                params, opt, gnorm, lr = b.update_run(st.params, grads,
-                                                      st.opt)
-                for dst, src in zip(pytree.tree_leaves(st),
-                                    pytree.tree_leaves(TrainState(params,
-                                                                  opt))):
+                    b.update_run = (self.update_fn.bind(*args)
+                                    if self.offload else self.update_fn)
+                params, opt, gnorm, lr = b.update_run(*args)
+                for dst, src in zip(self._unique_state(st),
+                                    [*params, *pytree.tree_leaves(opt)]):
                     dst.copy_(src)
                 metrics = {**metrics, "grad_norm": gnorm, "lr": lr,
                            "loss": metrics.get("loss", loss)}
@@ -447,8 +466,8 @@ def make_eval_step(model: Model, tcfg: TrainConfig, *,
         _, metrics = model.loss_fn(params, batch, remat=False)
         return metrics
 
-    use_offload = tcfg.offload if offload is None else offload
-    fn = _offloaded(eval_step, tcfg) if use_offload else eval_step
+    fn = _offloaded(eval_step, tcfg) if _use_offload(tcfg, offload) \
+        else eval_step
 
     @torch.no_grad()
     def run(params, batch):

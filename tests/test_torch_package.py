@@ -137,3 +137,20 @@ def test_chip_smoke_fails_without_a_cuda_device():
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_generated_unit_keeps_its_own_launch_guards():
+    """Queue C5: a launcher's once-only ``static`` (the kernel's
+    shared-memory attribute) must be its own library's.  Host code is
+    built with ``-fno-gnu-unique``, so the guard is not one symbol for
+    the whole process, and the launchers' statics guard the attribute."""
+    from repro_torch.kernels import _build
+
+    flags = _build.NVCC_FLAGS
+    assert "-fno-gnu-unique" in flags
+    assert flags[flags.index("-fno-gnu-unique") - 1] == "-Xcompiler"
+    csrc = Path(_build.CSRC)
+    for header in ("fused_matmul_sm90.cuh", "fused_matmul_stream.cuh"):
+        text = (csrc / header).read_text()
+        assert "static const cudaError_t attr" in text, header
+        assert "FM_ERR_ATTR + (int)attr" in text, header

@@ -370,9 +370,20 @@ def test_train_history_matches_the_jax_train(setup, monkeypatch, tmp_path):
     assert int(state.opt.step) == STEPS
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
-def test_hybrid_and_recurrent_stacks_raise_as_the_functional_step(arch):
-    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
-                              num_layers=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        compile_train_step(build_model(cfg, device="cpu"), TrainConfig())
+
+def test_the_bound_plans_hold_no_inputs(setup):
+    """The compiled step looks its loss and update plans up once and binds
+    them without holding the tensors of that lookup (the first step's
+    gradients would otherwise live as long as the step): a bound run
+    keeps no tensor and must be given its inputs."""
+    step = _compiled(setup, **CASES["offload"])
+    _run(step, _state(setup), setup["batches"][:2])
+    b = next(iter(step._builds.values()))
+    for run in (b.loss_run, b.update_run):
+        with pytest.raises(ValueError, match="its own signature"):
+            run()
+        held = [c.cell_contents for c in run.__closure__]
+        assert not any(isinstance(x, torch.Tensor) for x in
+                       pytree.tree_leaves(held))
+    loss, _ = b.loss_run(step._state.params, b.batch)
+    assert torch.isfinite(loss)

@@ -252,14 +252,12 @@ def test_tied_shared_attention_is_one_dict():
 
 
 def test_hybrid_and_recurrent_training_and_offload_raise():
-    from repro_torch.configs import TrainConfig
-    from repro_torch.train import make_train_step
-
+    """The offloaded ``Engine`` of a recurrent or hybrid stack is not
+    ported yet and raises.  (Their training is ported:
+    ``tests/test_torch_train_zoo.py``.)"""
     for arch in CASES.values():
         cfg = dataclasses.replace(reduced(get_config(arch[0])),
                                   dtype="float32", num_layers=2)
         model = build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_train_step(model, TrainConfig())
         with pytest.raises(NotImplementedError, match="not ported"):
             Engine(cfg, model.init(0), device="cpu", offload=True)
