@@ -39,7 +39,13 @@ and holds every hand-written kernel against its plain PyTorch version:
    eagerly from the same state (pages, rows, slot state and last logits
    bit-equal), each replay's device time by CUDA events; four
    sampled requests (temperature 1) through two captured engines of one
-   seed give the same tokens, with fresh noise every step;
+   seed give the same tokens, with fresh noise every step; the same 12
+   prompts, 16 tokens each, through ``FixedSlotEngine`` (a dense
+   ``[8, 2048]`` bf16 cache, its decode step captured once), plain and
+   offloaded (the dense decode plan verified, planned once): the paged
+   engine's first greedy tokens, a differing token only as a tie of the
+   dense engine's logits within ``LOGIT_TOL``, and its captured step's
+   host clock and replay time mid-flight;
 5. a decode step mid-flight, 8 active slots: the captured step by the
    host clock, one replay's device time by CUDA events, its idle share
    and the profiler's view, beside the eager step's host clock and
@@ -59,7 +65,8 @@ and holds every hand-written kernel against its plain PyTorch version:
    ones (CUDA-graph replay) beside the bound, the plain version and a
    library yardstick; serve the same 12 requests through
    ``Engine(offload=True)`` (launch counts = decode steps x layers for
-   the attention and x segments of the plan for the fused kernels,
+   the attention and x segments of the plan for the fused kernels, the
+   plans verified,
    ``plan_misses == traces == 1`` and ``plan_hits == 0``, captured once)
    and through ``capture_decode=False`` (the same tokens), then again
    through the captured engine (phase 4's admit readings, counters and
@@ -192,12 +199,28 @@ and holds every hand-written kernel against its plain PyTorch version:
     slots (zamba2: the step through B1 against its plain version), peak
     memory, and the captured engine's prefill and decode logits of 3
     requests against a full-sequence forward of the same tokens (bf16;
-    f32 at 12 / 4 layers);
+    f32 at 12 / 4 layers); then each through ``Engine(offload=True)`` as
+    phase 6 serves qwen3's: the decode step captured and planned (seconds
+    printed) and verified — zamba2's through the wrapper
+    (``MPU_VERIFY_PLANS``) — its unit built, every distinct segment
+    against its plain version (each anchored one's GEMM path printed),
+    the mix served captured (one plan, the launches a step the plan's;
+    the plain engine's tokens, a differing token only as a tie of the
+    offloaded engine's logits within ``LOGIT_TOL``) and eagerly, 16
+    tokens a request (the captured engine's first tokens), the offloaded
+    step's decode readings beside the plain step's, and one step's logits
+    and the recurrent state it writes against the plain model's
+    (``--zoo-serve`` takes this phase alone);
 12. durability and injected faults (below, also alone as
     ``--durability``);
 13. zamba2-1.2b and rwkv6-1.6b trained, and queue C5's check (below, also
     alone as ``--zoo-train``);
-14. a ``kernels`` JSON line, then the card line, then the result line.
+14. the static plan verifier's finding counts over every plan the run
+    built (the decode plans of phases 4, 6 and 11, the training plans of
+    phases 7 and 13, phase 8's attention chain and its backward; any
+    error fails), each distinct sm90 / weight-stream / flash kernel's
+    shared memory as its launcher set it equal to the verifier's; a
+    ``kernels`` JSON line, then the card line, then the result line.
 
     python3 chip_smoke.py --decode-segments [--src DIR]
 
@@ -282,9 +305,11 @@ bit-equal to its eager step (losses, grad norms, lr, every leaf),
 shared-attention block one tensor at every position with one AdamW
 entry; every distinct B2 / B3 / B4 / B6 segment of the loss, backward
 and update plans against its plain version (the bf16 anchored ones on
-the sm90 mainloop); a 2-layer f32 build (zamba2: 12, for two
-``shared_attention`` positions) offloaded against the plain eager step;
-for rwkv6, 3 steps of the plain eager step in f32 at full depth, their
+the sm90 mainloop), the plans verified (no error) and each sm90 kernel's
+shared memory read back against the verifier's; a 2-layer f32 build
+(zamba2: 12, for two ``shared_attention`` positions) offloaded against
+the plain eager step; for rwkv6, 3 steps of the plain eager step in f32
+at full depth, their
 grad norms beside the offloaded bf16 steps'; it prints a replay's host
 clock, CUDA-event device time and idle share, tokens/s, the first eager
 step's capture, plan and build seconds, the first compiled step's warm
@@ -1075,6 +1100,215 @@ def serve_twice(engine, eager, cfg, lens, new_tokens: int, seed: int,
     return counts, done
 
 
+# ------------------------------------------- the static plan verifier
+
+#: finding counts by "rule/severity" over every plan this run verified,
+#: and "plans", the plans verified
+VERIFIED: dict = {}
+
+
+def verify_plans(label: str, plans: list, tag: str) -> dict:
+    """The static plan verifier (``repro_torch.analysis``) over ``plans``:
+    their finding counts by rule printed, a failure on any
+    error-severity finding.  Returns the counts."""
+    from repro_torch.analysis import verify_plan
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+    errors = []
+    for plan in plans:
+        for f in verify_plan(plan):
+            key = f"{f.rule}/{f.severity}"
+            counts[key] = counts.get(key, 0) + 1
+            VERIFIED[key] = VERIFIED.get(key, 0) + 1
+            if f.severity == "error":
+                errors.append(str(f))
+    VERIFIED["plans"] = VERIFIED.get("plans", 0) + len(plans)
+    print(f"{tag} verifier on {label}: {len(plans)} plan(s), "
+          f"{sum(len(p.segments) for p in plans)} segments, findings by "
+          f"rule {counts or 'none'} ({time.perf_counter() - t0:.1f} s)")
+    check(not errors, f"{label}: verifier errors {errors[:3]}")
+    return counts
+
+
+def check_launched_smem(plans: list, tag: str) -> int:
+    """For every distinct sm90, weight-stream and flash kernel of the
+    plans (each launched by now), the verifier's dynamic shared memory
+    (``segment_smem``) against what its launcher set, read back from the
+    loaded kernel (``cudaFuncGetAttributes``' ``maxDynamicSharedSizeBytes``,
+    as queue C5's probe read it).  The FMA template's products take only
+    static shared memory.  Returns the number checked."""
+    from repro_torch.analysis import segment_smem
+    from repro_torch.core.offload import _matmul_gen, segment_call
+    from repro_torch.kernels.flash_attention import launched_smem
+
+    seen: dict = {}
+    for plan in plans:
+        eqns = plan.eqns
+        for seg in plan.segments:
+            mm = seg.matmul
+            if mm is None:
+                continue
+            want = segment_smem(eqns, seg)
+            if mm.flash is not None:
+                dt = mm.lhs_var.meta["val"].dtype
+                key = f"flash_attention h{mm.k} {dt}"
+                if key not in seen:
+                    seen[key] = (want["flash_attention"],
+                                 launched_smem(mm.k, dt))
+                continue
+            gen = _matmul_gen(segment_call(eqns, seg))
+            if gen["path"] != "fma" and gen["name"] not in seen:
+                seen[gen["name"]] = (want[gen["path"]],
+                                     fm.launched_smem(gen))
+    bad = {k: v for k, v in seen.items() if v[0] != v[1]}
+    print(f"{tag} dynamic shared memory of {len(seen)} distinct sm90 / "
+          f"weight-stream / flash kernels launched: the verifier's bytes "
+          f"{sorted({v[0] for v in seen.values()})}, the launchers' "
+          f"maxDynamicSharedSizeBytes read back "
+          f"{sorted({v[1] for v in seen.values()})}: "
+          f"{'equal' if not bad else f'differ at {bad}'}")
+    check(not bad, f"verifier vs launcher shared memory: {bad}")
+    return len(seen)
+
+
+# ------------------------------------- the dense FixedSlotEngine (4)
+
+#: the tokens a request of phase 4's mix takes through ``FixedSlotEngine``:
+#: held against the first 16 of the paged engine's 64 (a greedy token
+#: depends on the tokens before it alone)
+FIXED_SLOT_TOKENS = 16
+
+
+def only_ties(done: dict, want: dict, logits: dict, label: str,
+              what: str, tag: str) -> None:
+    """Where a request's tokens (``done``) first differ from ``want``'s
+    (its first ``len`` tokens), the logits its engine took the token from
+    (``logits[rid][position]``) may only tie: ``want``'s token within
+    ``LOGIT_TOL`` of their largest."""
+    ties = []
+    for rid, c in want.items():
+        got = done[rid].tokens
+        ref = c.tokens[:len(got)]
+        if got == ref:
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+        lg = logits[rid][p].float()
+        ties.append((rid, p, float(lg.max() - lg[ref[p]])))
+    print(f"{tag} {label} vs {what}: {len(want) - len(ties)}/{len(want)} "
+          f"requests token for token identical; first differing token "
+          f"(request, position, this engine's logit gap to the other's "
+          f"token): {ties or 'none'} (a tie within {LOGIT_TOL} accepted)")
+    check(all(g <= LOGIT_TOL for _, _, g in ties),
+          f"{label}: tokens differ from {what}'s beyond a tie")
+
+
+def fixed_slot_runs(cfg, params, lens, paged: dict, tag: str = "[4]"
+                    ) -> None:
+    """``FixedSlotEngine`` (the reference's dense-cache engine: one
+    ``[8, 2048]`` bf16 KV cache a layer) serves phase 4's mix, plain and
+    offloaded, ``FIXED_SLOT_TOKENS`` a request, its decode step captured:
+    the paged engine's greedy tokens (``paged``), a differing token
+    accepted only as a tie of the dense engine's logits (``only_ties``);
+    the offloaded plan
+    verified, planned once; the captured step's host clock, a replay's
+    device time and idle share mid-flight, beside phase 5's paged step."""
+    from repro_torch.serve import FixedSlotEngine
+
+    for offload in (False, True):
+        label = "FixedSlotEngine" + " offload=True" * offload
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = FixedSlotEngine(cfg, params, device="cuda", slots=8,
+                              max_len=2048, offload=offload)
+        cache_gb = sum(t.numel() * t.element_size()
+                       for c in eng.cache for t in c.values()) / 1e9
+        if offload:
+            t0 = time.perf_counter()
+            plan = eng.prepare_decode()
+            t1 = time.perf_counter()
+            if plan.library:
+                fm.finish_library(fm.start_library(plan.library))
+            st = eng.offload_stats
+            n_mm = sum(seg.matmul is not None for seg in plan.segments)
+            print(f"{tag} {label}: dense decode step captured "
+                  f"{st['capture_s']:.1f} s and planned {st['plan_s']:.1f} s "
+                  f"({t1 - t0:.1f} s), {len(plan.segments)} fused segments "
+                  f"({len(plan.segments) - n_mm} grid, {n_mm} anchored), "
+                  f"{sum(not d.fused for d in plan.decisions)} declined; "
+                  f"its CUDA translation unit built in "
+                  f"{time.perf_counter() - t1:.1f} s")
+            verify_plans(f"{label} decode", [plan], tag)
+        prefill, rows = {}, {}
+        admit, run_decode = eng.admit, eng._run_decode_step
+
+        def keep_admit(req, admit=admit, eng=eng):
+            ok = admit(req)
+            if ok:
+                prefill[req.rid] = eng._prefill_logits[0]
+            return ok
+
+        def keep_step(run_decode=run_decode, eng=eng):
+            rid, active = eng.rid.copy(), eng.active.copy()
+            run_decode()
+            for slot in np.flatnonzero(active):
+                rows.setdefault(int(rid[slot]), []).append(
+                    eng._logits[slot].clone())
+
+        eng.admit, eng._run_decode_step = keep_admit, keep_step
+        reqs = make_requests(cfg, lens, FIXED_SLOT_TOKENS, 1)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del eng.admit, eng._run_decode_step
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        tokens = sum(len(c.tokens) for c in done.values())
+        print(f"{tag} {label}: {len(reqs)} requests, {tokens} tokens, "
+              f"{eng.decode_steps} decode steps, {wall:.2f} s wall, "
+              f"{tokens / wall:.1f} tokens/s; launches {counts}; "
+              f"serve_counters {eng.serve_counters}; dense cache "
+              f"{cache_gb:.3f} GB")
+        check(eng._graph is not None and
+              eng.serve_counters["step_traces"] == 1,
+              f"{label}: the decode step was not captured once")
+        if offload:
+            st = eng.offload_stats
+            check(st["plan_misses"] == st["traces"] == 1 and
+                  st["plan_hits"] == 0, f"{label}: offload_stats {st}")
+        for r in reqs:
+            check(len(done[r.rid].tokens) == r.max_new_tokens,
+                  f"{label} {r.rid} short")
+        only_ties(done, paged, {rid: [prefill[rid], *rows[rid]]
+                                for rid in prefill}, label,
+                  f"the paged Engine (its first {FIXED_SLOT_TOKENS} tokens)",
+                  tag)
+        del prefill, rows
+        for r in make_requests(cfg, MIDFLIGHT_LENS, 32, seed=3):
+            eng.admit(r)
+        for _ in range(2):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / 5
+        dev = replay_ms(eng, 5)
+        print(f"{tag} {label} captured decode step, 8 active slots "
+              f"(contexts {MIDFLIGHT_LENS}, the dense cache read to 2048): "
+              f"{host:.3f} ms by the host clock, one replay {dev:.4f} ms on "
+              f"the device (CUDA events), idle {1 - dev / host:.1%} of the "
+              f"step")
+        if offload:
+            check_launched_smem([plan], tag)
+        while eng.active.any():
+            eng.step()
+        del eng
+
+
 def phase_engine():
     cfg = get_config("qwen3-1.7b")
     model = build_model(cfg, device="cuda")
@@ -1095,8 +1329,9 @@ def phase_engine():
     # the eager engine first: the process's first model run (library
     # handles, kernel loading) falls on it, as it fell on the eager step
     # of earlier readings of this phase
-    counts, _ = serve_twice(engine, eager, cfg, lens, 64, 1, "qwen3-1.7b",
-                            "[4]")
+    counts, paged = serve_twice(engine, eager, cfg, lens, 64, 1,
+                                "qwen3-1.7b", "[4]")
+    fixed_slot_runs(cfg, params, lens, paged)
 
     chunk_lens = [300, 700, 520, 40]
     kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
@@ -1440,7 +1675,8 @@ def run_seg(call: dict, vals, impl: str):
         rows=call["rows"], k_dim=call["k"], n_dim=call["n"],
         acc_dtype=call["acc_dtype"], out_cols=call["out_cols"],
         out_dtypes=call["out_dtypes"], rows_block=MATMUL_ROWS_BLOCK,
-        vmem_bytes=call["vmem_bytes"], sms=call["sms"], impl=impl)
+        vmem_bytes=call["vmem_bytes"], sms=call["sms"], batch=call["batch"],
+        impl=impl)
 
 
 def finite_parts(g: torch.Tensor, w: torch.Tensor):
@@ -1573,9 +1809,26 @@ DECODE_PLAN = {"bf16": (198, 113, 112), "f32": (197, 113, 113)}
 
 
 def phase_offload_kernels(plans: dict, card: str) -> dict:
-    """Build and check every distinct segment kernel of the plans (an
-    anchored one also relaunched, bit-equal; every bf16 one on the weight
-    stream); time the bf16 ones.  Returns the timing rows by symbol."""
+    """Build and check every distinct segment kernel of phase 6's decode
+    plans (``check_decode_segments``), their counts pinned, every bf16
+    anchored one on the weight stream; time the bf16 ones.  Returns the
+    timing rows by symbol."""
+    rows = check_decode_segments(plans, "[6]", pinned=DECODE_PLAN,
+                                 stream=("bf16",))
+    return time_decode_segments(
+        {sym: r for (label, sym), r in rows.items() if label == "bf16"},
+        card)
+
+
+def check_decode_segments(plans: dict, tag: str, *, pinned: dict | None,
+                          stream: tuple = ()) -> dict:
+    """Build and check every distinct segment kernel of the decode plans
+    (label -> plan; a label starting "f32" holds an f32 plan) against its
+    plain version, an anchored one also relaunched bit-equal, printing
+    each one's path; with ``pinned``, each plan's (segments, grid,
+    declined) counts; the plans labelled in ``stream`` keep every
+    anchored segment on the weight stream.  Returns (label, symbol) ->
+    (call, launches a step, operands)."""
     from repro_torch.core.offload import _matmul_gen
 
     t0 = time.perf_counter()
@@ -1583,17 +1836,18 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
                for label, plan in plans.items() if plan.library]
     rows = {}
     for label, plan in plans.items():
-        dtype = torch.bfloat16 if label == "bf16" else torch.float32
+        dtype = torch.float32 if label.startswith("f32") else torch.bfloat16
         segs = distinct_segments(plan)
         n_grid = sum(c for call, c in segs.values() if call["kind"] == "grid")
         n_declined = sum(not d.fused for d in plan.decisions)
-        print(f"[6] {label} plan: {len(plan.segments)} fused segments a "
+        print(f"{tag} {label} plan: {len(plan.segments)} fused segments a "
               f"decode step ({n_grid} grid, {len(plan.segments) - n_grid} "
               f"anchored), {len(segs)} distinct kernels, "
               f"{n_declined} declined; "
               f"traffic {plan.traffic_reduction:.2f}x")
-        check((len(plan.segments), n_grid, n_declined) == DECODE_PLAN[label],
-              f"{label} decode plan moved from {DECODE_PLAN[label]}")
+        if pinned is not None:
+            check((len(plan.segments), n_grid, n_declined) == pinned[label],
+                  f"{label} decode plan moved from {pinned[label]}")
         for sym, (call, count) in segs.items():
             if call["kind"] != "grid":
                 continue
@@ -1604,7 +1858,7 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
             compile_s = time.perf_counter() - tc
             want = run_seg(call, vals, "ref")
             ok, err = seg_close(got, want, dtype)
-            print(f"[6]   grid {sym} rows {call['rows']} cols "
+            print(f"{tag}   grid {sym} rows {call['rows']} cols "
                   f"{call['out_cols']} roles "
                   f"{[s[0] for s in call['specs']]} x{count}/step: "
                   f"max_abs_err {err:.3e}; first launch (Triton build) "
@@ -1619,13 +1873,13 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
         spills = sum("spill" in ln and "0 bytes spill stores" not in ln
                      for ln in log.splitlines())
         _, gemm_spilling = sm90_resources([log])
-        print(f"[6] {label} plan's CUDA translation unit: "
+        print(f"{tag} {label} plan's CUDA translation unit: "
               f"{len(plans[label].library)} segments, registers per thread "
               f"{regs}, {spills} with spills")
         check(not gemm_spilling, f"weight-stream instantiations spill: "
               f"{gemm_spilling}")
     for label, plan in plans.items():
-        dtype = torch.bfloat16 if label == "bf16" else torch.float32
+        dtype = torch.float32 if label.startswith("f32") else torch.bfloat16
         for sym, (call, count) in distinct_segments(plan).items():
             if call["kind"] != "matmul":
                 continue
@@ -1638,20 +1892,19 @@ def phase_offload_kernels(plans: dict, card: str) -> dict:
             torch.cuda.synchronize()
             same = all(torch.equal(g, a) for g, a in zip(got, again))
             path = gemm_path(_matmul_gen(call))
-            print(f"[6]   anchored {sym} [{call['rows']}x{call['k']}]@"
+            print(f"{tag}   anchored {sym} [{call['rows']}x{call['k']}]@"
                   f"[{call['k']}x{call['n']}] outs {call['out_cols']} "
                   f"x{count}/step, {path}: max_abs_err {err:.3e}, "
                   f"relaunch bit-equal {same}")
             check(ok, f"{label} anchored segment {sym} vs plain")
             check(same, f"{label} anchored segment {sym}: a relaunch differs")
-            if label == "bf16":
+            if label in stream:
                 check(path.startswith("stream"), f"bf16 decode segment {sym} "
                       f"off the weight stream: {path}")
             rows[(label, sym)] = (call, count, vals)
-    print(f"[6] kernels built and checked in {time.perf_counter() - t0:.1f} s")
-    return time_decode_segments(
-        {sym: r for (label, sym), r in rows.items() if label == "bf16"},
-        card)
+    print(f"{tag} kernels built and checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 #: launches a CUDA graph holds where a decode segment, or its library
@@ -1801,17 +2054,29 @@ def serve_offload(engine, eager, cfg, plan) -> dict:
     return counts
 
 
+#: the recurrent state one decode step writes, offloaded against the
+#: plain model (the zoo's ``ssm`` / ``wkv`` in f32, ``conv`` / ``tshift``
+#: / ``cshift`` in the compute dtype): the fused kernels round the step's
+#: bf16 inputs and intermediates otherwise than the plain ops, each by up
+#: to one bf16 ulp (2^-7 of a value), and a state's increment is a product
+#: of up to three such factors, so each leaf is held within four ulps of
+#: its largest magnitude.  A state row written from the wrong step, slot
+#: or layer is off by the state's own size
+STATE_ULPS = 4 * 2.0 ** -7
+
+
 def offload_vs_eager(engine, label: str, tol: float, mean_tol: float, *,
-                     eager=None) -> dict | None:
+                     eager=None, tag: str = "[6]") -> dict | None:
     """One decode step on the same state, offloaded and eager (after the
     decode readings of the captured offloaded step beside ``eager``'s,
-    when given)."""
+    when given): the logits, and every recurrent state leaf each step
+    writes (``STATE_ULPS``)."""
     cfg = engine.cfg
     lens = MIDFLIGHT_LENS
     readings = None
     if eager is not None:
-        readings = decode_readings(engine, eager, "[6]",
-                                   "qwen3-1.7b offload=True")
+        readings = decode_readings(engine, eager, tag,
+                                   f"{engine.cfg.name} offload=True")
         drain(eager)
     else:
         for r in make_requests(cfg, lens, 32, seed=3):
@@ -1822,9 +2087,40 @@ def offload_vs_eager(engine, label: str, tol: float, mean_tol: float, *,
     check(int(st["active"].sum()) == len(lens), "not every slot decodes")
     args = (engine.params, engine.cache, st["tok"], st["pos"], tables,
             st["active"])
+    # both steps write the same K/V entry; a recurrent row is put back
+    state = [{n: t.clone() for n, t in c.items() if n not in ("k", "v")}
+             for c in engine.cache]
+
+    def put_back():
+        for c, saved in zip(engine.cache, state):
+            for n, t in saved.items():
+                c[n].copy_(t)
+
     off, _ = engine._decode_offload(*args)
+    wrote = [{n: c[n].clone() for n in saved}
+             for c, saved in zip(engine.cache, state)]
+    put_back()
     eager, _ = engine.model.decode_step_paged(*args, max_len=engine.max_len)
+    worst: dict = {}
+    for c, w in zip(engine.cache, wrote):
+        for n, t in w.items():
+            ref = c[n].float()
+            scale = float(ref.abs().max())
+            rel = float((t.float() - ref).abs().max()) / max(scale, 1e-30)
+            check(bool(torch.isfinite(t).all()) and rel <= STATE_ULPS,
+                  f"{label}: the offloaded step wrote recurrent state "
+                  f"{n!r} {rel:.3e} of its largest magnitude from the "
+                  f"plain step's")
+            worst[n] = max(worst.get(n, 0.0), rel)
+    put_back()
+    del state, wrote
     torch.cuda.synchronize()
+    if worst:
+        print(f"{tag} {label} decode step, recurrent state written "
+              f"offloaded vs plain: worst difference by leaf, as a share "
+              f"of the leaf's largest magnitude "
+              f"{ {n: f'{v:.3e}' for n, v in worst.items()} } (tolerance "
+              f"{STATE_ULPS:.3e}: four bf16 ulps)")
     check(bool(torch.isfinite(off).all()), f"{label}: non-finite logits")
     err = max_err(off, eager)
     mean_err = float((off.float() - eager.float()).abs().mean())
@@ -1832,7 +2128,7 @@ def offload_vs_eager(engine, label: str, tol: float, mean_tol: float, *,
     same = int((tok_o == eager.argmax(-1)).sum())
     gap = float((eager.max(-1).values
                  - eager.gather(1, tok_o[:, None])[:, 0]).max())
-    print(f"[6] {label} decode step, offloaded vs eager: max abs logit "
+    print(f"{tag} {label} decode step, offloaded vs eager: max abs logit "
           f"difference {err:.3e} (tolerance {tol}), mean {mean_err:.3e} "
           f"(tolerance {mean_tol}, mean |logit| "
           f"{float(eager.float().abs().mean()):.3f}), same greedy token in "
@@ -1859,7 +2155,10 @@ def phase_offload(params, card: str):
           f"{t_plan:.1f} s (bf16); decisions:")
     for line in str(plan16.report()).splitlines()[:1]:
         print(f"[6]   {line}")
+    verify_plans("qwen3-1.7b decode plans (bf16, f32)", [plan16, plan32],
+                 "[6]")
     timed = phase_offload_kernels({"bf16": plan16, "f32": plan32}, card)
+    check_launched_smem([plan16], "[6]")
     phase_offload_roles()
     eager = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
                    page_size=64, offload=True, capture_decode=False)
@@ -2095,6 +2394,8 @@ def plan_training(step, state, batch, label: str, *, layers: int = 28,
           f"for {sum(len(u) for u in units)} anchored segments built together "
           f"in {build_s:.1f} s (registers per thread {regs}, {spills} with "
           f"spills)")
+    verify_plans(f"{label} training plans (forward, backward, update)",
+                 [fplan, *bplans, uplan], tag)
     return [fplan, *bplans, uplan]
 
 
@@ -2880,6 +3181,7 @@ def phase_train(card: str):
     del grads
     rows = check_train_segments(plans, torch.bfloat16, card, timed=True,
                                 grid_ms=reading["grid"])
+    check_launched_smem(plans, "[7]")
     update_leaf_segment(plans[-1], b8, card)
     done("segments")
     sm90_variants()
@@ -3638,6 +3940,9 @@ def flash_path(card: str) -> tuple[dict, dict]:
     brec.run(*[primals[i] for i in diff], *[primals[i] for i in rest],
              *[cts[j] for j in outs])
     check_path_segments(bplan.eqns, brec.calls, card)
+    verify_plans("the attention chain's plan and its backward plans",
+                 [plan, *plans, bplan], "[8]")
+    check_launched_smem([plan, *plans, bplan], "[8]")
     return b5, counts
 
 
@@ -5097,6 +5402,10 @@ ZOO_F32_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
 #: positions), so that the script keeps within its time limit with phase
 #: 13; ``--decode`` / ``--admit`` serve the full depth
 ZOO_SERVE_LAYERS = {"zamba2-1.2b": 12, "rwkv6-1.6b": 4}
+#: the tokens a request takes through phase 11's eager offloaded engine,
+#: held against the captured one's first (the eager engine's host-bound
+#: steps are the phase's longest part)
+ZOO_EAGER_TOKENS = 16
 
 
 def capture_logits(engine):
@@ -5127,6 +5436,18 @@ def capture_logits(engine):
     return prefills, steps, restore
 
 
+def request_logits(prefills: list, steps: list, reqs) -> dict:
+    """Each request's logits (``capture_logits``' lists; the requests
+    admitted in their order), one row a token it emitted: its prompt's
+    last, then its decode steps' while its slot was active."""
+    out = {}
+    for i, r in enumerate(reqs):
+        out[r.rid] = [prefills[i]] + [
+            lg[list(rid).index(r.rid)] for lg, rid, act in steps
+            if r.rid in rid and bool(act[list(rid).index(r.rid)])]
+    return out
+
+
 def forward_logits(model, params, seq, start: int) -> torch.Tensor:
     """f32 logits of one full-sequence forward from position ``start``."""
     with torch.no_grad():
@@ -5154,14 +5475,11 @@ def engine_vs_forward(cfg, params, lens, new_tokens, seed, label: str
                                 device="cuda")
         f32_params = cast_params(engine.params, torch.float32)
     stats, failed = {}, []
-    for i, r in enumerate(reqs):
+    per_request = request_logits(prefills, steps, reqs)
+    for r in reqs:
         toks = done[r.rid].tokens
         check(len(toks) == new_tokens, f"{label} request {r.rid} short")
-        got = [prefills[i]] + [lg[list(rid).index(r.rid)]
-                               for lg, rid, act in steps
-                               if r.rid in rid and
-                               bool(act[list(rid).index(r.rid)])]
-        got = torch.stack(got[:new_tokens])
+        got = torch.stack(per_request[r.rid][:new_tokens])
         seq = np.concatenate([r.prompt, np.asarray(toks[:-1], np.int32)])
         start = len(r.prompt) - 1
         fwd = forward_logits(engine.model, engine.params, seq, start)
@@ -5193,6 +5511,96 @@ def engine_vs_forward(cfg, params, lens, new_tokens, seed, label: str
     check(not failed, f"{label}: engine logits vs the full-sequence "
           f"forward outside the rule for requests {failed}")
     del engine
+
+
+def zoo_offload(cfg, params, lens, plain: dict, tag: str = "[11]") -> None:
+    """``Engine(offload=True)`` of a zamba2 / rwkv6 build, served as phase
+    6 serves qwen3's: the decode step captured and planned once
+    (seconds printed) and verified, zamba2's through the wrapper
+    (``MPU_VERIFY_PLANS``); its CUDA translation unit built; every
+    distinct segment of the plan against its plain version (each
+    anchored one's path printed: the weight stream, or the FMA template
+    where an operand is f32); the mix served captured (one plan, the
+    launches a step the plan's) and, ``ZOO_EAGER_TOKENS`` a request,
+    eagerly (the captured engine's first tokens); the captured engine's
+    tokens against the plain engine's (``plain``), a differing token
+    only as a tie of its logits (``only_ties``); the captured offloaded
+    step's readings, and one step's logits and recurrent state against
+    the plain model's (``offload_vs_eager``); the launchers' shared
+    memory against the verifier's."""
+    from repro_torch.core.offload import _matmul_gen
+
+    label = f"{cfg.name} offload=True"
+    wrapper = cfg.name == "zamba2-1.2b"
+    prev = os.environ.get("MPU_VERIFY_PLANS")
+    if wrapper:
+        os.environ["MPU_VERIFY_PLANS"] = "1"
+    try:
+        off = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                     page_size=64, offload=True)
+    finally:
+        if prev is None:
+            os.environ.pop("MPU_VERIFY_PLANS", None)
+        else:
+            os.environ["MPU_VERIFY_PLANS"] = prev
+    t0 = time.perf_counter()
+    plan = off.prepare_decode()
+    st = off.offload_stats
+    t1 = time.perf_counter()
+    if plan.library:
+        fm.finish_library(fm.start_library(plan.library))
+    print(f"{tag} {label}: decode step captured in {st['capture_s']:.1f} s "
+          f"and planned in {st['plan_s']:.1f} s ({t1 - t0:.1f} s), its CUDA "
+          f"translation unit ({len(plan.library)} anchored segments) built "
+          f"in {time.perf_counter() - t1:.1f} s; plans verified through the "
+          f"wrapper (MPU_VERIFY_PLANS): "
+          f"{off._decode_offload.verify_plans}")
+    check(off._decode_offload.verify_plans == wrapper,
+          f"{label}: MPU_VERIFY_PLANS not read by the wrapper")
+    verify_plans(f"{label} decode", [plan], tag)
+    rows = check_decode_segments({f"{cfg.name} bf16": plan}, tag,
+                                 pinned=None)
+    paths: dict = {}
+    for (_, sym), (call, count, _) in rows.items():
+        if call["kind"] == "matmul":
+            path = gemm_path(_matmul_gen(call))
+            paths[path] = paths.get(path, 0) + count
+    n_grid = sum(seg.matmul is None for seg in plan.segments)
+    n_mm = len(plan.segments) - n_grid
+    print(f"{tag} {label}: B3 launches a decode step by path {paths} (the "
+          f"weight stream takes bf16 x bf16 products, the FMA template any "
+          f"with an f32 operand), B2 {n_grid} a step")
+    eager = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                   page_size=64, offload=True, capture_decode=False)
+    reqs = make_requests(cfg, lens, 64, 1)
+    prefills, kept, restore = capture_logits(off)
+    counts, done, _ = serve(off, reqs, f"{label} captured", tag)
+    restore()
+    check_captured(off, label, tag)
+    check_admits(off, lens, label, tag)
+    want = serve_eager(eager, make_requests(cfg, lens, ZOO_EAGER_TOKENS, 1),
+                       label, tag)
+    same_tokens({r: dataclasses.replace(c, tokens=c.tokens[:ZOO_EAGER_TOKENS])
+                 for r, c in done.items()}, want,
+                f"{label} captured vs eager (the first {ZOO_EAGER_TOKENS} "
+                "tokens)", tag)
+    steps = counts["decode_steps"]
+    st = off.offload_stats
+    print(f"{tag} {label}: launches in pass 1 "
+          f"{ {k: v for k, v in counts.items() if v} }, offload_stats {st}")
+    check(st["plan_misses"] == st["traces"] == 1 and st["plan_hits"] == 0,
+          f"{label}: offload_stats {st}")
+    check(counts["fused_segment_grid"] == steps * n_grid,
+          f"{label}: grid launches != steps x {n_grid}")
+    check(counts["fused_matmul_segment"] == steps * n_mm,
+          f"{label}: anchored launches != steps x {n_mm}")
+    only_ties(done, plain, request_logits(prefills, kept, reqs), label,
+              "the plain engine", tag)
+    del prefills, kept
+    offload_vs_eager(off, f"{cfg.name} bf16", OFFLOAD_LOGIT_TOL,
+                     OFFLOAD_LOGIT_MEAN_TOL, eager=eager, tag=tag)
+    check_launched_smem([plan], tag)
+    del off, eager
 
 
 def phase_zoo(card: str) -> None:
@@ -5229,8 +5637,9 @@ def phase_zoo(card: str) -> None:
                        page_size=64, capture_decode=False)
         lens = np.random.default_rng(0).integers(16, 701, size=12)
         lens[0], lens[1] = 16, 700
-        launches = serve_twice(engine, eager, cfg, lens, 64, 1, arch,
-                               "[11]")[0]["paged_decode_attention"]
+        counts, plain = serve_twice(engine, eager, cfg, lens, 64, 1, arch,
+                                    "[11]")
+        launches = counts["paged_decode_attention"]
         n_attn = attention_layers(cfg)
         print(f"[11] {arch}: B1 launched {launches} times, "
               f"{n_attn} a decode step (its attention layers)")
@@ -5239,6 +5648,9 @@ def phase_zoo(card: str) -> None:
               f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (weights, "
               f"caches, prefill of 700 tokens, 8-slot decode)")
         del engine, eager
+        zoo_offload(cfg, params, lens, plain)
+        print(f"[11] {arch} peak device memory with the offloaded engine "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
         engine_vs_forward(cfg, params, [100, 333, 700], 64, 5,
                           f"{arch} bf16")
         del params, model
@@ -5252,9 +5664,10 @@ def phase_zoo(card: str) -> None:
     print(f"[11] zamba2 and rwkv6 served in {time.perf_counter() - t0:.1f} s")
 
 
-#: the four serving engines of the ``--decode`` / ``--admit`` readings
+#: the serving engines of the ``--decode`` / ``--admit`` readings
 ENGINES = (("qwen3-1.7b", False), ("qwen3-1.7b", True),
-           ("zamba2-1.2b", False), ("rwkv6-1.6b", False))
+           ("zamba2-1.2b", False), ("zamba2-1.2b", True),
+           ("rwkv6-1.6b", False), ("rwkv6-1.6b", True))
 
 
 def serving_weights(arch: str, held: dict) -> tuple:
@@ -5851,6 +6264,8 @@ def fresh_train(arch: str, layers: int, steps: int, full: bool,
         return out
     out["segments"] = len(train_segments(plans))
     check_train_segments(plans, torch.bfloat16, "", timed=False, tag=tag)
+    out["verified"] = verify_plans(f"{label} training plans", plans, tag)
+    out["smem_checked"] = check_launched_smem(plans, tag)
     del plans, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6191,8 +6606,9 @@ def zoo_alone(card: str) -> dict:
 
 def decode_alone(card: str) -> None:
     """``--decode``: the decode readings of phases 5, 6 and 11 alone
-    (``decode_readings``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
-    rwkv6-1.6b; full width and depth, random bf16 weights from seed 0),
+    (``decode_readings``: qwen3-1.7b, zamba2-1.2b and rwkv6-1.6b, each
+    plain and offloaded; full width and depth, random bf16 weights from
+    seed 0),
     on the package under ``--src`` where given.  A package whose
     ``Engine`` has no ``capture_decode`` (before the compiled step) gives
     the eager readings alone: one call compares two checkouts."""
@@ -6209,27 +6625,45 @@ def decode_alone(card: str) -> None:
         cfg, params = serving_weights(arch, held)
         kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
                   offload=offload)
-        eager = Engine(cfg, params, **kw,
-                       **({"capture_decode": False} if captures else {}))
+        try:
+            eager = Engine(cfg, params, **kw,
+                           **({"capture_decode": False} if captures else {}))
+        except NotImplementedError as e:   # an older package: refused
+            print(f"[d] {arch} offload={offload}: not in this package ({e})")
+            continue
         engine = Engine(cfg, params, **kw) if captures else None
+        label = f"{arch}{' offload=True' if offload else ''}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         if offload:
+            t0 = time.perf_counter()
             plan = eager.prepare_decode()
+            t1 = time.perf_counter()
             if plan.library:
                 fm.finish_library(fm.start_library(plan.library))
-        label = f"{arch}{' offload=True' if offload else ''}"
+            st = eager.offload_stats
+            print(f"[d] {label}: decode step captured {st['capture_s']:.1f} s"
+                  f" and planned {st['plan_s']:.1f} s ({t1 - t0:.1f} s), "
+                  f"{len(plan.segments)} fused segments "
+                  f"({sum(g.matmul is None for g in plan.segments)} grid), "
+                  f"{sum(not d.fused for d in plan.decisions)} declined; its "
+                  f"CUDA translation unit ({len(plan.library)} anchored "
+                  f"segments) built in {time.perf_counter() - t1:.1f} s")
         t0 = time.perf_counter()
         decode_readings(engine, eager, "[d]", label)
         for eng in (engine, eager):
             if eng is not None:
                 drain(eng)
-        print(f"[d] {label}: {time.perf_counter() - t0:.1f} s")
+        print(f"[d] {label}: {time.perf_counter() - t0:.1f} s; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+              "(the bf16 weights, both engines' caches, 8-slot decode)")
         del engine, eager
 
 
 def admit_alone(card: str) -> None:
     """``--admit``: the admit readings of phases 4, 6 and 11 alone
-    (``serve_twice``: qwen3-1.7b eager and offloaded, zamba2-1.2b,
-    rwkv6-1.6b; full width and depth, random bf16 weights from seed 0; the
+    (``serve_twice``: qwen3-1.7b, zamba2-1.2b and rwkv6-1.6b, each plain
+    and offloaded; full width and depth, random bf16 weights from seed 0; the
     12-request mix through ``capture_decode=False``, then twice through
     the captured engine, every admit bucket replayed against its eager
     call), on the package under ``--src`` where given.  A package whose
@@ -6245,7 +6679,11 @@ def admit_alone(card: str) -> None:
         cfg, params = serving_weights(arch, held)
         kw = dict(device="cuda", slots=8, max_len=2048, page_size=64,
                   offload=offload)
-        engine = Engine(cfg, params, **kw)
+        try:
+            engine = Engine(cfg, params, **kw)
+        except NotImplementedError as e:   # an older package: refused
+            print(f"[a] {arch} offload={offload}: not in this package ({e})")
+            continue
         if compiled is None:
             compiled = "admit_traces" in engine.serve_counters
             print(f"[a] admit readings of "
@@ -6367,6 +6805,9 @@ def main() -> int:
     if "--zoo-train" in sys.argv:
         zoo_alone(card)
         return 0
+    if "--zoo-serve" in sys.argv:
+        phase_zoo(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
     print(f"[time] phases 1-3 ended at {time.perf_counter() - t0:.1f} s")
@@ -6395,6 +6836,9 @@ def main() -> int:
     print(f"[time] phase 11 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     durability_and_zoo_train(card, t0)
+    print(f"[14] static plan verifier: {VERIFIED.pop('plans', 0)} plans of "
+          f"this process verified, findings by rule {VERIFIED or 'none'}, "
+          f"no error (phase 13's processes verify their own, above)")
     print(f"[14] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",

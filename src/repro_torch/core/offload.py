@@ -65,8 +65,12 @@ of a permute, as ``torch.einsum`` writes the model attention's
 ``dot_general`` there has batch axes that are not leading, and the
 reference never anchors it.
 
-Not planned yet (never formed): segment-boundary donation and the
-static plan verifier.
+Every plan can be checked by the static plan verifier
+(``repro_torch.analysis``: ``plan.verify()``, ``wrapped.verify(*a)``,
+``mpu_offload(..., verify_plans=True)`` / ``MPU_VERIFY_PLANS``).
+Segment-boundary donation is not formed yet: ``Segment.donations`` stays
+empty, and the verifier's alias rules are what a donating plan will be
+held to.
 """
 from __future__ import annotations
 
@@ -284,6 +288,10 @@ class Segment:
     # no lane reduction, slice or concat in the body: an anchored
     # epilogue may run in the GEMM's tile (``fused_matmul.in_tile``)
     elementwise: bool = True
+    # (operand, output) index pairs whose buffers the kernel may share:
+    # the reference's segment-boundary donation, which the planner does
+    # not form yet (``repro_torch.analysis`` checks the alias rules)
+    donations: list = field(default_factory=list)
 
     @property
     def all_eqn_idx(self) -> list[int]:
@@ -374,10 +382,26 @@ class OffloadPlan:
     library: list[str] = field(default_factory=list)
 
     def report(self) -> DecisionReport:
-        return DecisionReport(policy=self.policy or OffloadPolicy(),
-                              decisions=list(self.decisions),
-                              naive_bytes=self.naive_hbm_bytes,
-                              fused_bytes=self.fused_hbm_bytes)
+        """The per-candidate DecisionReport; every fused row is checked
+        against its emitted segment and shows a ``verified`` status
+        ("ok" / "MISMATCH(...)" / "MISSING-SEGMENT", "-" for a
+        decline)."""
+        from repro_torch.analysis.verifier import decision_statuses
+
+        return DecisionReport(
+            policy=self.policy or OffloadPolicy(),
+            decisions=[d._with(verified=st) for d, st in
+                       zip(self.decisions, decision_statuses(self))],
+            naive_bytes=self.naive_hbm_bytes,
+            fused_bytes=self.fused_hbm_bytes)
+
+    def verify(self, graph=None) -> list:
+        """Statically verify this plan (``repro_torch.analysis``): alias
+        safety, index bounds and coverage, shared memory and registers on
+        the H100, well-formedness.  Returns the findings."""
+        from repro_torch.analysis import verify_plan
+
+        return verify_plan(self, graph)
 
     @property
     def traffic_reduction(self) -> float:
@@ -1917,7 +1941,8 @@ def capture(fn: Callable, args: Sequence) -> tuple[fx.GraphModule, Any,
 
 def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
                   grad_policy: OffloadPolicy | None = None,
-                  persist: "_PlanStore | None" = None) -> fx.GraphModule:
+                  persist: "_PlanStore | None" = None,
+                  verify_plans: bool = False) -> fx.GraphModule:
     """Bake the plan into a new graph: every node the plan leaves far is
     copied in graph order, and each fused segment becomes ONE call of its
     kernel (after its hoisted ``pre_eqns``, before its escaping views).
@@ -1929,8 +1954,8 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
     ``grad_policy`` each segment call is differentiable too
     (``_segment_vjp``: its backward re-plans the segment's cotangent
     program under that policy, through the plan store ``persist`` where
-    given); without it (a backward plan's own runner) a segment is a
-    plain kernel call."""
+    given, each backward plan verified with ``verify_plans``); without it
+    (a backward plan's own runner) a segment is a plain kernel call."""
     eqns = [n for n in gm.graph.nodes if n.op == "call_function"]
     seg_by_start = {s.span_start: s for s in plan.segments}
     plan.library = _register_library(eqns, plan)
@@ -1957,7 +1982,7 @@ def _build_runner(gm: fx.GraphModule, plan: OffloadPlan, impl: str, *,
         fn = _segment_kernel(seg, progs, impl=impl)
         if grad_policy is not None:
             fn = _segment_vjp(eqns, seg, fn, policy=grad_policy,
-                              persist=persist)
+                              persist=persist, verify_plans=verify_plans)
         call = graph.call_function(
             fn, tuple(env[v] for v in _segment_arg_vars(seg)))
         for k, var in enumerate(seg.outputs):
@@ -2259,15 +2284,29 @@ class _PlanStore:
     verify_loaded: bool = False
 
 
+def _enforce_verified(plan: OffloadPlan) -> None:
+    """Raise ``PlanVerificationError`` on a plan with an error-severity
+    finding of the static verifier."""
+    from repro_torch.analysis import PlanVerificationError, verify_plan
+
+    errors = [f for f in verify_plan(plan) if f.severity == "error"]
+    if errors:
+        raise PlanVerificationError(errors)
+
+
 def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
                      persist: _PlanStore | None, key_parts: Sequence[str],
-                     stats: OffloadStats) -> OffloadPlan:
+                     stats: OffloadStats, *,
+                     verify_plans: bool = False) -> OffloadPlan:
     """The plan of ``gm`` under ``policy``: rebound from the store where
     it holds a valid entry (``disk_hits``), else planned
     (``plan_misses``) and written to the store.  While the kernel guard
     is degraded for the policy's impl the store is neither read nor
     written.  Never raises for the store's sake: every failure is a
-    counter and a fresh plan."""
+    counter and a fresh plan.  With ``verify_plans`` a fresh plan is
+    verified before it is written (its meta then says ``"verified"``),
+    and a plan loaded from the store is verified again; a plan with an
+    error raises ``PlanVerificationError``."""
     if persist is not None and kernel_guard().degraded_for(policy.impl):
         persist = None
     fingerprint = dkey = fresh = None
@@ -2289,13 +2328,20 @@ def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
                     if _plan_doc(fresh, gm, fingerprint) != \
                             _plan_doc(plan, gm, fingerprint):
                         raise _PlanMismatch("verify-on-load mismatch")
-                stats.disk_hits += 1
-                return plan
             except Exception as e:  # counted fallback, never an exception
                 stats.disk_corrupt += 1
                 store.quarantine(dkey, f"{type(e).__name__}: {e}")
+            else:
+                stats.disk_hits += 1
+                if verify_plans:
+                    # the payload may predate the verifier, or have been
+                    # written without it
+                    _enforce_verified(plan)
+                return plan
     stats.plan_misses += 1
     plan = fresh if fresh is not None else plan_offload(gm, policy=policy)
+    if verify_plans:
+        _enforce_verified(plan)     # before it is written: "verified" holds
     if dkey is not None:
         try:
             payload = json.dumps(_plan_doc(plan, gm, fingerprint)).encode()
@@ -2303,7 +2349,8 @@ def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
             return plan
         evicted = persist.store.put(
             dkey, payload, meta={"direction": key_parts[0],
-                                 "policy": repr(policy)})
+                                 "policy": repr(policy),
+                                 "verified": verify_plans})
         if evicted > 0:
             stats.disk_evictions += evicted
     return plan
@@ -2368,7 +2415,8 @@ def _bwd_signature(t: torch.Tensor) -> tuple:
 
 def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
                         policy: OffloadPolicy,
-                        persist: _PlanStore | None = None) -> Callable:
+                        persist: _PlanStore | None = None,
+                        verify_plans: bool = False) -> Callable:
     """``run_bwd(primals, cts)`` -> one gradient per primal (None for a
     non-float one), with the cotangent program planned through
     ``_build_runner`` once per (policy, signature) and cached on the
@@ -2410,7 +2458,8 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
         t1 = time.perf_counter()
         plan = _plan_with_store(
             gm, policy, persist,
-            ("bwd", repr(key[2:]), _device_key(primals)), _BWD_STATS)
+            ("bwd", repr(key[2:]), _device_key(primals)), _BWD_STATS,
+            verify_plans=verify_plans)
         run = _build_runner(gm, plan, policy.impl)
         _BWD_STATS.capture_s += t1 - t0
         _BWD_STATS.plan_s += time.perf_counter() - t1
@@ -2464,10 +2513,12 @@ class _SegmentFn(torch.autograd.Function):
 
 def _segment_vjp(eqns: Sequence, seg: Segment, kernel: Callable, *,
                  policy: OffloadPolicy,
-                 persist: _PlanStore | None = None) -> Callable:
+                 persist: _PlanStore | None = None,
+                 verify_plans: bool = False) -> Callable:
     """The differentiable call of one segment: the plain kernel call
     when no input needs a gradient, ``_SegmentFn`` otherwise."""
-    bwd = _segment_bwd_runner(eqns, seg, policy=policy, persist=persist)
+    bwd = _segment_bwd_runner(eqns, seg, policy=policy, persist=persist,
+                              verify_plans=verify_plans)
 
     def call(*vals):
         if torch.is_grad_enabled() and any(
@@ -2529,7 +2580,8 @@ def _leaf_signature(leaf) -> tuple:
 
 def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
                 persist_dir: str | os.PathLike | None = None,
-                verify_loaded: bool = False) -> Callable:
+                verify_loaded: bool = False,
+                verify_plans: bool | None = None) -> Callable:
     """Offload transform with a bounded, policy-keyed plan cache.
 
     ``wrapped(*args)`` looks up (effective policy, "fwd", input
@@ -2560,12 +2612,22 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     ``verify_loaded`` plans afresh on every disk load and compares the
     two plans structurally; a mismatch counts as ``disk_corrupt``.
 
+    ``verify_plans`` (default: the ``MPU_VERIFY_PLANS`` environment
+    variable, on unless empty or "0") runs the static plan verifier
+    (``repro_torch.analysis``) over every plan this wrapper makes or
+    loads, forward and backward, and raises ``PlanVerificationError``
+    on an error-severity finding before the plan is used: a fresh plan
+    before it is persisted (its artifact meta then carries
+    ``"verified": true``), a plan loaded from the store again after it
+    is rebound.
+
     The runner is differentiable: calling ``wrapped`` under autograd
     and differentiating its outputs runs each fused segment's planned
     backward (``_segment_vjp``).
 
     ``wrapped`` exposes ``stats`` (OffloadStats), ``policy``,
     ``bind(*a)`` (look the plan up once, bound to these tensors),
+    ``verify(*a)`` (the verifier's findings on ``a``'s plan),
     ``warm(*a)`` (plan a signature without running it),
     ``warm_backward(*a)`` (plan its segments' backward too),
     ``plan_for(*a)``, ``explain(*a)`` (the DecisionReport) and
@@ -2576,6 +2638,9 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     cache_bound = (policy or OffloadPolicy()).max_plans
     if persist_dir is None:
         persist_dir = os.environ.get("MPU_PLAN_CACHE") or None
+    if verify_plans is None:
+        verify_plans = os.environ.get("MPU_VERIFY_PLANS", "") not in ("",
+                                                                     "0")
     store_box: list = []    # the lazily built _PlanStore (None on failure)
 
     def persist_store() -> _PlanStore | None:
@@ -2606,9 +2671,10 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
         sig = repr((str(in_spec), [_leaf_signature(x) for x in leaves]))
         plan = _plan_with_store(gm, pol, persist,
                                 ("fwd", sig, _device_key(leaves)),
-                                stats if count else OffloadStats())
+                                stats if count else OffloadStats(),
+                                verify_plans=verify_plans)
         run = _build_runner(gm, plan, pol.impl, grad_policy=pol,
-                            persist=persist)
+                            persist=persist, verify_plans=verify_plans)
         if count:
             stats.traces += 1
             stats.capture_s += t1 - t0
@@ -2694,12 +2760,17 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     wrapped.backward_plans_for = backward_plans_for
     wrapped.explain = lambda *args: \
         entry_for(args, count=False)[0].plan.report()
+    wrapped.verify = lambda *args: \
+        entry_for(args, count=False)[0].plan.verify()
+    wrapped.verify_plans = verify_plans
     wrapped.cache_size = lambda: len(cache)
     return wrapped
 
 
 def offload_report(fn: Callable, *args,
                    policy: OffloadPolicy | None = None) -> OffloadPlan:
-    """Capture + plan only: the OffloadPlan for ``fn(*args)``."""
+    """Capture + plan only: the OffloadPlan for ``fn(*args)`` (its
+    ``annotation.graph`` the captured graph, which ``plan.verify(graph)``
+    fingerprints)."""
     gm, _, _ = capture(fn, args)
     return plan_offload(gm, policy=policy)

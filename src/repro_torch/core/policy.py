@@ -178,6 +178,9 @@ class SegmentDecision:
     fused: bool
     reason: str
     batch: tuple = ()            # batch grid axes of a batched anchor
+    # the row checked against its emitted segment (``OffloadPlan.report``):
+    # "ok", "MISMATCH(...)", "MISSING-SEGMENT"; None / "-" for a decline
+    verified: str | None = None
 
     def _with(self, **kw) -> "SegmentDecision":
         return dataclasses.replace(self, **kw)
@@ -215,7 +218,7 @@ class DecisionReport:
                f"({self.naive_bytes / 1e6:.2f} -> "
                f"{self.fused_bytes / 1e6:.2f} MB)")
         cols = ("idx", "tier", "form", "batch", "eqns", "rows", "near_mb",
-                "far_mb", "near_us", "far_us", "decision")
+                "far_mb", "near_us", "far_us", "decision", "verified")
         rows = [cols]
         for i, d in enumerate(self.decisions):
             rows.append((str(i), d.tier, d.form or "-",
@@ -223,7 +226,8 @@ class DecisionReport:
                          str(d.eqns),
                          str(d.rows), f"{d.near_bytes / 1e6:.2f}",
                          f"{d.far_bytes / 1e6:.2f}", f"{d.near_us:.2f}",
-                         f"{d.far_us:.2f}", "FUSE" if d.fused else "decline"))
+                         f"{d.far_us:.2f}", "FUSE" if d.fused else "decline",
+                         d.verified or "-"))
         widths = [max(len(r[c]) for r in rows) for c in range(len(cols))]
         lines = [hdr, "  ".join(c.ljust(w) for c, w in zip(rows[0], widths))]
         for r, d in zip(rows[1:], self.decisions):

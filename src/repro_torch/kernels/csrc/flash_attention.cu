@@ -152,8 +152,10 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int H>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const Shape& sh, cudaStream_t stream) {
+                   float* lse, const Shape& sh, int smem_py, cudaStream_t stream) {
   const size_t smem = FwdSmem<H>::total;
+  // smem_py is flash_attention.fwd_smem_bytes, which the verifier reads
+  if ((size_t)smem_py != smem) return cudaErrorInvalidValue;
   auto kern = flash_fwd_kernel<H>;
   // once per instantiation, so that a launch inside a CUDA-graph capture
   // makes no attribute call
@@ -172,14 +174,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int H, const Shape& sh,
+                       float* lse, int H, const Shape& sh, int smem,
                        cudaStream_t stream) {
   switch (H) {
-    case 16: return launch<16>(q, k, v, o, lse, sh, stream);
-    case 32: return launch<32>(q, k, v, o, lse, sh, stream);
-    case 64: return launch<64>(q, k, v, o, lse, sh, stream);
-    default: return launch<128>(q, k, v, o, lse, sh, stream);
+    case 16: return launch<16>(q, k, v, o, lse, sh, smem, stream);
+    case 32: return launch<32>(q, k, v, o, lse, sh, smem, stream);
+    case 64: return launch<64>(q, k, v, o, lse, sh, smem, stream);
+    default: return launch<128>(q, k, v, o, lse, sh, smem, stream);
   }
+}
+
+template <class K>
+int max_dynamic_smem(K kern) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+  return e == cudaSuccess ? fa.maxDynamicSharedSizeBytes : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -192,14 +201,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 //   dtype  0 f32 (H in {16, 32, 64, 128}: the FMA kernel), 1 bf16 or 2 f16
 //          (H a multiple of 8 from 8 to 256: the sm90 kernel); NQ = G * NK
 //          with G <= 64
+//   smem   the CTA's dynamic shared memory, flash_attention.fwd_smem_bytes:
+//          a launch refuses a value that is not its layout's
 //   path   set to 1 when the launch took the sm90 kernel, 0 the FMA one
 // A block computes a q tile of 128 rows: G heads x 128 / G positions.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int B, int S, int T, int NQ, int NK,
                                           int H, int dtype, int causal,
-                                          int window, float scale, int* path,
-                                          void* stream) {
+                                          int window, float scale, int smem,
+                                          int* path, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || NK <= 0 || NQ % NK != 0 ||
       NQ / NK > G_MAX || dtype < 0 || dtype > 2)
     return -1;
@@ -210,17 +221,40 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
     if (H != 16 && H != 32 && H != 64 && H != 128) return -1;
     Shape sh{B, S, T, NQ, NK, G, ROWS / G, causal, window, scale};
     *path = 0;
-    e = launch_f32(q, k, v, o, lse, H, sh, s);
+    e = launch_f32(q, k, v, o, lse, H, sh, smem, s);
   } else {
     if (H < 8 || H > 256 || H % 8 != 0) return -1;
     flash90::Dims d{{B, S, T, NQ, NK, G, flash90::FwdGeom<64>::QR / G, causal,
                      window, scale},
                     H};
     *path = 1;
-    e = dtype == 1 ? flash90::fwd_dispatch<__nv_bfloat16>(q, k, v, o, lse, d, s)
-                   : flash90::fwd_dispatch<__half>(q, k, v, o, lse, d, s);
+    e = dtype == 1 ? flash90::fwd_dispatch<__nv_bfloat16>(q, k, v, o, lse, d, smem, s)
+                   : flash90::fwd_dispatch<__half>(q, k, v, o, lse, d, smem, s);
   }
   return static_cast<int>(e);
+}
+
+// The dynamic shared memory the forward kernel for head dim H and dtype
+// (the codes above) may take, as cudaFuncGetAttributes reads it: after
+// the first launch, what the launcher set.  A negative value is a CUDA
+// error.
+extern "C" int flash_attention_fwd_smem(int H, int dtype) {
+  if (dtype == 0) {
+    switch (H) {
+      case 16: return max_dynamic_smem(flash_fwd_kernel<16>);
+      case 32: return max_dynamic_smem(flash_fwd_kernel<32>);
+      case 64: return max_dynamic_smem(flash_fwd_kernel<64>);
+      default: return max_dynamic_smem(flash_fwd_kernel<128>);
+    }
+  }
+  const int hp = flash90::padded(H);
+  if (dtype == 1)
+    return hp == 64 ? max_dynamic_smem(flash90::fwd_kernel<__nv_bfloat16, 64>)
+         : hp == 128 ? max_dynamic_smem(flash90::fwd_kernel<__nv_bfloat16, 128>)
+                     : max_dynamic_smem(flash90::fwd_kernel<__nv_bfloat16, 256>);
+  return hp == 64 ? max_dynamic_smem(flash90::fwd_kernel<__half, 64>)
+       : hp == 128 ? max_dynamic_smem(flash90::fwd_kernel<__half, 128>)
+                   : max_dynamic_smem(flash90::fwd_kernel<__half, 256>);
 }
 
 extern "C" const char* flash_attention_error(int code) {

@@ -429,8 +429,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <class T, int HP>
 cudaError_t fwd_run(const void* q, const void* k, const void* v, void* o, float* lse,
-                    const Dims& d, cudaStream_t stream) {
+                    const Dims& d, int smem, cudaStream_t stream) {
   using Gm = FwdGeom<HP>;
+  // smem is flash_attention.fwd_smem_bytes, which the verifier reads
+  if (smem != Gm::SMEM) return cudaErrorInvalidValue;
   constexpr bool F16 = std::is_same<T, __half>::value;
   CUtensorMap tq{}, tk{}, tv{};
   if (!sm90_map4(&tq, q, F16, d.H, d.NQ, d.S, d.B, d.G, d.QB) ||
@@ -440,20 +442,20 @@ cudaError_t fwd_run(const void* q, const void* k, const void* v, void* o, float*
   auto kern = fwd_kernel<T, HP>;
   // once, at the first (eager) launch: never inside a graph capture
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::SMEM);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((d.S + d.QB - 1) / d.QB, d.NK, d.B);
-  kern<<<grid, THREADS, Gm::SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), lse, d);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<T*>(o), lse, d);
   return cudaGetLastError();
 }
 
 template <class T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-                         const Dims& d, cudaStream_t stream) {
+                         const Dims& d, int smem, cudaStream_t stream) {
   switch (padded(d.H)) {
-    case 64: return fwd_run<T, 64>(q, k, v, o, lse, d, stream);
-    case 128: return fwd_run<T, 128>(q, k, v, o, lse, d, stream);
-    default: return fwd_run<T, 256>(q, k, v, o, lse, d, stream);
+    case 64: return fwd_run<T, 64>(q, k, v, o, lse, d, smem, stream);
+    case 128: return fwd_run<T, 128>(q, k, v, o, lse, d, smem, stream);
+    default: return fwd_run<T, 256>(q, k, v, o, lse, d, smem, stream);
   }
 }
 

@@ -428,16 +428,18 @@ int fm90_run(const typename S::Args& a, float* ws, cudaStream_t s) {
                                       : fm90_map(&tb, a.w0, S::K, S::N, S::BATCH, 64, S::TN);
     if (r != CUDA_SUCCESS) return FM_ERR_MAP + 1000 + (int)r;
   }
+  // S::SMEM is fused_matmul_bwd.sm90_smem_bytes, which the verifier reads
+  static_assert(S::SMEM == G::SMEM, "the generated SMEM is the ring's layout");
   auto kern = fm90_gemm<S, AT, BT>;
   // once, at the first (eager) launch: never inside a graph capture
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return FM_ERR_ATTR + (int)attr;
   const cudaError_t pending = cudaGetLastError();
   if (pending != cudaSuccess) return FM_ERR_PENDING + (int)pending;
   const dim3 grid(S::BATCH * ((S::PER + FM90_TM - 1) / FM90_TM), (S::N + S::TN - 1) / S::TN,
                   S::KS);
-  kern<<<grid, FM90_THREADS, G::SMEM, s>>>(a, ws, ta, tb);
+  kern<<<grid, FM90_THREADS, S::SMEM, s>>>(a, ws, ta, tb);
   const cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : FM_ERR_LAUNCH + (int)e;
 }

@@ -208,14 +208,16 @@ __global__ void __launch_bounds__(FMS_THREADS, 2) fms_gemm(typename S::Args a, f
 template <class S, bool ASYNC>
 int fms_run(const typename S::Args& a, float* ws, cudaStream_t s) {
   using G = FmsGeom<S>;
+  // S::SMEM is fused_matmul_bwd.stream_smem_bytes, which the verifier reads
+  static_assert(S::SMEM == G::SMEM, "the generated SMEM is the stream's layout");
   auto kern = fms_gemm<S, ASYNC>;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return FM_ERR_ATTR + (int)attr;
   const cudaError_t pending = cudaGetLastError();
   if (pending != cudaSuccess) return FM_ERR_PENDING + (int)pending;
   const dim3 grid(S::BATCH * G::RG, (S::N + FMS_TN - 1) / FMS_TN, S::KS);
-  kern<<<grid, FMS_THREADS, G::SMEM, s>>>(a, ws);
+  kern<<<grid, FMS_THREADS, S::SMEM, s>>>(a, ws);
   const cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : FM_ERR_LAUNCH + (int)e;
 }

@@ -77,6 +77,33 @@ def tile_rows(kernel: str, head_dim: int, dtype: torch.dtype
             "dq": (128, 64)}[kernel]
 
 
+#: a block's shared memory on the card (227 KB) and the f32 kernels' row
+#: padding and kv tile (``csrc/flash_common.cuh``: ``Tile::PAD``, ``KB``)
+SMEM_CAP = 232_448
+_F32_PAD, _F32_KB = 4, 64
+
+
+def fwd_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one B5 CTA.  16-bit
+    (``flash_attention_sm90.cuh``'s ``FwdGeom``): 1,024 bytes of
+    alignment slack, the [128 x width] q tile, a ring of up to four
+    stages of one k and one v tile, and 1,024 bytes of barriers.  f32
+    (``flash_attention.cu``'s ``FwdSmem``): the padded q tile, one k and
+    one v tile and the P rows.  The launcher takes this value, refuses a
+    launch where it is not its layout's, and sets it as the kernel's
+    ``cudaFuncAttributeMaxDynamicSharedMemorySize``; the verifier reads
+    it too."""
+    if dtype == torch.float32:
+        ld = head_dim + _F32_PAD
+        return 4 * (128 * ld + 2 * _F32_KB * ld + 128 * (_F32_KB + _F32_PAD))
+    width = sm90_width(head_dim)
+    nb = width // 64
+    q_bytes = 128 * 128 * nb
+    stage = 2 * (128 if width <= 64 else 64) * 128 * nb
+    stages = min(4, (SMEM_CAP - 2048 - q_bytes) // stage)
+    return 1024 + q_bytes + stages * stage + 1024
+
+
 def q_block(group: int, head_dim: int = 128,
             dtype: torch.dtype = torch.bfloat16) -> int:
     """Query positions of one forward q tile when it folds ``group``
@@ -143,11 +170,22 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, ctypes.POINTER(ci), vp]
+                       ci, ctypes.c_float, ci, ctypes.POINTER(ci), vp]
         fn.restype = ci
         lib.flash_attention_error.argtypes = [ci]
         lib.flash_attention_error.restype = ctypes.c_char_p
+        lib.flash_attention_fwd_smem.argtypes = [ci, ci]
+        lib.flash_attention_fwd_smem.restype = ci
     return lib
+
+
+def launched_smem(head_dim: int, dtype: torch.dtype) -> int:
+    """The dynamic shared memory B5's instantiation for ``head_dim`` and
+    ``dtype`` may take, read back from the loaded kernel
+    (``cudaFuncGetAttributes``' ``maxDynamicSharedSizeBytes``): after its
+    first launch, what the launcher set (the f32 kernels set it only
+    above the default 48 KB)."""
+    return _lib().flash_attention_fwd_smem(head_dim, DTYPE_CODES[dtype])
 
 
 def refusal(head_dim: int, dtype: torch.dtype, group: int = 1) -> str | None:
@@ -235,7 +273,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             None if lse is None else lse.data_ptr(), b, s, t, nq, nk, h,
             DTYPE_CODES[q.dtype], int(causal), int(window),
             default_scale(h) if scale is None else float(scale),
-            ctypes.byref(path), torch.cuda.current_stream().cuda_stream)
+            fwd_smem_bytes(h, q.dtype), ctypes.byref(path),
+            torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = lib.flash_attention_error(code).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg}")

@@ -202,6 +202,14 @@ def row_smem_bytes(n_dim: int) -> int:
     return 4 * n_dim + _RED_SMEM_BYTES
 
 
+def epilogue_smem_bytes(n_dim: int, reduce: bool) -> int:
+    """Dynamic shared memory of a workspace epilogue block: the f32 row
+    of the accumulator where the epilogue reduces over the lanes (its
+    ``fm_red`` scratch is static), none otherwise.  The generated
+    launcher sets it (above 48 KB) and launches with it."""
+    return 4 * n_dim if reduce else 0
+
+
 def row_fits(n_dim: int, vmem_bytes: int) -> bool:
     """Whether a lane-reduce epilogue's shared memory (one f32 row of
     the accumulator and the reduction scratch) fits the budget."""
@@ -672,7 +680,7 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                        [epi.ops[o].cols for o in epi.outputs], n_dim)
     if form == "drhs" and not tile_epi:
         raise ValueError("a drhs epilogue is elementwise at full width")
-    smem = 4 * n_dim if reduce else 0       # the row; fm_red[] is static
+    smem = epilogue_smem_bytes(n_dim, reduce)
     if reduce and not row_fits(n_dim, vmem_bytes):
         raise ValueError(f"lane-reduce epilogue over N={n_dim} does not fit "
                          "the shared-memory budget")
@@ -725,9 +733,12 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         return accessor(fn, row_var, lane_var,
                         em.lines + [f"    return {x};"])
 
+    gemm_smem = fmb.sm90_smem_bytes(tn) if path == "sm90" else \
+        fmb.stream_smem_bytes(kch) if path == "stream" else 0
     head_fields = (f"  static constexpr int ROWS = {rows}, K = {k_dim}, "
                    f"N = {n_dim}, PER = {per}, BATCH = {batch}, TN = {tn}, "
-                   f"KS = {ks}, KCH = {kch};") if path != "fma" else ""
+                   f"KS = {ks}, KCH = {kch}, SMEM = {gemm_smem};"
+                   ) if path != "fma" else ""
     if path == "sm90":
         src = ['#include "fused_matmul_sm90.cuh"'] + src + [
             f"struct {name}_S {{",
@@ -812,7 +823,8 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
         return [f'extern "C" int {name}_launch{suffix}(void* const* p, '
                 'void* stream) {', f"  {name}_Args a;"] + assign
     gen = {"name": name, "rb": rb, "ks": 0 if tile_epi else ks, "kch": kch,
-           "n_ptrs": k if tile_epi else k + 1, "path": path}
+           "n_ptrs": k if tile_epi else k + 1, "path": path,
+           "smem": gemm_smem, "epi_smem": 0 if tile_epi else smem}
     if path != "fma":
         # one launcher a variant: each operand by TMA (sm90) or cp.async
         # (the stream's weight) where its layout allows, and (if any is)
@@ -829,6 +841,17 @@ def segment_source(pro, rhs_pro, epi, lhs_specs, rhs_specs, epi_specs, *,
                 return f"fms_run<{name}_S, {_cbool(ab[0])}>(a, {ws}, s)"
             return (f"fm90_run<{name}_S, {_cbool(ab[0])}, {_cbool(ab[1])}>"
                     f"(a, {ws}, s)")
+
+        # the dynamic shared memory the first variant's GEMM kernel may
+        # take, as its launcher set it (read back after a launch)
+        kern = (f"fms_gemm<{name}_S, {_cbool(tma[0])}>" if path == "stream"
+                else f"fm90_gemm<{name}_S, {_cbool(tma[0])}, "
+                f"{_cbool(tma[1])}>")
+        src += [f'extern "C" int {name}_smem(void) {{',
+                "  cudaFuncAttributes fa;",
+                f"  const cudaError_t e = cudaFuncGetAttributes(&fa, {kern});",
+                "  return e == cudaSuccess ? "
+                "(int)fa.maxDynamicSharedSizeBytes : -(int)e;", "}"]
     if tile_epi:
         if path != "fma":
             for suffix, ab in variants:
@@ -1087,6 +1110,17 @@ def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
     if variant is not None:
         kernel_guard().count_variant(kernel, gen["name"], variant)
     return tuple(outs)
+
+
+def launched_smem(gen: dict) -> int:
+    """The dynamic shared memory the GEMM kernel of an sm90 or
+    weight-stream segment (its TMA / cp.async variant) may take, read
+    back from the loaded kernel (``cudaFuncGetAttributes``'
+    ``maxDynamicSharedSizeBytes``): after its first launch, what the
+    launcher set."""
+    fn = getattr(_symbol_lib(gen["name"]), f"{gen['name']}_smem")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def epilogue_views(epi_operands, epi_specs) -> list[torch.Tensor]:

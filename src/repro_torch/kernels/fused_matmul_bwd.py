@@ -168,6 +168,33 @@ def stream_blocks(rows: int, k_dim: int, n_dim: int, sms: int,
     return STREAM_TN, -(-k_stages // -(-k_stages // splits))
 
 
+#: shared memory of the sm90 mainloop's stage ring
+#: (``csrc/fused_matmul_sm90.cuh``: ``FM90_RING``)
+SM90_RING = 192 * 1024
+
+
+def sm90_smem_bytes(tn: int) -> int:
+    """Dynamic shared memory of an sm90 CTA of ``tn`` output columns:
+    as many [128 x 64] A + [tn x 64] B bf16 stages as the ring holds,
+    a full and an empty mbarrier a stage, and 1,024 bytes to align the
+    ring to the 128-byte swizzle's period.  The generated segment
+    carries it as ``S::SMEM``, which the launcher sets as the kernel's
+    ``cudaFuncAttributeMaxDynamicSharedMemorySize`` and launches with
+    (``Fm90Geom<TN>::SMEM`` is asserted equal at compile time); the
+    verifier reads the same value."""
+    stage = (SM90_TM + tn) * SM90_BK * 2
+    stages = SM90_RING // stage
+    return stages * stage + 2 * stages * 8 + 1024
+
+
+def stream_smem_bytes(kch: int) -> int:
+    """Dynamic shared memory of a weight-stream CTA whose K split walks
+    ``kch`` stages: the ring of four [64 x 128] bf16 weight stages and x's
+    ``STREAM_ROWS`` rows over the split in bf16 (``FmsGeom<S>::SMEM``,
+    asserted equal; carried as ``S::SMEM`` as ``sm90_smem_bytes``)."""
+    return 4 * STREAM_BK * STREAM_TN * 2 + kch * STREAM_BK * STREAM_ROWS * 2
+
+
 def stream_grid_blocks(rows: int, n_dim: int, batch: int = 1
                        ) -> tuple[int, int]:
     """``(row_blocks, col_tiles)`` of the weight stream's grid, per batch

@@ -1,4 +1,9 @@
-from repro_torch.serve.engine import Completion, Engine, Request
+from repro_torch.serve.engine import (
+    Completion,
+    Engine,
+    FixedSlotEngine,
+    Request,
+)
 from repro_torch.serve.faults import (
     FaultConfig,
     FaultInjected,
@@ -8,5 +13,5 @@ from repro_torch.serve.faults import (
 from repro_torch.serve.kv_pool import PagePool, bucket_length, ceil_pow2
 
 __all__ = ["Completion", "Engine", "FaultConfig", "FaultInjected",
-           "FaultInjector", "PagePool", "Request", "bucket_length",
-           "ceil_pow2", "inject"]
+           "FaultInjector", "FixedSlotEngine", "PagePool", "Request",
+           "bucket_length", "ceil_pow2", "inject"]

@@ -83,8 +83,11 @@ and ``plan_hits == 0``; ``explain_decode()`` the per-segment decisions.
 Recurrent stacks (zamba2's mamba2 layers, rwkv6) keep one state row per
 slot: admit writes the prompt's final state into the slot's row, a
 decode step keeps the new state of the active slots only.  Prompt
-bucketing and chunked prefill stay off for them, as in the JAX engine;
-``offload=True`` is not ported for them yet and raises.
+bucketing and chunked prefill stay off for them, as in the JAX engine.
+``offload=True`` serves them as it serves the dense stacks: the planner
+captures the recurrent decode (each layer's state written back in place
+after every read of the old state) and the tied shared-attention block,
+whose one parameter set plans as one input at each of its positions.
 
 ``fault_injector`` (a ``repro_torch.serve.faults.FaultInjector``, or
 anything duck-typed alike: ``page_alloc()``, ``slow_step()``,
@@ -93,9 +96,10 @@ faults, slow steps); as in the JAX engine it is also installed on the
 kernel guard and the artifact layer for the engine's lifetime, so an
 injected kernel fault demotes a call to its plain version (a quarantine
 bumps the guard epoch: the step is captured again with all_far plans,
-``kernel_replans``) and disk faults reach the plan store.  The fixed-slot
-baseline engine and the static table verifier arrive with later slices
-of the port.
+``kernel_replans``) and disk faults reach the plan store.
+``verify_paged_tables()`` proves the live block tables in bounds
+(``repro_torch.analysis``).  ``FixedSlotEngine`` is the reference's
+dense-cache baseline engine.
 """
 from __future__ import annotations
 
@@ -127,6 +131,124 @@ if TYPE_CHECKING:
 CTRL = 5
 
 
+def _mirrored(shape: tuple, dtype: torch.dtype, dev: torch.device
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A fixed device buffer and its host mirror (pinned on a card, so
+    that a copy in is asynchronous), both zeroed."""
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, pin_memory=dev.type == "cuda"))
+
+
+def _next_tokens(logits: torch.Tensor, noise: torch.Tensor,
+                 temps: torch.Tensor) -> torch.Tensor:
+    """Each row's next token (int32): its greedy argmax, or where
+    ``temps > 0`` the Gumbel-max draw ``argmax(logits / T + noise)``."""
+    x = logits.float()
+    greedy = torch.argmax(x, -1)
+    sampled = torch.argmax(torch.addcdiv(
+        noise, x, torch.clamp(temps[:, None], min=1e-3)), -1)
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+class _DecodeStep:
+    """The decode step both engines share: a static function over fixed
+    buffers (``_static_step``, reading ``_decode_args()``), optionally
+    through the offload compiler — its plan looked up once and bound to
+    the buffers — run eagerly or, on a card, captured once as a CUDA graph
+    and replayed; and the Gumbel noise the sampled rows draw from the
+    engine's generator."""
+
+    def _init_decode(self, decode_fn, offload: bool,
+                     offload_policy: "OffloadPolicy | None",
+                     capture_decode: bool) -> None:
+        # ``offload_policy`` implies offload
+        self._decode_fn = decode_fn
+        self.offload = offload or offload_policy is not None
+        self.offload_policy = offload_policy
+        self._decode_offload = None
+        if self.offload:
+            from repro_torch.core.offload import mpu_offload
+            self._decode_offload = mpu_offload(decode_fn,
+                                               policy=offload_policy)
+        self._decode_run = None    # the offloaded plan, bound to the buffers
+        #: the last decode step's logits; once captured, the graph's own
+        #: output tensor, which each replay rewrites
+        self._logits: torch.Tensor | None = None
+        self._capture = capture_decode and self.device.type == "cuda"
+        self._step_built = False
+        self._graph: StepGraph | None = None
+
+    def _decode(self) -> torch.Tensor:
+        """The decode on the fixed buffers, through the bound plan where
+        offload is on; its logits are kept as ``_logits``."""
+        run = self._decode_fn if self._decode_run is None else \
+            self._decode_run
+        self._logits, _ = run(*self._decode_args())
+        return self._logits
+
+    def _run_decode_step(self) -> None:
+        """Run the static step: replay its graph, or build the step
+        first (``step_traces``): bind the offloaded plan to the fixed
+        buffers and, on a card, warm up and capture."""
+        if self._graph is not None:
+            self._graph.replay()
+            return
+        if not self._step_built:
+            if self._decode_offload is not None and self._decode_run is None:
+                self.prepare_decode()
+            self._step_built = True
+            self.serve_counters["step_traces"] += 1
+            if self._capture:
+                self._graph = StepGraph(self._static_step, self.device)
+                return
+        self._static_step()
+
+    def _draw_noise(self) -> None:
+        """Fresh Gumbel noise ``-log(E)``, ``E ~ Exp(1)``, into the fixed
+        noise buffer, from the engine's generator."""
+        self._noise.exponential_(generator=self.rng).log_().neg_()
+
+    @property
+    def offload_stats(self) -> dict | None:
+        """Plan-cache counters of the offloaded decode step (None when
+        offload is off) and the kernel guard's.  The plan is looked up
+        when the static step is built, not per decode step, so the steady
+        state is the JAX engine's: ``plan_misses == traces == 1`` and
+        ``plan_hits == 0`` whatever the churn."""
+        if self._decode_offload is None:
+            return None
+        return {**self._decode_offload.stats.as_dict(),
+                **kernel_guard().stats()}
+
+    def _on_decode_signature(self, method: str):
+        """``method`` of the offloaded decode step (``explain`` /
+        ``warm`` / ``plan_for``) on the engine's current decode inputs;
+        None when offload is off."""
+        if self._decode_offload is None:
+            return None
+        return getattr(self._decode_offload, method)(*self._decode_args())
+
+    def explain_decode(self):
+        """The offload DecisionReport of the decode step for the engine's
+        signature (None when offload is off): which chains fused, which
+        candidates were declined and why."""
+        return self._on_decode_signature("explain")
+
+    def prepare_decode(self):
+        """Capture and plan the decode step now and bind the plan to the
+        fixed buffers (what the first decode step would do); returns the
+        plan (None when offload is off)."""
+        if self._decode_offload is None:
+            return None
+        self._decode_run = self._decode_offload.bind(*self._decode_args())
+        return self._decode_run.plan
+
+    def decode_plan(self):
+        """The OffloadPlan of the decode step (None when offload is off),
+        looked up without counting."""
+        return self._on_decode_signature("plan_for")
+
+
 @dataclass
 class Request:
     prompt: np.ndarray            # [S] int32
@@ -151,7 +273,7 @@ class Completion:
     reason: str = ""              # e.g. "deadline", "nan_logits", "queue_full"
 
 
-class Engine:
+class Engine(_DecodeStep):
     """Continuous-batching engine over a paged KV cache.
 
     ``capture_decode`` governs all five static functions (the decode
@@ -203,33 +325,20 @@ class Engine:
         # the static decode step's other fixed buffers (see the module
         # docstring); the tables and the poison mask are staged in pinned
         # host memory and copied in before each step
-        pinned = dev.type == "cuda"
-        self._tables = torch.zeros((slots, self.table_width),
-                                   dtype=torch.int32, device=dev)
-        self._tables_host = torch.zeros((slots, self.table_width),
-                                        dtype=torch.int32, pin_memory=pinned)
-        self._poison = torch.zeros((slots,), dtype=torch.bool, device=dev)
-        self._poison_host = torch.zeros((slots,), dtype=torch.bool,
-                                        pin_memory=pinned)
+        self._tables, self._tables_host = _mirrored(
+            (slots, self.table_width), torch.int32, dev)
+        self._poison, self._poison_host = _mirrored((slots,), torch.bool,
+                                                    dev)
         self._noise = torch.zeros((slots, cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self._emit = torch.zeros((4, slots), dtype=torch.int32, device=dev)
-        #: the last decode step's logits; once captured, the graph's own
-        #: output tensor, which each replay rewrites
-        self._logits: torch.Tensor | None = None
-        self._capture = capture_decode and dev.type == "cuda"
-        self._step_built = False
-        self._graph: StepGraph | None = None
-        self._decode_run = None    # the offloaded plan, bound to the buffers
         # the admit / chunk / control functions' inputs (see the module
         # docstring), staged through a pinned mirror in one copy a call;
         # ``_staged`` marks the last copy out of the mirror
         tw = self.table_width
-        self._inputs = torch.zeros((CTRL + tw + max_len,), dtype=torch.int32,
-                                   device=dev)
-        self._inputs_host = torch.zeros((CTRL + tw + max_len,),
-                                        dtype=torch.int32, pin_memory=pinned)
-        self._staged = torch.cuda.Event() if pinned else None
+        self._inputs, self._inputs_host = _mirrored(
+            (CTRL + tw + max_len,), torch.int32, dev)
+        self._staged = torch.cuda.Event() if dev.type == "cuda" else None
         self._ctrl = self._inputs[:CTRL]
         self._temp = self._inputs[CTRL - 1:CTRL].view(torch.float32)
         self._row = self._inputs[CTRL:CTRL + tw]
@@ -241,8 +350,7 @@ class Engine:
         #: the memory pool the graphs share
         self._graphs: dict[tuple, StepGraph] = {}
         self._built: set[tuple] = set()
-        self._prefill_pool = (torch.cuda.graph_pool_handle()
-                              if self._capture else None)
+        self._prefill_pool = None
 
         # host mirrors (slot occupancy / page-growth bookkeeping)
         self._host_active = np.zeros((slots,), bool)   # occupied (incl. prefilling)
@@ -282,27 +390,17 @@ class Engine:
 
         # the hot path: with offload on, the paged decode step goes
         # through the offload compiler, planned once for the pool's decode
-        # signature; ``offload_policy`` implies offload
-        self.offload = offload or offload_policy is not None
-        if self.offload and not attention_only_pattern(cfg):
-            raise NotImplementedError(
-                f"offload=True for {cfg.name} (blocks {cfg.block_pattern}) "
-                "is not ported yet: the offloaded decode step serves "
-                "attention-only stacks")
-        self.offload_policy = offload_policy
-        self._decode_offload = None
-        if self.offload:
-            from repro_torch.core.offload import mpu_offload
+        # signature
+        model = self.model
 
-            model = self.model
+        def paged_decode(params, cache, tok, pos, tables, active):
+            return model.decode_step_paged(params, cache, tok, pos, tables,
+                                           active, max_len=max_len)
 
-            def paged_decode(params, cache, tok, pos, tables, active):
-                return model.decode_step_paged(params, cache, tok, pos,
-                                               tables, active,
-                                               max_len=max_len)
-
-            self._decode_offload = mpu_offload(paged_decode,
-                                               policy=offload_policy)
+        self._init_decode(paged_decode, offload, offload_policy,
+                          capture_decode)
+        if self._capture:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
 
         if fault_injector is not None:
             # kernel dispatch and durable-artifact IO see the injector
@@ -432,13 +530,7 @@ class Engine:
         captures.  Every row computes its greedy and its sampled token;
         ``temp > 0`` picks, as in the JAX engine.  Returns the logits."""
         st, max_len = self._state, self.max_len
-        if self._decode_run is not None:
-            logits, _ = self._decode_run(*self._decode_args())
-        else:
-            logits, _ = self.model.decode_step_paged(
-                self.params, self.cache, st["tok"], st["pos"], self._tables,
-                st["active"], max_len=max_len)
-        self._logits = logits
+        logits = self._decode()
         # chaos: poisoned rows get non-finite logits (an all-False mask
         # without an injector leaves them as they are)
         logits = torch.where(self._poison[:, None], torch.nan, logits)
@@ -448,12 +540,7 @@ class Engine:
         was_active = st["active"]
         bad = was_active & ~torch.isfinite(logits).all(-1)
         safe = torch.where(bad[:, None], 0.0, logits)
-        greedy = torch.argmax(safe, -1).to(torch.int32)
-        temps = st["temp"]
-        sampled = torch.argmax(torch.addcdiv(
-            self._noise, safe, torch.clamp(temps[:, None], min=1e-3)),
-            -1).to(torch.int32)
-        nxt = torch.where(temps > 0, sampled, greedy)
+        nxt = _next_tokens(safe, self._noise, st["temp"])
         one = was_active.to(torch.int32)
         st["pos"].add_(one)
         st["budget"].sub_(one)
@@ -474,30 +561,12 @@ class Engine:
             self._poison_host.numpy()[:] = poison
             self._poison.copy_(self._poison_host, non_blocking=True)
         if self._sampling:
-            self._noise.exponential_(generator=self.rng).log_().neg_()
+            self._draw_noise()
 
     def _decode_args(self) -> tuple:
         st = self._state
         return (self.params, self.cache, st["tok"], st["pos"], self._tables,
                 st["active"])
-
-    def _run_decode_step(self) -> None:
-        """Run the static step: replay its graph, or build the step
-        first (``step_traces``): bind the offloaded plan to the fixed
-        buffers and, on a card, warm up and capture."""
-        if self._graph is not None:
-            self._graph.replay()
-            return
-        if not self._step_built:
-            if self._decode_offload is not None and self._decode_run is None:
-                self._decode_run = self._decode_offload.bind(
-                    *self._decode_args())
-            self._step_built = True
-            self.serve_counters["step_traces"] += 1
-            if self._capture:
-                self._graph = StepGraph(self._static_step, self.device)
-                return
-        self._static_step()
 
     @property
     def _sampling(self) -> bool:
@@ -521,45 +590,16 @@ class Engine:
             "table_width": self.table_width,
         }
 
-    @property
-    def offload_stats(self) -> dict | None:
-        """Plan-cache counters of the offloaded decode step (None when
-        offload is off).  The plan is looked up when the static step is
-        built, not per decode step, so the steady state is the JAX
-        engine's: ``plan_misses == traces == 1`` and ``plan_hits == 0``
-        whatever the churn."""
-        if self._decode_offload is None:
-            return None
-        return {**self._decode_offload.stats.as_dict(),
-                **kernel_guard().stats()}
-
-    def _on_decode_signature(self, method: str):
-        """``method`` of the offloaded decode step (``explain`` /
-        ``warm`` / ``plan_for``) on the engine's current decode inputs;
-        None when offload is off."""
-        if self._decode_offload is None:
-            return None
-        return getattr(self._decode_offload, method)(*self._decode_args())
-
-    def explain_decode(self):
-        """The offload DecisionReport of the paged decode step for the
-        pool's signature (None when offload is off): which chains fused,
-        which candidates were declined and why."""
-        return self._on_decode_signature("explain")
-
-    def prepare_decode(self):
-        """Capture and plan the decode step for the pool's signature now
-        and bind the plan to the fixed buffers (what the first decode
-        step would do); returns the plan (None when offload is off)."""
-        if self._decode_offload is None:
-            return None
-        self._decode_run = self._decode_offload.bind(*self._decode_args())
-        return self._decode_run.plan
-
-    def decode_plan(self):
-        """The OffloadPlan of the paged decode step (None when offload
-        is off)."""
-        return self._on_decode_signature("plan_for")
+    def verify_paged_tables(self) -> list:
+        """Static bounds proof of the paged decode's block tables
+        (``repro_torch.analysis.verify_paged_decode``): every entry,
+        padding included, names a real page, and no slot's position
+        exceeds what its table row addresses.  Returns the findings
+        (empty when the tables prove out)."""
+        from repro_torch.analysis import verify_paged_decode
+        return verify_paged_decode(
+            self.pool.tables, self._state["pos"].cpu().numpy(),
+            num_pages=self.num_pages, page_size=self.page_size)
 
     # -- slot management ----------------------------------------------------
     def _free_slot(self) -> int | None:
@@ -944,6 +984,155 @@ class Engine:
                     f"page_size {self.page_size})")
         drain()
         return done
+
+
+class FixedSlotEngine(_DecodeStep):
+    """The reference's previous engine: a dense ``[slots, max_len]`` KV
+    cache (``model.init_cache``) with per-slot host bookkeeping, kept as
+    the serving baseline of the paged ``Engine``.
+
+    Each request is prefilled eagerly at admit, once per prompt length
+    (``admit_traces``: the reference retraces its prefill per length),
+    and its cache rows written into its slot.  The decode step is a
+    static function over fixed buffers (the dense cache, updated in
+    place, and one int32 ``[3, slots]`` input buffer: last token,
+    position, the temperature's f32 bits, staged from a pinned mirror),
+    captured on a CUDA device as ONE CUDA graph (``StepGraph``) at its
+    first call and replayed after (``step_traces``), as the reference
+    jits its step with the cache donated; ``capture_decode=False`` runs
+    it eagerly.  Every slot decodes every step, as in the reference; an
+    idle slot's rows are rewritten whole at its next admit.
+
+    ``offload=True`` (or an ``offload_policy``) runs ``model.decode_step``
+    through ``mpu_offload``, its plan looked up once and bound to the
+    fixed buffers: ``offload_stats`` reads ``plan_misses == traces == 1``
+    and ``plan_hits == 0`` at steady state.  Greedy tokens equal the
+    reference's; sampled rows take the paged engine's Gumbel-max draw
+    from the engine's own generator."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
+                 max_len: int = 512, seed: int = 0, offload: bool = False,
+                 offload_policy: "OffloadPolicy | None" = None,
+                 capture_decode: bool = True,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = dev = resolve_device(device)
+        self.model = build_model(cfg, device=dev)
+        self.params = cast_params(params, self.model.dtype, dev)
+        self.slots = slots
+        self.max_len = max_len
+        self.cache: Cache = self.model.init_cache(slots, max_len)
+        self.pos = np.zeros((slots,), np.int32)
+        self.active = np.zeros((slots,), bool)
+        self.budget = np.zeros((slots,), np.int32)
+        self.rid = np.full((slots,), -1, np.int32)
+        self.last_token = np.zeros((slots,), np.int32)
+        self.temps = np.zeros((slots,), np.float32)
+        self.rng = torch.Generator(device=dev)
+        self.rng.manual_seed(seed)
+
+        self._inputs, self._inputs_host = _mirrored((3, slots), torch.int32,
+                                                    dev)
+        self._temp = self._inputs[2].view(torch.float32)
+        self._noise = torch.zeros((slots, cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self._next = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        #: the last admitted prompt's last logits
+        self._prefill_logits: torch.Tensor | None = None
+        self._admitted: set[int] = set()
+        self.decode_steps = 0
+        self.serve_counters = {"admit_traces": 0, "step_traces": 0}
+        self._init_decode(self.model.decode_step, offload, offload_policy,
+                          capture_decode)
+
+    def _decode_args(self) -> tuple:
+        return self.params, self.cache, self._inputs[0], self._inputs[1]
+
+    # -- slot management ----------------------------------------------------
+    def _free_slot(self) -> int | None:
+        idx = np.where(~self.active)[0]
+        return int(idx[0]) if idx.size else None
+
+    @torch.no_grad()
+    def admit(self, req: Request) -> bool:
+        """Prefill a request into a free slot. Returns False if full."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        toks = np.asarray(req.prompt, np.int32).reshape(1, -1)
+        if toks.shape[1] not in self._admitted:
+            self._admitted.add(toks.shape[1])
+            self.serve_counters["admit_traces"] += 1
+        logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
+                                            self.max_len)
+        self._prefill_logits = logits
+        _merge_slot(self.cache, cache1, slot)
+        self.pos[slot] = toks.shape[1]
+        self.active[slot] = True
+        self.budget[slot] = req.max_new_tokens - 1
+        self.rid[slot] = req.rid
+        self.last_token[slot] = int(torch.argmax(logits[0]))
+        self.temps[slot] = req.temperature
+        return True
+
+    # -- decode -------------------------------------------------------------
+    @torch.no_grad()
+    def _static_step(self) -> torch.Tensor:
+        """One decode of every slot on the fixed buffers: the cache in
+        place, the next tokens into ``_next``.  Returns the logits."""
+        logits = self._decode()
+        self._next.copy_(_next_tokens(logits, self._noise, self._temp))
+        return self._logits
+
+    def step(self) -> list[tuple[int, int]]:
+        """One decode step for all slots.  Returns [(rid, token)] emitted
+        this step by the active ones."""
+        if not self.active.any():
+            return []
+        h = self._inputs_host.numpy()
+        h[0], h[1], h[2] = self.last_token, self.pos, self.temps.view(np.int32)
+        self._inputs.copy_(self._inputs_host, non_blocking=True)
+        if (self.temps[self.active] > 0).any():
+            self._draw_noise()
+        self._run_decode_step()
+        self.decode_steps += 1
+        nxt = self._next.cpu().numpy()          # the step's one host sync
+        out = []
+        for s in range(self.slots):
+            if not self.active[s]:
+                continue
+            out.append((int(self.rid[s]), int(self.last_token[s])))
+            self.pos[s] += 1
+            self.last_token[s] = nxt[s]
+            self.budget[s] -= 1
+            if self.budget[s] < 0 or self.pos[s] >= self.max_len - 1:
+                self.active[s] = False
+        return out
+
+    def generate(self, requests: list[Request]) -> dict[int, Completion]:
+        """Run a request list to completion with continuous batching."""
+        pending = list(requests)
+        done: dict[int, Completion] = {
+            r.rid: Completion(r.rid) for r in requests}
+        while pending or self.active.any():
+            while pending and self.admit(pending[0]):
+                pending.pop(0)
+            for rid, tok in self.step():
+                done[rid].tokens.append(tok)
+        return done
+
+
+def _merge_slot(cache: Cache, cache1: Cache, slot: int) -> None:
+    """Write a single-request dense cache into row ``slot`` of every
+    leaf, in place (every leaf of the dense cache has the batch row on
+    axis 0)."""
+    for pool_layer, one in zip(cache, cache1):
+        for name, t in one.items():
+            dst = pool_layer[name]
+            if t.shape[0] != 1 or t.shape[1:] != dst.shape[1:]:
+                raise ValueError(f"cannot merge cache leaf {name!r} "
+                                 f"{tuple(t.shape)} -> {tuple(dst.shape)}")
+            dst[slot].copy_(t[0])
 
 
 def _fit_len(x: torch.Tensor, length: int) -> torch.Tensor:

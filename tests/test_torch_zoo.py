@@ -250,14 +250,3 @@ def test_tied_shared_attention_is_one_dict():
     assert mamba["in_proj"].dtype == torch.bfloat16
     assert mamba["A_log"].dtype == mamba["dt_bias"].dtype == torch.float32
 
-
-def test_hybrid_and_recurrent_training_and_offload_raise():
-    """The offloaded ``Engine`` of a recurrent or hybrid stack is not
-    ported yet and raises.  (Their training is ported:
-    ``tests/test_torch_train_zoo.py``.)"""
-    for arch in CASES.values():
-        cfg = dataclasses.replace(reduced(get_config(arch[0])),
-                                  dtype="float32", num_layers=2)
-        model = build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Engine(cfg, model.init(0), device="cpu", offload=True)
