@@ -108,7 +108,8 @@ and holds every hand-written kernel against its plain PyTorch version:
    by form; every variant of the sm90 mainloop (B3, B4, B6) and of the
    weight stream (B3) at the CPU tests' shapes and at full width, on
    misaligned operands, with K splits, an lhs prologue, an f32 weight
-   cast and batch slices; the forward plan unchanged by batched
+   cast and batch slices (these untimed checks run while phase 12's
+   processes do, in the whole script); the forward plan unchanged by batched
    anchors, its attention ``bmm`` declined; then the compiled step
    (``compile_train_step``: one CUDA graph over the donated state) from
    the same seed-0 state for 3 steps against those eager steps — losses,
@@ -119,9 +120,18 @@ and holds every hand-written kernel against its plain PyTorch version:
    unchanged after the warm step; a replay's host clock, device time
    (CUDA events), idle share, kernels a step, the warm call's and the
    capture's seconds, the graph pool's bytes, peak memory and tokens/s
-   beside the eager step's; and the 2-layer f32 build with remat on,
+   beside the eager step's, and the state slots its write-back still
+   copies (those the donating update leaves far) and their bytes; and
+   the 2-layer f32 build with remat on,
    offload off and 2 microbatches, captured against ``capture=False``
-   (bit-equal);
+   (bit-equal).  Phases 6 and 7 also launch one donating segment of each
+   aliasing kind in place and with fresh outputs, each on its own copy
+   of the same seeded operands (``inplace_check``: bit-equal, the output
+   in the operand's storage, both times): the decode plan's weight
+   stream (B3), the update bound with its parameters and moments donated
+   (B2 on f32 leaves), and B3 / B4 / B6 from the training plans or,
+   where those donate none, from a full-width chain whose operand a far
+   ``sort`` makes (``DONATION_CHAINS``);
 8. flash and batched anchors at the attention width of qwen3-1.7b (16
    query / 8 kv heads, head_dim 128, 2 x 2048 tokens, bf16):
    ``mpu_offload`` of the GQA attention chain plans one flash segment
@@ -252,6 +262,11 @@ against them, and the 2-layer f32 build), on the package under ``DIR``
 where given; a package without ``compile_train_step`` gives the eager
 step alone, so one call compares two checkouts.
 
+    python3 chip_smoke.py --donation
+
+takes the in-place checks of phases 6 and 7 alone (at phase 7's depth)
+and the compiled step's readings after them (``donation_alone``).
+
     python3 chip_smoke.py --norm [--src DIR]
 
 does the same for phase 9's bf16 readings of B9 / B9-bwd (the hidden
@@ -315,11 +330,14 @@ clock, CUDA-event device time and idle share, tokens/s, the first eager
 step's capture, plan and build seconds, the first compiled step's warm
 and capture seconds, launches a step by kernel, the plans' node and
 segment counts, peak memory and the graph pool's bytes.  In the whole
-script, to keep within its time limit, zamba2's process takes its first
-eager step beside phase 12 and its timed steps after it, and the 4-layer
-C5 process runs beside zamba2's segment checks and f32 build, where the
-card's free memory allows (``BESIDE_GIB``); ``--durability`` and
-``--zoo-train`` run each process alone.
+script, to keep within its time limit, C5's check runs at 4 layers only
+and rwkv6-1.6b at 4 (``WHOLE_RWKV6_LAYERS``; its plain f32 steps too);
+zamba2's process takes its first eager step beside phase 12 and its
+timed steps after it, and the C5 and rwkv6 processes
+run beside zamba2's segment checks and f32 build, where the card's free
+memory allows (``BESIDE_GIB``, ``BESIDE_RWKV6_GIB``); ``--durability``
+and ``--zoo-train`` run each process alone, ``--zoo-train`` at the
+depths above.
 
 Exits non-zero (printing no result line) without a CUDA device, when a
 kernel fails to build or launch, or when any check fails.  Float32
@@ -327,6 +345,7 @@ matrix products run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -338,6 +357,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -1124,9 +1144,12 @@ def verify_plans(label: str, plans: list, tag: str) -> dict:
             if f.severity == "error":
                 errors.append(str(f))
     VERIFIED["plans"] = VERIFIED.get("plans", 0) + len(plans)
+    segs = [sg for p in plans for sg in p.segments]
     print(f"{tag} verifier on {label}: {len(plans)} plan(s), "
-          f"{sum(len(p.segments) for p in plans)} segments, findings by "
-          f"rule {counts or 'none'} ({time.perf_counter() - t0:.1f} s)")
+          f"{len(segs)} segments ({sum(len(sg.donations) for sg in segs)} "
+          f"donations, {sum(len(getattr(sg, 'dropped', ())) for sg in segs)}"
+          f" dropped at plan time), findings by rule {counts or 'none'} "
+          f"({time.perf_counter() - t0:.1f} s)")
     check(not errors, f"{label}: verifier errors {errors[:3]}")
     return counts
 
@@ -2157,6 +2180,7 @@ def phase_offload(params, card: str):
         print(f"[6]   {line}")
     verify_plans("qwen3-1.7b decode plans (bf16, f32)", [plan16, plan32],
                  "[6]")
+    donation_checks([plan16], ["stream"], card, "[6]")
     timed = phase_offload_kernels({"bf16": plan16, "f32": plan32}, card)
     check_launched_smem([plan16], "[6]")
     phase_offload_roles()
@@ -2205,9 +2229,9 @@ TIMED_GRID = 3
 #: and the grid segments with the most device time a step
 TOP_GRID = 5
 #: phase 7's depth in the whole script: full-width qwen3-1.7b cut to 4
-#: layers, so that the script keeps within its time limit (queue C5's
-#: check in phase 13 trains the 28 layers, eager and compiled, from a
-#: fresh process); ``--train`` trains the full depth
+#: layers, so that the script keeps within its time limit; ``--train``
+#: trains the full depth, and ``--zoo-train``'s C5 check trains the 28
+#: layers, eager and compiled, from a fresh process
 TRAIN_LAYERS = 4
 #: the bf16 training plans of qwen3-1.7b at full width, by depth: the
 #: forward plan (fused, fused by form, declined) as measured before
@@ -2740,8 +2764,12 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
         mm = seg.matmul
         form = mm.form if mm is not None else "grid"
         progs = segment_programs(eqns, seg)
-        call = _segment_kernel(seg, progs, impl="cuda")
-        ref = _segment_kernel(seg, progs, impl="ref")
+        # fresh outputs: the operands are run again (``inplace_check``
+        # holds the in-place launches)
+        call = functools.partial(_segment_kernel(seg, progs, impl="cuda"),
+                                 alias=False)
+        ref = functools.partial(_segment_kernel(seg, progs, impl="ref"),
+                                alias=False)
         vals = seg_operands(seg, zlib.crc32(sym.encode()) % 1000)
         got = call(*vals)
         torch.cuda.synchronize()
@@ -2758,9 +2786,9 @@ def check_train_segments(plans, dtype, card: str, *, timed: bool,
             # bf16 dlhs / drhs and fwd of 64 rows a slice or more on the
             # sm90 mainloop, a shorter fwd on the weight stream
             gen = _matmul_gen(segment_call(eqns, seg))
-            want = "stream" if form == "fwd" and \
+            path = "stream" if form == "fwd" and \
                 seg.rows // mm.batch < 64 else "sm90"
-            if gen["path"] != want or not gemm_path(gen).startswith(want):
+            if gen["path"] != path or not gemm_path(gen).startswith(path):
                 off_sm90.append(f"{form} {sym} [{seg.rows}x{mm.k}]: "
                                 f"{gemm_path(gen)}")
             if form == "drhs":
@@ -2990,8 +3018,10 @@ def sm90_variants() -> None:
             failed.append(f"{label}: no anchored segment")
         for seg in anchored:
             progs = segment_programs(plan.eqns, seg)
-            call = _segment_kernel(seg, progs, impl="cuda")
-            ref = _segment_kernel(seg, progs, impl="ref")
+            call = functools.partial(
+                _segment_kernel(seg, progs, impl="cuda"), alias=False)
+            ref = functools.partial(
+                _segment_kernel(seg, progs, impl="ref"), alias=False)
             name = _matmul_gen(segment_call(plan.eqns, seg))["name"]
             vals = seg_operands(seg, 17)
             for how, vs in (("as given", vals),
@@ -3127,7 +3157,8 @@ def update_leaf_segment(uplan, b8: dict, card: str) -> None:
 
     seg = max(uplan.segments, key=lambda sg: sg.rows)
     progs = segment_programs(uplan.eqns, seg)
-    call = _segment_kernel(seg, progs, impl="cuda")
+    call = functools.partial(_segment_kernel(seg, progs, impl="cuda"),
+                             alias=False)
     vals = seg_operands(seg, 7)
     outs = call(*vals)
     ms = graph_ms(lambda i: call(*vals), 2, replays=5)
@@ -3184,8 +3215,10 @@ def phase_train(card: str):
     check_launched_smem(plans, "[7]")
     update_leaf_segment(plans[-1], b8, card)
     done("segments")
-    sm90_variants()
-    done("sm90 variants")
+    update_donation(state, tcfg, card)
+    donation_checks(plans, ["fwd", "dlhs", "drhs"], card, "[7]")
+    done("in-place launches (the sm90 variants, untimed, run beside phase "
+         "12)")
     del state, step, plans
     gc.collect()
     torch.cuda.empty_cache()
@@ -3210,6 +3243,182 @@ def phase_train(card: str):
           counts["fused_matmul_drhs_segment"] > 0,
           "the training steps launched no B4 / B6")
     return rows, counts, b8, reading
+
+
+# ------------------------------- segment-boundary donation (phases 6, 7)
+
+#: full-width chains (qwen3-1.7b's 2,048 tokens, d_model 2,048, MLP width
+#: 6,144, bf16) whose plans donate an anchored epilogue operand of each
+#: contraction form: the operand a far sort makes dies at the segment
+DONATION_SHAPES = {"fwd": ((2048, 2048), (2048, 6144), (2048, 6144)),
+                   "dlhs": ((2048, 6144), (2048, 6144), (2048, 2048)),
+                   "drhs": ((2048, 2048), (2048, 6144), (2048, 6144))}
+
+
+def _fwd_chain(x, w, y):
+    r = torch.sort(y, dim=1).values
+    return F.gelu(x @ w, approximate="tanh") + r
+
+
+def _dlhs_chain(g, w, x):
+    r = torch.sort(x, dim=1).values
+    return torch.tanh(g @ w.t()) * 0.5 + r
+
+
+def _drhs_chain(x, g, w):
+    r = torch.sort(w, dim=1).values
+    return x.t() @ g + r
+
+
+DONATION_CHAINS = {"fwd": _fwd_chain, "dlhs": _dlhs_chain,
+                   "drhs": _drhs_chain}
+
+
+def donation_kind(eqns, seg) -> str:
+    """``grid``, ``stream`` (a B3 weight-stream forward) or the anchored
+    segment's form."""
+    from repro_torch.core.offload import _matmul_gen, segment_call
+
+    if seg.matmul is None:
+        return "grid"
+    if seg.matmul.form == "fwd" and \
+            _matmul_gen(segment_call(eqns, seg))["path"] == "stream":
+        return "stream"
+    return seg.matmul.form
+
+
+def donating_segments(plans, kinds) -> dict:
+    """kind -> (eqns, segment) of the first segment of ``plans`` that
+    donates, for each of ``kinds``."""
+    out: dict = {}
+    for plan in plans:
+        for seg in plan.segments:
+            if seg.donations:
+                kind = donation_kind(plan.eqns, seg)
+                if kind in kinds and kind not in out:
+                    out[kind] = (plan.eqns, seg)
+    return out
+
+
+def chain_segments(kinds, tag: str) -> dict:
+    """kind -> (eqns, segment): the donating segment of each
+    ``DONATION_CHAINS[kind]`` at full width, its plan verified; the
+    chains' translation units built together."""
+    from repro_torch.core.offload import _register_library, offload_report
+
+    out, units = {}, []
+    for kind in kinds:
+        args = [torch.zeros(s, dtype=torch.bfloat16, device=DEVICE)
+                for s in DONATION_SHAPES[kind]]
+        plan = offload_report(DONATION_CHAINS[kind], *args)
+        verify_plans(f"the full-width {kind} donation chain", [plan], tag)
+        seg = next((sg for sg in plan.segments if sg.donations and
+                    donation_kind(plan.eqns, sg) == kind), None)
+        check(seg is not None, f"the {kind} chain's plan donates nothing")
+        units.append(_register_library(plan.eqns, plan))
+        out[kind] = (plan.eqns, seg)
+    for started in [fm.start_library(u) for u in units if u]:
+        fm.finish_library(started)
+    return out
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and \
+        bool(torch.equal(torch.where(nan, 0, a), torch.where(nan, 0, b)))
+
+
+def inplace_check(label: str, eqns, seg, card: str, tag: str) -> dict:
+    """One donating segment launched in place (its planned aliases) and
+    with fresh outputs (``alias=False``), each on its own copy of the
+    same seeded operands (``seg_operands``): every output bit-equal, each
+    donated output in its operand's storage (a mismatch fails the
+    script); both device times by CUDA-graph replays, each launch of the
+    in-place graph again on the operands the last one wrote."""
+    from repro_torch.core.offload import (
+        _dtype,
+        _segment_arg_vars,
+        _segment_kernel,
+        segment_programs,
+    )
+
+    call = _segment_kernel(seg, segment_programs(eqns, seg), impl="cuda")
+    n_mm = len(_segment_arg_vars(seg)) - len(seg.operand_specs)
+    a, b = seg_operands(seg, 29), seg_operands(seg, 29)
+    with torch.no_grad():
+        got = call(*a)
+        want = call(*b, alias=False)
+        torch.cuda.synchronize()
+        same = all(_bits_equal(g, w) for g, w in zip(got, want))
+        home = all(got[oi].data_ptr() == a[n_mm + bi].data_ptr()
+                   for bi, oi in seg.donations)
+        check(same, f"{label}: the in-place launch differs from the "
+              "fresh-output launch")
+        check(home, f"{label}: a donated output is not in its operand's "
+              "storage")
+        check(all(want[oi].data_ptr() != b[n_mm + bi].data_ptr()
+                  for bi, oi in seg.donations),
+              f"{label}: the fresh-output launch wrote in place")
+        ms = graph_ms(lambda i: call(*a), 4, replays=10)
+        fresh_ms = graph_ms(lambda i: call(*b, alias=False), 4, replays=10)
+    shape = f"[{seg.rows}x{max(seg.out_cols)}]"
+    dts = sorted({str(_dtype(seg.operand_specs[bi].var))[6:]
+                  for bi, _ in seg.donations})
+    print(f"{tag} in place {label} {shape} ({'/'.join(dts)} donated, "
+          f"{len(seg.donations)} of {len(seg.outputs)} outputs): bit-equal "
+          f"to the fresh-output launch, each donated output in its "
+          f"operand's storage; {ms:.4f} ms in place vs {fresh_ms:.4f} ms "
+          f"fresh ({ms / fresh_ms:.3f}x) on {card}")
+    del a, b, got, want
+    return dict(shape=shape, ms=ms, fresh_ms=fresh_ms,
+                donations=len(seg.donations))
+
+
+def donation_checks(plans, kinds, card: str, tag: str) -> dict:
+    """``inplace_check`` on one donating segment of each of ``kinds``
+    that ``plans`` hold; an anchored form they do not donate in comes
+    from its full-width ``DONATION_CHAINS`` chain (printed so).  Returns
+    kind -> the check's reading."""
+    found = donating_segments(plans, kinds)
+    names = {"grid": "B2", "stream": "B3 (weight stream)", "fwd": "B3",
+             "dlhs": "B4", "drhs": "B6"}
+    missing = [k for k in kinds if k not in found]
+    for kind in missing:
+        print(f"{tag} the plans hold no donating {names[kind]} segment"
+              + (": its full-width chain stands in"
+                 if kind in DONATION_CHAINS else ""))
+    chains = chain_segments([k for k in missing if k in DONATION_CHAINS],
+                            tag)
+    out = {}
+    for kind in kinds:
+        if kind not in found and kind not in chains:
+            continue
+        source = "the plans" if kind in found else "a chain"
+        eqns, seg = found.get(kind) or chains[kind]
+        out[kind] = dict(inplace_check(f"{names[kind]} ({source})", eqns,
+                                       seg, card, tag), source=source)
+    return out
+
+
+def update_donation(state, tcfg, card: str, tag: str = "[7]") -> dict:
+    """The update as the compiled step binds it (parameters and moments
+    donated): its plan verified, its donations counted, and its
+    donating B2 segment with the most donations (the fewest rows of
+    those) launched in place against fresh outputs."""
+    from repro_torch.train.step import _update_fn
+
+    uplan = _update_fn(tcfg, True, donate=True).plan_for(
+        *update_args(state))
+    verify_plans("the donating update plan", [uplan], tag)
+    segs = [sg for sg in uplan.segments if sg.donations]
+    check(segs, "the donating update plan donates nothing")
+    seg = max(segs, key=lambda sg: (len(sg.donations), -sg.rows))
+    print(f"{tag} the donating update plan: {len(uplan.segments)} segments, "
+          f"{sum(len(sg.donations) for sg in uplan.segments)} donations "
+          f"({uplan.donated_hbm_bytes} bytes written in place), "
+          f"{sum(len(sg.dropped) for sg in uplan.segments)} dropped")
+    return inplace_check("B2 (the update, f32 leaves)", uplan.eqns, seg,
+                         card, tag)
 
 
 # ------------------------------------------ the compiled training step (7)
@@ -3275,9 +3484,13 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
     time (CUDA events), the idle share, the kernels a step (profiler, one
     more step), the warm call's and the capture's seconds, the graph
     pool's bytes, peak memory and tokens/s, beside the eager step's.
-    ``plans_of``: the eager step whose offloaded loss and update the
-    compiled step looks its plans up in (planned once in the process; the
-    plan counters then count the eager steps too and are not checked);
+    Prints the state slots the write-back copied (``last_copied``: the
+    leaves the donating update leaves far), their bytes, and the leaves
+    written in place.
+    ``plans_of``: the eager step whose offloaded loss the compiled step
+    looks its plans up in (planned once in the process; the plan counters
+    then count the eager steps too and are not checked; the update, which
+    the compiled step binds donated, is its own);
     ``profile=False`` takes no profiled step."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profile_ctx
@@ -3290,8 +3503,9 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
     tied = [Ties(t).index for t in (state.params, state.opt.m, state.opt.v)]
     step = compile_train_step(model, tcfg)
     if plans_of is not None:
-        step.loss_fn, step.update_fn = plans_of.loss_fn, plans_of.update_fn
-        step.stats, step.update_stats = plans_of.stats, plans_of.update_stats
+        # the loss's plans only: the compiled step binds its own update,
+        # with the parameters and moments donated
+        step.loss_fn, step.stats = plans_of.loss_fn, plans_of.stats
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated() / 2 ** 30
@@ -3404,6 +3618,16 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
               f"{steps + 1}): "
               + (", ".join(f"{e.key} x{e.count} {dev_us(e) / 1e3:.3f} ms"
                            for e in copies) if copies else "none seen"))
+    slots = step._unique_state(state)
+    # a package without donation copies every slot back
+    copied = getattr(step, "last_copied", range(len(slots)))
+    copied_bytes = sum(slots[i].numel() * slots[i].element_size()
+                       for i in copied)
+    print(f"{tag} {label} compiled step's write-back: {len(slots)} state "
+          f"slots, {len(slots) - len(copied)} written in place by the "
+          f"donating update, {len(copied)} copied ({copied_bytes} bytes, "
+          f"{2 * copied_bytes} moved: each read and written once; "
+          f"the leaves the update leaves far and the step counter)")
     pool = graph.memory["reserved"][1] - graph.memory["reserved"][0]
     warm_s, capture_s = graph.warm_seconds, graph.seconds - graph.warm_seconds
     print(f"{tag} {label} compiled step: first step {times[0]:.3f} s (warm "
@@ -3440,6 +3664,8 @@ def train_compiled(model, tcfg, data, tokens: int, eager: dict,
                 capture_s=capture_s, pool=pool, peak=peak, resident=resident,
                 tokens_s=tokens / host_ms * 1e3, bit_equal=bit_equal,
                 launches=per_step[-1], first_s=times[0],
+                copied=len(copied), copied_bytes=copied_bytes,
+                in_place=len(slots) - len(copied),
                 metrics=metrics, unique=unique, tied=n_tied)
 
 
@@ -3946,13 +4172,33 @@ def flash_path(card: str) -> tuple[dict, dict]:
     return b5, counts
 
 
+@contextlib.contextmanager
+def fresh_outputs():
+    """Every segment call inside writes fresh outputs (its planned aliases
+    dropped, as under autograd): a harness that runs a segment again on
+    the operands it recorded keeps them (``inplace_check`` holds the
+    in-place launches)."""
+    from repro_torch.core import offload
+
+    offload._NO_ALIAS[0] += 1
+    try:
+        yield
+    finally:
+        offload._NO_ALIAS[0] -= 1
+
+
 class SegmentRecorder(torch.fx.Interpreter):
     """Runs a plan's runner graph, keeping the operands of every fused
-    segment call (the calls carry their ``segment``)."""
+    segment call (the calls carry their ``segment``), each call writing
+    fresh outputs (``fresh_outputs``)."""
 
     def __init__(self, gm):
         super().__init__(gm)
         self.calls = []
+
+    def run(self, *args, **kwargs):
+        with fresh_outputs():
+            return super().run(*args, **kwargs)
 
     def call_function(self, target, args, kwargs):
         if getattr(target, "segment", None) is not None:
@@ -3986,9 +4232,10 @@ def check_path_segments(eqns, calls, card: str) -> None:
         # a 0-dim constant is moved to the card before any graph capture
         vals = [v.to(DEVICE) if v.dim() == 0 else v for v in vals]
         ref = _segment_kernel(seg, segment_programs(eqns, seg), impl="ref")
-        got = run(*vals)
-        torch.cuda.synchronize()
-        want = ref(*vals)
+        with fresh_outputs():
+            got = run(*vals)
+            torch.cuda.synchronize()
+            want = ref(*vals)
         eager = _segment_replay(eqns, seg)(*vals)
         ok, errs, spreads = True, [], []
         for g, w, e in zip(got, want, eager):
@@ -4007,8 +4254,9 @@ def check_path_segments(eqns, calls, card: str) -> None:
         if not ok:
             failed.append(f"{mm.form if mm else 'grid'}")
             continue
-        ms = graph_ms(lambda i: run(*vals), 2, replays=5)
-        plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
+        with fresh_outputs():
+            ms = graph_ms(lambda i: run(*vals), 2, replays=5)
+            plain_ms = time_ms(lambda i: ref(*vals), 2, warmup=1)
         lib, lib_name = None, "torch.matmul"
         if mm is not None:
             a, b = vals[0], vals[len(mm.lhs_specs)]
@@ -6111,7 +6359,8 @@ C5_LAYERS = (4, 28)
 #: not fit in the card's 80 GB: PERF.md section 4)
 ZOO_TRAIN = {"zamba2-1.2b": (12, False), "rwkv6-1.6b": (2, True)}
 #: the models whose phase 13 process also takes the plain eager step in
-#: f32 at full depth (``plain_f32_steps``): rwkv6's grad norm grows
+#: f32 at the process's depth (``plain_f32_steps``): rwkv6's grad norm
+#: at full depth grows
 #: 1,796 -> 1,136 -> 1,155,378 over the offloaded bf16 steps (PR 28)
 F32_STEPS = ("rwkv6-1.6b",)
 TRAIN_MARK = "TRAIN_CHILD "
@@ -6123,6 +6372,15 @@ CHILD_TIMEOUT = 900
 #: beside zamba2's segment checks and f32 build (PR 28's readings), each
 #: with room for the caching allocator's slack
 BESIDE_GIB = {"phase 12": 66.0, "zamba2 checks": 48.0}
+#: phase 13 in the whole script: rwkv6-1.6b cut to 4 layers (its step
+#: peaks at 18.4 GiB on an H100), started beside zamba2's checks and the
+#: 4-layer C5 process where the card has this much free beyond
+#: ``BESIDE_GIB["zamba2 checks"]``; queue C5's check at 4 layers alone.
+#: The full depths (rwkv6's 24 layers, the 28-layer C5 process) run under
+#: ``--zoo-train``: with them the whole script took 920-1,338 s on an
+#: H100 80GB HBM3 at 700 W, over its 1,200 s limit on the slower hosts
+WHOLE_RWKV6_LAYERS = 4
+BESIDE_RWKV6_GIB = 22.0
 #: the card's memory (GiB) outside this process's allocator that a
 #: process started alone tolerates: the CUDA contexts
 OTHERS_GIB = 2.0
@@ -6289,21 +6547,25 @@ def fresh_train(arch: str, layers: int, steps: int, full: bool,
         del model32, state32, step32, batch32
         gc.collect()
         torch.cuda.empty_cache()
-        out["f32_gnorms"] = plain_f32_steps(arch, steps, remat, eager, tag)
+        out["f32_gnorms"] = plain_f32_steps(arch, layers, steps, remat,
+                                            eager, tag)
     return out
 
 
-def plain_f32_steps(arch: str, steps: int, remat: bool, eager: dict,
-                    tag: str) -> list[float]:
+def plain_f32_steps(arch: str, layers: int, steps: int, remat: bool,
+                    eager: dict, tag: str) -> list[float]:
     """``steps`` steps of the plain eager step (no offload) in f32 at full
-    width and depth from the seed-0 state, on phase 13's batches: their
-    grad norms beside the offloaded bf16 steps' (``eager``), to tell what
-    the model does from what the port's offloaded bf16 path does."""
+    width and ``layers`` (0: the full depth) from the seed-0 state, on
+    phase 13's batches: their grad norms beside the offloaded bf16 steps'
+    (``eager``), to tell what the model does from what the port's
+    offloaded bf16 path does."""
     from repro_torch.configs import ShapeConfig, TrainConfig
     from repro_torch.data import SyntheticLM, make_data_config
     from repro_torch.train import init_train_state, make_train_step
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg, device=DEVICE)
     data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
                                                          *TRAIN_SHAPE)))
@@ -6313,7 +6575,8 @@ def plain_f32_steps(arch: str, steps: int, remat: bool, eager: dict,
         state, m = step(state, data.batch(i))
         out.append(float(m["grad_norm"]))
         losses.append(float(m["loss"]))
-    print(f"{tag} {arch}: the plain eager step in f32 (no offload, remat "
+    print(f"{tag} {arch} at {cfg.num_layers} layers: the plain eager step "
+          f"in f32 (no offload, remat "
           f"{'on' if remat else 'off'}), {steps} steps from the seed-0 "
           f"state: losses {losses}, grad norms {out}; the offloaded bf16 "
           f"steps: losses {eager['losses']}, grad norms {eager['gnorms']}")
@@ -6346,8 +6609,9 @@ def shared_segment_check(plans, tag: str) -> None:
             if gen.get("path") != "sm90" or not all(gen["tma"]):
                 continue
             name = gen["name"]
-            call = _segment_kernel(seg, segment_programs(plan.eqns, seg),
-                                   impl="cuda")
+            call = functools.partial(_segment_kernel(
+                seg, segment_programs(plan.eqns, seg), impl="cuda"),
+                alias=False)
             vals = seg_operands(seg, 7)
             first = call(*vals)
             own = _build.start_generated(fm.translation_unit([name]) +
@@ -6485,13 +6749,16 @@ def c5_child(layers: int) -> TrainChild:
                       two_units=layers == C5_LAYERS[0])
 
 
-def zoo_child(arch: str, **kw) -> TrainChild:
-    return TrainChild(arch, 0, 3, True, "[13]", remat=ZOO_TRAIN[arch][1],
-                      **kw)
+def zoo_child(arch: str, layers: int = 0, **kw) -> TrainChild:
+    return TrainChild(arch, layers, 3, True, "[13]",
+                      remat=ZOO_TRAIN[arch][1], **kw)
 
 
-def zoo_line(r: dict, card: str, launches: dict, beside: str = "") -> None:
-    """Phase 13's checks and summary line of one model's process."""
+def zoo_line(r: dict, card: str, launches: dict, beside: str = "",
+             along: str = "") -> None:
+    """Phase 13's checks and summary line of one model's process:
+    ``beside`` ran beside its first eager step, ``along`` beside the
+    whole process."""
     arch, remat, c = r["arch"], r["remat"], r["compiled"]
     launches[arch] = c["launches"]
     check(all(c["launches"].get(k, 0) > 0 for k in (
@@ -6517,23 +6784,46 @@ def zoo_line(r: dict, card: str, launches: dict, beside: str = "") -> None:
           f"unique state tensors; launches a step {c['launches']}; "
           f"train_traces 1; {r['process_s']:.1f} s in all"
           + (f" ({held:.1f} of them waiting after the first step)"
-             if held is not None else "") + f" on {card}")
+             if held is not None else "")
+          + (f", beside {along}" if along else "") + f" on {card}")
 
 
-def durability_and_zoo_train(card: str, t0: float) -> dict:
+def beside_main(fn, *args, **kw):
+    """Runs ``fn`` on a thread of this process; returns the call that
+    waits for it and raises what it raised (a failed check too)."""
+    raised = []
+
+    def run() -> None:
+        try:
+            fn(*args, **kw)
+        except BaseException as e:  # noqa: BLE001 - re-raised by wait()
+            raised.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait() -> None:
+        thread.join()
+        if raised:
+            raise raised[0]
+    return wait
+
+
+def durability_and_zoo_train(card: str, t0: float, untimed=None) -> dict:
     """Phases 12 and 13 and queue C5's check in the whole script, their
-    processes overlapped where the card's memory allows and no timed step
-    shares the card: zamba2-1.2b's process starts beside phase 12 and
-    takes its first eager step there, then waits for phase 12's end
-    before its timed steps; the 4-layer C5 process runs beside zamba2's
-    untimed checks (its segments, the f32 build); the 28-layer C5 process
-    and then rwkv6-1.6b's run alone, each once no other process holds
-    the card's memory (``card_to_itself``).  Each overlap is taken only where
-    the card has ``BESIDE_GIB`` free for it at its start, else the two
-    run one after the other.  Phase 12's seconds, zamba2's first step and
-    the 4-layer C5 process's readings are taken beside that other work
-    (``--durability`` / ``--zoo-train`` give them alone).  Returns the
-    zoo models' launches a step by kernel."""
+    processes overlapped where the card's memory allows: zamba2-1.2b's
+    process (full depth) starts beside phase 12 and takes its first eager
+    step there, then waits for phase 12's end before its timed steps;
+    the 4-layer C5 process and rwkv6-1.6b's at ``WHOLE_RWKV6_LAYERS``
+    run beside zamba2's untimed checks (its segments, the f32 build).
+    Each overlap is taken only where the card has ``BESIDE_GIB`` (and
+    ``BESIDE_RWKV6_GIB``) free for it at its start, else the processes
+    run one after the other.  Phase 12's seconds, zamba2's first step
+    and the C5 and rwkv6 processes' readings are taken beside that other
+    work (``--durability`` / ``--zoo-train`` give them alone, at full
+    depth).  ``untimed``: checks that time nothing, run by this process
+    while phase 12's processes run.  Returns the zoo models' launches a
+    step by kernel."""
     launches, children = {}, []
 
     def free_gib() -> float:
@@ -6542,6 +6832,9 @@ def durability_and_zoo_train(card: str, t0: float) -> dict:
     def start(child: TrainChild) -> TrainChild:
         children.append(child)
         return child
+
+    def rwkv6() -> TrainChild:
+        return start(zoo_child("rwkv6-1.6b", WHOLE_RWKV6_LAYERS))
 
     torch.cuda.empty_cache()
     free = free_gib()
@@ -6552,37 +6845,48 @@ def durability_and_zoo_train(card: str, t0: float) -> dict:
     try:
         zamba = start(zoo_child("zamba2-1.2b", hold=True, signal=True)) \
             if beside else None
-        phase_durability(card, beside="phase 13's zamba2-1.2b process (its "
-                         "start and first eager step)" if beside else "")
+        others = ["phase 13's zamba2-1.2b process (its start and first "
+                  "eager step)"] * beside + \
+            ["phase 7's sm90 variants"] * (untimed is not None)
+        durability = beside_main(phase_durability, card,
+                                 beside=" and ".join(others))
+        try:
+            if untimed is not None:
+                untimed()
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            durability()
         print(f"[time] phase 12 ended at {time.perf_counter() - t0:.1f} s")
         if zamba is None:
             zamba = start(zoo_child("zamba2-1.2b", signal=True))
         zamba.release()
         zamba.wait_timed()
         free = free_gib()
-        small = start(c5_child(C5_LAYERS[0])) \
-            if free >= BESIDE_GIB["zamba2 checks"] else None
+        need = BESIDE_GIB["zamba2 checks"]
+        small = start(c5_child(C5_LAYERS[0])) if free >= need \
+            else None
+        rwkv = rwkv6() if small and free >= need + BESIDE_RWKV6_GIB \
+            else None
         print(f"[13] {free:.2f} GiB of the card free after zamba2-1.2b's "
               f"timed steps: the 4-layer C5 process starts "
-              f"{'beside its checks' if small else 'after them'}")
+              f"{'beside its checks' if small else 'after them'}, "
+              f"rwkv6-1.6b's at {WHOLE_RWKV6_LAYERS} layers "
+              f"{'beside them too' if rwkv else 'after them'}")
+        checks = "zamba2-1.2b's segment checks and f32 build"
         zoo_line(zamba.finish(), card, launches,
                  beside="phase 12" if beside else "")
         if small is None:
+            card_to_itself()
             c5_line(start(c5_child(C5_LAYERS[0])).finish())
         else:
-            c5_line(small.finish(), beside="zamba2-1.2b's segment checks "
-                    "and f32 build")
-        print(f"[time] zamba2-1.2b's and the 4-layer C5 process ended at "
-              f"{time.perf_counter() - t0:.1f} s")
-        # alone on the card, rwkv6 (the largest) last
-        for make in (lambda: c5_child(C5_LAYERS[1]),
-                     lambda: zoo_child("rwkv6-1.6b")):
+            c5_line(small.finish(), beside=checks)
+        if rwkv is None:
             card_to_itself()
-            r = start(make()).finish()
-            if r["arch"] in ZOO_TRAIN:
-                zoo_line(r, card, launches)
-            else:
-                c5_line(r)
+            zoo_line(rwkv6().finish(), card, launches)
+        else:
+            zoo_line(rwkv.finish(), card, launches, along=checks +
+                     " and the 4-layer C5 process")
         card_to_itself(60.0)
     finally:
         for child in children:
@@ -6752,6 +7056,48 @@ def train_alone(card: str) -> None:
         train_small_compiled(tag="[t]")
 
 
+def donation_alone(card: str) -> None:
+    """``--donation``: the in-place checks of phases 6 and 7 alone — the
+    full-width decode plan's donating weight-stream segment, then
+    full-width qwen3-1.7b at phase 7's depth: planned and built, 3 eager
+    steps, the donating update's and the fwd / dlhs / drhs in-place
+    launches, and 3 steps of ``compile_train_step`` held against the
+    eager ones (the write-back's copies, the graph pool, the peak)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data import SyntheticLM, make_data_config
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config("qwen3-1.7b")
+    params = build_model(cfg, device=DEVICE).init(0)
+    off = Engine(cfg, params, device="cuda", slots=8, max_len=2048,
+                 page_size=64, offload=True)
+    plan16 = off.prepare_decode()
+    verify_plans("qwen3-1.7b decode plan (bf16)", [plan16], "[6]")
+    donation_checks([plan16], ["stream"], card, "[6]")
+    del off, params, plan16
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(remat=False, offload=True)
+    model = build_model(cfg, device=DEVICE)
+    data = SyntheticLM(make_data_config(cfg, ShapeConfig("chip",
+                                                         *TRAIN_SHAPE)))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    step = make_train_step(model, tcfg)
+    held = [init_train_state(model, 0)]
+    plans = plan_training(step, held[0], data.batch(0), "bf16",
+                          layers=TRAIN_LAYERS)
+    state, _, eager = train_steps(step, held, data, tokens, plans)
+    update_donation(state, tcfg, card)
+    donation_checks(plans, ["fwd", "dlhs", "drhs"], card, "[7]")
+    host = host_state(state)
+    del state, step, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_compiled(model, tcfg, data, tokens, eager, host,
+                   f"bf16 {TRAIN_LAYERS} layers")
+
+
 def kernel_entry(timed: dict, kind: str) -> dict:
     """The JSON fields of one fused kernel: its most-launched distinct
     segment that has a library yardstick (ties: the larger bound)."""
@@ -6808,6 +7154,9 @@ def main() -> int:
     if "--zoo-serve" in sys.argv:
         phase_zoo(card)
         return 0
+    if "--donation" in sys.argv:
+        donation_alone(card)
+        return 0
     phase_build()
     kernel = phase_kernel(card)
     print(f"[time] phases 1-3 ended at {time.perf_counter() - t0:.1f} s")
@@ -6835,7 +7184,7 @@ def main() -> int:
     phase_zoo(card)
     print(f"[time] phase 11 ended at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    durability_and_zoo_train(card, t0)
+    durability_and_zoo_train(card, t0, untimed=sm90_variants)
     print(f"[14] static plan verifier: {VERIFIED.pop('plans', 0)} plans of "
           f"this process verified, findings by rule {VERIFIED or 'none'}, "
           f"no error (phase 13's processes verify their own, above)")

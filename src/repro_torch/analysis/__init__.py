@@ -14,6 +14,7 @@ from repro_torch.analysis.verifier import (
     Finding,
     PlanVerificationError,
     decision_statuses,
+    dropped_findings,
     has_errors,
     max_severity,
     segment_smem,
@@ -28,6 +29,7 @@ __all__ = [
     "Finding",
     "PlanVerificationError",
     "decision_statuses",
+    "dropped_findings",
     "has_errors",
     "max_severity",
     "segment_smem",

@@ -5,9 +5,11 @@ the static verifier.
     PYTHONPATH=src python -m repro_torch.analysis.lint --arch zamba2-1.2b -v
 
 ``--all-configs`` plans every architecture of ``configs/registry.py`` at
-full width, cut to at most 2 layers, for the training loss forward AND
-its gradient (``torch.func.grad`` of it, captured as one graph), on a
-batch of 2 x 128 tokens; ``--arch`` names some.  Nothing is allocated:
+full width, cut to at most 2 layers, for the training loss forward, its
+gradient (``torch.func.grad`` of it, captured as one graph) and the
+optimizer update with the parameters and moments donated (as the
+compiled training step binds it), on a batch of 2 x 128 tokens;
+``--arch`` names some.  Nothing is allocated:
 the parameters and the batch are fake tensors
 (``launch.inputs.abstract_tree`` / ``batch_specs``), which the planner's
 capture traces as it traces real ones.  Exit status is non-zero iff a
@@ -27,7 +29,11 @@ from typing import Callable, Iterable
 
 import torch
 
-from repro_torch.analysis.verifier import Finding, verify_plan
+from repro_torch.analysis.verifier import (
+    Finding,
+    dropped_findings,
+    verify_plan,
+)
 
 # deep stacks plan the same per-layer segments again: 2 layers cover
 # every kernel form a model has
@@ -43,14 +49,21 @@ def _shrunk_config(cfg):
 
 
 def config_targets(archs: Iterable[str] | None = None
-                   ) -> Iterable[tuple[str, Callable, tuple]]:
-    """Yield ``(name, fn, fake args)`` for every registry model, the
-    loss forward and its gradient."""
+                   ) -> Iterable[tuple[str, Callable, tuple, tuple]]:
+    """Yield ``(name, fn, fake args, donate_argnums)`` for every registry
+    model: the loss forward, its gradient, and the optimizer update with
+    the parameters and moments donated, as the compiled training step
+    binds it."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, TrainConfig, \
+        get_config
     from repro_torch.launch.inputs import abstract_tree, batch_specs
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import Ties
+    from repro_torch.optim import init_state
+    from repro_torch.train.step import UPDATE_DONATE, _unique_opt, \
+        update_program
 
     shape = ShapeConfig("lint", seq_len=_LINT_SEQ, global_batch=_LINT_BATCH,
                         kind="train")
@@ -64,24 +77,33 @@ def config_targets(archs: Iterable[str] | None = None
         def fwd(p, b, _loss=model.loss_fn):
             return _loss(p, b, remat=False)[0]
 
-        yield f"{arch}:fwd", fwd, (params, batch)
-        yield f"{arch}:grad", torch.func.grad(fwd), (params, batch)
+        yield f"{arch}:fwd", fwd, (params, batch), ()
+        yield f"{arch}:grad", torch.func.grad(fwd), (params, batch), ()
+        ties = Ties(params)
+        with mode:
+            grads = [torch.zeros_like(p) for p in ties.unique(params)]
+            opt = _unique_opt(ties, init_state(params))
+        yield (f"{arch}:update", update_program(TrainConfig()),
+               (ties.unique(params), grads, opt), UPDATE_DONATE)
 
 
-def verify_target(fn: Callable, args: tuple) -> list[Finding]:
-    """Plan one target under the default policy and run the verifier
-    over its plan."""
+def verify_target(fn: Callable, args: tuple,
+                  donate: tuple = ()) -> list[Finding]:
+    """Plan one target under the default policy (``donate`` its
+    ``donate_argnums``) and run the verifier over its plan; the
+    donations the planner dropped come as info findings."""
     from repro_torch.core.offload import offload_report
 
-    return verify_plan(offload_report(fn, *args))
+    plan = offload_report(fn, *args, donate_argnums=donate)
+    return verify_plan(plan) + dropped_findings(plan)
 
 
 def run(targets, *, verbose: bool = False) -> int:
     n_err = n_warn = n_targets = 0
-    for name, fn, args in targets:
+    for name, fn, args, donate in targets:
         n_targets += 1
         try:
-            findings = verify_target(fn, args)
+            findings = verify_target(fn, args, donate)
         except Exception as e:
             print(f"FAIL  {name}: planning raised {type(e).__name__}: {e}")
             n_err += 1

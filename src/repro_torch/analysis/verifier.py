@@ -52,12 +52,16 @@ import torch.fx as fx
 from repro_torch.core import prims
 from repro_torch.core.machine import H100_SXM
 from repro_torch.core.offload import (
+    GRID_ROWS_BLOCK,
     OffloadPlan,
     OperandSpec,
     Segment,
     _matmul_gen,
+    donation_layout,
+    donation_refusal,
     graph_fingerprint,
     segment_call,
+    storage_roots,
 )
 from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels import fused_matmul_bwd as fmb
@@ -67,7 +71,11 @@ from repro_torch.kernels.flash_attention import (
     refusal,
     sm90_width,
 )
-from repro_torch.kernels.fused_elementwise import role_rows
+from repro_torch.kernels.fused_elementwise import (
+    operand_layout,
+    role_rows,
+    segment_row_block,
+)
 
 SEVERITIES = ("info", "warning", "error")
 
@@ -79,10 +87,10 @@ REGISTERS_A_THREAD = 255
 #: output rows evaluated in full up to this many; edges and a stride
 #: sample above
 _ENUM_CAP = 1 << 12
-#: kernels whose launch writes its output into a donated operand's
-#: buffer: none until the planner forms donations, so every donation is
-#: dropped at launch
-_ALIASING_KINDS: frozenset = frozenset()
+#: kernels whose launch writes an output into a donated operand's buffer:
+#: B2's grid and the anchored B3 / B4 / B6 (B5's flash segment writes
+#: fresh outputs)
+_ALIASING_KINDS = frozenset({"grid", "matmul"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,20 +163,45 @@ def _grid_range(n: int, cap: int) -> list[int]:
     return sorted(set(edge + list(range(0, n, step))))
 
 
-def _graph_sets(plan: OffloadPlan):
+@dataclasses.dataclass
+class _Sets:
+    """What the rules read of a plan's graph: the call nodes, each value's
+    consumers (node indices), inputs, outputs, constants, the inputs
+    the caller donates, and the storage each value shares
+    (``core.offload.storage_roots``; ``storage`` lists the values of a
+    root)."""
+
+    eqns: list
+    consumers: dict
+    invars: set
+    outvars: set
+    constvars: set
+    donated: set
+    roots: dict
+    storage: dict
+
+
+def _graph_sets(plan: OffloadPlan) -> _Sets:
     eqns = plan.eqns
     consumers: dict[Any, list[int]] = {}
     for i, node in enumerate(eqns):
         for v in node.all_input_nodes:
             consumers.setdefault(v, []).append(i)
-    nodes = list(plan.annotation.graph.nodes)
-    invars = {n for n in nodes if n.op == "placeholder"}
-    constvars = {n for n in nodes if n.op == "get_attr"}
+    graph = plan.annotation.graph
+    nodes = list(graph.nodes)
+    phs = [n for n in nodes if n.op == "placeholder"]
     outvars: set = set()
     for n in nodes:
         if n.op == "output":
             outvars.update(n.all_input_nodes)
-    return eqns, consumers, invars, outvars, constvars
+    roots = storage_roots(graph)
+    storage: dict[Any, list] = {}
+    for n, r in roots.items():
+        storage.setdefault(r, []).append(n)
+    return _Sets(eqns, consumers, set(phs), outvars,
+                 {n for n in nodes if n.op == "get_attr"},
+                 {phs[k] for k in plan.donated_inputs if k < len(phs)},
+                 roots, storage)
 
 
 def _mm_stream_vars(seg: Segment) -> set:
@@ -273,10 +306,39 @@ def _stream_race(seg: Segment, gen: dict, sp: OperandSpec, oi: int
     return None
 
 
-def _check_aliases(seg: Segment, si: int, eqns, consumers, invars,
-                   outvars, constvars, findings: list[Finding]) -> None:
+def _copied(seg: Segment, sp: OperandSpec) -> bool:
+    """Whether the segment's kernel reads operand ``sp`` through a copy:
+    B2 one no layout addresses in place (``operand_layout``), the
+    anchored epilogue one that is not row-major."""
+    val = _val(sp.var)
+    if seg.matmul is not None:
+        return not val.is_contiguous()
+    return operand_layout(val, sp.rows, sp.cols) is False
+
+
+def _kernel_race(sets: _Sets, seg: Segment, bi: int, oi: int,
+                 memo: dict) -> str | None:
+    """Where the segment's kernel reads the donated operand after it
+    writes the output — in program order, or from a thread or program
+    that another writes before (``core.offload.donation_refusal``, which
+    asks ``fused_elementwise`` / ``fused_matmul``'s ``donation_refusal``
+    on the code the launch runs; ``memo`` keeps it between pairs)."""
+    try:
+        return donation_refusal(sets.eqns, seg, bi, oi, memo)
+    except Exception:
+        return None       # the bounds rules say why it cannot generate
+
+
+def _check_aliases(seg: Segment, si: int, sets: _Sets,
+                   findings: list[Finding]) -> None:
     taken: set[int] = set()
     gen = None
+    memo: dict = {}
+    kind = "grid" if seg.matmul is None else \
+        "flash" if seg.matmul.flash is not None else "matmul"
+    padded = kind == "grid" and seg.donations and not segment_row_block(
+        seg.rows, [s.meta for s in seg.operand_specs], GRID_ROWS_BLOCK,
+        donate=True)[2]
     for bi, oi in seg.donations:
         if not (0 <= bi < len(seg.operand_specs)) or \
                 not (0 <= oi < len(seg.outputs)):
@@ -307,44 +369,85 @@ def _check_aliases(seg: Segment, si: int, eqns, consumers, invars,
                 f"{_dtype(sp.var)}] does not match output {oi} "
                 f"[{seg.rows}x{seg.out_cols[oi]} {_dtype(ov)}]"))
             continue
-        if sp.var in outvars:
+        if kind != "flash" and _copied(seg, sp):
+            findings.append(Finding(
+                "donation-dropped", "warning", si,
+                f"donated operand {bi} is read through a copy: the kernel "
+                f"cannot write output {oi} into its buffer"))
+            continue
+        why = donation_layout(sp.var, ov, permuted=kind == "grid")
+        if why is not None:
+            findings.append(Finding(
+                "alias-shape", "error", si,
+                f"donated operand {bi} cannot hold output {oi} as the "
+                f"kernel writes it: {why}"))
+            continue
+        root = sets.roots.get(sp.var, sp.var)
+        shared = sets.storage.get(root, [sp.var])
+        if any(v in sets.outvars for v in shared):
             findings.append(Finding(
                 "alias-live", "error", si,
-                f"donated operand {bi} is a program output: its buffer "
-                "outlives the segment"))
-        if sp.var in constvars:
+                f"donated operand {bi} is a program output, or shares its "
+                "storage with one: its buffer outlives the segment"))
+        if root in sets.constvars:
             findings.append(Finding(
                 "alias-live", "error", si,
                 f"donated operand {bi} is a captured constant"))
-        late = [ci for ci in consumers.get(sp.var, ())
-                if ci > seg.span_end]
+        late = sorted({ci for v in shared for ci in sets.consumers.get(v, ())
+                       if ci > seg.span_end})
         if late:
             findings.append(Finding(
                 "alias-live", "error", si,
-                f"donated operand {bi} is still read by node(s) {late} "
-                f"after the segment span ends at {seg.span_end}"))
-        if sp.var in invars:
-            findings.append(Finding(
-                "alias-invar", "info", si,
-                f"donated operand {bi} is a program input; legal only "
-                "where the caller donates it"))
+                f"donated operand {bi} (or a view of its storage) is still "
+                f"read by node(s) {late} after the segment span ends at "
+                f"{seg.span_end}"))
+        if root in sets.invars:
+            if root in sets.donated:
+                findings.append(Finding(
+                    "alias-invar", "info", si,
+                    f"donated operand {bi} is a program input the caller "
+                    "donates"))
+            else:
+                findings.append(Finding(
+                    "alias-live", "error", si,
+                    f"donated operand {bi} is (a view of) a program input "
+                    "the caller does not donate"))
         mm = seg.matmul
         if mm is not None and mm.flash is None and \
                 sp.var in _mm_stream_vars(seg):
-            gen = gen or _gen(eqns, seg)
+            gen = gen or _gen(sets.eqns, seg)
             race = _stream_race(seg, gen, sp, oi) if gen else None
             if race:
                 findings.append(Finding("alias-kaxis-race", "error", si,
                                         race))
-    if seg.donations:
-        kind = "grid" if seg.matmul is None else \
-            "flash" if seg.matmul.flash is not None else "matmul"
-        if kind not in _ALIASING_KINDS:
-            findings.append(Finding(
-                "donation-dropped", "warning", si,
-                f"the {kind} kernel writes fresh outputs: the plan's "
-                "aliases are dropped at launch and its donated-byte "
-                "accounting is optimistic"))
+            continue
+        if kind != "flash" and not padded:
+            race = _kernel_race(sets, seg, bi, oi, memo)
+            if race is not None:
+                findings.append(Finding("alias-order", "error", si,
+                                        f"donation ({bi}, {oi}): {race}"))
+    if seg.donations and kind not in _ALIASING_KINDS:
+        findings.append(Finding(
+            "donation-dropped", "warning", si,
+            f"the {kind} kernel writes fresh outputs: the plan's "
+            "aliases are dropped at launch and its donated-byte "
+            "accounting is optimistic"))
+    if padded:
+        findings.append(Finding(
+            "donation-dropped", "warning", si,
+            "row padding of the row-block grid drops this segment's "
+            "aliases (the launch refuses them)"))
+
+
+def dropped_findings(plan: OffloadPlan) -> list[Finding]:
+    """The donations the planner dropped because a kernel cannot honour
+    them (``Segment.dropped``), as ``donation-dropped`` info findings.
+    Not part of ``verify_plan``: the plan holds no such alias, so there
+    is nothing in it to verify."""
+    return [Finding("donation-dropped", "info", si,
+                    f"the planner dropped donation ({bi}, {oi}): {why}")
+            for si, seg in enumerate(plan.segments)
+            for bi, oi, why in seg.dropped]
 
 
 # ---------------------------------------------------------------------------
@@ -784,11 +887,10 @@ def _check_decisions(plan: OffloadPlan, findings: list[Finding]) -> None:
 
 def _verify_segment(seg: Segment, si: int, sets, findings: list[Finding]
                     ) -> None:
-    eqns, consumers, invars, outvars, constvars = sets
+    eqns = sets.eqns
     if not _check_wellformed(seg, si, eqns, findings):
         return
-    _check_aliases(seg, si, eqns, consumers, invars, outvars, constvars,
-                   findings)
+    _check_aliases(seg, si, sets, findings)
     mm = seg.matmul
     gen = None
     if mm is None:

@@ -68,9 +68,19 @@ reference never anchors it.
 Every plan can be checked by the static plan verifier
 (``repro_torch.analysis``: ``plan.verify()``, ``wrapped.verify(*a)``,
 ``mpu_offload(..., verify_plans=True)`` / ``MPU_VERIFY_PLANS``).
-Segment-boundary donation is not formed yet: ``Segment.donations`` stays
-empty, and the verifier's alias rules are what a donating plan will be
-held to.
+
+Segment-boundary donation is the reference's: a bulk operand whose value
+dies at its segment shares its buffer with an output of its width and
+dtype (``Segment.donations``), an input only where the caller donates it
+(``mpu_offload(fn, donate_argnums=...)``), and the grid and anchored
+kernels (B2, B3, B4, B6) write that output into the operand's buffer.
+PyTorch has views where a jaxpr has none, so the planner also follows
+each operand to its storage (``storage_roots``: no value sharing it may
+be read later or returned), holds it to the layout the kernel writes
+in, and asks the kernel's generated code whether it reads the operand
+before it writes the output (``donation_refusal``); a pair the kernel
+cannot honour is dropped at plan time (``Segment.dropped``, with the
+reason).  A program that autograd records keeps no alias.
 """
 from __future__ import annotations
 
@@ -288,10 +298,11 @@ class Segment:
     # no lane reduction, slice or concat in the body: an anchored
     # epilogue may run in the GEMM's tile (``fused_matmul.in_tile``)
     elementwise: bool = True
-    # (operand, output) index pairs whose buffers the kernel may share:
-    # the reference's segment-boundary donation, which the planner does
-    # not form yet (``repro_torch.analysis`` checks the alias rules)
+    # (operand, output) index pairs whose buffers the kernel shares: the
+    # reference's segment-boundary donation (``_Donor.form``; the verifier
+    # checks the alias rules), and the pairs a kernel refused, with why
     donations: list = field(default_factory=list)
+    dropped: list = field(default_factory=list)
 
     @property
     def all_eqn_idx(self) -> list[int]:
@@ -380,6 +391,17 @@ class OffloadPlan:
     policy: OffloadPolicy | None = None
     # symbols of the plan's anchored segments: one CUDA translation unit
     library: list[str] = field(default_factory=list)
+    # the outputs' bytes written into donated buffers, and the positions
+    # of the placeholders the caller donates
+    donated_hbm_bytes: int = 0
+    donated_inputs: tuple = ()
+
+    @property
+    def effective_hbm_bytes(self) -> int:
+        """Fused traffic minus the boundary buffers reused in place (the
+        reference's accounting: a donated output needs no buffer of its
+        own)."""
+        return max(self.fused_hbm_bytes - self.donated_hbm_bytes, 0)
 
     def report(self) -> DecisionReport:
         """The per-candidate DecisionReport; every fused row is checked
@@ -724,13 +746,260 @@ def _fold_bmm_views(gm: fx.GraphModule) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Segment-boundary donation: storage, places, layouts
+# ---------------------------------------------------------------------------
+
+def _alias_src(node) -> Any | None:
+    """The value whose storage a call node's result shares, or None: a
+    view, an in-place op (its schema's alias annotation: ``index_put_``,
+    ``copy_``), an item of a list of views (``split``'s).  A jaxpr has no
+    such values; a PyTorch graph does, and donation must see them."""
+    if not isinstance(node, fx.Node) or node.op != "call_function" or \
+            not node.args or not isinstance(node.args[0], fx.Node):
+        return None
+    if node.target is operator.getitem:
+        return _alias_src(node.args[0])
+    if node_name(node) in _VIEW_PRIMS:
+        return node.args[0]
+    tgt = node.target
+    if isinstance(tgt, torch._ops.OpOverload) and tgt._schema.returns and \
+            tgt._schema.returns[0].alias_info is not None:
+        return node.args[0]
+    return None
+
+
+def storage_roots(graph: fx.Graph) -> dict:
+    """Each node's storage root: the first value, following ``_alias_src``
+    back, that shares no storage with an earlier one."""
+    roots: dict = {}
+    for n in graph.nodes:
+        src = _alias_src(n)
+        roots[n] = roots.get(src, src) if src is not None else n
+    return roots
+
+
+def graph_outputs(graph: fx.Graph) -> list:
+    """The program's flat outputs in order (nodes, or the constants a
+    graph may return)."""
+    out_node = next(n for n in graph.nodes if n.op == "output")
+    return pytree.tree_leaves(out_node.args[0])
+
+
+def donation_places(graph: fx.Graph, donated: Sequence) -> dict:
+    """Each donated input's place: the position of the output the program
+    returns for it.  The donated inputs, in order, take the first output
+    of their shape and dtype not taken before them — the outputs of a
+    function that returns what it takes (an optimizer update's ``params,
+    opt``) in the order it takes them land in their inputs' places."""
+    outs = graph_outputs(graph)
+    taken: set[int] = set()
+    places = {}
+    for ph in donated:
+        want = (_shape(ph), _dtype(ph))
+        j = next((j for j, o in enumerate(outs) if j not in taken and
+                  isinstance(o, fx.Node) and (_shape(o), _dtype(o)) == want),
+                 None)
+        if j is not None:
+            taken.add(j)
+            places[ph] = j
+    return places
+
+
+def out_layout(val) -> tuple | None:
+    """The strides an output is returned in when the graph holds it in a
+    permuted dense layout (an einsum's), else None: a contiguous output,
+    or one in a broadcast layout, is written row-major (any view of a
+    contiguous tensor is valid)."""
+    if not isinstance(val, torch.Tensor) or val.is_contiguous() or \
+            not _dense(val):
+        return None
+    return tuple(val.stride())
+
+
+def donation_layout(operand, output, *, permuted: bool) -> str | None:
+    """Why ``operand``'s buffer cannot hold ``output`` as the kernel
+    writes it, or None: the same dtype and element count, and the
+    output's layout — row-major, or the permuted layout the grid kernel
+    writes in (``permuted``; an anchored segment's permuted output is
+    copied out of a fresh one) — with the operand's strides.  An operand
+    in any other layout is one the kernel reads through a copy."""
+    a, o = node_val(operand), node_val(output)
+    if a.dtype != o.dtype or a.numel() != o.numel():
+        return "the operand's dtype or size is not the output's"
+    lay = out_layout(o)
+    if lay is None:
+        return None if a.is_contiguous() else \
+            "the operand is not row-major (the kernel reads a copy of it)"
+    if not permuted:
+        return "the output is copied into its permuted layout"
+    if tuple(a.shape) != tuple(o.shape) or tuple(a.stride()) != lay:
+        return "the operand is not in the output's permuted layout"
+    return None
+
+
+def donation_refusal(eqns, seg: Segment, bi: int, oi: int,
+                     memo: dict | None = None) -> str | None:
+    """Why the segment's kernel cannot write output ``oi`` into operand
+    ``bi``'s buffer, or None: ``donation_layout``, then
+    ``fused_elementwise.donation_refusal`` / ``fused_matmul.
+    donation_refusal`` on the code the launch runs (``memo`` keeps the
+    segment's generated code between pairs)."""
+    from repro_torch.kernels.fused_elementwise import (
+        donation_refusal as grid_refusal,
+    )
+    from repro_torch.kernels.fused_matmul import (
+        donation_refusal as matmul_refusal,
+    )
+
+    if seg.matmul is not None and seg.matmul.flash is not None:
+        return "B5 writes fresh outputs"
+    why = donation_layout(seg.operand_specs[bi].var, seg.outputs[oi],
+                          permuted=seg.matmul is None)
+    if why is not None:
+        return why
+    from repro_torch.kernels.fused_elementwise import triton_source
+
+    memo = {} if memo is None else memo
+    if "call" not in memo:
+        call = memo["call"] = segment_call(eqns, seg)
+        if seg.matmul is not None:
+            memo["gen"] = _matmul_gen(call)
+        else:
+            memo["gen"] = triton_source(
+                call["progs"].body, rows=seg.rows, specs=call["specs"],
+                rows_block=GRID_ROWS_BLOCK)[1:]
+    call = memo["call"]
+    if seg.matmul is None:
+        return grid_refusal(
+            call["progs"].body, call["specs"], rows=seg.rows,
+            rows_block=GRID_ROWS_BLOCK, operand=bi, output=oi,
+            generated=memo["gen"])
+    return matmul_refusal(
+        memo["gen"], call["progs"].body, n_dim=seg.matmul.n,
+        out_cols=seg.out_cols, operand=bi, output=oi)
+
+
+class _Donor:
+    """The planner's donation state over one graph: storage roots, the
+    nodes of each storage, consumers, graph outputs, the donated inputs'
+    places, and the storage each donated output took (its owner: the
+    donated input whose buffer it lives in, or None for a buffer the
+    program allocated)."""
+
+    def __init__(self, gm: fx.GraphModule, eqns, consumers, outvar_set,
+                 donate_invars: frozenset):
+        self.eqns, self.consumers = eqns, consumers
+        self.outvar_set = outvar_set
+        self.donate_invars = donate_invars
+        self.roots = storage_roots(gm.graph)
+        self.by_root: dict[Any, list] = {}
+        for n, r in self.roots.items():
+            self.by_root.setdefault(r, []).append(n)
+        outs = graph_outputs(gm.graph)
+        self.returned: dict[Any, set[int]] = {}
+        for j, o in enumerate(outs):
+            if isinstance(o, fx.Node):
+                self.returned.setdefault(self.roots[o], set()).add(j)
+        ordered = [n for n in gm.graph.nodes if n.op == "placeholder"
+                   and n in donate_invars]
+        self.places = donation_places(gm.graph, ordered)
+        self.owner: dict[Any, Any] = {ph: ph for ph in ordered}
+
+    def dead(self, v, span_end: int) -> bool:
+        """Whether the storage of ``v`` is free to reuse once a segment
+        ending at ``span_end`` has run: its root is neither a captured
+        constant nor an input the caller keeps, and no value sharing it
+        is a program output or read after ``span_end``."""
+        root = self.roots[v]
+        if root.op == "get_attr" or \
+                root.op == "placeholder" and root not in self.donate_invars:
+            return False
+        for n in self.by_root[root]:
+            if n in self.outvar_set or any(
+                    ci > span_end for ci in self.consumers.get(n, ())):
+                return False
+        return True
+
+    def form(self, seg: Segment) -> None:
+        """The reference's segment-boundary donation on ``seg``: a bulk
+        operand whose value dies at the segment (not a constant, not a
+        program output, not on the matmul side, an input only where the
+        caller donates it, read by no node after ``span_end``) shares its
+        buffer with an untaken output of its cols and dtype.  Besides
+        (PyTorch has views): the operand's storage is dead (``dead``) and
+        shared with no other operand of the segment, and the kernel
+        writes the output in the operand's layout and can honour the
+        pair (``donation_refusal``).  An operand whose storage is a
+        donated input's (its owner) pairs with the output the program
+        returns in that input's place, where the segment makes it, and
+        with an output the program does not return otherwise: no output
+        ever lands in another input's buffer.  Operands with a place pair
+        first; the rest take the first output that fits, as the
+        reference's.  ``seg.dropped`` keeps the pairs a kernel refused,
+        with the reason."""
+        if seg.matmul is not None and seg.matmul.flash is not None:
+            return
+        mm = seg.matmul
+        others: list = []
+        if mm is not None:
+            others = [mm.rhs, *(sp.var for sp in mm.lhs_specs),
+                      *(sp.var for sp in mm.rhs_specs)]
+        others += [sp.var for sp in seg.operand_specs]
+        root_count: dict[Any, int] = {}
+        for v in dict.fromkeys(others):
+            root_count[self.roots[v]] = root_count.get(self.roots[v], 0) + 1
+        mm_vars = set(others[:len(others) - len(seg.operand_specs)])
+        cands = []
+        for bi, sp in enumerate(seg.operand_specs):
+            if sp.role != "bulk" or sp.var in mm_vars or \
+                    root_count[self.roots[sp.var]] > 1 or \
+                    not self.dead(sp.var, seg.span_end):
+                continue
+            owner = self.owner.get(self.roots[sp.var])
+            place = self.places.get(owner) if owner is not None else None
+            home = None
+            if place is not None:
+                home = next((oi for oi, v in enumerate(seg.outputs)
+                             if place in self.returned.get(v, ())), None)
+            cands.append((home is None, bi, sp, owner, home))
+        taken: set[int] = set()
+        memo: dict = {}
+        for _, bi, sp, owner, home in sorted(cands, key=lambda c: c[:2]):
+            if home is not None:
+                outs = [home]
+            else:
+                outs = [oi for oi, v in enumerate(seg.outputs)
+                        if owner is None or v not in self.returned]
+            first = None
+            for oi in outs:
+                if oi in taken or seg.out_cols[oi] != sp.cols or \
+                        _dtype(seg.outputs[oi]) != _dtype(sp.var):
+                    continue
+                why = donation_refusal(self.eqns, seg, bi, oi, memo)
+                if why is None:
+                    seg.donations.append((bi, oi))
+                    taken.add(oi)
+                    self.owner[seg.outputs[oi]] = owner
+                    break
+                first = first or (bi, oi, why)
+            else:
+                if first is not None:
+                    seg.dropped.append(first)
+        seg.donations.sort()
+
+
+# ---------------------------------------------------------------------------
 # Planning
 # ---------------------------------------------------------------------------
 
 def plan_offload(gm: fx.GraphModule, *,
-                 policy: OffloadPolicy | None = None) -> OffloadPlan:
+                 policy: OffloadPolicy | None = None,
+                 donate_invars: frozenset = frozenset()) -> OffloadPlan:
     """Algorithm-1 annotation + maximal cross-shape segment extraction
-    over a captured graph, gated by the policy's decision backend."""
+    over a captured graph, gated by the policy's decision backend.
+    ``donate_invars`` holds the placeholders whose buffers the caller
+    donates (``mpu_offload``'s ``donate_argnums``); intermediates that
+    die at a segment are always donation candidates (``_Donor.form``)."""
     policy = resolve_policy(policy)
     bulk_threshold = policy.bulk_threshold
     ann = annotate_graph(gm.graph)
@@ -742,6 +1011,7 @@ def plan_offload(gm: fx.GraphModule, *,
             consumers.setdefault(v, []).append(i)
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
     outvar_set = set(out_node.all_input_nodes)
+    donor = _Donor(gm, eqns, consumers, outvar_set, donate_invars)
 
     segments: list[Segment] = []
     decisions: list[SegmentDecision] = []
@@ -1492,6 +1762,7 @@ def plan_offload(gm: fx.GraphModule, *,
             else ())
         decisions.append(decision)
         if decision.fused:
+            donor.form(seg)
             segments.append(seg)
         reset()
 
@@ -1519,7 +1790,7 @@ def plan_offload(gm: fx.GraphModule, *,
     flush()
 
     seg_eqns = {i for s in segments for i in s.all_eqn_idx}
-    naive = fused = 0
+    naive = fused = donated = 0
     for i, node in enumerate(eqns):
         io_bytes = _eqn_io_bytes(node)
         naive += io_bytes
@@ -1527,8 +1798,12 @@ def plan_offload(gm: fx.GraphModule, *,
             fused += io_bytes
     for s in segments:
         fused += s.io_bytes()
+        donated += sum(_nbytes(s.outputs[oi]) for _, oi in s.donations)
+    phs = [n for n in gm.graph.nodes if n.op == "placeholder"]
     return OffloadPlan(ann, segments, naive, fused, decisions=decisions,
-                       policy=policy)
+                       policy=policy, donated_hbm_bytes=donated,
+                       donated_inputs=tuple(k for k, n in enumerate(phs)
+                                            if n in donate_invars))
 
 
 def _rounding_op(form: str, dtype: torch.dtype) -> int:
@@ -1712,24 +1987,51 @@ def _segment_arg_vars(seg: Segment) -> list[Any]:
     return arg_vars
 
 
+#: > 0 while a program runs whose aliases must all be dropped
+_NO_ALIAS = [0]
+
+
+def _recorded(vals) -> bool:
+    """Whether autograd records a call on ``vals``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in vals)
+
+
+def _run_program(run: fx.GraphModule, tensors: Sequence):
+    """Run a runner on ``tensors``.  A program that autograd records (grad
+    enabled, an input that requires it) keeps none of its segments'
+    aliases: its far ops save their inputs for the backward where the
+    graph's liveness does not see it, and a kernel's write into a saved
+    buffer bumps no version counter.  The reference's VJP forward drops
+    its aliases for the same reason (its residuals are the buffers)."""
+    if not _recorded(tensors):
+        return run(*tensors)
+    _NO_ALIAS[0] += 1
+    try:
+        return run(*tensors)
+    finally:
+        _NO_ALIAS[0] -= 1
+
+
 def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                     ) -> Callable:
     """The fused call of one planned segment, its static arguments bound
     once: the grid kernel for an elementwise segment, the anchored GEMM
-    of the segment's form otherwise.  ``call(*vals)`` takes the operands
-    in ``_segment_arg_vars`` order and returns the outputs in their graph
-    shapes."""
+    of the segment's form otherwise.  ``call(*vals, alias=True)`` takes
+    the operands in ``_segment_arg_vars`` order and returns the outputs
+    in their graph shapes; it writes each output of ``seg.donations``
+    into its operand's buffer, except with ``alias=False``, inside a
+    program autograd records (``_run_program``) or on operands autograd
+    records: two calls bound, one donating and one not.  B5's flash
+    segment always writes fresh outputs."""
     from repro_torch.kernels import ops as kops
 
     out_dtypes = [_dtype(v) for v in seg.outputs]
     shapes = [_shape(v) for v in seg.outputs]
     # an output the graph holds in a permuted dense layout (an einsum's)
     # gets that layout back, so the views that follow it see the strides
-    # they were traced with (a broadcast layout stays contiguous: any view
-    # of a contiguous tensor is valid)
-    strides = [node_val(v).stride() if not node_val(v).is_contiguous()
-               and _dense(node_val(v)) else None
-               for v in seg.outputs]
+    # they were traced with
+    strides = [out_layout(node_val(v)) for v in seg.outputs]
     epi_meta = tuple(s.meta for s in seg.operand_specs)
     mm = seg.matmul
     common = dict(acc_dtype=mm.out_dtype if mm else None,
@@ -1740,14 +2042,14 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
         out_strides = [(shp, st) if st is not None else None
                        for shp, st in zip(shapes, strides)]
 
-        def run(vals):
+        def run(vals, donate):
             return kops.fused_segment_grid(
                 progs.body, vals, epi_meta, rows=seg.rows,
                 out_cols=seg.out_cols, out_dtypes=out_dtypes,
                 rows_block=GRID_ROWS_BLOCK, out_strides=out_strides,
-                impl=impl)
+                donate=donate, impl=impl)
     elif mm.flash is not None:
-        def run(vals):
+        def run(vals, donate):
             # q, the transposed view of k, v; the chain's scalar
             # constants (vals[3:]) are folded into the extracted scale
             return kops.fused_flash_segment(
@@ -1756,12 +2058,12 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                 n_dim=mm.n, scale=mm.flash["scale"],
                 out_dtype=mm.out_dtype, impl=impl)
     elif mm.form == "drhs":
-        def run(vals):
+        def run(vals, donate):
             # vals[0] is the [rows, m] transposed view of the activation
             return kops.fused_matmul_drhs_segment(
                 progs.body, vals[0].transpose(-1, -2), vals[1], vals[2:],
                 epi_meta, m_dim=mm.k, rows=seg.rows, n_dim=mm.n,
-                batch=mm.batch, **common)
+                batch=mm.batch, donate=donate, **common)
     else:
         n_lhs, n_rhs = len(mm.lhs_specs), len(mm.rhs_specs)
         lhs_meta = tuple(s.meta for s in mm.lhs_specs)
@@ -1770,28 +2072,31 @@ def _segment_kernel(seg: Segment, progs: SegmentPrograms, *, impl: str
                   rows_block=MATMUL_ROWS_BLOCK, sms=seg.sms, batch=mm.batch,
                   **common)
         if mm.form == "dlhs":
-            def run(vals):
+            def run(vals, donate):
                 # vals[n_lhs] is the [k, n] transposed view of the weight
                 return kops.fused_matmul_dlhs_segment(
                     progs.lhs, progs.body, vals[:n_lhs], lhs_meta,
                     vals[n_lhs].transpose(-1, -2), vals[n_lhs + 1:],
-                    epi_meta, **kw)
+                    epi_meta, donate=donate, **kw)
         else:
-            def run(vals):
+            def run(vals, donate):
                 return kops.fused_matmul_segment(
                     progs.lhs, progs.rhs, progs.body, vals[:n_lhs],
                     lhs_meta, vals[n_lhs:n_lhs + n_rhs], rhs_meta,
-                    vals[n_lhs + n_rhs:], epi_meta, **kw)
+                    vals[n_lhs + n_rhs:], epi_meta, donate=donate, **kw)
+    donations = tuple(seg.donations)
 
-    def call(*vals):
+    def call(*vals, alias: bool = True):
         # a 0-dim CPU tensor (a constant such as ``torch.tensor(2.0)``)
         # joins CUDA operands, as it may in an eager op
         dev = next((v.device for v in vals if v.is_cuda), None)
         if dev is not None:
             vals = [v.to(dev) if v.dim() == 0 and not v.is_cuda else v
                     for v in vals]
+        donate = donations if alias and not _NO_ALIAS[0] and \
+            not _recorded(vals) else ()
         outs = []
-        for o, shp, st in zip(run(list(vals)), shapes, strides):
+        for o, shp, st in zip(run(list(vals), donate), shapes, strides):
             if st is not None and o.stride() == tuple(st) and \
                     tuple(o.shape) == tuple(shp):
                 outs.append(o)          # written in its layout
@@ -2101,7 +2406,7 @@ def _register_library(eqns: Sequence, plan: OffloadPlan) -> list[str]:
 # as corruption: counted, quarantined on disk, and planned afresh.
 # ---------------------------------------------------------------------------
 
-_PLAN_SCHEMA = 1
+_PLAN_SCHEMA = 2
 _HEXRE = re.compile(r"0x[0-9a-fA-F]+")
 #: constants up to this many elements are fingerprinted by value
 _CONST_HASH_ELEMS = 1 << 20
@@ -2244,6 +2549,8 @@ def _plan_doc(plan: OffloadPlan, gm: fx.GraphModule,
             "segments": _encode(plan.segments, ids),
             "decisions": _encode(plan.decisions, ids),
             "naive": plan.naive_hbm_bytes, "fused": plan.fused_hbm_bytes,
+            "donated": plan.donated_hbm_bytes,
+            "donated_inputs": list(plan.donated_inputs),
             "var_loc": _encode(ann.var_loc, ids),
             "eqn_loc": _encode(ann.eqn_loc, ids)}
 
@@ -2262,7 +2569,9 @@ def _plan_from_doc(doc: dict, gm: fx.GraphModule, fingerprint: str,
     return OffloadPlan(ann, _decode(doc["segments"], nodes),
                        int(doc["naive"]), int(doc["fused"]),
                        decisions=_decode(doc["decisions"], nodes),
-                       policy=policy)
+                       policy=policy, donated_hbm_bytes=int(doc["donated"]),
+                       donated_inputs=tuple(int(k) for k in
+                                            doc["donated_inputs"]))
 
 
 def _device_key(tensors: Sequence) -> str:
@@ -2297,7 +2606,8 @@ def _enforce_verified(plan: OffloadPlan) -> None:
 def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
                      persist: _PlanStore | None, key_parts: Sequence[str],
                      stats: OffloadStats, *,
-                     verify_plans: bool = False) -> OffloadPlan:
+                     verify_plans: bool = False,
+                     donate_invars: frozenset = frozenset()) -> OffloadPlan:
     """The plan of ``gm`` under ``policy``: rebound from the store where
     it holds a valid entry (``disk_hits``), else planned
     (``plan_misses``) and written to the store.  While the kernel guard
@@ -2306,7 +2616,8 @@ def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
     counter and a fresh plan.  With ``verify_plans`` a fresh plan is
     verified before it is written (its meta then says ``"verified"``),
     and a plan loaded from the store is verified again; a plan with an
-    error raises ``PlanVerificationError``."""
+    error raises ``PlanVerificationError``.  ``donate_invars`` as
+    ``plan_offload``'s; the caller's ``key_parts`` name them."""
     if persist is not None and kernel_guard().degraded_for(policy.impl):
         persist = None
     fingerprint = dkey = fresh = None
@@ -2324,7 +2635,8 @@ def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
                 plan = _plan_from_doc(json.loads(raw.decode()), gm,
                                       fingerprint, policy)
                 if persist.verify_loaded:
-                    fresh = plan_offload(gm, policy=policy)
+                    fresh = plan_offload(gm, policy=policy,
+                                         donate_invars=donate_invars)
                     if _plan_doc(fresh, gm, fingerprint) != \
                             _plan_doc(plan, gm, fingerprint):
                         raise _PlanMismatch("verify-on-load mismatch")
@@ -2339,7 +2651,8 @@ def _plan_with_store(gm: fx.GraphModule, policy: OffloadPolicy,
                     _enforce_verified(plan)
                 return plan
     stats.plan_misses += 1
-    plan = fresh if fresh is not None else plan_offload(gm, policy=policy)
+    plan = fresh if fresh is not None else plan_offload(
+        gm, policy=policy, donate_invars=donate_invars)
     if verify_plans:
         _enforce_verified(plan)     # before it is written: "verified" holds
     if dkey is not None:
@@ -2481,8 +2794,9 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
 
     def run_bwd(primals, cts):
         run, _, diff, rest, outs = entry_for(primals, cts)
-        flat = run(*[primals[i] for i in diff], *[primals[i] for i in rest],
-                   *[cts[j] for j in outs])
+        flat = _run_program(run, [*[primals[i] for i in diff],
+                                  *[primals[i] for i in rest],
+                                  *[cts[j] for j in outs]])
         grads = [None] * len(primals)
         for i, g in zip(diff, flat):
             grads[i] = g
@@ -2493,12 +2807,13 @@ def _segment_bwd_runner(eqns: Sequence, seg: Segment, *,
 
 
 class _SegmentFn(torch.autograd.Function):
-    """One fused segment under autograd: the kernel forward, the planned
-    cotangent program backward."""
+    """One fused segment under autograd: the kernel forward, without its
+    aliases (the saved inputs are the buffers they would overwrite), the
+    planned cotangent program backward."""
 
     @staticmethod
     def forward(ctx, seg_call, *vals):
-        outs = seg_call.kernel(*vals)
+        outs = seg_call.kernel(*vals, alias=False)
         ctx.seg_call = seg_call
         ctx.save_for_backward(*vals)
         ctx.mark_non_differentiable(
@@ -2515,15 +2830,14 @@ def _segment_vjp(eqns: Sequence, seg: Segment, kernel: Callable, *,
                  policy: OffloadPolicy,
                  persist: _PlanStore | None = None,
                  verify_plans: bool = False) -> Callable:
-    """The differentiable call of one segment: the plain kernel call
-    when no input needs a gradient, ``_SegmentFn`` otherwise."""
+    """The differentiable call of one segment: the kernel call (its
+    aliases kept) when no input needs a gradient, ``_SegmentFn``
+    otherwise."""
     bwd = _segment_bwd_runner(eqns, seg, policy=policy, persist=persist,
                               verify_plans=verify_plans)
 
     def call(*vals):
-        if torch.is_grad_enabled() and any(
-                isinstance(v, torch.Tensor) and v.requires_grad
-                for v in vals):
+        if _recorded(vals):
             return _SegmentFn.apply(call, *vals)
         return kernel(*vals)
 
@@ -2578,10 +2892,40 @@ def _leaf_signature(leaf) -> tuple:
     return ("s", type(leaf).__name__, repr(leaf))
 
 
+def _normalize_donate(donate_argnums) -> tuple[int, ...]:
+    if isinstance(donate_argnums, int):
+        return (donate_argnums,)
+    return tuple(donate_argnums)
+
+
+def _donate_leaf_indices(args, donate: tuple[int, ...]) -> tuple[int, ...]:
+    """Map user-level donated argument positions to flat leaf indices of
+    the call's arguments."""
+    idx: list[int] = []
+    off = 0
+    for ai, a in enumerate(args):
+        n = len(pytree.tree_leaves(a))
+        if ai in donate:
+            idx.extend(range(off, off + n))
+        off += n
+    return tuple(idx)
+
+
+def _donated_placeholders(gm: fx.GraphModule, is_tensor: Sequence[bool],
+                          donate_leaves: Sequence[int]) -> frozenset:
+    """The placeholders of the donated tensor leaves (``capture`` makes
+    one a tensor leaf, in order)."""
+    phs = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    pos = [k for k, t in enumerate(is_tensor) if t]
+    leaves = set(donate_leaves)
+    return frozenset(ph for ph, k in zip(phs, pos) if k in leaves)
+
+
 def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
                 persist_dir: str | os.PathLike | None = None,
                 verify_loaded: bool = False,
-                verify_plans: bool | None = None) -> Callable:
+                verify_plans: bool | None = None,
+                donate_argnums: int | Sequence[int] = ()) -> Callable:
     """Offload transform with a bounded, policy-keyed plan cache.
 
     ``wrapped(*args)`` looks up (effective policy, "fwd", input
@@ -2625,6 +2969,15 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     and differentiating its outputs runs each fused segment's planned
     backward (``_segment_vjp``).
 
+    ``donate_argnums`` marks positional arguments whose buffers fused
+    segments may reuse for their outputs, as ``jax.jit``'s does: the
+    caller passes fresh buffers for them on every call and reads them
+    no more (an output may be returned in a donated argument's storage).
+    Intermediates that die at a segment are donated whatever it says
+    (``plan_offload``).  The donated leaves are part of every plan key,
+    in memory and in the store.  A call that autograd records keeps no
+    alias (``_run_program``).
+
     ``wrapped`` exposes ``stats`` (OffloadStats), ``policy``,
     ``bind(*a)`` (look the plan up once, bound to these tensors),
     ``verify(*a)`` (the verifier's findings on ``a``'s plan),
@@ -2636,6 +2989,7 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
     cache: OrderedDict[Any, _Compiled] = OrderedDict()
     stats = OffloadStats()
     cache_bound = (policy or OffloadPolicy()).max_plans
+    donate = _normalize_donate(donate_argnums)
     if persist_dir is None:
         persist_dir = os.environ.get("MPU_PLAN_CACHE") or None
     if verify_plans is None:
@@ -2669,10 +3023,14 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
         persist = persist_store() if count else None
         leaves, in_spec = pytree.tree_flatten(list(args))
         sig = repr((str(in_spec), [_leaf_signature(x) for x in leaves]))
+        donate_leaves = _donate_leaf_indices(args, donate)
         plan = _plan_with_store(gm, pol, persist,
-                                ("fwd", sig, _device_key(leaves)),
+                                ("fwd", sig, _device_key(leaves),
+                                 repr(donate_leaves)),
                                 stats if count else OffloadStats(),
-                                verify_plans=verify_plans)
+                                verify_plans=verify_plans,
+                                donate_invars=_donated_placeholders(
+                                    gm, is_tensor, donate_leaves))
         run = _build_runner(gm, plan, pol.impl, grad_policy=pol,
                             persist=persist, verify_plans=verify_plans)
         if count:
@@ -2685,7 +3043,8 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
         pol = effective_policy()
         leaves, in_spec = pytree.tree_flatten(list(args))
         key = ("fwd", pol, str(in_spec),
-               tuple(_leaf_signature(x) for x in leaves))
+               tuple(_leaf_signature(x) for x in leaves),
+               _donate_leaf_indices(args, donate))
         entry = cache.get(key)
         if entry is None:
             entry = compile_for(pol, args, count)
@@ -2701,7 +3060,7 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
 
     def call(entry: _Compiled, leaves: list):
         tensors = [x for x, t in zip(leaves, entry.is_tensor) if t]
-        return pytree.tree_unflatten(list(entry.run(*tensors)),
+        return pytree.tree_unflatten(list(_run_program(entry.run, tensors)),
                                      entry.out_spec)
 
     def bind(*args) -> Callable[..., Any]:
@@ -2742,6 +3101,7 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
 
     wrapped.stats = stats
     wrapped.policy = policy
+    wrapped.donate_argnums = donate
     wrapped.bind = bind
     wrapped.warm = warm
     wrapped.warm_backward = warm_backward
@@ -2768,9 +3128,13 @@ def mpu_offload(fn: Callable, *, policy: OffloadPolicy | None = None,
 
 
 def offload_report(fn: Callable, *args,
-                   policy: OffloadPolicy | None = None) -> OffloadPlan:
+                   policy: OffloadPolicy | None = None,
+                   donate_argnums: int | Sequence[int] = ()) -> OffloadPlan:
     """Capture + plan only: the OffloadPlan for ``fn(*args)`` (its
     ``annotation.graph`` the captured graph, which ``plan.verify(graph)``
-    fingerprints)."""
-    gm, _, _ = capture(fn, args)
-    return plan_offload(gm, policy=policy)
+    fingerprints), with ``donate_argnums`` as ``mpu_offload``'s."""
+    gm, _, is_tensor = capture(fn, args)
+    return plan_offload(gm, policy=policy,
+                        donate_invars=_donated_placeholders(
+                            gm, is_tensor, _donate_leaf_indices(
+                                args, _normalize_donate(donate_argnums))))

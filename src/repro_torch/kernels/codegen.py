@@ -72,6 +72,29 @@ def bcast_row_of(op_lead: tuple, out_lead: tuple, row: str) -> str:
     return f"({' + '.join(terms) if terms else '0'})"
 
 
+def read_after_write(source: str, reads: Sequence[str], write: str,
+                     ignore: Sequence[str] = ()) -> int | None:
+    """The first line of generated ``source`` that reads memory (holds
+    one of ``reads``) after a line of the same function writes memory
+    (holds ``write``), or None.  A function starts at a line with no
+    indent (a pragma aside) or at a ``static`` member; lines holding one
+    of ``ignore`` (an L2 prefetch) are not reads.  What a donating launch
+    needs of a generated kernel: each thread reads an element of the
+    donated operand before it writes the same element of the output, so
+    no read of the operand may follow the output's first write in
+    program order."""
+    written = False
+    for k, line in enumerate(source.splitlines()):
+        if line[:1] not in ("", " ", "#") or line.startswith("  static "):
+            written = False
+        if written and any(r in line for r in reads) and \
+                not any(s in line for s in ignore):
+            return k
+        if write in line:
+            written = True
+    return None
+
+
 class Emitter:
     """Language-neutral emission; subclasses give the syntax."""
 

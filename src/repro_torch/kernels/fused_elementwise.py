@@ -68,7 +68,12 @@ from repro_torch.kernels.blockprog import (
     dtype_name,
     run_program,
 )
-from repro_torch.kernels.codegen import Emitter, bcast_row_of, ctype
+from repro_torch.kernels.codegen import (
+    Emitter,
+    bcast_row_of,
+    ctype,
+    read_after_write,
+)
 from repro_torch.kernels.guard import kernel_guard
 
 KERNEL = "fused_segment_grid"
@@ -266,7 +271,7 @@ def operand_layout(v: torch.Tensor, op_rows: int, cols: int):
     try:
         w = v.view(op_rows, cols)
         return (op_rows,), (w.stride(0),), w.stride(1)
-    except RuntimeError:
+    except (RuntimeError, ValueError):     # a fake tensor raises the latter
         pass
     if v.dim() < 2 or v.shape[-1] != cols or \
             math.prod(v.shape[:-1]) != op_rows:
@@ -658,17 +663,123 @@ def _load_widths(compiled) -> dict[str, int]:
     return out
 
 
+def donation_targets(operands: Sequence[torch.Tensor],
+                     donate: Sequence[tuple[int, int]], *, rows: int,
+                     out_cols: Sequence[int],
+                     out_dtypes: Sequence[torch.dtype],
+                     out_strides: Sequence | None = None) -> list:
+    """Per output, the donated operand's tensor the launch writes it
+    into (None: a fresh tensor): output ``oi`` of each ``(bi, oi)`` pair
+    goes into operand ``bi``'s buffer, as the ``[rows, cols]`` view of a
+    row-major operand or, where ``out_strides[oi]`` gives the output a
+    permuted layout, the operand itself in that layout.  Raises
+    ``ValueError`` where the operand cannot hold the output as the
+    kernel writes it (another dtype or size, another layout): the
+    planner forms no such donation, and a launch never turns one into a
+    fresh buffer."""
+    targets: list = [None] * len(out_cols)
+    for bi, oi in donate:
+        v = operands[bi]
+        lay = out_strides[oi] if out_strides else None
+        if targets[oi] is not None or v.dtype != out_dtypes[oi] or \
+                v.numel() != rows * out_cols[oi]:
+            raise ValueError(
+                f"donation ({bi}, {oi}): operand {tuple(v.shape)} {v.dtype} "
+                f"cannot hold output [{rows}, {out_cols[oi]}] "
+                f"{out_dtypes[oi]} (or the output is donated twice)")
+        if lay is not None:
+            ok = tuple(v.shape) == tuple(lay[0]) and \
+                v.stride() == tuple(lay[1])
+        else:
+            ok = v.is_contiguous()
+        if not ok:
+            raise ValueError(
+                f"donation ({bi}, {oi}): operand layout {tuple(v.shape)} "
+                f"stride {v.stride()} is not the layout the kernel writes "
+                "the output in")
+        targets[oi] = v if lay is not None else v.view(rows, out_cols[oi])
+    return targets
+
+
+def write_targets(outs: Sequence[torch.Tensor], targets: Sequence) -> tuple:
+    """The plain version's outputs copied into their donated operands'
+    buffers (``donation_targets``), which are returned in their place:
+    what the kernel leaves there."""
+    res = []
+    for o, t in zip(outs, targets):
+        if t is not None:
+            t.copy_(o.reshape(t.shape))
+            o = t
+        res.append(o)
+    return tuple(res)
+
+
+def donation_refusal(prog: BlockProgram, specs: Sequence[tuple], *,
+                     rows: int, rows_block: int, operand: int, output: int,
+                     generated: tuple | None = None) -> str | None:
+    """Why the kernel cannot write output ``output`` into the buffer of
+    operand ``operand``, or None.  A program reads each row of a bulk
+    operand and writes the same row of the output, so it may do so where
+    every read of the operand comes before the output's write: no lane
+    slice or concat (a program or thread reads lanes another writes), no
+    row value (a ``[rows, 1]`` output, which the first lane tile writes)
+    whose operand the other lane tiles read for a lane output, no
+    load of the operand after the output's store in the generated source
+    (``read_after_write``); and, as the reference's row-block grid
+    requires, no row padding.  ``generated``: ``triton_source``'s
+    ``(source, geometry)`` of the program where the caller holds it (one
+    generation serves every pair of a segment)."""
+    if not segment_row_block(rows, specs, rows_block, donate=True)[2]:
+        return "row padding: the row-block grid pads the rows"
+    if any(op.kind in ("slice", "cat") for op in prog.ops):
+        return ("a lane slice or concat reads lanes that another program "
+                "or thread writes")
+    source, geo = generated or triton_source(
+        prog, rows=rows, specs=specs, rows_block=rows_block)[1:]
+    if geo["mode"] == "tile" and geo["col_tiles"] > 1 and \
+            prog.ops[prog.outputs[output]].cols == 1 and any(
+                prog.ops[o].cols > 1 and operand in _inputs_read(prog, o)
+                for o in prog.outputs):
+        return ("a row value written by the first lane tile while the "
+                "other lane tiles read the operand for their lanes")
+    at = read_after_write(source, [f"tl.load(in{operand} +"],
+                          f"tl.store(out{output} +")
+    if at is not None:
+        return (f"line {at} of the generated kernel loads the operand after "
+                "the output's store")
+    return None
+
+
+def _inputs_read(prog: BlockProgram, vid: int) -> set[int]:
+    """The inputs value ``vid`` of ``prog`` is computed from."""
+    seen, todo, found = set(), [vid], set()
+    while todo:
+        v = todo.pop()
+        if v in seen:
+            continue
+        seen.add(v)
+        op = prog.ops[v]
+        if op.kind == "in":
+            found.add(op.arg)
+        todo += [a[1] for a in op.args if a[0] == "v"]
+    return found
+
+
 def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
                        specs: Sequence[tuple], *, rows: int,
                        out_cols: Sequence[int],
                        out_dtypes: Sequence[torch.dtype],
                        rows_block: int = 512,
-                       out_strides: Sequence | None = None) -> tuple:
+                       out_strides: Sequence | None = None,
+                       donate: Sequence[tuple[int, int]] = ()) -> tuple:
     """Launch the Triton kernel of ``prog`` on CUDA tensors; one
     ``[rows, out_cols[j]]`` tensor per output, or, where ``out_strides[j]``
     is ``(shape, strides)``, a tensor of that shape and layout written in
-    place.  Raises on anything the kernel does not take; never falls
-    back to the plain version."""
+    place.  Each ``donate`` pair ``(operand, output)`` writes the output
+    into the operand's buffer (``donation_targets``) with the same
+    generated kernel: only the output pointer changes.  Raises on
+    anything the kernel does not take; never falls back to the plain
+    version."""
     if not operands or not all(torch.as_tensor(v).is_cuda for v in operands):
         raise RuntimeError(
             "fused_segment_grid launches a Triton kernel: every operand "
@@ -686,14 +797,19 @@ def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
         views.append(v)
         layouts.append(layout)
     dev = views[0].device
+    targets = donation_targets(operands, donate, rows=rows,
+                               out_cols=out_cols, out_dtypes=out_dtypes,
+                               out_strides=out_strides)
     outs, out_layouts = [], []
     for j, (c, dt) in enumerate(zip(out_cols, out_dtypes)):
-        layout = None
-        if out_strides and out_strides[j] is not None:
+        o = targets[j]
+        if o is None and out_strides and out_strides[j] is not None:
             o = torch.empty_strided(*out_strides[j], dtype=dt, device=dev)
-            layout = operand_layout(o, rows, c) or None
-        if layout is None:
+        if o is None:
             o = torch.empty((rows, c), dtype=dt, device=dev)
+        layout = operand_layout(o, rows, c) or None
+        if layout is None:
+            o = o.view(rows, c)
         outs.append(o)
         out_layouts.append(layout)
     key = (prog.key, rows, tuple(map(tuple, specs)), rows_block,

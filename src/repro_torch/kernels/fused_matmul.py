@@ -62,9 +62,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.blockprog import BlockProgram, Input, dtype_name, run_program
-from repro_torch.kernels.codegen import Emitter, bcast_row_expr, ctype
+from repro_torch.kernels.codegen import (
+    Emitter,
+    bcast_row_expr,
+    ctype,
+    read_after_write,
+)
 from repro_torch.kernels.fused_elementwise import (
     _largest_divisor_leq,
+    donation_targets,
     role_block,
 )
 from repro_torch.kernels.guard import kernel_guard
@@ -1072,21 +1078,53 @@ def generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
     return gen
 
 
+def donation_refusal(gen: dict, epi: BlockProgram, *, n_dim: int,
+                     out_cols: Sequence[int], operand: int,
+                     output: int) -> str | None:
+    """Why the anchored segment's kernels cannot write output ``output``
+    into the buffer of epilogue operand ``operand``, or None.  Every
+    epilogue (in the GEMM's tile, after a K split, the weight stream's
+    split sum) reads an element of a bulk operand and writes the same
+    element of an output of the product's width, so it may do so where
+    the output has the product's width, no lane slice or concat reads
+    other lanes, and no read of the operand follows the output's write
+    in the generated source (``read_after_write``; an L2 prefetch is no
+    read)."""
+    if out_cols[output] != n_dim:
+        return (f"the output is {out_cols[output]} lanes wide, not the "
+                f"product's {n_dim}")
+    if any(op.kind in ("slice", "cat") for op in epi.ops):
+        return ("a lane slice or concat reads lanes that another thread "
+                "writes")
+    at = read_after_write(gen["source"],
+                          [f"a.e{operand}[", f"a.e{operand} +"],
+                          f"a.o{output}[", ignore=("fm_prefetch",))
+    if at is not None:
+        return (f"line {at} of the generated kernel reads the operand after "
+                "the output's write")
+    return None
+
+
 def launch_segment(kernel: str, gen: dict, operands: Sequence[torch.Tensor],
                    *, rows: int, n_dim: int, out_cols: Sequence[int],
-                   out_dtypes: Sequence[torch.dtype]) -> tuple:
+                   out_dtypes: Sequence[torch.dtype],
+                   targets: Sequence | None = None) -> tuple:
     """Launch one generated anchored segment (any form) on CUDA tensors
     already in the layout its accessors read; one ``[rows, out_cols[j]]``
-    tensor per output.  Counts one launch of ``kernel``.  Raises on a
-    build or launch failure; nothing falls back."""
+    tensor per output: ``targets[j]`` where given (a donated operand's
+    buffer, ``donation_targets``), else a fresh one.  Counts one launch
+    of ``kernel``.  Raises on a build or launch failure; nothing falls
+    back."""
     if not all(v.is_cuda for v in operands):
         raise RuntimeError(
             f"{kernel} launches a CUDA kernel: every operand must be a "
             "CUDA tensor (CPU tensors take the plain version)")
     _SEGMENTS.setdefault(gen["name"], gen["source"])
     dev = operands[0].device
-    outs = [torch.empty((rows, c), dtype=dt, device=dev)
-            for c, dt in zip(out_cols, out_dtypes)]
+    targets = targets or [None] * len(out_cols)
+    outs = [t if t is not None else torch.empty((rows, c), dtype=dt,
+                                                device=dev)
+            for t, c, dt in zip(targets, out_cols, out_dtypes)]
     bufs = [*operands, *outs]
     if gen["ks"]:
         bufs.append(torch.empty((gen["ks"] * rows * n_dim,),
@@ -1134,11 +1172,14 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
                          rows: int, k_dim: int, n_dim: int,
                          acc_dtype: torch.dtype, out_cols: Sequence[int],
                          out_dtypes: Sequence[torch.dtype], rows_block: int,
-                         vmem_bytes: int, sms: int, batch: int = 1) -> tuple:
+                         vmem_bytes: int, sms: int, batch: int = 1,
+                         donate: Sequence[tuple[int, int]] = ()) -> tuple:
     """Launch the anchored segment's CUDA kernels (the GEMM, then the
     epilogue) on CUDA tensors; one ``[rows, out_cols[j]]`` tensor per
-    output.  One call counts as one launch.  Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+    output, written into epilogue operand ``bi``'s buffer for each
+    ``donate`` pair ``(bi, j)``.  One call counts as one launch.  Raises
+    on anything the kernel does not take; never falls back to the plain
+    version."""
     gen = generate(pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
                    rhs_specs, epi_operands, epi_specs, rows=rows, k_dim=k_dim,
                    n_dim=n_dim, acc_dtype=acc_dtype, out_dtypes=out_dtypes,
@@ -1148,6 +1189,9 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
         "param_k", "param_w") else v.contiguous()
         for v, s in zip([*lhs_operands, *rhs_operands],
                         [*lhs_specs, *rhs_specs])]
+    targets = donation_targets(epi_operands, donate, rows=rows,
+                               out_cols=out_cols, out_dtypes=out_dtypes)
     views += epilogue_views(epi_operands, epi_specs)
     return launch_segment(KERNEL, gen, views, rows=rows, n_dim=n_dim,
-                          out_cols=out_cols, out_dtypes=out_dtypes)
+                          out_cols=out_cols, out_dtypes=out_dtypes,
+                          targets=targets)

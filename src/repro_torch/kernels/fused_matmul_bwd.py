@@ -49,6 +49,7 @@ from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels.blockprog import BlockProgram, dtype_name, run_program
 from repro_torch.kernels.fused_elementwise import (
     _largest_divisor_leq,
+    donation_targets,
     role_block,
 )
 
@@ -316,10 +317,13 @@ def fused_matmul_dlhs_segment(
         lhs_specs, rhs, epi_operands, epi_specs, *, rows: int, k_dim: int,
         n_dim: int, acc_dtype: torch.dtype, out_cols: Sequence[int],
         out_dtypes: Sequence[torch.dtype], rows_block: int,
-        vmem_bytes: int, sms: int, batch: int = 1) -> tuple:
+        vmem_bytes: int, sms: int, batch: int = 1,
+        donate: Sequence[tuple[int, int]] = ()) -> tuple:
     """Launch B4 on CUDA tensors: ``rhs`` is the forward ``[n, k]``
-    weight (``[batch, n, k]``), row-major, read in place.  One call
-    counts as one launch; raises on anything the kernel does not take."""
+    weight (``[batch, n, k]``), row-major, read in place; each ``donate``
+    pair ``(bi, j)`` writes output ``j`` into epilogue operand ``bi``'s
+    buffer.  One call counts as one launch; raises on anything the
+    kernel does not take."""
     w = _row_major(torch.as_tensor(rhs), "the dlhs weight")
     gen = dlhs_source(
         pro, epi, lhs_specs, epi_specs, lhs_dtypes=_names(lhs_operands),
@@ -329,10 +333,12 @@ def fused_matmul_dlhs_segment(
         rows_block=rows_block, vmem_bytes=vmem_bytes, sms=sms, batch=batch)
     views = [v.reshape(s[1], s[2]).contiguous() if s[0] == "param_k"
              else v.contiguous() for v, s in zip(lhs_operands, lhs_specs)]
+    targets = donation_targets(epi_operands, donate, rows=rows,
+                               out_cols=out_cols, out_dtypes=out_dtypes)
     views += [w] + fm.epilogue_views(epi_operands, epi_specs)
     return fm.launch_segment(KERNEL_DLHS, gen, views, rows=rows,
                              n_dim=n_dim, out_cols=out_cols,
-                             out_dtypes=out_dtypes)
+                             out_dtypes=out_dtypes, targets=targets)
 
 
 # ---------------------------------------------------------------------------
@@ -367,10 +373,13 @@ def fused_matmul_drhs_segment(
         epi: BlockProgram, lhs, rhs, epi_operands, epi_specs, *,
         m_dim: int, rows: int, n_dim: int, acc_dtype: torch.dtype,
         out_cols: Sequence[int], out_dtypes: Sequence[torch.dtype],
-        vmem_bytes: int, batch: int = 1) -> tuple:
+        vmem_bytes: int, batch: int = 1,
+        donate: Sequence[tuple[int, int]] = ()) -> tuple:
     """Launch B6 on CUDA tensors: ``lhs`` is the ``[m, rows]`` activation
     and ``rhs`` the ``[m, n]`` cotangent (``[batch, m, ...]``), both
-    row-major and read in place.  One call counts as one launch."""
+    row-major and read in place; each ``donate`` pair ``(bi, j)`` writes
+    output ``j`` into epilogue operand ``bi``'s buffer.  One call counts
+    as one launch."""
     x = _row_major(torch.as_tensor(lhs), "the drhs activation")
     g = _row_major(torch.as_tensor(rhs), "the drhs cotangent")
     gen = drhs_source(
@@ -379,7 +388,9 @@ def fused_matmul_drhs_segment(
         out_dtypes=tuple(dtype_name(d) for d in out_dtypes), m_dim=m_dim,
         rows=rows, n_dim=n_dim, acc_dtype=dtype_name(acc_dtype),
         vmem_bytes=vmem_bytes, batch=batch)
+    targets = donation_targets(epi_operands, donate, rows=rows,
+                               out_cols=out_cols, out_dtypes=out_dtypes)
     views = [x, g] + fm.epilogue_views(epi_operands, epi_specs)
     return fm.launch_segment(KERNEL_DRHS, gen, views, rows=rows,
                              n_dim=n_dim, out_cols=out_cols,
-                             out_dtypes=out_dtypes)
+                             out_dtypes=out_dtypes, targets=targets)

@@ -21,8 +21,11 @@ from repro_torch.kernels.adamw_update import (
     adamw_update_plain,
 )
 from repro_torch.kernels.fused_elementwise import (
+    donation_targets,
     fused_segment_grid as _grid_cuda,
     fused_segment_grid_plain,
+    segment_row_block,
+    write_targets,
 )
 from repro_torch.kernels import fused_matmul as _fm
 from repro_torch.kernels import fused_matmul_bwd as _fmb
@@ -196,25 +199,56 @@ def fused_flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out.reshape(rows, n_dim).to(out_dtype),)
 
 
+def _in_place(plain: Callable[[], tuple], operands, donate, **kw
+              ) -> Callable[[], tuple]:
+    """The plain version of a donating call: computed as it is, then
+    each donated output copied into its operand's buffer and returned
+    in its place (``write_targets``), as the kernel leaves it.  The
+    donations are checked first (``donation_targets``), so that one the
+    kernel could not honour raises before anything is written."""
+    if not donate:
+        return plain
+
+    def in_place():
+        targets = donation_targets(operands, donate, **kw)
+        return write_targets(plain(), targets)
+    return in_place
+
+
 def fused_segment_grid(prog: BlockProgram, operands: Sequence[torch.Tensor],
                        specs: Sequence[tuple], *, rows: int,
                        out_cols: Sequence[int],
                        out_dtypes: Sequence[torch.dtype],
                        rows_block: int = 16,
                        out_strides: Sequence | None = None,
+                       donate: Sequence[tuple[int, int]] = (),
                        impl: str = "auto") -> tuple:
     """Cross-shape elementwise / lane-reduce segment over per-operand
     block views (what the offload runner emits for grid segments).
     ``out_strides`` (per output, ``(shape, strides)`` or None) asks the
     kernel to write an output in that layout and return it so; the plain
-    version returns every output as ``[rows, cols]``."""
+    version returns every output as ``[rows, cols]``.  ``donate`` pairs
+    ``(operand, output)`` write the output into the operand's buffer (the
+    reference's ``input_output_aliases``): the kernel and its plain
+    version alike return it there, in ``out_strides``' layout where
+    given; a donation the row-block grid's padding drops (as the
+    reference's) raises ``ValueError``, as does one whose operand cannot
+    hold the output."""
     kw = dict(rows=rows, out_cols=out_cols, out_dtypes=out_dtypes,
               rows_block=rows_block)
+    if donate and not segment_row_block(rows, specs, rows_block,
+                                        donate=True)[2]:
+        raise ValueError(f"donation {tuple(donate)}: row padding of {rows} "
+                         "rows drops it (the planner forms none)")
+    plain = _in_place(
+        lambda: fused_segment_grid_plain(prog, operands, specs, **kw),
+        operands, donate, rows=rows, out_cols=out_cols,
+        out_dtypes=out_dtypes, out_strides=out_strides)
     return _dispatch(
         "fused_segment_grid", impl, operands[0],
         lambda: _grid_cuda(prog, operands, specs, out_strides=out_strides,
-                           **kw),
-        lambda: fused_segment_grid_plain(prog, operands, specs, **kw))
+                           donate=donate, **kw),
+        plain)
 
 
 def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
@@ -223,19 +257,27 @@ def fused_matmul_segment(pro, rhs_pro, epi, lhs_operands, lhs_specs,
                          acc_dtype: torch.dtype, out_cols: Sequence[int],
                          out_dtypes: Sequence[torch.dtype],
                          rows_block: int = 512, vmem_bytes: int, sms: int,
-                         batch: int = 1, impl: str = "auto") -> tuple:
+                         batch: int = 1,
+                         donate: Sequence[tuple[int, int]] = (),
+                         impl: str = "auto") -> tuple:
     """Matmul-anchored segment: lhs prologue -> [rows, K] @ [K, N] in f32
     -> epilogue on the accumulator (what the runner emits for anchors).
     ``vmem_bytes`` is the accumulator budget and ``sms`` the SM count the
-    K split fills, both as the planner priced the segment."""
+    K split fills, both as the planner priced the segment.  ``donate``
+    pairs ``(epilogue operand, output)`` write the output into the
+    operand's buffer, as ``fused_segment_grid``'s do."""
     args = (pro, rhs_pro, epi, lhs_operands, lhs_specs, rhs_operands,
             rhs_specs, epi_operands, epi_specs)
     kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
+    plain = _in_place(lambda: _fm.fused_matmul_segment_plain(*args, **kw),
+                      epi_operands, donate, rows=rows, out_cols=out_cols,
+                      out_dtypes=out_dtypes)
     return _dispatch("fused_matmul", impl, lhs_operands[0],
-                     lambda: _fm.fused_matmul_segment(*args, **kw, sms=sms),
-                     lambda: _fm.fused_matmul_segment_plain(*args, **kw))
+                     lambda: _fm.fused_matmul_segment(
+                         *args, **kw, sms=sms, donate=donate),
+                     plain)
 
 
 def fused_matmul_dlhs_segment(pro, epi, lhs_operands, lhs_specs, rhs,
@@ -246,17 +288,24 @@ def fused_matmul_dlhs_segment(pro, epi, lhs_operands, lhs_specs, rhs,
                               out_dtypes: Sequence[torch.dtype],
                               rows_block: int = 512, vmem_bytes: int,
                               sms: int, batch: int = 1,
+                              donate: Sequence[tuple[int, int]] = (),
                               impl: str = "auto") -> tuple:
     """dGRAD_LHS-anchored segment: dx[rows, n] = g[rows, k] @ w[n, k]^T
-    with ``rhs`` the forward [n, k] weight, read in place."""
+    with ``rhs`` the forward [n, k] weight, read in place; ``donate`` as
+    ``fused_matmul_segment``'s."""
     args = (pro, epi, lhs_operands, lhs_specs, rhs, epi_operands, epi_specs)
     kw = dict(rows=rows, k_dim=k_dim, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               rows_block=rows_block, vmem_bytes=vmem_bytes, batch=batch)
+    plain = _in_place(
+        lambda: _fmb.fused_matmul_dlhs_segment_plain(*args, **kw),
+        epi_operands, donate, rows=rows, out_cols=out_cols,
+        out_dtypes=out_dtypes)
     return _dispatch(
         "fused_matmul_dlhs", impl, lhs_operands[0],
-        lambda: _fmb.fused_matmul_dlhs_segment(*args, **kw, sms=sms),
-        lambda: _fmb.fused_matmul_dlhs_segment_plain(*args, **kw))
+        lambda: _fmb.fused_matmul_dlhs_segment(*args, **kw, sms=sms,
+                                               donate=donate),
+        plain)
 
 
 def fused_matmul_drhs_segment(epi, lhs, rhs, epi_operands, epi_specs, *,
@@ -265,17 +314,23 @@ def fused_matmul_drhs_segment(epi, lhs, rhs, epi_operands, epi_specs, *,
                               out_cols: Sequence[int],
                               out_dtypes: Sequence[torch.dtype],
                               vmem_bytes: int, batch: int = 1,
+                              donate: Sequence[tuple[int, int]] = (),
                               impl: str = "auto") -> tuple:
     """dGRAD_RHS-anchored segment: dw[rows, n] = x[m, rows]^T @ g[m, n],
-    the m rows reduced inside one block in a fixed order."""
+    the m rows reduced inside one block in a fixed order; ``donate`` as
+    ``fused_matmul_segment``'s."""
     args = (epi, lhs, rhs, epi_operands, epi_specs)
     kw = dict(m_dim=m_dim, rows=rows, n_dim=n_dim, acc_dtype=acc_dtype,
               out_cols=out_cols, out_dtypes=out_dtypes,
               vmem_bytes=vmem_bytes, batch=batch)
+    plain = _in_place(
+        lambda: _fmb.fused_matmul_drhs_segment_plain(*args, **kw),
+        epi_operands, donate, rows=rows, out_cols=out_cols,
+        out_dtypes=out_dtypes)
     return _dispatch("fused_matmul_drhs", impl, lhs,
-                     lambda: _fmb.fused_matmul_drhs_segment(*args, **kw),
-                     lambda: _fmb.fused_matmul_drhs_segment_plain(*args,
-                                                                  **kw))
+                     lambda: _fmb.fused_matmul_drhs_segment(
+                         *args, **kw, donate=donate),
+                     plain)
 
 
 def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,

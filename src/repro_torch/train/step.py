@@ -69,17 +69,36 @@ def _loss_fn(model: Model, tcfg: TrainConfig, use_offload: bool):
     return _offloaded(loss_fn, tcfg) if use_offload else loss_fn
 
 
-def _update_fn(tcfg: TrainConfig, use_offload: bool):
+def update_program(tcfg: TrainConfig):
     """``update_fn(params, grads, opt) -> (params, opt, grad_norm, lr)``:
     clip, schedule, AdamW.  The step calls it on the unique leaves
     (``_unique_opt``), so that a capture, which traces every leaf as an
-    input of its own, still sees a tied block once."""
+    input of its own, still sees a tied block once.  It returns the
+    parameters and moments it takes, in the order it takes them: with
+    them donated (``donate_argnums=(0, 2)``), each offloaded leaf's new
+    values land in its own buffers (``core.offload.donation_places``)."""
     def update_fn(params, grads, opt):
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = warmup_cosine(tcfg, opt.step)
         params, opt = apply_updates(params, grads, opt, tcfg, lr)
         return params, opt, gnorm, lr
-    return _offloaded(update_fn, tcfg) if use_offload else update_fn
+    return update_fn
+
+
+#: the update's arguments a compiled step donates: parameters, moments
+UPDATE_DONATE = (0, 2)
+
+
+def _update_fn(tcfg: TrainConfig, use_offload: bool, *,
+               donate: bool = False):
+    """The update (``update_program``), offloaded where ``use_offload``;
+    ``donate`` donates the parameters and moments (``UPDATE_DONATE``), as
+    the compiled step does and the functional one does not."""
+    fn = update_program(tcfg)
+    if not use_offload:
+        return fn
+    return mpu_offload(fn, policy=tcfg.resolved_offload_policy(),
+                       donate_argnums=UPDATE_DONATE if donate else ())
 
 
 def init_train_state(model: Model, seed: int = 0) -> TrainState:
@@ -210,6 +229,8 @@ class _Build:
         self.built = False
         self.runs = 0
         self.loss_run = self.update_run = None
+        #: the state slots the last write-back copied (``write_back``)
+        self.copied: list[int] = []
         self.metrics: torch.Tensor | None = None
         self.keys: list[str] = []
 
@@ -238,6 +259,33 @@ class _Build:
             self.batch[k].copy_(v)
 
 
+def write_back(slots: list[torch.Tensor], values: list[torch.Tensor]
+               ) -> list[int]:
+    """Put each new value of the donated state into its slot: a value the
+    offloaded update wrote in place (it is the slot: same ``data_ptr``,
+    shape and strides) stays; the rest (the leaves the update left far,
+    and every leaf of a step that is not offloaded) are copied.  Raises
+    ``RuntimeError`` where a value lives in the storage of a slot that is
+    not its own — copying it would read a buffer an earlier copy may have
+    overwritten; the planner never places one there.  Returns the
+    indices of the copied slots."""
+    owner = {s.untyped_storage().data_ptr(): i for i, s in enumerate(slots)}
+    copied = []
+    for i, (dst, src) in enumerate(zip(slots, values)):
+        if src.data_ptr() == dst.data_ptr() and src.shape == dst.shape and \
+                src.stride() == dst.stride():
+            continue
+        k = owner.get(src.untyped_storage().data_ptr())
+        if k is not None:
+            raise RuntimeError(
+                f"the update's value for state leaf {i} lives in the "
+                f"storage of leaf {k}: a donated buffer holds another "
+                "leaf's value")
+        dst.copy_(src)
+        copied.append(i)
+    return copied
+
+
 def _leaf_meta(v) -> tuple[tuple, torch.dtype]:
     """(shape, torch dtype) of a batch leaf: a tensor or host array."""
     if isinstance(v, torch.Tensor):
@@ -255,9 +303,13 @@ class CompiledTrainStep:
       it is given: its parameters and moments become the step's fixed
       buffers (the parameter leaves get ``requires_grad`` once; the
       optimizer step stays a device tensor).  Each step updates them in
-      place — the update's outputs are copied back into the state's own
-      storage under ``torch.no_grad()`` — and returns that same
-      ``TrainState``.  A later call with any other state raises
+      place and returns that same ``TrainState``: the offloaded update
+      is bound with the parameters and moments donated
+      (``UPDATE_DONATE``), so each of its fused segments writes a leaf's
+      new values into the leaf's own storage, and ``write_back`` copies
+      only the rest (the leaves the update leaves far, the optimizer
+      step, every leaf of a step that is not offloaded;
+      ``last_copied`` lists them).  A later call with any other state raises
       ``ValueError``, as a donated buffer is invalid in the reference.
       A tied block's tensors are donated, differentiated and written
       once (``Ties``).
@@ -297,7 +349,7 @@ class CompiledTrainStep:
         self.device = model.device
         self._capture = capture and self.device.type == "cuda"
         self.loss_fn = _loss_fn(model, tcfg, use_offload)
-        self.update_fn = _update_fn(tcfg, use_offload)
+        self.update_fn = _update_fn(tcfg, use_offload, donate=True)
         self.offload = use_offload
         self.counters = {"train_traces": 0, "kernel_replans": 0}
         self._state: TrainState | None = None
@@ -306,6 +358,7 @@ class CompiledTrainStep:
         self._acc: list[torch.Tensor] | None = None
         self._pool = None
         self._graph: StepGraph | None = None
+        self._last: _Build | None = None
         self._guard_epoch = kernel_guard().epoch
         if use_offload:
             self.stats = self.loss_fn.stats
@@ -315,6 +368,13 @@ class CompiledTrainStep:
     def graph(self) -> StepGraph | None:
         """The graph the last step replayed or captured (None eager)."""
         return self._graph
+
+    @property
+    def last_copied(self) -> list[int]:
+        """The state slots (``_unique_state`` order: parameters, step,
+        moments) the last built step copied its update's values into;
+        the others were written in place."""
+        return list(self._last.copied) if self._last is not None else []
 
     # -- the donated state ------------------------------------------------
     def _take(self, state: TrainState) -> None:
@@ -404,9 +464,8 @@ class CompiledTrainStep:
                     b.update_run = (self.update_fn.bind(*args)
                                     if self.offload else self.update_fn)
                 params, opt, gnorm, lr = b.update_run(*args)
-                for dst, src in zip(self._unique_state(st),
-                                    [*params, *pytree.tree_leaves(opt)]):
-                    dst.copy_(src)
+                b.copied = write_back(self._unique_state(st),
+                                      [*params, *pytree.tree_leaves(opt)])
                 metrics = {**metrics, "grad_norm": gnorm, "lr": lr,
                            "loss": metrics.get("loss", loss)}
                 if b.metrics is None:
@@ -454,7 +513,7 @@ class CompiledTrainStep:
             b.built = True
         else:
             self._static_step(b)
-        self._graph = b.graph
+        self._graph, self._last = b.graph, b
         values = b.metrics.clone()
         return self._state, dict(zip(b.keys, values.unbind()))
 

@@ -266,8 +266,8 @@ def test_verify_plans_wrapper_and_accessors(monkeypatch, tmp_path):
     # and the plan loaded from the store is verified again
     real = offload_mod.plan_offload
 
-    def broken(gm, policy=None):
-        plan = real(gm, policy=policy)
+    def broken(gm, policy=None, **kw):
+        plan = real(gm, policy=policy, **kw)
         sp = plan.segments[0].operand_specs[0]
         plan.segments[0].operand_specs[0] = dataclasses.replace(
             sp, cols=sp.cols * 2)

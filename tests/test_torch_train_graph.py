@@ -24,6 +24,10 @@ capture's record.
   the loss and the update; ``bwd_plan_stats()`` frozen after the warm
   step, as the JAX step's after its one trace;
 * a kernel-guard epoch bump builds the step once more, numbers unchanged;
+* offloaded, the update bound with the parameters and moments donated:
+  every leaf its fused segments update is written in its own storage,
+  and the write-back copies exactly the slots the update plan leaves far
+  (and the step counter); a value in another slot's storage raises;
 * launches of a replay equal to an eager step's (a counting wrapper);
 * ``train()``'s history against the JAX ``train()``.
 
@@ -40,6 +44,7 @@ import pytest
 import torch
 import torch.utils._pytree as pytree
 from conftest import tiny
+from test_torch_offload_donation import _state_outputs
 
 from repro.configs import TrainConfig as JTrainConfig
 from repro.configs.base import ShapeConfig as JShapeConfig
@@ -66,6 +71,7 @@ from repro_torch.train import (
 )
 from repro_torch.train import loop as loop_mod
 from repro_torch.train import step as step_mod
+from repro_torch.train.step import write_back
 
 torch.set_num_threads(2)
 
@@ -387,3 +393,46 @@ def test_the_bound_plans_hold_no_inputs(setup):
                        pytree.tree_leaves(held))
     loss, _ = b.loss_run(step._state.params, b.batch)
     assert torch.isfinite(loss)
+
+
+def test_the_donating_update_writes_each_offloaded_leaf_in_place(
+        setup, monkeypatch):
+    """The compiled step's update donates the parameters and moments:
+    each value a fused segment makes for a state slot is that slot's own
+    tensor when the write-back sees it, and the write-back copies the
+    rest — the slots whose value the update plan leaves far, and the step
+    counter — in the warm call, the capture and every replay."""
+    same: list = []
+    real = step_mod.write_back
+
+    def spy(slots, values):
+        same.append([a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                     for a, b in zip(slots, values)])
+        return real(slots, values)
+    monkeypatch.setattr(step_mod, "write_back", spy)
+    step = _compiled(setup, **CASES["offload"])
+    state, _ = _run(step, _state(setup), setup["batches"][:STEPS])
+    n_params = len(step._ties.unique(state.params))
+    plan = step._last.update_run.plan
+    donated, made = _state_outputs(plan, n_params)
+    slots = len(step._unique_state(state))
+    assert made and donated == made
+    assert len(same) == STEPS + 1        # warm call, capture, 2 replays
+    for row in same:
+        assert {i for i, s in enumerate(row) if s} == donated
+    assert step.last_copied == sorted(set(range(slots)) - donated)
+    assert n_params in step.last_copied     # the step counter
+
+
+def test_a_value_in_another_slots_storage_raises():
+    """``write_back``: a value that is its slot stays, a fresh one is
+    copied, one in another slot's storage raises before anything is
+    copied from it."""
+    slots = [torch.zeros(4), torch.zeros(4), torch.zeros(2, 2)]
+    assert write_back(slots, [slots[0], torch.ones(4),
+                              torch.full((2, 2), 2.0)]) == [1, 2]
+    assert slots[1].tolist() == [1.0] * 4
+    with pytest.raises(RuntimeError, match="storage of leaf 0"):
+        write_back(slots, [torch.ones(4), slots[0], slots[2]])
+    with pytest.raises(RuntimeError, match="storage of leaf 2"):
+        write_back(slots, [slots[0], slots[2].view(4), slots[2]])
